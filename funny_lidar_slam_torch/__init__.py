@@ -1,0 +1,20 @@
+"""funny_lidar_slam_torch: the PyTorch/CUDA port of funny_lidar_slam_tpu.
+
+Same module layout and names as the JAX package, which stays the reference
+the port is held against. Plain tensor code is PyTorch; the one TPU kernel
+on the mapping path (`fused_select`) is a hand-written CUDA kernel for
+Hopper (`csrc/fused_select.cu`, built with nvcc at first use).
+
+Entry points (`SlamSystem`, `Frontend`, `IcpMatcher`) run on `cuda` unless
+the caller passes `device="cpu"`; see `core/device.py`.
+"""
+
+import torch as _torch
+
+# Geometry pipelines cannot tolerate TF32 matmuls: residual/Jacobian
+# reductions and Lie-group algebra must run in true f32 (the JAX package
+# pins jax_default_matmul_precision="highest" for the same reason).
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,61 @@
+"""Carry state between the JAX package and the port.
+
+The JAX package's state arrives as NamedTuples of NumPy arrays (for
+example `jax.device_get(state)`); these helpers build the port's tensors
+from them, field by field with the same names and dtypes, and turn the
+port's state back into NumPy. Nothing here imports JAX: any object with the
+right field names works.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.state import NavState
+from .maps.grid_map import GridMap
+from .pipeline.frontend import FrontendState
+from .registration.matchers import WindowMapState
+from .registration.residuals import CandSet
+
+
+def tensor(a, device="cpu") -> torch.Tensor:
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def _fields(cls, obj, device, nested=None):
+    nested = nested or {}
+    return cls(*(nested[f](getattr(obj, f), device) if f in nested
+                 else tensor(getattr(obj, f), device) for f in cls._fields))
+
+
+def grid_map(m, device="cpu") -> GridMap:
+    return _fields(GridMap, m, device)
+
+
+def window_state(s, device="cpu") -> WindowMapState:
+    return _fields(WindowMapState, s, device, {"m": grid_map})
+
+
+def nav_state(n, device="cpu") -> NavState:
+    return _fields(NavState, n, device)
+
+
+def frontend_state(fs, device="cpu") -> FrontendState:
+    return _fields(FrontendState, fs, device, {"nav": nav_state})
+
+
+def cand_set(c, device="cpu") -> CandSet:
+    return _fields(CandSet, c, device)
+
+
+def to_numpy(tree):
+    """Port state (NamedTuples of tensors, nested) -> the same NamedTuple
+    types holding NumPy arrays."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_numpy(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_numpy(v) for v in tree)
+    return tree

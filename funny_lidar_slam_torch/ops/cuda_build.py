@@ -1,0 +1,91 @@
+"""Build and load the port's CUDA kernels (plain C entry points + ctypes).
+
+Each `csrc/<name>.cu` compiles with nvcc for `sm_90a` into
+`build/kernels/lib<name>-<hash>.so` under the repository root, at first use;
+the hash of the source names the library, so an edited source rebuilds.
+Nothing is compiled or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# ctypes signatures of each library's C entry points: (argtypes, restype)
+SIGNATURES = {
+    "fused_select": {
+        "fused_select_launch": ([_P] * 8 + [_I] * 5 + [_P], _I),
+    },
+}
+
+_loaded: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
+                           "with the CUDA toolkit")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one source unless its library exists; returns
+    (process or None, output path, temporary path)."""
+    out = lib_path(name)
+    if out.exists():
+        return None, out, None
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, out, tmp
+
+
+def build_all(names=None) -> dict:
+    """Compile the given kernel sources (default: all), one nvcc process
+    per source, all started together. Returns {name: nvcc output}."""
+    names = list(SIGNATURES) if names is None else list(names)
+    started = {n: _start_build(n) for n in names}
+    logs = {}
+    for name, (proc, out, tmp) in started.items():
+        if proc is None:
+            logs[name] = "cached"
+            continue
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, out)
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build_all([name])
+        lib = ctypes.CDLL(str(lib_path(name)))
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,143 @@
+"""Gauss-Newton iteration loop of the scan-to-map matcher (port of
+registration/gn.py).
+
+Known deviation: the JAX package keeps the whole loop on the device in one
+`lax.while_loop`; here the loop runs on the host and reads its control
+flags (done, converged, the trust-region test) back from the device once
+per iteration, one small copy that waits for the iteration to finish. The
+semantics are those of the JAX loop: the trust-region re-gather skip,
+`force_gather`, the exact/stall rules, and `iters` counting gathers.
+
+Update convention (point-to-point ICP, the one matcher of this slice):
+  dx = [t, r]; P += dt; R := R Exp(dr)
+The JAX package's LOAM and NDT conventions (its `GNConfig.update`) come
+with those matchers.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from ..core.lie import so3_exp
+from ..ops.lin3 import solve6_damped
+from .residuals import HG
+
+
+class GNConfig(NamedTuple):
+    max_iters: int = 30
+    rotation_eps: float = 0.05
+    position_eps: float = 0.01
+    stall_eps: float = 1.0e-4
+    use_stall_check: bool = True
+    # convergence requires at least this many valid correspondences
+    min_valid: int = 10
+    # correspondence-cache schedule: the gather runs every `corr_every`
+    # iterations; the ones in between re-linearize on the cached candidates
+    corr_every: int = 1
+    # trust-region re-gather skip: while the pose has moved less than this
+    # (translation + rotation scaled by the source radius) since the gather,
+    # re-selection among cached candidates is exact and no gather runs.
+    # 0 disables the skip.
+    skip_regather_dist: float = 0.0
+    regather_radius: float = 20.0
+
+
+class GNResult(NamedTuple):
+    t_mat: torch.Tensor  # [4, 4] final pose
+    converged: torch.Tensor  # [] bool (dx-based convergence reached)
+    iters: torch.Tensor  # [] int32 gathers
+    num_valid: torch.Tensor  # [] int32 valid correspondences at last iteration
+    total_res: torch.Tensor  # [] residual sum at last iteration
+
+
+def apply_update(t_mat: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    out = t_mat.clone()
+    out[:3, 3] += dx[:3]
+    out[:3, :3] = t_mat[:3, :3] @ so3_exp(dx[3:])
+    return out
+
+
+def _moved(t_mat, t_gather, radius, dist) -> torch.Tensor:
+    """Pose displacement since the gather beyond the trust region:
+    translation + small-angle rotation scaled by the source radius
+    (|dR - I|_F = 2 sqrt(2) sin(theta/2) ~= sqrt(2) theta)."""
+    dt = torch.linalg.vector_norm(t_mat[:3, 3] - t_gather[:3, 3])
+    dr = t_mat[:3, :3] @ t_gather[:3, :3].T
+    eye = torch.eye(3, dtype=t_mat.dtype, device=t_mat.device)
+    theta = torch.linalg.matrix_norm(dr - eye) / math.sqrt(2.0)
+    return dt + theta * radius > dist
+
+
+def run_gn_corr(
+    corr_fn: Callable[[torch.Tensor], object],
+    hg_fn: Callable[[torch.Tensor, object], HG],
+    t0: torch.Tensor,
+    cfg: GNConfig,
+    regather_radius=None,
+) -> GNResult:
+    """Two-loop GN: `corr_fn(T)` produces the (expensive) candidate set,
+    `hg_fn(T, corr)` linearizes on it. The gather runs on iteration 0, then
+    every `cfg.corr_every` iterations or right after an iteration that
+    settled on stale matches outside the trust region, so `converged` is
+    only declared on exact linearizations."""
+    dtype, dev = t0.dtype, t0.device
+    radius = torch.as_tensor(cfg.regather_radius if regather_radius is None
+                             else regather_radius, dtype=dtype, device=dev)
+    max_total = cfg.max_iters * max(int(cfg.corr_every), 1)
+    skip = cfg.skip_regather_dist > 0.0
+
+    t_mat = t_gather = t0
+    corr = None
+    it = gathers = since_gather = 0
+    force_gather = done = converged = False
+    moved = True
+    last_rot = last_pos = torch.tensor(1e9, dtype=dtype, device=dev)
+    num_valid = torch.zeros((), dtype=torch.int32, device=dev)
+    total_res = torch.zeros((), dtype=dtype, device=dev)
+
+    while gathers < cfg.max_iters and it < max_total and not done:
+        want = since_gather >= cfg.corr_every or force_gather
+        refresh = (want and moved) or it == 0
+        if refresh:
+            corr = corr_fn(t_mat)
+            t_gather = t_mat
+        hg = hg_fn(t_mat, corr)
+        dx = solve6_damped(hg.h, hg.g)
+        t_mat = apply_update(t_mat, dx)
+        rn, pn = torch.linalg.vector_norm(dx[3:]), torch.linalg.vector_norm(dx[:3])
+        enough = hg.num_valid >= cfg.min_valid
+        conv = (rn < cfg.rotation_eps) & (pn < cfg.position_eps) & enough
+        # linearizations that are fresh OR still inside the trust region
+        # (re-selection provably matches a fresh gather) count as exact
+        exact = refresh or not moved
+        if cfg.use_stall_check and exact:
+            stall = ((torch.abs(rn - last_rot) < cfg.stall_eps)
+                     & (torch.abs(pn - last_pos) < cfg.stall_eps))
+        else:
+            stall = torch.zeros((), dtype=torch.bool, device=dev)
+        if exact:
+            last_rot, last_pos = rn, pn
+        nxt_moved = (_moved(t_mat, t_gather, radius, cfg.skip_regather_dist) if skip
+                     else torch.ones((), dtype=torch.bool, device=dev))
+        # the one host read of the iteration
+        settled_h, conv_h, nxt_moved_h = torch.stack(
+            [conv | stall, conv | (stall & enough), nxt_moved]).tolist()
+        it += 1
+        gathers += int(refresh)
+        since_gather = 1 if refresh else since_gather + 1
+        force_gather = settled_h and not exact
+        done = settled_h and exact
+        converged = conv_h and exact
+        moved = nxt_moved_h
+        num_valid, total_res = hg.num_valid, hg.total_res
+
+    return GNResult(
+        t_mat,
+        torch.tensor(converged, device=dev),
+        torch.tensor(gathers, dtype=torch.int32, device=dev),
+        num_valid,
+        total_res,
+    )

@@ -1,0 +1,50 @@
+"""Import guard of the port: every module of funny_lidar_slam_torch, and
+chip_smoke.py, imports without pulling in JAX or the JAX package; and the
+entry points refuse to run without CUDA unless the caller asks for the CPU."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_GUARD = r"""
+import importlib, pkgutil, sys
+import funny_lidar_slam_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "funny_lidar_slam_tpu"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _GUARD], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    n_modules = int(out.stdout.split()[0])
+    assert n_modules >= 20
+
+
+def test_entry_points_default_to_cuda():
+    import torch
+
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
+    from funny_lidar_slam_torch.registration import matchers
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    cfg = SystemConfig(matcher_config=matchers.IcpConfig(map_layout="grid",
+                                                         grid_dims=(8, 8, 4)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlamSystem(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        matchers.IcpMatcher(cfg.matcher_config)
+    assert SlamSystem(cfg, device="cpu").device.type == "cpu"

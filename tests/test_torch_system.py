@@ -1,0 +1,56 @@
+"""The port's mapping run end to end on the CPU: funny_lidar_slam_torch's
+SlamSystem (IMU static init -> deskew -> preintegration -> ICP over the
+dense grid -> tight fusion -> keyframing) free-running on the simulated
+dataset of tests/test_e2e_mapping.py, under the same ATE gate (< 0.3 m over
+at least 40 tracked scans)."""
+
+import numpy as np
+import pytest
+import torch
+
+from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
+from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
+from funny_lidar_slam_torch.pipeline.frontend import FUSION_TIGHT_OPT, FrontendConfig
+from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
+from funny_lidar_slam_torch.registration import matchers
+
+torch.set_num_threads(1)
+
+
+def test_mapping_tight_coupling_grid_ate():
+    ds = simulate(SimConfig(duration=10.0, points_per_scan=4096, max_range=35.0, seed=3))
+    icp = matchers.IcpConfig(
+        source_capacity=4096, cloud_capacity=4096, merged_capacity=16384,
+        map_capacity=16384, max_correspond_distance=1.0, source_filter_size=0.4,
+        map_filter_size=0.4, nn_voxel_size=1.0, local_map_size=20, group_capacity=4096,
+        map_layout="grid", grid_dims=(48, 48, 12))
+    slam = SlamSystem(SystemConfig(matcher_config=icp,
+                                   frontend=FrontendConfig(fusion_method=FUSION_TIGHT_OPT),
+                                   scan_capacity=4096, imu_segment_capacity=16),
+                      device="cpu")
+    out = slam.run_dataset(ds)
+    est = out["poses"]
+    assert len(est) >= 40, f"too few tracked scans: {len(est)}"
+    gt_map = {round(t, 4): p for t, p in zip(ds.gt_times, ds.gt_poses)}
+    gt = np.asarray([gt_map[round(t, 4)] for t in out["times"]])
+    ate = ate_rmse(est, gt, align=True)
+    assert ate < 0.3, f"ATE {ate:.3f} m"
+    assert rpe_rmse(est, gt) < 0.1
+    assert out["n_keyframes"] >= 3
+    # keyframe clouds were fetched in the batched sweep: deskewed body-frame
+    # points, finite and within the simulated range
+    kf = slam.keyframes.frames[-1]
+    assert kf.materialized and len(kf.cloud) > 1000
+    assert np.isfinite(kf.cloud).all() and np.abs(kf.cloud).max() < 40.0
+
+
+def test_unported_modes_raise():
+    with pytest.raises(NotImplementedError):
+        SlamSystem(SystemConfig(registration_mode="PointToPlane_IVOX"), device="cpu")
+    with pytest.raises(NotImplementedError):  # the hashed block map is a later slice
+        SlamSystem(SystemConfig(), device="cpu")
+    grid = matchers.IcpConfig(map_layout="grid", grid_dims=(8, 8, 4))
+    with pytest.raises(NotImplementedError):
+        SlamSystem(SystemConfig(matcher_config=grid,
+                                frontend=FrontendConfig(fusion_method="TightCouplingKF")),
+                   device="cpu")
