@@ -7,17 +7,32 @@ Phases, each of which raises (non-zero exit) on failure:
   1. device: requires CUDA; prints `nvidia-smi` name and power limit;
   2. build: compiles every CUDA kernel of the port from csrc/ with nvcc,
      one process per source, all started together;
-  3. kernels: each kernel against its plain PyTorch version on the card at
-     the mapping path's shapes (fused_select: N=16384 queries, Gp=8192
-     cover rows, plane=64, K=16), plus the adversarial tie/sentinel case
-     and K=1 against a brute-force oracle; times the kernel, the plain
-     version and one PyTorch library call, and computes the bound;
-  4. end to end: the port's SlamSystem on the headline mapping config
+  3. kernels: fused_select against its plain PyTorch version on the card
+     at the grid mapping path's shapes (N=16384 queries, Gp=8192 cover
+     rows, plane=64, K=16), plus the adversarial tie/sentinel case and K=1
+     against a brute-force oracle; times the kernel, the plain version and
+     one PyTorch library call, and computes the bound;
+  3b. probes: the platform probes' entry point (ops/probes.run, the port's
+     tools/pallas_smoke.py) with the launch counts zeroed just before it
+     and read just after; then each probe kernel against its plain version
+     (exact equality) at the TPU probes' shapes, with times and bounds;
+  3c. fused_select on hashed-map inputs: a block map built from the
+     simulator world in the localization crop, one scan's queries; all
+     four stencils at K=16 and the fitness shape (K=1, Gp=N), K=1 against
+     brute force, and the count of all-miss cover rows;
+  4. grid mapping end to end: the port's SlamSystem on the headline config
      (IcpOptimized + TightCouplingOptimization, dense grid (96,96,16),
-     16384 points per scan) over a 10 s simulated run; every kernel launch
-     count is zeroed just before the run and read just after it;
-  5. prints the per-kernel JSON line, the card line and the result line.
-Imports nothing of JAX and nothing of the JAX package.
+     16384 points per scan) over a 10 s simulated run, then a traced
+     second run for per-phase spans;
+  5. hashed mapping end to end: the same run on the IcpConfig default
+     layout (the hashed block map), the bench's figure-8 config without
+     loop closure;
+  6. localization end to end: the Localizer against the frozen simulator
+     world on the same run (the bench's localization config);
+  7. prints the per-kernel JSON line, the card line and the result line.
+Every path (3b, 4, 5, 6) runs with the kernel launch counts zeroed just
+before it and read just after it. Imports nothing of JAX and nothing of the
+JAX package.
 """
 
 from __future__ import annotations
@@ -52,17 +67,12 @@ def surface_cloud(n, seed, extent=24.0):
     return pts
 
 
-def select_inputs(torch, map_pts, queries, qmask=None, dims=(96, 96, 16), gcap=8192,
-                  dev="cuda"):
-    """Build a grid map from `map_pts` and the fused_select inputs for
-    `queries` (valid where `qmask`), exactly as residuals.gather_candidates
-    does."""
-    from funny_lidar_slam_torch.maps import grid_map
+def cover_inputs(torch, m, queries, qmask=None, gcap=8192, dev="cuda"):
+    """The fused_select inputs for `queries` (valid where `qmask`) over a
+    block or grid map, exactly as residuals.gather_candidates builds them."""
+    from funny_lidar_slam_torch.maps import block_map
     from funny_lidar_slam_torch.ops.voxel import group_by_voxel
 
-    cap = len(map_pts)
-    m = grid_map.build(dims, 8, torch.as_tensor(map_pts, device=dev),
-                       torch.ones(cap, dtype=torch.bool, device=dev), 1.0)
     q = torch.as_tensor(queries, device=dev)
     n = q.shape[0]
     qmask = (torch.ones(n, dtype=torch.bool, device=dev) if qmask is None
@@ -72,16 +82,30 @@ def select_inputs(torch, map_pts, queries, qmask=None, dims=(96, 96, 16), gcap=8
                       torch.full_like(g.group_id, gcap))
     uniq = torch.zeros((gcap + 1, 3), dtype=torch.int32, device=dev)
     uniq[rep] = g.group_coords
-    wnd = grid_map.gather_cover(m, uniq[:gcap])
+    wnd = block_map.gather_cover_any(m, uniq[:gcap])
     gid = torch.clamp(g.group_id, max=gcap - 1).to(torch.int32)
-    return m, (wnd, gid, g.sorted_pts.contiguous(), g.group_coords)
+    return wnd, gid, g.sorted_pts.contiguous(), g.group_coords
+
+
+def select_inputs(torch, map_pts, queries, qmask=None, dims=(96, 96, 16), gcap=8192,
+                  dev="cuda"):
+    """Build a grid map from `map_pts` and the fused_select inputs for
+    `queries` (valid where `qmask`)."""
+    from funny_lidar_slam_torch.maps import grid_map
+
+    cap = len(map_pts)
+    m = grid_map.build(dims, 8, torch.as_tensor(map_pts, device=dev),
+                       torch.ones(cap, dtype=torch.bool, device=dev), 1.0)
+    return m, cover_inputs(torch, m, queries, qmask, gcap, dev)
 
 
 def stored_points(m):
-    """All live points stored in a grid map, as NumPy [M, 3]."""
+    """All live points stored in a grid or block map, as NumPy [M, 3]."""
     s, plane = m.bucket_size, m.plane
     tab = m.tab[:-1].cpu().numpy()
     cnt = m.counts.cpu().numpy()
+    if hasattr(m, "fp"):  # block map: purged and empty slots hold no live points
+        cnt = cnt * (m.fp != 0).cpu().numpy()[:, None]
     nb = tab.shape[0]
     pts = np.stack([tab[:, a * plane:(a + 1) * plane].reshape(nb, 8, s) for a in range(3)], -1)
     valid = (np.arange(s)[None, None, :] < cnt[:, :, None]) & (np.abs(pts[..., 0]) < 1e18)
@@ -242,69 +266,220 @@ def phase_kernels(torch):
     log("[kernels] fused_select k=1 vs brute force: ok")
 
     # times at the main-path shape
-    k, plane, n = 16, 64, qs_t.shape[0]
-    args, kw = (wnd, gid, qs_t, k, plane), dict(stencil="nearby26", qvox=qvox)
+    timing = select_timing(torch, select, inputs, 16)
+    entry = {
+        "name": "fused_select", "route": "cuda",
+        "source": "funny_lidar_slam_torch/csrc/fused_select.cu",
+        "replaces": "funny_lidar_slam_tpu/ops/pallas_select.py:164",
+        "launches": 0, "max_abs_err": max_err, "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"], "library_ms": timing["library_ms"], "parity": "ok",
+        "library_call": "torch.topk over the precomputed masked [N,512] d2 "
+                        "(partial yardstick: no single PyTorch call gathers, masks and selects)",
+        "rows_read": timing["rows_read"], "bytes": timing["bytes"], "ops": timing["ops"],
+    }
+    log(f"[kernels] fused_select N={qs_t.shape[0]} Gp={wnd.shape[0]} "
+        f"rows_read={timing['rows_read']}: kernel {timing['ms']:.4f} ms, plain "
+        f"{timing['plain_ms']:.4f} ms, topk {timing['library_ms']:.4f} ms, bound "
+        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}), max_abs_err {max_err:g}")
+    return entry
+
+
+def select_timing(torch, select, inputs, k, stencil="nearby26", plane=64):
+    """Device ms of fused_select, its plain version and torch.topk over the
+    precomputed masked d2 at these inputs, and the bound: the cover rows
+    this run reads (each once), the queries and the outputs over the memory
+    rate, or 8 + 4 + k operations per lane over the f32 rate."""
+    wnd, gid, qs_t, qvox = inputs
+    args, kw = (wnd, gid, qs_t, k, plane), dict(stencil=stencil, qvox=qvox)
     before = select.fused_select.launches
     ms = time_ms(torch, lambda: select.fused_select(*args, **kw), 50)
     plain_ms = time_ms(torch, lambda: select.fused_select_plain(*args, **kw), 10)
     px, py, pz = select._planes(wnd[gid.long()], plane)
     d2 = (px - qs_t[:, 0:1]) ** 2 + (py - qs_t[:, 1:2]) ** 2 + (pz - qs_t[:, 2:3]) ** 2
-    d2 = torch.where(select._stencil_mask(d2.shape[1], qvox, plane, "nearby26"), d2,
+    d2 = torch.where(select._stencil_mask(d2.shape[1], qvox, plane, stencil), d2,
                      torch.full_like(d2, float("inf")))
     library_ms = time_ms(torch, lambda: torch.topk(d2, k, dim=1, largest=False), 50)
     select.fused_select.launches = before  # comparison launches do not count
 
-    lanes = 8 * plane
+    n, lanes = qs_t.shape[0], 8 * plane
     rows = int(torch.unique(gid).numel())
     nbytes = rows * wnd.shape[1] * 4 + n * (3 * 4 + 3 * 4 + 4) + 4 * n * k * 4
     ops = n * lanes * (12 + k)  # 8 for d2, 4 for the key, k compares per lane
     bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
-    entry = {
-        "name": "fused_select", "route": "cuda",
-        "source": "funny_lidar_slam_torch/csrc/fused_select.cu",
-        "replaces": "funny_lidar_slam_tpu/ops/pallas_select.py:164",
-        "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(bound_bytes, bound_ops),
-        "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-        "library_ms": library_ms, "parity": "ok",
-        "library_call": "torch.topk over the precomputed masked [N,512] d2 "
-                        "(partial yardstick: no single PyTorch call gathers, masks and selects)",
-        "rows_read": rows, "bytes": nbytes, "ops": ops,
-    }
-    log(f"[kernels] fused_select N={n} Gp={wnd.shape[0]} rows_read={rows}: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, topk {library_ms:.4f} ms, bound "
-        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}), max_abs_err {max_err:g}")
-    return entry
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "rows_read": rows, "bytes": nbytes, "ops": ops, "n": n, "gp": wnd.shape[0], "k": k}
 
 
-def phase_e2e(torch):
-    from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
-    from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
+def phase_probes(torch):
+    """The probes' own entry point, counted, then each kernel against its
+    plain version with times and bounds. Returns the five JSON entries."""
+    from funny_lidar_slam_torch.ops import probes
+
+    for p in probes.PROBES:
+        p.launches = 0
+    probes.run("cuda")  # checks each output against the TPU probe's expression
+    torch.cuda.synchronize()
+    launches = {p.__name__: p.launches for p in probes.PROBES}
+    assert all(v > 0 for v in launches.values()), f"a probe did not launch: {launches}"
+
+    lines = {"scale2": 12, "row_gather_loop": 27, "row_gather_vector": 63,
+             "lane_gather": 87, "dma_rows": 112}
+    inputs = probes.probe_inputs("cuda", seed=1)
+    entries = []
+    for fn in probes.PROBES:
+        name = fn.__name__
+        args = inputs[name]
+        if name == "scale2":
+            (x,) = args
+            plain, library = probes.scale2_plain, (lambda x=x: x * 2)
+            call, nbytes, ops = "x * 2", 2 * x.numel() * 4, x.numel()
+        elif name == "lane_gather":
+            x, idx = args
+            idx64 = idx.long()
+            plain, library = probes.lane_gather_plain, (lambda: torch.gather(x, 1, idx64))
+            uniq = int(torch.unique(idx64 + x.shape[1] * torch.arange(
+                x.shape[0], device=x.device)[:, None]).numel())
+            call, nbytes, ops = "torch.gather(x, 1, idx)", uniq * 4 + 2 * idx.numel() * 4, 0
+        else:
+            tab, idx = args
+            plain, library = probes.row_gather_plain, (lambda: torch.index_select(tab, 0, idx))
+            uniq = int(torch.unique(idx).numel())
+            call = "torch.index_select(tab, 0, idx)"
+            nbytes, ops = (uniq + idx.numel()) * tab.shape[1] * 4 + idx.numel() * 4, 0
+        out_k, out_p = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(out_k, out_p), f"{name}: the kernel differs from its plain version"
+        ms = time_ms(torch, lambda: fn(*args), 200)
+        plain_ms = time_ms(torch, lambda: plain(*args), 200)
+        library_ms = time_ms(torch, library, 200)
+        bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "funny_lidar_slam_torch/csrc/probes.cu",
+            "replaces": f"tools/pallas_smoke.py:{lines[name]}",
+            "launches": launches[name], "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "library_ms": library_ms, "parity": "exact", "library_call": call,
+            "bytes": nbytes, "shapes": [list(a.shape) for a in args],
+        })
+        log(f"[probes] {name} {[tuple(a.shape) for a in args]}: kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.5f} ms, {call} {library_ms:.5f} ms, bound "
+            f"{entries[-1]['bound_ms']:.6f} ms (bytes), exact")
+    for p in probes.PROBES:  # the JSON line reports the entry point's counts
+        p.launches = launches[p.__name__]
+    return entries
+
+
+def world_frame_scan(torch, scan, cap=16384):
+    """One simulated scan in the world frame at its true pose, padded."""
+    pts = np.zeros((cap, 3), np.float32)
+    n = min(len(scan.points), cap)
+    r, t = scan.gt_pose[:3, :3], scan.gt_pose[:3, 3]
+    pts[:n] = (scan.points[:n] @ r.T + t).astype(np.float32)
+    return torch.as_tensor(pts, device="cuda"), torch.as_tensor(np.arange(cap) < n, device="cuda")
+
+
+def phase_hashed_select(torch, ds):
+    """fused_select on hashed block-map inputs: the localization crop of the
+    simulator world filtered at 0.4 m, and one scan's queries."""
+    from funny_lidar_slam_torch.io.pcd import voxel_downsample_np
+    from funny_lidar_slam_torch.io.simulator import make_world
+    from funny_lidar_slam_torch.maps import block_map
     from funny_lidar_slam_torch.ops import select
-    from funny_lidar_slam_torch.pipeline import frontend as fe_mod
+    from funny_lidar_slam_torch.ops.voxel import voxel_downsample
+
+    world = voxel_downsample_np(make_world(seed=7), 0.4)
+    center = np.array([20.0, 0.0, 1.5])
+    crop = world[np.all(np.abs(world - center) <= 40.0, axis=1)]
+    cap = 65536
+    mpts = np.zeros((cap, 3), np.float32)
+    mpts[: len(crop)] = crop
+    m = block_map.build(cap, 8, torch.as_tensor(mpts, device="cuda"),
+                        torch.as_tensor(np.arange(cap) < len(crop), device="cuda"), 1.0)
+    pts, msk = world_frame_scan(torch, ds.scans[30])
+    src = voxel_downsample(pts, msk, 0.4, 16384)
+    n = src.points.shape[0]
+    inputs = cover_inputs(torch, m, src.points, src.mask, gcap=8192)
+    fit_inputs = cover_inputs(torch, m, src.points, None, gcap=n)  # fitness: all N, gcap = N
+    ngroups = int(torch.unique(inputs[1]).numel())  # cover rows the queries use
+    miss_rows = int((inputs[0][:ngroups] >= 1e29).all(1).sum())
+    blocks = inputs[0][:ngroups].reshape(ngroups, 8, -1)
+    miss_blocks = int((blocks >= 1e29).all(2).sum())
+    log(f"[hashed] map {len(crop)} pts, {int(block_map.num_blocks(m))} blocks, load "
+        f"{float(block_map.load_factor(m)):.3f}; queries {n} ({int(src.mask.sum())} valid), "
+        f"{ngroups} cover rows used: {miss_rows} all-miss rows, {miss_blocks} of "
+        f"{8 * ngroups} blocks missed")
+
+    max_err = 0.0
+    for stencil in select.STENCILS:
+        out_k, out_p, qs = run_both(torch, select, inputs, 16, stencil)
+        max_err = max(max_err, assert_parity(out_k, out_p, qs))
+        log(f"[hashed] fused_select K=16 {stencil}: parity ok")
+    out_k, out_p, qs = run_both(torch, select, fit_inputs, 1, "nearby26")
+    max_err = max(max_err, assert_parity(out_k, out_p, qs))
+    log(f"[hashed] fused_select K=1 Gp={n}: parity ok")
+
+    stored = stored_points(m)
+    vox_q, vox_m = np.floor(qs).astype(np.int64), np.floor(stored).astype(np.int64)
+    checked = 0
+    for i in range(0, len(qs), 61):
+        within = (np.abs(vox_m - vox_q[i]) <= 1).all(1)
+        if not within.any():
+            assert out_k[0][i, 0] >= 1e18, (i, out_k[0][i, 0])
+            continue
+        d2 = ((stored[within] - qs[i]) ** 2).sum(1).min()
+        assert abs(out_k[0][i, 0] - d2) < 1e-4, (i, out_k[0][i, 0], d2)
+        checked += 1
+    log(f"[hashed] fused_select K=1 vs brute force: ok ({checked} rows with neighbours)")
+
+    shapes = {"hashed_k16": select_timing(torch, select, inputs, 16),
+              "hashed_fitness_k1": select_timing(torch, select, fit_inputs, 1)}
+    for key, t in shapes.items():
+        log(f"[hashed] fused_select {key} N={t['n']} Gp={t['gp']} rows_read={t['rows_read']}: "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, topk "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return {"max_abs_err": max_err, "all_miss_rows": miss_rows, "cover_rows": ngroups,
+            "missed_blocks": miss_blocks, "shapes": shapes}
+
+
+def gt_pairs(ds, out):
+    """(estimated poses, true poses) at the trajectory's times."""
+    gt_map = {round(ti, 4): p for ti, p in zip(ds.gt_times, ds.gt_poses)}
+    pairs = [(p, gt_map[round(ti, 4)]) for ti, p in zip(out["times"], out["poses"])
+             if round(ti, 4) in gt_map]
+    return np.asarray([a for a, _ in pairs]), np.asarray([b for _, b in pairs])
+
+
+def mapping_system(cap, **layout):
+    """The port's SlamSystem on the bench's mapping config at `cap` points."""
     from funny_lidar_slam_torch.pipeline.frontend import FUSION_TIGHT_OPT, FrontendConfig
     from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
     from funny_lidar_slam_torch.registration import matchers
 
+    return SlamSystem(SystemConfig(
+        registration_mode="IcpOptimized",
+        matcher_config=matchers.IcpConfig(
+            source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
+            map_capacity=65536, local_map_size=20, **layout),
+        frontend=FrontendConfig(fusion_method=FUSION_TIGHT_OPT),
+        scan_capacity=cap, imu_segment_capacity=16))
+
+
+def mapping_run(torch, ds, tag, **layout):
+    """Warm-up over 8 scans, then the counted run with the mapping gates:
+    >= 40 tracked scans, finite poses, ATE < 0.10 m, fused_select launched."""
+    from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
+    from funny_lidar_slam_torch.ops import select
+
     cap = 16384
-    t = time.perf_counter()
-    ds = simulate(SimConfig(duration=10.0, points_per_scan=cap, seed=7))
-    log(f"[e2e] simulated {len(ds.scans)} scans in {time.perf_counter() - t:.1f} s")
-
-    def system():
-        return SlamSystem(SystemConfig(
-            registration_mode="IcpOptimized",
-            matcher_config=matchers.IcpConfig(
-                source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
-                map_capacity=65536, local_map_size=20, map_layout="grid",
-                grid_dims=(96, 96, 16)),
-            frontend=FrontendConfig(fusion_method=FUSION_TIGHT_OPT),
-            scan_capacity=cap, imu_segment_capacity=16))
-
     # warm-up run over a few scans (kernel load, allocator), then the run
-    system().run_dataset(ds, max_scans=8)
+    mapping_system(cap, **layout).run_dataset(ds, max_scans=8)
     torch.cuda.synchronize()
-    slam = system()
+    slam = mapping_system(cap, **layout)
     select.fused_select.launches = 0
     t = time.perf_counter()
     out = slam.run_dataset(ds)
@@ -312,17 +487,28 @@ def phase_e2e(torch):
     wall = time.perf_counter() - t
     launches = select.fused_select.launches
 
-    est = out["poses"]
-    gt_map = {round(ti, 4): p for ti, p in zip(ds.gt_times, ds.gt_poses)}
-    gt = np.asarray([gt_map[round(ti, 4)] for ti in out["times"]])
-    n_tracked = len(est)
-    assert n_tracked >= 40, f"too few tracked scans: {n_tracked}"
-    assert np.isfinite(est).all(), "non-finite poses"
+    est, gt = gt_pairs(ds, out)
+    n_tracked = len(out["poses"])
+    assert n_tracked >= 40, f"[{tag}] too few tracked scans: {n_tracked}"
+    assert np.isfinite(est).all(), f"[{tag}] non-finite poses"
     ate, rpe = ate_rmse(est, gt), rpe_rmse(est, gt)
-    assert ate < 0.10, f"ATE {ate:.4f} m"
-    assert launches > 0, "the main path did not launch fused_select"
+    assert ate < 0.10, f"[{tag}] ATE {ate:.4f} m"
+    assert launches > 0, f"[{tag}] the path did not launch fused_select"
     steps = sum(1 for s in slam.stats if not s.get("init"))
-    fps = steady_fps(slam.stats)
+    res = {"tracked": n_tracked, "scans": len(ds.scans), "ate_m": ate, "rpe_m": rpe,
+           "steady_fps": steady_fps(slam.stats), "wall_s": wall, "steps": steps,
+           "gathers_per_scan": float(np.mean([s["iters"] for s in slam.stats if "iters" in s])),
+           "fused_select_launches": launches, "launches_per_scan": launches / steps,
+           "keyframes": out["n_keyframes"]}
+    return slam, res
+
+
+def phase_e2e(torch, ds):
+    from funny_lidar_slam_torch.pipeline import frontend as fe_mod
+    from funny_lidar_slam_torch.registration import matchers
+
+    _, res = mapping_run(torch, ds, "e2e", map_layout="grid", grid_dims=(96, 96, 16))
+    launches = res["fused_select_launches"]
 
     # per-phase spans from CUDA events, on a second (traced) run of the same
     # scans; its wall time less the untraced one is the tracing overhead
@@ -346,7 +532,7 @@ def phase_e2e(torch):
     matchers.run_gn_corr = timed("gn", saved_m["run_gn_corr"])
     matchers.window_add = timed("insert", saved_m["window_add"])
     try:
-        prof = system()
+        prof = mapping_system(16384, map_layout="grid", grid_dims=(96, 96, 16))
         t = time.perf_counter()
         prof.run_dataset(ds)
         torch.cuda.synchronize()
@@ -359,11 +545,76 @@ def phase_e2e(torch):
     n_prof = sum(1 for s in prof.stats if not s.get("init"))
     phase_ms = {k: sum(b.elapsed_time(e) for b, e in v) / n_prof for k, v in spans.items()}
 
-    res = {"tracked": n_tracked, "scans": len(ds.scans), "ate_m": ate, "rpe_m": rpe,
-           "steady_fps": fps, "wall_s": wall, "traced_wall_s": traced_wall, "steps": steps,
-           "fused_select_launches": launches, "launches_per_scan": launches / steps,
-           "phase_ms_per_scan": phase_ms, "keyframes": out["n_keyframes"]}
+    res.update(traced_wall_s=traced_wall, phase_ms_per_scan=phase_ms)
     log("[e2e] " + json.dumps(res))
+    return launches, res
+
+
+def phase_hashed_mapping(torch, ds):
+    """The figure-8 bench config without loop closure, on the IcpConfig
+    default layout: the hashed block map with incremental block inserts."""
+    from funny_lidar_slam_torch.maps import block_map
+
+    slam, res = mapping_run(torch, ds, "hashed")
+    m = slam.mstate.m
+    assert isinstance(m, block_map.BlockMap)
+    res.update(map_blocks=int(block_map.num_blocks(m)),
+               map_load=float(block_map.load_factor(m)), map_epoch=int(m.epoch))
+    log("[hashed-mapping] " + json.dumps(res))
+    return res["fused_select_launches"], res
+
+
+def phase_localization(torch, ds):
+    """The bench's localization config against the frozen simulator world,
+    initialized at the first scan's true pose."""
+    from funny_lidar_slam_torch.io.simulator import make_world
+    from funny_lidar_slam_torch.io.trajectory import ate_rmse
+    from funny_lidar_slam_torch.localization import LocalizationConfig, Localizer
+    from funny_lidar_slam_torch.ops import select
+    from funny_lidar_slam_torch.registration import matchers
+
+    cap = 16384
+    loc = Localizer(LocalizationConfig(
+        registration_mode="IcpOptimized",
+        matcher_config=matchers.IcpConfig(
+            source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
+            map_capacity=65536, is_localization_mode=True),
+        scan_capacity=cap, imu_segment_capacity=16, map_filter_size=0.4,
+        local_map_size=80.0, local_map_boundary=20.0, local_map_capacity=65536))
+    loc.set_global_map(make_world(seed=7))
+    select.fused_select.launches = 0
+    t = time.perf_counter()
+    out = loc.run_dataset(ds, ds.scans[0].gt_pose)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = select.fused_select.launches
+
+    est, gt = gt_pairs(ds, out)
+    assert loc.initialized, "[localization] the init did not pass its fitness gate"
+    assert len(est) >= 40, f"[localization] too few tracked scans: {len(est)}"
+    assert np.isfinite(est).all(), "[localization] non-finite poses"
+    ate = ate_rmse(est, gt, align=True)
+    assert ate < 0.10, f"[localization] ATE {ate:.4f} m"
+    assert launches > 0, "[localization] the path did not launch fused_select"
+
+    # what one map refresh costs: set_map on the last crop, host clock
+    # around a synchronized build, median of 5
+    crop = loc._pad_map(loc._crop_local(loc._map_center))
+    refresh = []
+    for _ in range(5):
+        t = time.perf_counter()
+        loc.matcher.set_map(loc.mstate, crop)
+        torch.cuda.synchronize()
+        refresh.append((time.perf_counter() - t) * 1e3)
+    steps = len(loc.stats)
+    res = {"tracked": len(est), "scans": len(ds.scans), "ate_m": ate,
+           "ate_unaligned_m": ate_rmse(est, gt, align=False),
+           "steady_fps": steady_fps(loc.stats), "wall_s": wall, "steps": steps,
+           "gathers_per_scan": float(np.mean([s["iters"] for s in loc.stats])),
+           "map_refreshes": loc.map_refreshes, "refresh_ms": float(np.median(refresh)),
+           "local_map_points": int(crop.mask.sum()), "fused_select_launches": launches,
+           "launches_per_scan": launches / max(steps, 1)}
+    log("[localization] " + json.dumps(res))
     return launches, res
 
 
@@ -372,11 +623,24 @@ def main() -> int:
 
     card = phase_device(torch)
     sys.path.insert(0, HERE)
+    from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
+
     phase_build()
     entry = phase_kernels(torch)
-    launches, _ = phase_e2e(torch)
-    entry["launches"] = launches
-    print(json.dumps({"kernels": [entry]}))
+    probe_entries = phase_probes(torch)
+    t = time.perf_counter()
+    ds = simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7))
+    log(f"[sim] simulated {len(ds.scans)} scans in {time.perf_counter() - t:.1f} s")
+    hashed = phase_hashed_select(torch, ds)
+    by_path = {"grid_mapping": phase_e2e(torch, ds)[0],
+               "hashed_mapping": phase_hashed_mapping(torch, ds)[0],
+               "localization": phase_localization(torch, ds)[0]}
+    entry["max_abs_err"] = max(entry["max_abs_err"], hashed["max_abs_err"])
+    entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
+                 hashed_inputs={k: hashed[k] for k in ("all_miss_rows", "cover_rows",
+                                                       "missed_blocks")},
+                 shapes=hashed["shapes"])
+    print(json.dumps({"kernels": [entry] + probe_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

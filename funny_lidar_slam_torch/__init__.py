@@ -1,12 +1,13 @@
 """funny_lidar_slam_torch: the PyTorch/CUDA port of funny_lidar_slam_tpu.
 
 Same module layout and names as the JAX package, which stays the reference
-the port is held against. Plain tensor code is PyTorch; the one TPU kernel
-on the mapping path (`fused_select`) is a hand-written CUDA kernel for
-Hopper (`csrc/fused_select.cu`, built with nvcc at first use).
+the port is held against. Plain tensor code is PyTorch; each TPU kernel is
+a hand-written CUDA kernel for Hopper, built with nvcc at first use:
+`csrc/fused_select.cu` (the candidate select of mapping and localization)
+and `csrc/probes.cu` (the platform probes, `ops/probes.py`).
 
-Entry points (`SlamSystem`, `Frontend`, `IcpMatcher`) run on `cuda` unless
-the caller passes `device="cpu"`; see `core/device.py`.
+Entry points (`SlamSystem`, `Localizer`, `Frontend`, `IcpMatcher`) run on
+`cuda` unless the caller passes `device="cpu"`; see `core/device.py`.
 """
 
 import torch as _torch

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .core.state import NavState
+from .maps.block_map import BlockMap
 from .maps.grid_map import GridMap
 from .pipeline.frontend import FrontendState
 from .registration.matchers import WindowMapState
@@ -33,8 +34,22 @@ def grid_map(m, device="cpu") -> GridMap:
     return _fields(GridMap, m, device)
 
 
+def _u32_as_int64(a, device):
+    """The JAX package's uint32 fingerprints, bit for bit, in int64."""
+    return torch.as_tensor(np.asarray(a).astype(np.uint32).astype(np.int64), device=device)
+
+
+def block_map(m, device="cpu") -> BlockMap:
+    return _fields(BlockMap, m, device, {"fp": _u32_as_int64, "fpwin": _u32_as_int64})
+
+
+def any_map(m, device="cpu") -> BlockMap | GridMap:
+    """A block map (it has fingerprints) or a dense grid map."""
+    return block_map(m, device) if hasattr(m, "fp") else grid_map(m, device)
+
+
 def window_state(s, device="cpu") -> WindowMapState:
-    return _fields(WindowMapState, s, device, {"m": grid_map})
+    return _fields(WindowMapState, s, device, {"m": any_map})
 
 
 def nav_state(n, device="cpu") -> NavState:

@@ -24,7 +24,7 @@ from typing import NamedTuple
 
 import torch
 
-from .block_map import _COVER, _MISS, _group_block_major
+from .block_map import _COVER, _MISS, _group_block_major, _nonzero_padded, _with_spare_row
 
 _EMPTY = -(2**30)  # owner coord sentinel for unclaimed slots
 _WIPE_BOUND = 4096  # eviction wipes at most this many slots per insert
@@ -79,23 +79,6 @@ def slot_of(bc: torch.Tensor, dims: tuple) -> torch.Tensor:
     my = torch.remainder(bc[..., 1], dims[1])
     mz = torch.remainder(bc[..., 2], dims[2])
     return (mx * dims[1] + my) * dims[2] + mz
-
-
-def _nonzero_padded(flag: torch.Tensor, size: int, fill: int) -> torch.Tensor:
-    """`jnp.nonzero(flag, size=size, fill_value=fill)[0]` without a host sync:
-    the indices of the first `size` true entries, padded with `fill`."""
-    n = flag.shape[0]
-    rank = torch.cumsum(flag, 0) - 1
-    tgt = torch.where(flag & (rank < size), rank, torch.full_like(rank, size))
-    out = torch.full((size + 1,), fill, dtype=torch.int64, device=flag.device)
-    out.scatter_(0, tgt, torch.arange(n, device=flag.device))
-    out[size] = fill
-    return out[:size]
-
-
-def _with_spare_row(x: torch.Tensor) -> torch.Tensor:
-    """Copy of x with one extra trailing row that absorbs dropped writes."""
-    return torch.cat([x, torch.zeros_like(x[:1])])
 
 
 def insert(m: GridMap, points: torch.Tensor, mask: torch.Tensor, inv_voxel_size,

@@ -27,6 +27,13 @@ SIGNATURES = {
     "fused_select": {
         "fused_select_launch": ([_P] * 8 + [_I] * 5 + [_P], _I),
     },
+    "probes": {
+        "probe_scale2_launch": ([_P, _P, _I, _P], _I),
+        "probe_row_gather_loop_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+        "probe_row_gather_vector_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+        "probe_lane_gather_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+        "probe_dma_rows_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    },
 }
 
 _loaded: dict = {}

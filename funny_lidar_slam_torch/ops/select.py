@@ -26,6 +26,10 @@ from . import cuda_build
 
 STENCILS = ("center", "nearby6", "nearby18", "nearby26")
 
+# query-tile alignment of the TPU kernel; group capacities keep the same
+# rounding so shapes match the JAX package
+TQ = 128
+
 
 def _stencil_mask(n_lanes: int, qvox: torch.Tensor, plane: int, stencil: str) -> torch.Tensor:
     """[N, n_lanes] bool: which candidate lanes lie in the query's stencil.

@@ -1,10 +1,12 @@
-"""Voxel grouping primitives (port of ops/voxel.py): sorting-based grouping
-and the centroid voxel-grid filter.
+"""Voxel grouping primitives (port of ops/voxel.py): the spatial hash,
+sorting-based grouping and the centroid voxel-grid filter.
 
-Deviations from the JAX package, both deliberate:
+Deviations from the JAX package, all deliberate:
   * the packed sort key is int64 (torch has no CPU kernels for uint32
     shifts); the bit layout and the invalid key 0xFFFFFFFF are unchanged;
-  * the sort is stable, so the order inside a voxel run is the input order.
+  * the sort is stable, so the order inside a voxel run is the input order;
+  * the 32-bit hashes run in int64 lanes masked to 32 bits (`u32_mul`),
+    bit for bit the JAX package's wrapping uint32 arithmetic.
 All outputs are fixed-capacity padded tensors with masks.
 """
 
@@ -14,10 +16,45 @@ from typing import NamedTuple
 
 import torch
 
+_U32 = 0xFFFFFFFF
+
+# Large-prime XOR hash constants (the reference's hash_function.h)
+_P1, _P2, _P3 = 73856093, 471943, 83492791
+
+
+def u32(x: torch.Tensor) -> torch.Tensor:
+    """Integer tensor -> its uint32 bit pattern, held in int64."""
+    return x.to(torch.int64) & _U32
+
+
+def u32_mul(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for a in [0, 2^32) held in int64. The constant is
+    split into 16-bit halves so no product passes 2^48."""
+    lo, hi = c & 0xFFFF, (c >> 16) & 0xFFFF
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _U32
+
+
+def fmix32(h: torch.Tensor) -> torch.Tensor:
+    """murmur3's fmix32 finalizer on uint32 values held in int64."""
+    h = h ^ (h >> 16)
+    h = u32_mul(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = u32_mul(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
 
 def voxel_coords(points: torch.Tensor, inv_voxel_size) -> torch.Tensor:
     """Points [..., 3] -> int32 voxel coords [..., 3] (floor convention)."""
     return torch.floor(points * inv_voxel_size).to(torch.int32)
+
+
+def spatial_hash(coords: torch.Tensor, table_size: int) -> torch.Tensor:
+    """Voxel coords [..., 3] -> int64 slot [...] in a power-of-2 table: the
+    prime-XOR combine passed through fmix32, then masked."""
+    assert table_size & (table_size - 1) == 0, "table_size must be a power of 2"
+    c = u32(coords)
+    h = u32_mul(c[..., 0], _P1) ^ u32_mul(c[..., 1], _P2) ^ u32_mul(c[..., 2], _P3)
+    return fmix32(h) & (table_size - 1)
 
 
 class VoxelGroups(NamedTuple):

@@ -5,6 +5,7 @@ tight or loose fusion. The host streams one packed frame buffer in
 (`step_packed`) and drains one packed result row out (`StepResult.packed`).
 
 Fusion methods ported: TightCouplingOptimization and LooseCoupling. The
+localization mode starts from a given pose (`init_from_pose`). The
 error-state KF (TightCouplingKF) and LOAM feature processing
 (`lidar_geometry`) are later slices.
 """
@@ -147,7 +148,7 @@ class Frontend:
         else:
             raise NotImplementedError(cfg.fusion_method)
 
-        mstate, res = self.matcher.match(mstate, Cloud(pts, msk), pred.pose)
+        mstate, res, _ = self._matcher_match(mstate, Cloud(pts, msk), pred.pose)
 
         if cfg.fusion_method == FUSION_TIGHT_OPT:
             fused = tight_fuse(nav, pre, res.t_mat, pred._replace(t=ref_t), gravity,
@@ -173,7 +174,30 @@ class Frontend:
                          points=pts, mask=msk, packed=packed)
         return mstate, new_fstate, out
 
+    def _matcher_match(self, mstate, cloud: Cloud, pose, ring=None, rel_times=None):
+        """Returns (mstate, GNResult, feats); feats are the LOAM feature
+        clouds, None without `lidar_geometry` (the only branch ported)."""
+        del ring, rel_times
+        ms, res = self.matcher.match(mstate, cloud, pose)
+        return ms, res, None
+
     # ------------------------------------------------------------------
+    def _default_ring(self, points):
+        return torch.zeros(points.shape[0], dtype=torch.int32, device=points.device)
+
+    def init_from_pose(self, pose, ref_time) -> FrontendState:
+        """Localization-mode initialization: the nav state starts at the
+        fitness-gated matched pose with the standard first-frame prior; the
+        frozen map is not touched."""
+        pose = self._tensor(pose)
+        nav = _nav_with_init_prior(pose[:3, :3], pose[:3, 3])
+        return FrontendState(
+            nav=nav._replace(t=self._tensor(ref_time)),
+            last_pose=nav.pose,
+            delta_pose=torch.eye(4, dtype=self.dtype, device=self.device),
+            initialized=torch.tensor(True, device=self.device),
+        )
+
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype or self.dtype, device=self.device)
 

@@ -5,9 +5,11 @@ step on the device, then apply the host-side keyframe policy. Scans are
 dispatched ahead and retired in batches, each batch with one device->host
 copy of the per-frame result rows.
 
-Not ported yet (later slices): loop closure and the pose-graph backend,
-resume with keyframe persistence, and `save_map`. With loop closure off the JAX package's pose graph
-leaves each keyframe at its odometry pose, which is what this port keeps.
+`build_matcher` also serves the localization mode
+(`localization/localizer.py`). Not ported yet (later slices): loop closure
+and the pose-graph backend, resume with keyframe persistence, and
+`save_map`. With loop closure off the JAX package's pose graph leaves each
+keyframe at its odometry pose, which is what this port keeps.
 """
 
 from __future__ import annotations

@@ -1,11 +1,17 @@
 """Scan-to-map matchers (port of the IcpOptimized part of
 registration/matchers.py).
 
-`IcpMatcher` is point-to-point ICP over the dense grid map with the
-incremental window policy: each converged scan that passes the insertion
-gate is voxel-filtered and inserted with `max_age = local_map_size` epoch
-eviction. The hashed block map, the rebuild window policy and the other
-matchers (LOAM, point-to-plane, NDT) are later slices of the port.
+`IcpMatcher` is point-to-point ICP over either map layout: the hashed block
+map (`maps/block_map.py`, the `IcpConfig` default) or the dense grid
+(`maps/grid_map.py`). Two window policies keep the local map:
+  * incremental (`incremental_map=True`): each converged scan that passes
+    the insertion gate is voxel-filtered and inserted with
+    `max_age = local_map_size` epoch eviction;
+  * rebuild: a ring buffer of the last W inserted clouds, merged, voxel
+    filtered and rebuilt into a fresh block map on every insertion.
+Localization mode freezes the map (`set_map` replaces it wholesale) and
+adds `fitness`. The LOAM, point-to-plane and NDT matchers are later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -17,12 +23,10 @@ import torch
 from ..core.cloud import Cloud, transform_cloud
 from ..core.device import resolve_device
 from ..core.lie import rotation_to_rpy
-from ..maps import grid_map
+from ..maps import block_map, grid_map
 from ..ops.voxel import voxel_downsample
 from .gn import GNConfig, GNResult, run_gn_corr
-from .residuals import gather_candidates, point_to_point_hg_cand
-
-_LATER = "not ported yet: the hashed block map and the rebuild window policy are a later slice"
+from .residuals import fitness_score, gather_candidates, point_to_point_hg_cand
 
 
 def _source_radius(points, mask):
@@ -41,9 +45,9 @@ def need_add_cloud(t_mat, last_t, dist_thresh, rot_thresh):
 
 
 class WindowMapState(NamedTuple):
-    m: grid_map.GridMap
-    window_pts: torch.Tensor  # [1, 1, 3] placeholder (incremental policy)
-    window_mask: torch.Tensor  # [1, 1]
+    m: block_map.BlockMap | grid_map.GridMap
+    window_pts: torch.Tensor  # [W, cap, 3] world-frame inserted clouds (rebuild policy)
+    window_mask: torch.Tensor  # [W, cap]
     head: torch.Tensor  # [] int32 ring position
     filled: torch.Tensor  # [] int32 number of valid ring entries
     last_added: torch.Tensor  # [4, 4]
@@ -51,16 +55,20 @@ class WindowMapState(NamedTuple):
 
 def window_create(window_size, cloud_cap, map_capacity, bucket, dtype=torch.float32,
                   incremental=False, grid_dims=None, device="cpu") -> WindowMapState:
-    """Empty window state over the dense grid. The incremental policy never
-    re-reads inserted clouds, so the ring buffers are 1-element
-    placeholders, as in the JAX package."""
-    del window_size, cloud_cap, map_capacity
-    if grid_dims is None or not incremental:
-        raise NotImplementedError(_LATER)
+    """Empty window state. The incremental policy never re-reads inserted
+    clouds, so its ring buffers are 1-element placeholders, as in the JAX
+    package. The dense grid (`grid_dims`) takes the incremental policy only."""
+    w, cap = (1, 1) if incremental else (window_size, cloud_cap)
+    if grid_dims is not None:
+        if not incremental:
+            raise ValueError("map_layout='grid' requires incremental_map")
+        m = grid_map.create(tuple(grid_dims), bucket, dtype, device)
+    else:
+        m = block_map.create(map_capacity, bucket, dtype, device)
     return WindowMapState(
-        m=grid_map.create(tuple(grid_dims), bucket, dtype, device),
-        window_pts=torch.zeros((1, 1, 3), dtype=dtype, device=device),
-        window_mask=torch.zeros((1, 1), dtype=torch.bool, device=device),
+        m=m,
+        window_pts=torch.zeros((w, cap, 3), dtype=dtype, device=device),
+        window_mask=torch.zeros((w, cap), dtype=torch.bool, device=device),
         head=torch.zeros((), dtype=torch.int32, device=device),
         filled=torch.zeros((), dtype=torch.int32, device=device),
         last_added=torch.eye(4, dtype=dtype, device=device),
@@ -70,16 +78,36 @@ def window_create(window_size, cloud_cap, map_capacity, bucket, dtype=torch.floa
 def window_add(s: WindowMapState, cloud_world: Cloud, t_mat, map_filter_size,
                nn_inv_voxel, merged_capacity, num_probes: int = 8,
                window_size: int = 0) -> WindowMapState:
-    """Incremental policy (`window_size > 0`): voxel-filter the new cloud and
-    scatter-insert it with `max_age=window_size` epoch eviction."""
-    del merged_capacity, num_probes
-    if window_size <= 0 or not isinstance(s.m, grid_map.GridMap):
-        raise NotImplementedError(_LATER)
-    cap = cloud_world.points.shape[0]
-    ds = voxel_downsample(cloud_world.points, cloud_world.mask, map_filter_size, cap)
-    m = grid_map.insert(s.m, ds.points, ds.mask, nn_inv_voxel, max_age=window_size)
-    return s._replace(m=m, last_added=t_mat,
-                      filled=torch.clamp(s.filled + 1, max=window_size))
+    """Push a world-frame cloud into the sliding-window map.
+
+    Incremental policy (`window_size > 0`): voxel-filter the new cloud and
+    scatter-insert it with `max_age=window_size` epoch eviction (two claim
+    rounds on the block map: an incremental scan adds few new blocks).
+
+    Rebuild policy (`window_size == 0`): write the cloud into the ring,
+    merge the ring, voxel-filter it and build a fresh block map."""
+    if window_size > 0:
+        cap = cloud_world.points.shape[0]
+        ds = voxel_downsample(cloud_world.points, cloud_world.mask, map_filter_size, cap)
+        if isinstance(s.m, grid_map.GridMap):
+            m = grid_map.insert(s.m, ds.points, ds.mask, nn_inv_voxel, max_age=window_size)
+        else:
+            m = block_map.insert(s.m, ds.points, ds.mask, nn_inv_voxel, num_probes=num_probes,
+                                 max_age=window_size, claim_rounds=2)
+        return s._replace(m=m, last_added=t_mat,
+                          filled=torch.clamp(s.filled + 1, max=window_size))
+    w = s.window_pts.shape[0]
+    head = s.head.reshape(1).to(torch.int64)
+    window_pts = s.window_pts.index_copy(0, head, cloud_world.points[None])
+    window_mask = s.window_mask.index_copy(0, head, cloud_world.mask[None])
+    ds = voxel_downsample(window_pts.reshape(-1, 3), window_mask.reshape(-1),
+                          map_filter_size, merged_capacity)
+    # build() takes the VOXEL capacity; the live map holds capacity // 2 blocks
+    m = block_map.build(s.m.block_capacity * 2, s.m.bucket_size, ds.points, ds.mask,
+                        nn_inv_voxel, num_probes=num_probes)
+    return WindowMapState(m=m, window_pts=window_pts, window_mask=window_mask,
+                          head=(s.head + 1) % w, filled=torch.clamp(s.filled + 1, max=w),
+                          last_added=t_mat)
 
 
 class IcpConfig(NamedTuple):
@@ -111,16 +139,16 @@ class IcpConfig(NamedTuple):
     # trust-region re-gather skip (GNConfig.skip_regather_dist); 0 disables
     regather_skip_dist: float = 0.2
     regather_radius: float = 20.0
-    # "grid" is the dense modulo grid (maps/grid_map.py); grid_dims are
-    # BLOCKS (2x2x2 voxels) per axis. The default "block" layout is the
-    # hashed block map, a later slice of the port.
+    # "block" is the hashed block map (maps/block_map.py); "grid" is the
+    # dense modulo grid (maps/grid_map.py, incremental policy only), whose
+    # grid_dims are BLOCKS (2x2x2 voxels) per axis
     map_layout: str = "block"
     grid_dims: tuple = (96, 96, 24)
 
 
 class IcpMatcher:
-    """Point-to-point ICP over the dense grid map. Runs on `device`
-    (default: CUDA; pass device='cpu' for the CPU)."""
+    """Point-to-point ICP over a sliding-window block or grid map. Runs on
+    `device` (default: CUDA; pass device='cpu' for the CPU)."""
 
     def __init__(self, cfg: IcpConfig, dtype=torch.float32, device=None):
         self.cfg = cfg
@@ -189,3 +217,24 @@ class IcpMatcher:
         world = transform_cloud(t_mat, Cloud(src.points, src.mask))
         return window_add(s, world, t_mat, c.map_filter_size, 1.0 / c.nn_voxel_size,
                           c.merged_capacity, c.num_probes, window_size=self._window_size())
+
+    def fitness(self, s: WindowMapState, cloud: Cloud, t_mat, max_range=1.0) -> torch.Tensor:
+        """Mean squared NN distance of the filtered cloud at `t_mat` against
+        the map, over inliers within `max_range` (+inf without any)."""
+        t_mat = self._as_pose(t_mat)
+        c = self.cfg
+        src = self._source(cloud)
+        return fitness_score(t_mat, src.points, src.mask, s.m, 1.0 / c.nn_voxel_size,
+                             max_range**2, c.stencil, c.num_probes)
+
+    def set_map(self, s: WindowMapState, map_cloud: Cloud) -> WindowMapState:
+        """Replace the local map wholesale (localization mode)."""
+        c = self.cfg
+        inv = 1.0 / c.nn_voxel_size
+        if c.map_layout == "grid":
+            m = grid_map.build(tuple(c.grid_dims), c.bucket_size, map_cloud.points,
+                               map_cloud.mask, inv, self.dtype)
+        else:
+            m = block_map.build(c.map_capacity, c.bucket_size, map_cloud.points,
+                                map_cloud.mask, inv, num_probes=c.num_probes)
+        return s._replace(m=m)

@@ -1,4 +1,4 @@
-"""Residuals and Jacobians for scan-to-map ICP (port of the mapping-path
+"""Residuals and Jacobians for scan-to-map ICP (port of the IcpOptimized
 subset of registration/residuals.py).
 
 For every padded source point at the current pose: a correspondence, a
@@ -19,13 +19,9 @@ from typing import NamedTuple
 import torch
 
 from ..core.lie import so3_hat
-from ..maps import grid_map
+from ..maps import block_map
 from ..ops import select
 from ..ops.voxel import group_by_voxel
-
-# query-tile alignment of the TPU kernel; the group capacity keeps the same
-# rounding so shapes match the JAX package
-TQ = 128
 
 
 class HG(NamedTuple):
@@ -71,7 +67,7 @@ def gather_candidates(
     t_mat: torch.Tensor,
     src: torch.Tensor,
     src_mask: torch.Tensor,
-    m: grid_map.GridMap,
+    m,
     inv_voxel_size,
     m_cand: int,
     stencil: str = "nearby26",
@@ -80,24 +76,19 @@ def gather_candidates(
 ) -> CandSet:
     """One stencil gather -> M nearest candidates per transformed source
     point: voxel-sort the transformed points, gather the 8-block cover per
-    unique voxel (`grid_map.gather_cover`), then `select.fused_select`
-    (the CUDA kernel on the card, its plain version on the CPU). Results
-    stay in sorted order. `num_probes` is accepted for API parity with the
-    hashed block map, which the grid does not need."""
-    del num_probes
-    if not isinstance(m, grid_map.GridMap):
-        raise NotImplementedError(
-            "only the dense grid map is ported; the hashed block map is a later slice")
+    unique voxel (`block_map.gather_cover_any`: the hashed block map or the
+    dense grid), then `select.fused_select` (the CUDA kernel on the card,
+    its plain version on the CPU). Results stay in sorted order."""
     p_t = transform_points(t_mat, src)
     n = src.shape[0]
     gcap = group_capacity or n
-    gcap = -(-gcap // TQ) * TQ
+    gcap = -(-gcap // select.TQ) * select.TQ
     g = group_by_voxel(p_t, src_mask, inv_voxel_size)
     rep_tgt = torch.where((g.rank == 0) & (g.group_id < gcap), g.group_id,
                           torch.full_like(g.group_id, gcap))
     uniq = torch.zeros((gcap + 1, 3), dtype=torch.int32, device=src.device)
     uniq[rep_tgt] = g.group_coords  # row gcap absorbs dropped writes
-    wnd = grid_map.gather_cover(m, uniq[:gcap])
+    wnd = block_map.gather_cover_any(m, uniq[:gcap], num_probes)
     gid = torch.clamp(g.group_id, max=gcap - 1).to(torch.int32)
     d2, px, py, pz = select.fused_select(wnd, gid, g.sorted_pts.contiguous(), m_cand,
                                          m.plane, stencil=stencil, qvox=g.group_coords)
@@ -106,6 +97,12 @@ def gather_candidates(
     px, py, pz = (torch.where(valid, v, zero) for v in (px, py, pz))
     return CandSet(px=px, py=py, pz=pz, valid=valid, src=src[g.order],
                    src_mask=g.sorted_mask)
+
+
+def query_knn_any(m, queries, inv_voxel_size, k, stencil, num_probes, group_capacity=None):
+    """Stencil k-NN over a block or grid map (`block_map.query_knn`)."""
+    return block_map.query_knn(m, queries, inv_voxel_size, k=k, stencil=stencil,
+                               num_probes=num_probes, group_capacity=group_capacity)
 
 
 def _take_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -155,3 +152,17 @@ def point_to_point_hg_corr(t_mat: torch.Tensor, src: torch.Tensor, corr: P2PCorr
     # the reference accumulates |r| (norm), not mahalanobis, for ICP stats
     w = corr.valid.to(src.dtype)
     return hg._replace(total_res=torch.sum(torch.linalg.vector_norm(err, dim=-1) * w))
+
+
+def fitness_score(t_mat: torch.Tensor, src: torch.Tensor, src_mask: torch.Tensor, m,
+                  inv_voxel_size, max_range_sq, stencil: str = "nearby26",
+                  num_probes: int = 8) -> torch.Tensor:
+    """Mean squared NN distance of the inlier correspondences (squared
+    distances, as the reference's GetFitnessScore accumulates them); +inf
+    when there is none."""
+    p_t = transform_points(t_mat, src)
+    _, d2, ok = query_knn_any(m, p_t, inv_voxel_size, 1, stencil, num_probes)
+    good = src_mask & ok[:, 0] & (d2[:, 0] <= max_range_sq)
+    n = good.sum(dtype=torch.int32)
+    s = torch.where(good, d2[:, 0], 0.0).sum()
+    return torch.where(n > 0, s / torch.clamp(n, min=1), float("inf"))

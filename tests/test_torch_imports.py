@@ -36,6 +36,7 @@ def test_port_imports_no_jax():
 def test_entry_points_default_to_cuda():
     import torch
 
+    from funny_lidar_slam_torch.localization import LocalizationConfig, Localizer
     from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
     from funny_lidar_slam_torch.registration import matchers
 
@@ -47,4 +48,7 @@ def test_entry_points_default_to_cuda():
         SlamSystem(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         matchers.IcpMatcher(cfg.matcher_config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Localizer(LocalizationConfig())
     assert SlamSystem(cfg, device="cpu").device.type == "cpu"
+    assert Localizer(LocalizationConfig(), device="cpu").device.type == "cpu"

@@ -1,0 +1,92 @@
+"""The port's platform probes (funny_lidar_slam_torch.ops.probes), the
+counterparts of the TPU probes in tools/pallas_smoke.py. On the CPU the
+wrappers take the plain versions; each must equal, exactly, the expression
+the TPU probe asserts its kernel with (`x * 2`, `np.asarray(tab)[idx]`,
+`np.take_along_axis`), at the TPU probe's shapes. The TPU probes themselves
+use pltpu memory spaces and scalar prefetch, which do not run here; the
+kernels are held against the plain versions on the card by chip_smoke.py."""
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from funny_lidar_slam_torch.ops import cuda_build, probes
+
+torch.set_num_threads(1)
+
+NAMES = ["scale2", "row_gather_loop", "row_gather_vector", "lane_gather", "dma_rows"]
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_matches_tpu_probe_expression(name):
+    inputs = probes.probe_inputs("cpu")[name]
+    before = getattr(probes, name).launches
+    out = getattr(probes, name)(*inputs)
+    a = [t.numpy() for t in inputs]
+    if name == "scale2":
+        ref = a[0] * 2.0
+    elif name == "lane_gather":
+        ref = np.take_along_axis(a[0], a[1], axis=1)
+    else:
+        ref = a[0][a[1]]
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert getattr(probes, name).launches == before == 0  # the CPU launches nothing
+
+
+def test_gathers_clamp_indices():
+    """Out-of-range indices clamp to [0, C), as a JAX gather clamps."""
+    tab = torch.arange(40, dtype=torch.float32).reshape(10, 4)
+    idx = torch.tensor([-3, 0, 9, 10, 1000], dtype=torch.int32)
+    ref = tab.numpy()[[0, 0, 9, 9, 9]]
+    for fn in (probes.row_gather_loop, probes.row_gather_vector, probes.dma_rows):
+        np.testing.assert_array_equal(fn(tab, idx).numpy(), ref)
+    lanes = torch.tensor([[-1, 3, 4], [7, 0, 2]], dtype=torch.int32)
+    np.testing.assert_array_equal(probes.lane_gather(tab[:2], lanes).numpy(),
+                                  tab.numpy()[[[0, 0, 0], [1, 1, 1]], [[0, 3, 3], [3, 0, 2]]])
+
+
+def test_main_runs_on_the_cpu(capsys):
+    assert probes.main(["--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("device: cpu")
+    assert [ln.split(":")[0] for ln in lines[1:]] == NAMES
+    assert all(": OK" in ln for ln in lines[1:])
+
+
+def test_wrappers_raise_on_mixed_devices_and_wrong_types():
+    """Inputs off the CPU never take the plain version; mixed devices and
+    types a kernel does not take raise before any launch."""
+    tab = torch.zeros((16, 8), dtype=torch.float32)
+    idx = torch.zeros(4, dtype=torch.int32)
+    meta_tab = torch.empty((16, 8), dtype=torch.float32, device="meta")
+    meta_idx = torch.empty(4, dtype=torch.int32, device="meta")
+    for fn in (probes.row_gather_loop, probes.row_gather_vector, probes.dma_rows):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(tab, meta_idx)  # mixed devices
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(meta_tab, meta_idx)  # a device that is not CUDA
+    with pytest.raises(ValueError, match="CUDA"):
+        probes.lane_gather(meta_tab, meta_idx.reshape(1, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        probes.scale2(meta_tab)
+    with pytest.raises(TypeError):
+        probes._check("row_gather_loop", tab.double(), idx)
+    with pytest.raises(TypeError):
+        probes._check("row_gather_loop", tab, idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        probes._check("lane_gather", tab.T, None)
+    with pytest.raises(ValueError, match="16-byte"):
+        probes._check("dma_rows", torch.zeros((4, 6)), idx, rows16=True)
+    assert all(p.launches == 0 for p in probes.PROBES)
+
+
+def test_no_fallback_without_a_toolkit():
+    """Without a built library or nvcc the kernels' build raises; it never
+    returns a plain result."""
+    if cuda_build.lib_path("probes").exists() or shutil.which("nvcc"):
+        pytest.skip("a built kernel library or nvcc is present")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        cuda_build.library("probes")

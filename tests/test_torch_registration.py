@@ -1,7 +1,8 @@
-"""Port parity: registration (residuals.gather_candidates, the candidate-cache
-linearization, gn.run_gn_corr and IcpMatcher.match) of funny_lidar_slam_torch
-against the JAX package, starting both from the same map state carried
-across with funny_lidar_slam_torch.convert."""
+"""Port parity: registration (residuals.gather_candidates on the dense grid
+and on the hashed block map, the candidate-cache linearization,
+gn.run_gn_corr, IcpMatcher.match, fitness_score and both window_add
+policies) of funny_lidar_slam_torch against the JAX package, starting both
+from the same map state carried across with funny_lidar_slam_torch.convert."""
 
 import jax
 import jax.numpy as jnp
@@ -27,18 +28,34 @@ CFG = dict(source_capacity=CAP, cloud_capacity=CAP, merged_capacity=8192,
            map_layout="grid", grid_dims=(48, 48, 12))
 
 
+BLOCK_CFG = dict(CFG, map_layout="block")
+
+
 @pytest.fixture(scope="module")
-def scene():
+def dataset():
+    return simulate(SimConfig(duration=4.2, points_per_scan=CAP, seed=11))
+
+
+def make_scene(ds, cfg):
     """A map seeded from one simulator scan at its true pose, and a later
     scan with its true pose and a perturbed initial guess."""
-    ds = simulate(SimConfig(duration=4.2, points_per_scan=CAP, seed=11))
     s0, s1 = ds.scans[0], ds.scans[12]
-    jmat = jm.IcpMatcher(jm.IcpConfig(**CFG))
+    jmat = jm.IcpMatcher(jm.IcpConfig(**cfg))
     state = jmat.add_first(jmat.create_state(), cloud(s0.points, jnp), s0.gt_pose)
     pert = np.asarray(se3_exp(jnp.asarray([0.08, -0.06, 0.03, 0.004, -0.003, 0.01],
                                           jnp.float32)))
     t_init = (s1.gt_pose @ pert).astype(np.float32)
     return jax.device_get(state), s1, t_init
+
+
+@pytest.fixture(scope="module")
+def scene(dataset):
+    return make_scene(dataset, CFG)
+
+
+@pytest.fixture(scope="module")
+def block_scene(dataset):
+    return make_scene(dataset, BLOCK_CFG)
 
 
 def cloud(points, lib):
@@ -55,12 +72,22 @@ def test_gather_candidates_and_linearization(scene, stencil):
     """Same rows (stable voxel sort on both sides), same valid counts, sorted
     candidate distances within the select tie window, and the normal
     equations of the re-selected NN within 1e-3 relative."""
+    check_gather_and_linearization(scene, stencil)
+
+
+@pytest.mark.parametrize("stencil", ["nearby26", "nearby18"])
+def test_gather_candidates_block_map(block_scene, stencil):
+    """The same contract on the hashed block map (probe + data rows)."""
+    check_gather_and_linearization(block_scene, stencil)
+
+
+def check_gather_and_linearization(scene, stencil):
     state, s1, t_init = scene
     src = cloud(s1.points, np)
     src_j = cloud(s1.points, jnp)
     cj = jres.gather_candidates(jnp.asarray(t_init), src_j.points, src_j.mask, state.m,
                                 1.0, 16, stencil, 8, group_capacity=2048)
-    mt = convert.grid_map(state.m)
+    mt = convert.any_map(state.m)
     ct = tres.gather_candidates(torch.as_tensor(t_init), src.points, src.mask, mt, 1.0, 16,
                                 stencil, 8, group_capacity=2048)
     np.testing.assert_array_equal(ct.src.numpy(), np.asarray(cj.src))
@@ -108,3 +135,66 @@ def test_icp_match_matches_jax(scene):
     assert np.arccos(np.clip((np.trace(dr) - 1) / 2, -1, 1)) < 1e-3
     np.testing.assert_array_equal(st.m.bc.numpy(), np.asarray(sj.m.bc))
     np.testing.assert_array_equal(st.m.counts.numpy(), np.asarray(sj.m.counts))
+
+
+@pytest.mark.parametrize("layout", ["block", "grid"])
+def test_fitness_matches_jax(request, layout):
+    """fitness_score at the true pose and at a pose 0.5 m off: the mean
+    squared NN distance within 1e-4 relative, the K=1 query at gcap = N."""
+    state, s1, _ = request.getfixturevalue("block_scene" if layout == "block" else "scene")
+    src_j, src_t = cloud(s1.points, jnp), cloud(s1.points, np)
+    m_t = convert.any_map(state.m)
+    for off in (0.0, 0.5):
+        pose = s1.gt_pose.astype(np.float32).copy()
+        pose[0, 3] += off
+        fj = float(jres.fitness_score(jnp.asarray(pose), src_j.points, src_j.mask, state.m,
+                                      1.0, 4.0))
+        ft = float(tres.fitness_score(torch.as_tensor(pose), src_t.points, src_t.mask, m_t,
+                                      1.0, 4.0))
+        assert np.isfinite(fj) and ft == pytest.approx(fj, rel=1e-4)
+    fit_j = jm.IcpMatcher(jm.IcpConfig(**BLOCK_CFG)).fitness(
+        jax.tree.map(jnp.asarray, state), src_j, s1.gt_pose, 2.0)
+    fit_t = tm.IcpMatcher(tm.IcpConfig(**BLOCK_CFG), device="cpu").fitness(
+        convert.window_state(state), src_t, s1.gt_pose, 2.0)
+    if layout == "block":
+        assert float(fit_t) == pytest.approx(float(fit_j), rel=1e-4)
+
+
+def assert_same_block_map(mt, mj):
+    """Bookkeeping exact; buckets below the bucket size hold the same point
+    sets (which points survive an overflow depends on the sort order)."""
+    np.testing.assert_array_equal(mt.fp.numpy(), np.asarray(mj.fp).astype(np.int64))
+    for f in ("counts", "age", "epoch"):
+        np.testing.assert_array_equal(getattr(mt, f).numpy(), np.asarray(getattr(mj, f)))
+    cnt, s, plane = np.asarray(mj.counts), mj.bucket_size, mj.plane
+    tj, tt = np.asarray(mj.tab), mt.tab.numpy()
+    for slot, loc in zip(*np.nonzero(cnt * (np.asarray(mj.fp) != 0)[:, None])):
+        lanes = loc * s + np.arange(cnt[slot, loc])
+        sets = [sorted(map(tuple, np.stack([t[slot, a * plane + lanes] for a in range(3)], 1)))
+                for t in (tt, tj)]
+        assert sets[0] == sets[1] or cnt[slot, loc] == s, (slot, loc)
+
+
+@pytest.mark.parametrize("incremental", [True, False])
+def test_window_add_policies_match_jax(dataset, incremental):
+    """Four window_add calls on the hashed block map from the same clouds:
+    the incremental insert (claim_rounds=2, max_age eviction) and the
+    rebuild of the merged ring (window of 3 clouds, so the ring wraps)."""
+    cfg = dict(BLOCK_CFG, incremental_map=incremental, local_map_size=3)
+    jmat = jm.IcpMatcher(jm.IcpConfig(**cfg))
+    tmat = tm.IcpMatcher(tm.IcpConfig(**cfg), device="cpu")
+    sj, st = jmat.create_state(), tmat.create_state()
+    window = 3 if incremental else 0
+    for k in (0, 4, 9, 14):
+        scan = dataset.scans[k]
+        pose = scan.gt_pose.astype(np.float32)
+        world = transform(pose, scan.points).astype(np.float32)
+        wj, wt = cloud(world, jnp), cloud(world, np)
+        sj = jm.window_add(sj, wj, jnp.asarray(pose), 0.4, 1.0, 8192, 8, window_size=window)
+        st = tm.window_add(st, wt, torch.as_tensor(pose), 0.4, 1.0, 8192, 8,
+                           window_size=window)
+        assert_same_block_map(st.m, sj.m)
+        for f in ("head", "filled", "window_mask"):
+            np.testing.assert_array_equal(getattr(st, f).numpy(), np.asarray(getattr(sj, f)))
+        np.testing.assert_allclose(st.window_pts.numpy(), np.asarray(sj.window_pts),
+                                   rtol=0, atol=1e-5)

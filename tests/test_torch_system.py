@@ -1,8 +1,8 @@
 """The port's mapping run end to end on the CPU: funny_lidar_slam_torch's
 SlamSystem (IMU static init -> deskew -> preintegration -> ICP over the
-dense grid -> tight fusion -> keyframing) free-running on the simulated
-dataset of tests/test_e2e_mapping.py, under the same ATE gate (< 0.3 m over
-at least 40 tracked scans)."""
+dense grid or the hashed block map -> tight fusion -> keyframing)
+free-running on the simulated dataset of tests/test_e2e_mapping.py, under
+the same ATE gate (< 0.3 m over at least 40 tracked scans)."""
 
 import numpy as np
 import pytest
@@ -10,6 +10,7 @@ import torch
 
 from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
 from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
+from funny_lidar_slam_torch.maps import block_map
 from funny_lidar_slam_torch.pipeline.frontend import FUSION_TIGHT_OPT, FrontendConfig
 from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
 from funny_lidar_slam_torch.registration import matchers
@@ -17,13 +18,13 @@ from funny_lidar_slam_torch.registration import matchers
 torch.set_num_threads(1)
 
 
-def test_mapping_tight_coupling_grid_ate():
+def run_mapping(**layout):
     ds = simulate(SimConfig(duration=10.0, points_per_scan=4096, max_range=35.0, seed=3))
     icp = matchers.IcpConfig(
         source_capacity=4096, cloud_capacity=4096, merged_capacity=16384,
         map_capacity=16384, max_correspond_distance=1.0, source_filter_size=0.4,
         map_filter_size=0.4, nn_voxel_size=1.0, local_map_size=20, group_capacity=4096,
-        map_layout="grid", grid_dims=(48, 48, 12))
+        **layout)
     slam = SlamSystem(SystemConfig(matcher_config=icp,
                                    frontend=FrontendConfig(fusion_method=FUSION_TIGHT_OPT),
                                    scan_capacity=4096, imu_segment_capacity=16),
@@ -37,6 +38,11 @@ def test_mapping_tight_coupling_grid_ate():
     assert ate < 0.3, f"ATE {ate:.3f} m"
     assert rpe_rmse(est, gt) < 0.1
     assert out["n_keyframes"] >= 3
+    return slam
+
+
+def test_mapping_tight_coupling_grid_ate():
+    slam = run_mapping(map_layout="grid", grid_dims=(48, 48, 12))
     # keyframe clouds were fetched in the batched sweep: deskewed body-frame
     # points, finite and within the simulated range
     kf = slam.keyframes.frames[-1]
@@ -44,13 +50,22 @@ def test_mapping_tight_coupling_grid_ate():
     assert np.isfinite(kf.cloud).all() and np.abs(kf.cloud).max() < 40.0
 
 
+def test_mapping_tight_coupling_block_ate():
+    """The IcpConfig default layout: the hashed block map with incremental
+    block inserts (claim_rounds=2, max_age eviction)."""
+    slam = run_mapping()
+    m = slam.mstate.m
+    assert isinstance(m, block_map.BlockMap)
+    assert 0.0 < float(block_map.load_factor(m)) < 0.5
+    assert int(m.epoch) >= 3  # the map took several inserts
+
+
 def test_unported_modes_raise():
+    """The default config now builds (the hashed block map is ported); the
+    modes of later slices still refuse to."""
+    assert isinstance(SlamSystem(SystemConfig(), device="cpu").mstate.m, block_map.BlockMap)
     with pytest.raises(NotImplementedError):
         SlamSystem(SystemConfig(registration_mode="PointToPlane_IVOX"), device="cpu")
-    with pytest.raises(NotImplementedError):  # the hashed block map is a later slice
-        SlamSystem(SystemConfig(), device="cpu")
-    grid = matchers.IcpConfig(map_layout="grid", grid_dims=(8, 8, 4))
     with pytest.raises(NotImplementedError):
-        SlamSystem(SystemConfig(matcher_config=grid,
-                                frontend=FrontendConfig(fusion_method="TightCouplingKF")),
+        SlamSystem(SystemConfig(frontend=FrontendConfig(fusion_method="TightCouplingKF")),
                    device="cpu")

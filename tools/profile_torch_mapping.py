@@ -1,10 +1,14 @@
-"""Where the port's mapping step spends its time on one GPU.
+"""Where the port's per-scan step spends its time on one GPU.
 
-    python3 tools/profile_torch_mapping.py [--scans 12] [--out build/profile_torch_mapping.json]
+    python3 tools/profile_torch_mapping.py [--scans 12] [--path grid|block|localization]
+        [--out build/profile_torch_mapping.json]
 
-Runs funny_lidar_slam_torch's SlamSystem on the headline mapping config
-(IcpOptimized + TightCouplingOptimization, dense grid (96, 96, 16), 16384
-points per scan) over the simulator, then profiles `--scans` steady scans
+Runs funny_lidar_slam_torch over the simulator on one of the paths that
+chip_smoke.py drives (IcpOptimized + TightCouplingOptimization, 16384
+points per scan): SlamSystem on the headline mapping config with the dense
+grid (96, 96, 16) (`grid`) or the hashed block map, the IcpConfig default
+(`block`), or the Localizer on the bench's localization config against the
+simulator world (`localization`). It then profiles `--scans` steady scans
 with torch.profiler. From the profiler's trace it reports the wall time per
 scan, the device's busy time and idle share over the window, the device
 time by kernel and the host time of each step phase (spans named after the
@@ -37,6 +41,8 @@ PHASES = (
     ("registration.matchers", "window_add"),
     ("registration.residuals", "group_by_voxel"),
     ("maps.grid_map", "gather_cover"),
+    ("maps.block_map", "gather_cover"),
+    ("maps.block_map", "insert"),
 )
 
 
@@ -60,6 +66,7 @@ def _busy_us(intervals) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scans", type=int, default=12)
+    ap.add_argument("--path", choices=("grid", "block", "localization"), default="grid")
     ap.add_argument("--out", default="build/profile_torch_mapping.json")
     args = ap.parse_args()
 
@@ -69,7 +76,8 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_mapping: CUDA is not available")
-    from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
+    from funny_lidar_slam_torch.io.simulator import SimConfig, make_world, simulate
+    from funny_lidar_slam_torch.localization import LocalizationConfig, Localizer
     from funny_lidar_slam_torch.ops import select
     from funny_lidar_slam_torch.pipeline.frontend import FUSION_TIGHT_OPT, FrontendConfig
     from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
@@ -77,14 +85,29 @@ def main() -> int:
 
     cap = 16384
     ds = simulate(SimConfig(duration=10.0, points_per_scan=cap, seed=7))
-    slam = SlamSystem(SystemConfig(
-        registration_mode="IcpOptimized",
-        matcher_config=matchers.IcpConfig(
-            source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
-            map_capacity=65536, local_map_size=20, map_layout="grid",
-            grid_dims=(96, 96, 16)),
-        frontend=FrontendConfig(fusion_method=FUSION_TIGHT_OPT),
-        scan_capacity=cap, imu_segment_capacity=16))
+    if args.path == "localization":
+        runner = Localizer(LocalizationConfig(
+            registration_mode="IcpOptimized",
+            matcher_config=matchers.IcpConfig(
+                source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
+                map_capacity=65536, is_localization_mode=True),
+            scan_capacity=cap, imu_segment_capacity=16, map_filter_size=0.4,
+            local_map_size=80.0, local_map_boundary=20.0, local_map_capacity=65536))
+        runner.set_global_map(make_world(seed=7))
+
+        def run(dataset, **kw):
+            return runner.run_dataset(dataset, ds.scans[0].gt_pose, **kw)
+    else:
+        layout = (dict(map_layout="grid", grid_dims=(96, 96, 16)) if args.path == "grid"
+                  else dict(map_layout="block"))
+        runner = SlamSystem(SystemConfig(
+            registration_mode="IcpOptimized",
+            matcher_config=matchers.IcpConfig(
+                source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
+                map_capacity=65536, local_map_size=20, **layout),
+            frontend=FrontendConfig(fusion_method=FUSION_TIGHT_OPT),
+            scan_capacity=cap, imu_segment_capacity=16))
+        run = runner.run_dataset
 
     for mod, fn in PHASES:
         m = importlib.import_module(f"funny_lidar_slam_torch.{mod}")
@@ -93,21 +116,21 @@ def main() -> int:
     # run every scan before the profiled window, then profile the last scans
     # with the IMU samples that the earlier scans did not consume
     n_warm = len(ds.scans) - args.scans
-    slam.run_dataset(ds, max_scans=n_warm)
+    run(ds, max_scans=n_warm)
     torch.cuda.synchronize()
     period = ds.scans[1].t - ds.scans[0].t
     i0 = int(np.searchsorted(ds.imu_t, ds.scans[n_warm - 1].t + period + 0.05, side="right"))
     tail = dataclasses.replace(ds, scans=ds.scans[n_warm:], imu_t=ds.imu_t[i0:],
                                imu_gyro=ds.imu_gyro[i0:], imu_accel=ds.imu_accel[i0:])
-    done = len(slam.stats)
+    done = len(runner.stats)
     launches0 = select.fused_select.launches
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        slam.run_dataset(tail)
+        run(tail)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    steps = sum(1 for s in slam.stats[done:] if not s.get("init"))
+    steps = sum(1 for s in runner.stats[done:] if not s.get("init"))
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
@@ -126,6 +149,7 @@ def main() -> int:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25]
     report = {
         "device": torch.cuda.get_device_name(0),
+        "path": args.path,
         "scans": steps,
         "wall_ms_per_scan": wall * 1e3 / steps,
         "device_busy_ms_per_scan": busy / 1e3 / steps,
