@@ -14,8 +14,15 @@ Phases, each of which raises (non-zero exit) on failure:
      one PyTorch library call, and computes the bound;
   3b. probes: the platform probes' entry point (ops/probes.run, the port's
      tools/pallas_smoke.py) with the launch counts zeroed just before it
-     and read just after; then each probe kernel against its plain version
-     (exact equality) at the TPU probes' shapes, with times and bounds;
+     and read just after; row_gather_loop and dma_rows against their plain
+     version (exact) at B = 1, 7, 513, 1025 and rows of 128-3072 floats,
+     with clamped indices, at the cover-row shape and where every dma_rows
+     block reuses each ring slot; then each probe kernel against its plain
+     version (exact) at the TPU probes' shapes, timed in interleaved turns
+     (kernel, library, plain, plain, library, kernel; twice) against the
+     plain version and one PyTorch call, with bounds; and both row gathers
+     and index_select at the cover-row shape (tab [8192, 1536] f32, 6,433
+     sorted distinct rows), L2 flushed before each call and back to back;
   3c. fused_select on hashed-map inputs: a block map built from the
      simulator world in the localization crop, one scan's queries; all
      four stencils at K=16 and the fitness shape (K=1, Gp=N), K=1 against
@@ -173,6 +180,45 @@ def time_ms(torch, fn, reps):
     return float(np.median(times))
 
 
+def time_cold_ms(torch, fn, reps, flush):
+    """Median device ms of one call of `fn` over `reps` calls, each made
+    after `flush()` (which evicts the L2) with only the call between its
+    two events; the calls are queued behind a device-side sleep."""
+    flush()  # warm-up: a first call's allocation would wait for the device
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda._sleep(300_000_000)
+    for a, b in pairs:
+        flush()
+        a.record()
+        fn()
+        b.record()
+    assert not pairs[0][0].query(), "the device caught up with the host"
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
+def in_turns(timer, calls: dict, order) -> dict:
+    """Time `calls` ({name: fn}) in the given order of turns (e.g. kernel,
+    library, library, kernel) with `timer(fn)`: {name: [ms of each turn]}."""
+    out: dict = {}
+    for name in order:
+        out.setdefault(name, []).append(timer(calls[name]))
+    return out
+
+
+def versus(mine, theirs) -> str:
+    """Whether one set of turn times is slower or faster than another
+    beyond the spread of the turns, or within it."""
+    if min(mine) > max(theirs):
+        return "slower"
+    if max(mine) < min(theirs):
+        return "faster"
+    return "within the spread"
+
+
 def steady_fps(stats) -> float:
     """Retired frames per second over the second half of the run."""
     trs = [s["tr"] for s in stats if not s.get("init")]
@@ -313,9 +359,94 @@ def select_timing(torch, select, inputs, k, stencil="nearby26", plane=64):
             "rows_read": rows, "bytes": nbytes, "ops": ops, "n": n, "gp": wnd.shape[0], "k": k}
 
 
+def gather_bytes(tab, idx) -> int:
+    """Bytes a row gather must move: each distinct row read once, each
+    output row written once, the indices read once."""
+    uniq = int(idx.unique().numel())
+    return (uniq + idx.numel()) * tab.shape[1] * 4 + idx.numel() * 4
+
+
+def probe_exactness(torch, probes) -> int:
+    """row_gather_loop and dma_rows against row_gather_plain, with
+    torch.equal, at ragged B, clamped indices, the cover-row shape and ring
+    reuse. Raises on the first difference; returns the number of checks."""
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tables = {d: torch.randn((c, d), generator=gen, device="cuda")
+              for c, d in ((4096, 128), (4096, 132), (8192, 1536), (2048, 3072))}
+
+    def ids(c, b, lo=0, hi=None):
+        return torch.as_tensor(rng.integers(lo, c if hi is None else hi, b).astype(np.int32),
+                               device="cuda")
+
+    cases = [(f"D={d} B={b}", tab, ids(tab.shape[0], b))
+             for d, tab in tables.items() for b in (1, 7, 513, 1025)]
+    for d in (128, 1536):  # negative and out-of-range indices, and the int32 extremes
+        c = tables[d].shape[0]
+        idx = ids(c, 1025, -2 * c, 2 * c)
+        idx[:2] = torch.tensor([-2 ** 31, 2 ** 31 - 1], dtype=torch.int32)
+        cases.append((f"D={d} B=1025 clamped", tables[d], idx))
+    cases.append(("cover rows D=1536 B=6433", tables[1536],
+                  torch.as_tensor(probes.cover_index(8192, 6433), device="cuda")))
+    # ring reuse: dma_rows' grid has at most 8 blocks per SM at 512-B rows
+    # and 2 at 12-KB rows (probes.cu), and each block an even share of the
+    # rows, so at these B every block uses each of its 8 slots 3 times or more
+    dma_reuse = [("reuse D=128", tables[128], ids(4096, 24 * 8 * sms + 7)),
+                 ("reuse D=3072", tables[3072], ids(2048, 24 * 2 * sms + 5))]
+    for fn in (probes.row_gather_loop, probes.dma_rows):
+        for what, tab, idx in cases + (dma_reuse if fn is probes.dma_rows else []):
+            out_k, out_p = fn(tab, idx), probes.row_gather_plain(tab, idx)
+            torch.cuda.synchronize()
+            if not torch.equal(out_k, out_p):
+                raise AssertionError(f"{fn.__name__} differs from row_gather_plain at {what}")
+    n = 2 * len(cases) + len(dma_reuse)
+    log(f"[probes] row_gather_loop and dma_rows equal row_gather_plain exactly in {n} "
+        f"checks (D 128/132/1536/3072, B 1/7/513/1025, clamped, cover rows, ring reuse "
+        f"at B {dma_reuse[0][2].numel()} and {dma_reuse[1][2].numel()} on {sms} SMs)")
+    return n
+
+
+def cover_row_timing(torch, probes) -> dict:
+    """Both redesigned row gathers, index_select and the plain version at the
+    cover-row shape: tab [8192, 1536] f32 (the grid path's Gp and cover width
+    at plane 64), 6,433 sorted distinct rows (the grid mapping run's count).
+    Cold: the L2 is evicted by a 256 MB read before every call, so every
+    row comes from device memory; back to back: the calls run one after the
+    other with no flush, and the L2 keeps what it keeps of the 50 MB table."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    tab = torch.randn((8192, 1536), generator=gen, device="cuda")
+    idx = torch.as_tensor(probes.cover_index(8192, 6433), device="cuda")
+    junk = torch.zeros(64 << 20, dtype=torch.float32, device="cuda")  # 256 MB
+    calls = {"row_gather_loop": lambda: probes.row_gather_loop(tab, idx),
+             "dma_rows": lambda: probes.dma_rows(tab, idx),
+             "index_select": lambda: torch.index_select(tab, 0, idx),
+             "plain": lambda: probes.row_gather_plain(tab, idx)}
+    order = ["row_gather_loop", "dma_rows", "index_select", "plain",
+             "plain", "index_select", "dma_rows", "row_gather_loop"]
+    cold = in_turns(lambda fn: time_cold_ms(torch, fn, 20, lambda: junk.sum()), calls, order)
+    warm = in_turns(lambda fn: time_ms(torch, fn, 50), calls, order)
+    nbytes = gather_bytes(tab, idx)
+    res = {"shape": [list(tab.shape), [idx.numel()]], "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "cold_ms": {k: float(np.median(v)) for k, v in cold.items()},
+           "cold_turns": cold,
+           "back_to_back_ms": {k: float(np.median(v)) for k, v in warm.items()},
+           "back_to_back_turns": warm}
+    for k in calls:
+        log(f"[probes] cover rows {k}: cold {res['cold_ms'][k]:.5f} ms "
+            f"({nbytes / res['cold_ms'][k] / 1e9:.3f} TB/s), back to back "
+            f"{res['back_to_back_ms'][k]:.5f} ms, turns {cold[k]} / {warm[k]}")
+    log(f"[probes] cover rows: {nbytes} B, bound {res['bound_ms']:.5f} ms (bytes)")
+    return res
+
+
 def phase_probes(torch):
-    """The probes' own entry point, counted, then each kernel against its
-    plain version with times and bounds. Returns the five JSON entries."""
+    """The probes' own entry point, counted; the two redesigned gathers'
+    exactness at ragged and reusing shapes; then each kernel against its
+    plain version, timed in interleaved turns against the plain version and
+    one PyTorch call, with bounds; and the cover-row shape. Returns the five
+    JSON entries."""
     from funny_lidar_slam_torch.ops import probes
 
     for p in probes.PROBES:
@@ -325,9 +456,11 @@ def phase_probes(torch):
     launches = {p.__name__: p.launches for p in probes.PROBES}
     assert all(v > 0 for v in launches.values()), f"a probe did not launch: {launches}"
 
+    checks = probe_exactness(torch, probes)
     lines = {"scale2": 12, "row_gather_loop": 27, "row_gather_vector": 63,
              "lane_gather": 87, "dma_rows": 112}
     inputs = probes.probe_inputs("cuda", seed=1)
+    order = ["kernel", "library", "plain", "plain", "library", "kernel"] * 2
     entries = []
     for fn in probes.PROBES:
         name = fn.__name__
@@ -346,15 +479,15 @@ def phase_probes(torch):
         else:
             tab, idx = args
             plain, library = probes.row_gather_plain, (lambda: torch.index_select(tab, 0, idx))
-            uniq = int(torch.unique(idx).numel())
-            call = "torch.index_select(tab, 0, idx)"
-            nbytes, ops = (uniq + idx.numel()) * tab.shape[1] * 4 + idx.numel() * 4, 0
+            call, nbytes, ops = "torch.index_select(tab, 0, idx)", gather_bytes(tab, idx), 0
         out_k, out_p = fn(*args), plain(*args)
         torch.cuda.synchronize()
         assert torch.equal(out_k, out_p), f"{name}: the kernel differs from its plain version"
-        ms = time_ms(torch, lambda: fn(*args), 200)
-        plain_ms = time_ms(torch, lambda: plain(*args), 200)
-        library_ms = time_ms(torch, library, 200)
+        turns = in_turns(lambda f: time_ms(torch, f, 200),
+                         {"kernel": lambda: fn(*args), "plain": lambda: plain(*args),
+                          "library": library}, order)
+        ms, plain_ms, library_ms = (float(np.median(turns[k]))
+                                    for k in ("kernel", "plain", "library"))
         bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         entries.append({
             "name": name, "route": "cuda",
@@ -365,10 +498,21 @@ def phase_probes(torch):
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
             "library_ms": library_ms, "parity": "exact", "library_call": call,
             "bytes": nbytes, "shapes": [list(a.shape) for a in args],
+            "turns": turns, "vs_library": versus(turns["kernel"], turns["library"]),
         })
         log(f"[probes] {name} {[tuple(a.shape) for a in args]}: kernel {ms:.5f} ms, plain "
             f"{plain_ms:.5f} ms, {call} {library_ms:.5f} ms, bound "
-            f"{entries[-1]['bound_ms']:.6f} ms (bytes), exact")
+            f"{entries[-1]['bound_ms']:.6f} ms (bytes), exact; kernel "
+            f"{entries[-1]['vs_library']} than the library call; turns {turns}")
+    cover = cover_row_timing(torch, probes)
+    for e in entries:
+        if e["name"] in ("row_gather_loop", "dma_rows"):
+            e.update(exact_checks=checks, cover_rows={
+                "ms": cover["cold_ms"][e["name"]], "library_ms": cover["cold_ms"]["index_select"],
+                "plain_ms": cover["cold_ms"]["plain"], "bound_ms": cover["bound_ms"],
+                "back_to_back_ms": cover["back_to_back_ms"][e["name"]],
+                "back_to_back_library_ms": cover["back_to_back_ms"]["index_select"],
+                "shape": cover["shape"]})
     for p in probes.PROBES:  # the JSON line reports the entry point's counts
         p.launches = launches[p.__name__]
     return entries

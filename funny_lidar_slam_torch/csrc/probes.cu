@@ -4,39 +4,57 @@
 // computes what its TPU probe computes; none copies the TPU's block layout.
 //
 //   scale2            out = x * 2                       one thread per float4
-//   row_gather_loop   out[i] = tab[idx[i]]              the block stages its
-//                     slice of idx in shared memory once (the counterpart of
-//                     scalar prefetch); one warp copies one row, a float4 a lane
+//   row_gather_loop   out[i] = tab[idx[i]]              8 rows a block, one row
+//                     a warp: the block stages its 8 indices in shared memory
+//                     once (the counterpart of scalar prefetch); each lane then
+//                     issues all its float4 loads of the row (up to 12, a
+//                     1536-float row, unrolled into registers) before its
+//                     stores, so a warp pays one row round trip after the index
 //   row_gather_vector out[i,c] = tab[idx[i],c]          one thread per element
 //                     (the elementwise form of jnp.take)
 //   lane_gather       out[b,j] = x[b, idx[b,j]]         one block per row b
 //                     stages x[b,:] in shared memory with coalesced loads
-//   dma_rows          out[i] = tab[idx[i]]              an 8-slot ring of rows
-//                     in shared memory, one mbarrier per slot: an elected lane
-//                     starts a 1-D bulk async copy (cp.async.bulk, global ->
-//                     shared, complete_tx of the row's bytes) for row i into
-//                     slot i % 8; the warp waits on the slot's phase and copies
-//                     the slot to out[i]. The counterpart of
-//                     pltpu.make_async_copy plus a DMA semaphore.
+//   dma_rows          out[i] = tab[idx[i]]              a ring of up to 8 row
+//                     slots in shared memory per one-warp block, one mbarrier a
+//                     slot. Lane s owns slot s: it starts a 1-D bulk async copy
+//                     (cp.async.bulk global -> shared, complete_tx of the row's
+//                     bytes) into the slot, waits on the slot's phase parity,
+//                     and writes the slot out with a bulk store (shared ->
+//                     global, a bulk group); before it refills the slot with
+//                     its next row it waits for that store to have read it.
+//                     Every lane starts its first copy before any lane waits,
+//                     so a block with at most 8 rows pays one round trip. The
+//                     counterpart of pltpu.make_async_copy plus a DMA semaphore.
 //
 // Every gather clamps its index to [0, C), as a JAX gather clamps.
 //
 // Bound on an H100: memory, for all five. They move a few bytes per element
 // and do no arithmetic to speak of; at the probe shapes they are a few
-// microseconds of bytes, so launch latency dominates their times.
+// microseconds of bytes, so launch latency dominates their times. That is
+// why the two row gathers spread their rows over at least as many warps as
+// the card has SMs and keep each warp's loads in flight together.
 //
 // Built by funny_lidar_slam_torch/ops/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
 #include <cuda_runtime.h>
+#include <algorithm>
 #include <cstdint>
+
+#include "async_copy.cuh"
 
 namespace {
 
+using namespace async_copy;
+
 constexpr int kThreads = 256;
-constexpr int kRowsPerBlock = 64;  // row_gather_loop: rows staged per block
-constexpr int kSlots = 8;          // dma_rows: ring depth
-constexpr int kDmaRowsPerWarp = 16;  // each slot is used twice per warp
+constexpr int kLoopWarps = 8;     // row_gather_loop: rows (one a warp) per block
+constexpr int kLoopUnroll = 12;   // row_gather_loop: float4 loads in flight per lane
+constexpr int kSlots = 8;         // dma_rows: ring depth of a block
+constexpr int kDmaMaxD = 3072;    // dma_rows: widest row in floats (12 KB; a 96 KB ring)
+constexpr int kDmaBarBytes = 128; // dma_rows: the barriers, ahead of the 128-B aligned ring
+constexpr int kDmaBlocksPerSm = 8;          // dma_rows: most blocks per SM in the grid
+constexpr size_t kDmaSmemPerSm = 200 << 10;  // dma_rows: ring bytes per SM the grid aims at
 
 __device__ __forceinline__ int clamp_index(int i, int c) { return min(max(i, 0), c - 1); }
 
@@ -59,20 +77,27 @@ scale2_tail_kernel(const float* __restrict__ x, float* __restrict__ out, int sta
   if (i < n) out[i] = x[i] * 2.f;
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kLoopWarps * 32)
 row_gather_loop_kernel(const float4* __restrict__ tab, const int* __restrict__ idx,
                        float4* __restrict__ out, int c, int d4, int b) {
-  __shared__ int s_idx[kRowsPerBlock];
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int rows = min(kRowsPerBlock, b - row0);
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) s_idx[r] = clamp_index(idx[row0 + r], c);
+  __shared__ int s_idx[kLoopWarps];
+  const int row0 = blockIdx.x * kLoopWarps;
+  const int rows = min(kLoopWarps, b - row0);
+  if (threadIdx.x < rows) s_idx[threadIdx.x] = clamp_index(__ldg(idx + row0 + threadIdx.x), c);
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    const float4* src = tab + static_cast<size_t>(s_idx[r]) * d4;
-    float4* dst = out + static_cast<size_t>(row0 + r) * d4;
-    for (int k = lane; k < d4; k += 32) dst[k] = __ldg(src + k);
+  if (warp >= rows) return;
+  const float4* src = tab + static_cast<size_t>(s_idx[warp]) * d4;
+  float4* dst = out + static_cast<size_t>(row0 + warp) * d4;
+  for (int k0 = lane; k0 < d4; k0 += 32 * kLoopUnroll) {
+    float4 v[kLoopUnroll];
+#pragma unroll
+    for (int u = 0; u < kLoopUnroll; ++u)
+      if (k0 + 32 * u < d4) v[u] = __ldg(src + k0 + 32 * u);
+#pragma unroll
+    for (int u = 0; u < kLoopUnroll; ++u)
+      if (k0 + 32 * u < d4) dst[k0 + 32 * u] = v[u];
   }
 }
 
@@ -99,89 +124,47 @@ lane_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   for (int k = threadIdx.x; k < j; k += blockDim.x) orow[k] = s_x[clamp_index(ir[k], d)];
 }
 
-// --- mbarrier and bulk-copy primitives (PTX, sm_90) ---
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// global -> shared bulk copy of `bytes` (a multiple of 16, both ends 16-B
-// aligned); completion is counted on `bar` as transaction bytes
-__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32_t bytes,
-                                              uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// One warp per block. The warp gathers rows [row0, row0 + rows) through the
-// ring: slot s holds rows s, s + 8, ...; the u-th use of a slot completes its
-// barrier's phase u, so the wait parity is u & 1.
+// One warp per block; block k gathers its even share [lo, hi) of the rows,
+// q or q + 1 of them (the first `rem` blocks take one more), through a ring
+// of min(8, hi - lo) slots. Lane s alone owns slot s and its barrier (init,
+// arm, copy in, wait, copy out), so no lane waits on another; it moves rows
+// lo + s, lo + s + slots, ... The u-th use of a slot completes its barrier's
+// phase u, so the wait parity is u & 1. Lanes without a slot (a block with
+// fewer than 8 rows) leave at once and wait on nothing. The first index
+// load is issued before the barrier's init, which runs in its shadow.
 __global__ void __launch_bounds__(32)
 dma_rows_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
-                float* __restrict__ out, int c, int d, int b) {
-  extern __shared__ __align__(16) unsigned char s_raw[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(s_raw);  // kSlots barriers
-  float* ring = reinterpret_cast<float*>(s_raw + 16 * ((kSlots * 8 + 15) / 16));
-  const int lane = threadIdx.x;
-  const int row0 = blockIdx.x * kDmaRowsPerWarp;
-  const int rows = min(kDmaRowsPerWarp, b - row0);
+                float* __restrict__ out, int c, int d, int q, int rem) {
+  extern __shared__ __align__(128) unsigned char s_raw[];
+  const int k = blockIdx.x;
+  const int lo = k * q + min(k, rem);
+  const int hi = lo + q + (k < rem ? 1 : 0);
+  const int slots = min(kSlots, hi - lo);
+  const int s = threadIdx.x;
+  if (s >= slots) return;
+  int r = lo + s;
+  int row = __ldg(idx + r);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_raw) + s;
+  float* slot = reinterpret_cast<float*>(s_raw + kDmaBarBytes) + static_cast<size_t>(s) * d;
   const uint32_t bytes = static_cast<uint32_t>(d) * 4u;
+  mbar_init(bar, 1);
+  fence_mbar_init();  // the barrier is initialized before the copy engine counts on it
 
-  if (lane == 0) {
-    for (int s = 0; s < kSlots; ++s) mbar_init(&bars[s], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  row = clamp_index(row, c);
+  for (uint32_t use = 0;; ++use) {
+    mbar_expect_tx(bar, bytes);
+    bulk_copy_g2s(slot, tab + static_cast<size_t>(row) * d, bytes, bar);
+    const int next = r + slots;
+    if (next < hi) row = clamp_index(__ldg(idx + next), c);  // under the copy
+    mbar_wait(bar, use & 1);
+    fence_proxy_async();
+    bulk_copy_s2g(out + static_cast<size_t>(r) * d, slot, bytes);
+    bulk_commit();
+    if (next >= hi) break;
+    r = next;
+    bulk_wait_read();  // the store has read the slot before the next copy refills it
   }
-  __syncwarp();
-
-  auto load_row = [&](int r) {  // elected lane: row r of this warp into its slot
-    const int s = r % kSlots;
-    const float* src = tab + static_cast<size_t>(clamp_index(__ldg(idx + row0 + r), c)) * d;
-    mbar_expect_tx(&bars[s], bytes);
-    bulk_copy_g2s(ring + static_cast<size_t>(s) * d, src, bytes, &bars[s]);
-  };
-  if (lane == 0)
-    for (int r = 0; r < min(kSlots, rows); ++r) load_row(r);
-
-  const int d4 = d / 4;
-  for (int r = 0; r < rows; ++r) {
-    const int s = r % kSlots;
-    while (!mbar_try_wait(&bars[s], static_cast<uint32_t>((r / kSlots) & 1))) {
-    }
-    const float4* slot = reinterpret_cast<const float4*>(ring + static_cast<size_t>(s) * d);
-    float4* dst = reinterpret_cast<float4*>(out + static_cast<size_t>(row0 + r) * d);
-    for (int k = lane; k < d4; k += 32) dst[k] = slot[k];
-    // the slot's generic-proxy reads come before the next async-proxy write
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncwarp();
-    if (lane == 0 && r + kSlots < rows) load_row(r + kSlots);
-  }
+  bulk_wait_read();  // the block's shared memory outlives its last store's read
 }
 
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
@@ -212,7 +195,7 @@ extern "C" int probe_row_gather_loop_launch(const void* tab, const void* idx, vo
   if (b <= 0) return 0;
   if (c <= 0 || d <= 0 || d % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(tab) || !aligned16(out)) return static_cast<int>(cudaErrorMisalignedAddress);
-  row_gather_loop_kernel<<<(b + kRowsPerBlock - 1) / kRowsPerBlock, kThreads, 0,
+  row_gather_loop_kernel<<<(b + kLoopWarps - 1) / kLoopWarps, kLoopWarps * 32, 0,
                            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(tab), static_cast<const int*>(idx), static_cast<float4*>(out),
       c, d / 4, b);
@@ -244,13 +227,31 @@ extern "C" int probe_lane_gather_launch(const void* x, const void* idx, void* ou
 extern "C" int probe_dma_rows_launch(const void* tab, const void* idx, void* out, int c, int d,
                                      int b, void* stream) {
   if (b <= 0) return 0;
-  // the ring holds 8 rows in at most 32 KB; rows are whole 16-B units
-  if (c <= 0 || d <= 0 || d % 4 != 0 || d > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  // rows are whole 16-B units of at most 3072 floats: 8 slots in 96 KB
+  if (c <= 0 || d <= 0 || d % 4 != 0 || d > kDmaMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (!aligned16(tab) || !aligned16(out)) return static_cast<int>(cudaErrorMisalignedAddress);
-  const size_t smem = 16 * ((kSlots * 8 + 15) / 16) + static_cast<size_t>(kSlots) * d * 4;
-  dma_rows_kernel<<<(b + kDmaRowsPerWarp - 1) / kDmaRowsPerWarp, 32, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // as many blocks as the SMs hold full rings of this width (at most 8 an
+  // SM), but at least 2 rows a block (fewer blocks to launch; at B=512 still
+  // 256 blocks on 132 SMs); each block takes an even share of the rows
+  const size_t row_bytes = static_cast<size_t>(d) * 4;
+  const size_t full_ring = kDmaBarBytes + kSlots * row_bytes;
+  const int per_sm = static_cast<int>(
+      std::max<size_t>(1, std::min<size_t>(kDmaBlocksPerSm, kDmaSmemPerSm / full_ring)));
+  const int blocks = std::min((b + 1) / 2, per_sm * sms);
+  const int q = b / blocks, rem = b % blocks;
+  const size_t smem = kDmaBarBytes + std::min(kSlots, q + (rem > 0 ? 1 : 0)) * row_bytes;
+  if (smem > (48u << 10)) {  // above the default dynamic limit: opt in
+    err = cudaFuncSetAttribute(dma_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  dma_rows_kernel<<<blocks, 32, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(tab), static_cast<const int*>(idx), static_cast<float*>(out), c,
-      d, b);
+      d, q, rem);
   return last_error();
 }

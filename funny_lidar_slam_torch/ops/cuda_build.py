@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles with nvcc for `sm_90a` into
 `build/kernels/lib<name>-<hash>.so` under the repository root, at first use;
-the hash of the source names the library, so an edited source rebuilds.
+the hash of the source and of the shared headers (`csrc/*.cuh`) names the
+library, so an edited source or header rebuilds.
 Nothing is compiled or loaded when this module is imported.
 """
 
@@ -48,8 +49,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by a hash of its source and of every
+    header in csrc/, so that an edit to either rebuilds it."""
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start_build(name: str):

@@ -108,11 +108,15 @@ def row_gather_vector(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _row_gather(row_gather_vector, "probe_row_gather_vector_launch", tab, idx, False)
 
 
+DMA_MAX_D = 3072  # dma_rows' widest row: a cover row at plane 128
+
+
 def dma_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows by bulk async copies through an 8-slot shared-memory ring
-    (tools/pallas_smoke.py::test_hbm_dma_rows). Rows up to 1024 floats."""
-    if tab.dim() == 2 and tab.shape[1] > 1024 and tab.device.type != "cpu":
-        raise ValueError("dma_rows: rows of at most 1024 floats")
+    """Rows by bulk async copies through a ring of 8 shared-memory slots
+    per block (tools/pallas_smoke.py::test_hbm_dma_rows). Rows up to
+    DMA_MAX_D floats."""
+    if tab.dim() == 2 and tab.shape[1] > DMA_MAX_D and tab.device.type != "cpu":
+        raise ValueError(f"dma_rows: rows of at most {DMA_MAX_D} floats")
     return _row_gather(dma_rows, "probe_dma_rows_launch", tab, idx, True)
 
 
@@ -157,6 +161,13 @@ def probe_inputs(device, seed: int = 0) -> dict:
         "lane_gather": (table(256, 512), index(512, (256, 128))),
         "dma_rows": (table(65536, 128), index(65536, 512)),
     }
+
+
+def cover_index(c: int, n: int, seed: int = 0) -> np.ndarray:
+    """n distinct row ids of [0, c), sorted, as int32: the pattern in which
+    a scan's voxel groups read the cover rows of a map."""
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(c, n, replace=False)).astype(np.int32)
 
 
 def expected(name: str, args) -> np.ndarray:

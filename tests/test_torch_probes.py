@@ -83,6 +83,52 @@ def test_wrappers_raise_on_mixed_devices_and_wrong_types():
     assert all(p.launches == 0 for p in probes.PROBES)
 
 
+@pytest.mark.parametrize("d,ok", [(4, True), (1536, True), (probes.DMA_MAX_D, True),
+                                  (probes.DMA_MAX_D + 4, False), (4096, False)])
+def test_dma_rows_row_limit(d, ok):
+    """dma_rows takes rows up to DMA_MAX_D (3072) floats, a cover row at
+    plane 128, and refuses wider ones before any launch. Meta tensors stand
+    for the card: an accepted width reaches the device check."""
+    tab = torch.empty((16, d), dtype=torch.float32, device="meta")
+    idx = torch.empty(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CUDA" if ok else f"at most {probes.DMA_MAX_D}"):
+        probes.dma_rows(tab, idx)
+    assert probes.dma_rows.launches == 0
+
+
+@pytest.mark.parametrize("name", ["row_gather_loop", "row_gather_vector", "dma_rows"])
+def test_plain_at_cover_index_pattern(name):
+    """The row gathers on the CPU equal NumPy indexing for sorted distinct
+    row ids (the cover-row measurement's pattern), at cover-row width and a
+    small C; the CPU launches nothing."""
+    c, d = 64, 1536
+    idx = probes.cover_index(c, 50, seed=3)
+    assert len(np.unique(idx)) == 50 and (np.diff(idx) > 0).all() and idx.dtype == np.int32
+    tab = np.random.default_rng(4).normal(size=(c, d)).astype(np.float32)
+    fn = getattr(probes, name)
+    out = fn(torch.from_numpy(tab), torch.from_numpy(idx))
+    np.testing.assert_array_equal(out.numpy(), tab[idx])
+    assert fn.launches == 0
+
+
+def test_lib_path_hashes_source_and_headers(tmp_path, monkeypatch):
+    """A library is named by its source and every csrc/*.cuh header, so an
+    edited header rebuilds it."""
+    (tmp_path / "probes.cu").write_text('#include "async_copy.cuh"\n')
+    (tmp_path / "async_copy.cuh").write_text("// v1\n")
+    monkeypatch.setattr(cuda_build, "_CSRC", tmp_path)
+    first = cuda_build.lib_path("probes")
+    assert cuda_build.lib_path("probes") == first
+    (tmp_path / "async_copy.cuh").write_text("// v2\n")
+    second = cuda_build.lib_path("probes")
+    assert second != first and second.parent == cuda_build.BUILD_DIR
+    (tmp_path / "other.cuh").write_text("// new\n")
+    assert cuda_build.lib_path("probes") not in (first, second)
+    (tmp_path / "other.cuh").unlink()
+    (tmp_path / "probes.cu").write_text('#include "async_copy.cuh"\n// edited\n')
+    assert cuda_build.lib_path("probes") not in (first, second)
+
+
 def test_no_fallback_without_a_toolkit():
     """Without a built library or nvcc the kernels' build raises; it never
     returns a plain result."""
