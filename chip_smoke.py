@@ -6,12 +6,18 @@
 Phases, each of which raises (non-zero exit) on failure:
   1. device: requires CUDA; prints `nvidia-smi` name and power limit;
   2. build: compiles every CUDA kernel of the port from csrc/ with nvcc,
-     one process per source, all started together;
-  3. kernels: fused_select against its plain PyTorch version on the card
-     at the grid mapping path's shapes (N=16384 queries, Gp=8192 cover
-     rows, plane=64, K=16), plus the adversarial tie/sentinel case and K=1
-     against a brute-force oracle; times the kernel, the plain version and
-     one PyTorch library call, and computes the bound;
+     one process per source, all started together, and reads ptxas's
+     registers, spills and shared memory per kernel;
+  3. kernels: fused_select against its plain PyTorch version on the card:
+     synthetic covers with sentinel lanes and exact ties at planes 8, 16,
+     32 and 128, and with shuffled and strided (non-monotone or
+     wide-range) gids; the grid mapping path's shapes (N=16384 queries,
+     Gp=8192 cover rows, plane=64, K=16), plus the adversarial
+     tie/sentinel case and K=1 against a brute-force oracle; times the
+     kernel, the plain version and one PyTorch library call in
+     interleaved turns, computes the bound, and runs the K sweep (K = 1,
+     2, 4, 8, 16); the build's registers, shared memory and resident
+     warps per plane;
   3b. probes: the platform probes' entry point (ops/probes.run, the port's
      tools/pallas_smoke.py) with the launch counts zeroed just before it
      and read just after; row_gather_loop and dma_rows against their plain
@@ -19,14 +25,16 @@ Phases, each of which raises (non-zero exit) on failure:
      with clamped indices, at the cover-row shape and where every dma_rows
      block reuses each ring slot; then each probe kernel against its plain
      version (exact) at the TPU probes' shapes, timed in interleaved turns
-     (kernel, library, plain, plain, library, kernel; twice) against the
-     plain version and one PyTorch call, with bounds; and both row gathers
+     (kernel, library, plain, floor, floor, plain, library, kernel; twice)
+     against the plain version, one PyTorch call and the launch floor (one
+     empty launch, torch.cuda._sleep(0)), with bounds; and both row gathers
      and index_select at the cover-row shape (tab [8192, 1536] f32, 6,433
      sorted distinct rows), L2 flushed before each call and back to back;
   3c. fused_select on hashed-map inputs: a block map built from the
      simulator world in the localization crop, one scan's queries; all
      four stencils at K=16 and the fitness shape (K=1, Gp=N), K=1 against
-     brute force, and the count of all-miss cover rows;
+     brute force, and the count of all-miss cover rows; both shapes timed
+     in turns, and the K sweep;
   4. grid mapping end to end: the port's SlamSystem on the headline config
      (IcpOptimized + TightCouplingOptimization, dense grid (96,96,16),
      16384 points per scan) over a 10 s simulated run, then a traced
@@ -46,6 +54,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -138,8 +147,8 @@ def assert_parity(out_k, out_p, qs):
     return float(np.max(np.abs(sk[fin] - sp[fin]))) if fin.any() else 0.0
 
 
-def run_both(torch, select, inputs, k, stencil):
-    args = (*inputs[:3], k, 64)
+def run_both(torch, select, inputs, k, stencil, plane=64):
+    args = (*inputs[:3], k, plane)
     kw = dict(stencil=stencil, qvox=inputs[3])
     out_k = select.fused_select(*args, **kw)
     torch.cuda.synchronize()
@@ -238,7 +247,38 @@ def phase_device(torch):
     return card
 
 
-def phase_build():
+def kernel_name(symbol: str) -> str:
+    """The last name of a mangled kernel symbol, with an int template
+    argument: `_ZN..19fused_select_kernelILi16EEEv..` -> `fused_select_kernel<16>`."""
+    rest, names = re.sub(r"^_ZN?", "", symbol), []
+    while m := re.match(r"(\d+)", rest):
+        size = int(m.group(1))
+        names.append(rest[m.end():m.end() + size])
+        rest = rest[m.end() + size:]
+    arg = re.match(r"ILi(-?\d+)E", rest)
+    return (names[-1] if names else symbol) + (f"<{arg.group(1)}>" if arg else "")
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads, static_smem_bytes}}
+    from nvcc's -Xptxas=-v output."""
+    report, name = {}, None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = kernel_name(m.group(1))
+            report[name] = {"registers": None, "spill_stores": 0, "spill_loads": 0,
+                            "static_smem_bytes": 0}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            report[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            report[name]["registers"] = int(m.group(1))
+            if sm := re.search(r"(\d+) bytes smem", line):
+                report[name]["static_smem_bytes"] = int(sm.group(1))
+    return report
+
+
+def phase_build() -> dict:
+    """Builds every kernel source; returns the ptxas report of each."""
     from funny_lidar_slam_torch.ops import cuda_build
 
     t = time.perf_counter()
@@ -246,16 +286,31 @@ def phase_build():
     log(f"[build] {sorted(logs)} in {time.perf_counter() - t:.1f} s")
     for name, out in logs.items():  # ptxas: registers, shared memory, spills
         log(f"[build] {name}: {out.strip()}")
+    return {name: ptxas_report(out) for name, out in logs.items()}
 
 
-def phase_kernels(torch):
+def select_resources(select, report: dict) -> dict:
+    """fused_select's build at each plane: registers and spills (ptxas),
+    the dynamic shared memory a block stages (8 cover rows of 96*plane
+    bytes) and the blocks and warps resident on an SM (the runtime's
+    occupancy calculator)."""
+    out = {}
+    for plane in (8, 16, 32, 64, 128):
+        blocks = select.resident_blocks(plane)
+        out[str(plane)] = {**report.get(f"fused_select_kernel<{plane // 4}>", {}),
+                           "dynamic_smem_bytes": 8 * 96 * plane,
+                           "resident_blocks": blocks, "resident_warps": 8 * blocks}
+    log(f"[kernels] fused_select resources by plane: {out}")
+    return out
+
+
+def grid_select_inputs(torch, rng):
+    """The grid path's fused_select inputs: a local map of the simulator
+    world at 0.5 m and one 16384-point scan filtered at 0.4 m into the
+    16384-point source (N=16384, Gp=8192, plane 64)."""
     from funny_lidar_slam_torch.io.simulator import SimConfig, make_world
-    from funny_lidar_slam_torch.ops import select
     from funny_lidar_slam_torch.ops.voxel import voxel_downsample
 
-    # main-path inputs: a local map of the simulator world at 0.5 m and one
-    # 16384-point scan filtered at 0.4 m into the 16384-point source
-    rng = np.random.default_rng(7)
     world = make_world(7)
     center = np.array([20.0, 0.0, 1.5], np.float32)
     near = world[np.linalg.norm(world - center, axis=1) < SimConfig().max_range]
@@ -267,12 +322,62 @@ def phase_kernels(torch):
         0, 0.05, (16384, 3)).astype(np.float32)
     sds = voxel_downsample(torch.as_tensor(scan, device="cuda"),
                            torch.ones(16384, dtype=torch.bool, device="cuda"), 0.4, 16384)
-    m, inputs = select_inputs(torch, map_pts, sds.points, sds.mask)
-    wnd, gid, qs_t, qvox = inputs
+    _, inputs = select_inputs(torch, map_pts, sds.points, sds.mask)
     log(f"[kernels] map {len(map_pts)} pts, queries {sds.points.shape[0]} "
-        f"({int(sds.mask.sum())} valid), cover rows {tuple(wnd.shape)}")
+        f"({int(sds.mask.sum())} valid), cover rows {tuple(inputs[0].shape)}")
+    return inputs
 
+
+def synthetic_cover(torch, rng, plane, n, gid_kind):
+    """fused_select inputs on a random cover table at `plane`: 1-3 queries
+    a group, a third of the lanes sentinels (1e30), every 7th lane a copy
+    of its neighbour (exact d2 ties), every 16th row all sentinels, queries
+    inside the window. `gid_kind`: "monotone" (the callers' gids),
+    "shuffled" (a permutation of them) or "strided" (gid = 3q, so a
+    block's rows span more than it stages)."""
+    sizes = rng.integers(1, 4, n)
+    gid = np.repeat(np.arange(n), sizes)[:n].astype(np.int32)
+    if gid_kind == "shuffled":
+        gid = rng.permutation(gid)
+    elif gid_kind == "strided":
+        gid = (3 * np.arange(n)).astype(np.int32)
+    gp = int(gid.max()) + 1
+    tab = rng.uniform(0.0, 4.0, (gp, 8, 3, plane)).astype(np.float32)
+    tab[..., 3::7] = tab[..., 2::7][..., :tab[..., 3::7].shape[-1]]
+    tab[rng.random((gp, 8, 1, plane)).repeat(3, 2) < 1 / 3] = 1e30
+    tab[::16] = 1e30
+    qs = rng.uniform(0.5, 3.5, (n, 3)).astype(np.float32)
+    qvox = rng.integers(-50, 50, (n, 3)).astype(np.int32)
+    return [torch.as_tensor(a, device="cuda") for a in
+            (tab.reshape(gp, 24 * plane), gid, qs, qvox)]
+
+
+def synthetic_parity(torch, select) -> float:
+    """fused_select against its plain version on synthetic covers: planes
+    8, 16, 32 and 128 with monotone gids, and plane 8 and 64 with shuffled
+    and strided gids (the queries whose rows the block did not stage).
+    Returns the max |d2| difference."""
+    rng = np.random.default_rng(13)
+    cases = [(p, "monotone") for p in (8, 16, 32, 128)]
+    cases += [(p, kind) for p in (8, 64) for kind in ("shuffled", "strided")]
     max_err = 0.0
+    for plane, kind in cases:
+        inputs = synthetic_cover(torch, rng, plane, 4099, kind)
+        for k, stencil in ((16, "nearby26"), (5, "nearby6")):
+            out_k, out_p, qs = run_both(torch, select, inputs, k, stencil, plane)
+            max_err = max(max_err, assert_parity(out_k, out_p, qs))
+        log(f"[kernels] fused_select plane {plane}, {kind} gid: parity ok")
+    return max_err
+
+
+def phase_kernels(torch):
+    from funny_lidar_slam_torch.ops import select
+
+    rng = np.random.default_rng(7)
+    inputs = grid_select_inputs(torch, rng)
+    wnd, gid, qs_t, qvox = inputs
+
+    max_err = synthetic_parity(torch, select)
     _, sinp = select_inputs(torch, surface_cloud(40000, 0), surface_cloud(16384, 1))
     for stencil in select.STENCILS:
         out_k, out_p, qs = run_both(torch, select, inputs, 16, stencil)
@@ -311,8 +416,9 @@ def phase_kernels(torch):
         assert abs(out_k[0][i, 0] - d2) < 1e-4, (i, out_k[0][i, 0], d2)
     log("[kernels] fused_select k=1 vs brute force: ok")
 
-    # times at the main-path shape
+    # times at the main-path shape, and the K sweep
     timing = select_timing(torch, select, inputs, 16)
+    sweep = k_sweep(torch, select, inputs)
     entry = {
         "name": "fused_select", "route": "cuda",
         "source": "funny_lidar_slam_torch/csrc/fused_select.cu",
@@ -323,30 +429,41 @@ def phase_kernels(torch):
         "library_call": "torch.topk over the precomputed masked [N,512] d2 "
                         "(partial yardstick: no single PyTorch call gathers, masks and selects)",
         "rows_read": timing["rows_read"], "bytes": timing["bytes"], "ops": timing["ops"],
+        "turns": timing["turns"], "vs_library": timing["vs_library"],
+        "vs_plain": timing["vs_plain"], "k_sweep": {"grid": sweep},
     }
     log(f"[kernels] fused_select N={qs_t.shape[0]} Gp={wnd.shape[0]} "
         f"rows_read={timing['rows_read']}: kernel {timing['ms']:.4f} ms, plain "
         f"{timing['plain_ms']:.4f} ms, topk {timing['library_ms']:.4f} ms, bound "
-        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}), max_abs_err {max_err:g}")
+        f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}), max_abs_err {max_err:g}; "
+        f"kernel {timing['vs_library']} than topk; turns {timing['turns']}")
+    log(f"[kernels] fused_select grid K sweep: {sweep}")
     return entry
+
+
+TURNS = ["kernel", "library", "plain", "plain", "library", "kernel"] * 2
+SWEEP_K = (1, 2, 4, 8, 16)
 
 
 def select_timing(torch, select, inputs, k, stencil="nearby26", plane=64):
     """Device ms of fused_select, its plain version and torch.topk over the
-    precomputed masked d2 at these inputs, and the bound: the cover rows
-    this run reads (each once), the queries and the outputs over the memory
-    rate, or 8 + 4 + k operations per lane over the f32 rate."""
+    precomputed masked d2 at these inputs, in interleaved turns, and the
+    bound: the cover rows this run reads (each once), the queries and the
+    outputs over the memory rate, or 8 + 4 + k operations per lane over the
+    f32 rate."""
     wnd, gid, qs_t, qvox = inputs
     args, kw = (wnd, gid, qs_t, k, plane), dict(stencil=stencil, qvox=qvox)
     before = select.fused_select.launches
-    ms = time_ms(torch, lambda: select.fused_select(*args, **kw), 50)
-    plain_ms = time_ms(torch, lambda: select.fused_select_plain(*args, **kw), 10)
     px, py, pz = select._planes(wnd[gid.long()], plane)
     d2 = (px - qs_t[:, 0:1]) ** 2 + (py - qs_t[:, 1:2]) ** 2 + (pz - qs_t[:, 2:3]) ** 2
     d2 = torch.where(select._stencil_mask(d2.shape[1], qvox, plane, stencil), d2,
                      torch.full_like(d2, float("inf")))
-    library_ms = time_ms(torch, lambda: torch.topk(d2, k, dim=1, largest=False), 50)
+    turns = in_turns(lambda f: time_ms(torch, f, 30),
+                     {"kernel": lambda: select.fused_select(*args, **kw),
+                      "library": lambda: torch.topk(d2, k, dim=1, largest=False),
+                      "plain": lambda: select.fused_select_plain(*args, **kw)}, TURNS)
     select.fused_select.launches = before  # comparison launches do not count
+    ms, plain_ms, library_ms = (float(np.median(turns[c])) for c in ("kernel", "plain", "library"))
 
     n, lanes = qs_t.shape[0], 8 * plane
     rows = int(torch.unique(gid).numel())
@@ -356,7 +473,27 @@ def select_timing(torch, select, inputs, k, stencil="nearby26", plane=64):
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "rows_read": rows, "bytes": nbytes, "ops": ops, "n": n, "gp": wnd.shape[0], "k": k}
+            "rows_read": rows, "bytes": nbytes, "ops": ops, "n": n, "gp": wnd.shape[0], "k": k,
+            "turns": turns, "vs_library": versus(turns["kernel"], turns["library"]),
+            "vs_plain": versus(turns["kernel"], turns["plain"])}
+
+
+def k_sweep(torch, select, inputs, stencil="nearby26", plane=64) -> dict:
+    """The kernel's device ms at K = 1, 2, 4, 8, 16 on these inputs, in two
+    turns (K rising, then falling), and the least-squares line through the
+    medians: ms = base_ms + per_round_ms * K."""
+    wnd, gid, qs_t, qvox = inputs
+    before = select.fused_select.launches
+    calls = {k: (lambda k=k: select.fused_select(wnd, gid, qs_t, k, plane, stencil=stencil,
+                                                 qvox=qvox)) for k in SWEEP_K}
+    turns = in_turns(lambda f: time_ms(torch, f, 50), calls,
+                     list(SWEEP_K) + list(reversed(SWEEP_K)))
+    select.fused_select.launches = before
+    ms = {k: float(np.median(v)) for k, v in turns.items()}
+    per_round, base = np.polyfit(list(SWEEP_K), [ms[k] for k in SWEEP_K], 1)
+    return {"ms": {str(k): v for k, v in ms.items()},
+            "turns": {str(k): v for k, v in turns.items()},
+            "base_ms": float(base), "per_round_ms": float(per_round)}
 
 
 def gather_bytes(tab, idx) -> int:
@@ -460,7 +597,8 @@ def phase_probes(torch):
     lines = {"scale2": 12, "row_gather_loop": 27, "row_gather_vector": 63,
              "lane_gather": 87, "dma_rows": 112}
     inputs = probes.probe_inputs("cuda", seed=1)
-    order = ["kernel", "library", "plain", "plain", "library", "kernel"] * 2
+    # the launch floor: one empty PyTorch launch, timed in the same turns
+    order = ["kernel", "library", "plain", "floor", "floor", "plain", "library", "kernel"] * 2
     entries = []
     for fn in probes.PROBES:
         name = fn.__name__
@@ -485,9 +623,9 @@ def phase_probes(torch):
         assert torch.equal(out_k, out_p), f"{name}: the kernel differs from its plain version"
         turns = in_turns(lambda f: time_ms(torch, f, 200),
                          {"kernel": lambda: fn(*args), "plain": lambda: plain(*args),
-                          "library": library}, order)
-        ms, plain_ms, library_ms = (float(np.median(turns[k]))
-                                    for k in ("kernel", "plain", "library"))
+                          "library": library, "floor": lambda: torch.cuda._sleep(0)}, order)
+        ms, plain_ms, library_ms, floor_ms = (float(np.median(turns[k]))
+                                              for k in ("kernel", "plain", "library", "floor"))
         bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
         entries.append({
             "name": name, "route": "cuda",
@@ -499,11 +637,13 @@ def phase_probes(torch):
             "library_ms": library_ms, "parity": "exact", "library_call": call,
             "bytes": nbytes, "shapes": [list(a.shape) for a in args],
             "turns": turns, "vs_library": versus(turns["kernel"], turns["library"]),
+            "floor_ms": floor_ms, "vs_floor": versus(turns["kernel"], turns["floor"]),
         })
         log(f"[probes] {name} {[tuple(a.shape) for a in args]}: kernel {ms:.5f} ms, plain "
-            f"{plain_ms:.5f} ms, {call} {library_ms:.5f} ms, bound "
-            f"{entries[-1]['bound_ms']:.6f} ms (bytes), exact; kernel "
-            f"{entries[-1]['vs_library']} than the library call; turns {turns}")
+            f"{plain_ms:.5f} ms, {call} {library_ms:.5f} ms, empty launch {floor_ms:.5f} ms, "
+            f"bound {entries[-1]['bound_ms']:.6f} ms (bytes), exact; kernel "
+            f"{entries[-1]['vs_library']} than the library call, "
+            f"{entries[-1]['vs_floor']} than the empty launch; turns {turns}")
     cover = cover_row_timing(torch, probes)
     for e in entries:
         if e["name"] in ("row_gather_loop", "dma_rows"):
@@ -527,13 +667,14 @@ def world_frame_scan(torch, scan, cap=16384):
     return torch.as_tensor(pts, device="cuda"), torch.as_tensor(np.arange(cap) < n, device="cuda")
 
 
-def phase_hashed_select(torch, ds):
-    """fused_select on hashed block-map inputs: the localization crop of the
-    simulator world filtered at 0.4 m, and one scan's queries."""
+def hashed_select_inputs(torch, ds):
+    """fused_select's hashed block-map inputs: the localization crop of the
+    simulator world filtered at 0.4 m, and scan 30's queries. Returns the
+    map, the K=16 inputs (Gp=8192), the fitness inputs (K=1, Gp=N, every
+    query valid) and the cover-row counts."""
     from funny_lidar_slam_torch.io.pcd import voxel_downsample_np
     from funny_lidar_slam_torch.io.simulator import make_world
     from funny_lidar_slam_torch.maps import block_map
-    from funny_lidar_slam_torch.ops import select
     from funny_lidar_slam_torch.ops.voxel import voxel_downsample
 
     world = voxel_downsample_np(make_world(seed=7), 0.4)
@@ -557,7 +698,18 @@ def phase_hashed_select(torch, ds):
         f"{float(block_map.load_factor(m)):.3f}; queries {n} ({int(src.mask.sum())} valid), "
         f"{ngroups} cover rows used: {miss_rows} all-miss rows, {miss_blocks} of "
         f"{8 * ngroups} blocks missed")
+    counts = {"all_miss_rows": miss_rows, "cover_rows": ngroups, "missed_blocks": miss_blocks}
+    return m, inputs, fit_inputs, counts
 
+
+def phase_hashed_select(torch, ds):
+    """fused_select on hashed block-map inputs (`hashed_select_inputs`):
+    parity at every stencil, the fitness shape, K=1 against brute force,
+    times in turns at both shapes, and the K sweep at K=16's inputs."""
+    from funny_lidar_slam_torch.ops import select
+
+    m, inputs, fit_inputs, counts = hashed_select_inputs(torch, ds)
+    n = fit_inputs[2].shape[0]
     max_err = 0.0
     for stencil in select.STENCILS:
         out_k, out_p, qs = run_both(torch, select, inputs, 16, stencil)
@@ -585,9 +737,11 @@ def phase_hashed_select(torch, ds):
     for key, t in shapes.items():
         log(f"[hashed] fused_select {key} N={t['n']} Gp={t['gp']} rows_read={t['rows_read']}: "
             f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, topk "
-            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-    return {"max_abs_err": max_err, "all_miss_rows": miss_rows, "cover_rows": ngroups,
-            "missed_blocks": miss_blocks, "shapes": shapes}
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+            f"kernel {t['vs_library']} than topk; turns {t['turns']}")
+    sweep = k_sweep(torch, select, inputs)
+    log(f"[hashed] fused_select K sweep: {sweep}")
+    return {"max_abs_err": max_err, **counts, "shapes": shapes, "k_sweep": sweep}
 
 
 def gt_pairs(ds, out):
@@ -769,8 +923,11 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
 
-    phase_build()
+    report = phase_build()
     entry = phase_kernels(torch)
+    from funny_lidar_slam_torch.ops import select
+
+    entry["resources"] = select_resources(select, report.get("fused_select", {}))
     probe_entries = phase_probes(torch)
     t = time.perf_counter()
     ds = simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7))
@@ -784,6 +941,7 @@ def main() -> int:
                  hashed_inputs={k: hashed[k] for k in ("all_miss_rows", "cover_rows",
                                                        "missed_blocks")},
                  shapes=hashed["shapes"])
+    entry["k_sweep"]["hashed"] = hashed["k_sweep"]
     print(json.dumps({"kernels": [entry] + probe_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

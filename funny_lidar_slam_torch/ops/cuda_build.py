@@ -27,6 +27,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "fused_select": {
         "fused_select_launch": ([_P] * 8 + [_I] * 5 + [_P], _I),
+        "fused_select_occupancy": ([_I], _I),
     },
     "probes": {
         "probe_scale2_launch": ([_P, _P, _I, _P], _I),
@@ -75,18 +76,21 @@ def _start_build(name: str):
 
 def build_all(names=None) -> dict:
     """Compile the given kernel sources (default: all), one nvcc process
-    per source, all started together. Returns {name: nvcc output}."""
+    per source, all started together. Returns {name: nvcc output}; for a
+    library built earlier, the output kept beside it (`.log`)."""
     names = list(SIGNATURES) if names is None else list(names)
     started = {n: _start_build(n) for n in names}
     logs = {}
     for name, (proc, out, tmp) in started.items():
         if proc is None:
-            logs[name] = "cached"
+            kept = out.with_suffix(".log")
+            logs[name] = kept.read_text() if kept.exists() else "cached"
             continue
         log, _ = proc.communicate()
         logs[name] = log
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     return logs
 

@@ -11,7 +11,9 @@ with their monotone group ids, return each query's K nearest candidates
     voxel parity,
   * the K nearest, nearest first.
 Sentinel lanes (coords 1e30) and masked lanes carry d2 = +inf; callers
-treat d2 >= 1e18 as invalid.
+treat d2 >= 1e18 as invalid, and the coordinates of such entries are
+unspecified (the kernel ends its rounds once only +inf keys are left and
+reports the sentinel 1e30; the plain version reports the lane's own).
 
 `fused_select` is the wrapper of the hand-written CUDA kernel
 `csrc/fused_select.cu`; `fused_select_plain` is the plain PyTorch version
@@ -89,17 +91,17 @@ def fused_select(cand_tab, gid, qpts, k: int, plane: int,
     CPU tensors take `fused_select_plain`; CUDA tensors launch the kernel
     (no fallback) and add one to `fused_select.launches` per launch.
 
-    cand_tab f32 [Gp, 24*plane]; gid i32 [N] (clamped to [0, Gp) in the
-    kernel, as a JAX gather clamps); qpts f32 [N, 3]; qvox i32 [N, 3].
-    Returns (d2, x, y, z), each f32 [N, k]."""
+    cand_tab f32 [Gp, 24*plane], 16-byte aligned (the kernel stages rows
+    by bulk copy); gid i32 [N] (clamped to [0, Gp) in the kernel, as a JAX
+    gather clamps; any values, fastest when they do not decrease, as the
+    callers' voxel-sorted ids); qpts f32 [N, 3]; qvox i32 [N, 3].
+    Returns (d2, x, y, z), each f32 [N, k]; the coordinates of entries
+    with d2 >= 1e18 are unspecified."""
     if qvox is None:
         raise ValueError("qvox (the sorted query voxel coords) is required")
     tensors = (cand_tab, gid, qpts, qvox)
     if all(t.device.type == "cpu" for t in tensors):
         return fused_select_plain(cand_tab, gid, qpts, k, plane, stencil, qvox)
-    dev = cand_tab.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("fused_select: all inputs must lie on one CUDA device")
     n = qpts.shape[0]
     gp, row = cand_tab.shape
     if cand_tab.dtype != torch.float32 or qpts.dtype != torch.float32:
@@ -116,6 +118,11 @@ def fused_select(cand_tab, gid, qpts, k: int, plane: int,
         raise ValueError(stencil)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_select: inputs must be contiguous")
+    if cand_tab.data_ptr() % 16:
+        raise ValueError("fused_select: cand_tab must be 16-byte aligned (bulk copy source)")
+    dev = cand_tab.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("fused_select: all inputs must lie on one CUDA device")
 
     lib = cuda_build.library("fused_select")
     outs = [torch.empty((n, k), dtype=torch.float32, device=dev) for _ in range(4)]
@@ -130,3 +137,13 @@ def fused_select(cand_tab, gid, qpts, k: int, plane: int,
 
 
 fused_select.launches = 0
+
+
+def resident_blocks(plane: int) -> int:
+    """Blocks of the kernel resident on one SM of the current CUDA device
+    at this plane, by the runtime's occupancy calculator (8 warps a
+    block)."""
+    blocks = cuda_build.library("fused_select").fused_select_occupancy(plane)
+    if blocks < 0:
+        raise RuntimeError(f"fused_select occupancy failed: CUDA error {-blocks}")
+    return blocks

@@ -12,10 +12,15 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from funny_lidar_slam_tpu.maps import block_map as jbm
 from funny_lidar_slam_tpu.maps import grid_map as jgrid
 from funny_lidar_slam_tpu.ops import pallas_select
 from funny_lidar_slam_tpu.ops.voxel import group_by_voxel
+from funny_lidar_slam_tpu.registration import residuals as jres
+from funny_lidar_slam_torch import convert
+from funny_lidar_slam_torch.maps import block_map as tbm
 from funny_lidar_slam_torch.ops import cuda_build, select
+from funny_lidar_slam_torch.registration import residuals as tres
 
 torch.set_num_threads(1)
 
@@ -149,4 +154,81 @@ def test_wrapper_never_falls_back_off_the_cpu():
         pytest.skip("a built kernel library or nvcc is present")
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.library("fused_select")
+    assert select.fused_select.launches == 0
+
+
+@pytest.mark.parametrize("stencil", ["nearby26", "nearby18", "nearby6", "center"])
+def test_invalid_entries_trail_each_row(stencil):
+    """In both fused_select_plain and fused_select_xla, every entry after a
+    row's first d2 >= 1e18 is also >= 1e18. The kernel ends its rounds once
+    only +inf keys are left (d2 >= 1e18), so that early end changes neither
+    the count nor the values of a row's valid entries."""
+    rng = np.random.default_rng(4)
+    base = surface_cloud(1000, 2, extent=10.0)
+    q_hit = base[rng.choice(len(base), 384)] + rng.normal(0, 0.05, (384, 3)).astype(np.float32)
+    q_empty = rng.uniform(500.0, 600.0, (128, 3)).astype(np.float32)
+    arrays, _ = inputs(base, np.concatenate([q_hit, q_empty]))
+    out_t, out_j = run_both(arrays, 16, stencil)
+    for d2 in (out_t[0], out_j[0]):
+        invalid = d2 >= 1e18
+        assert (invalid[:, :-1] <= invalid[:, 1:]).all()
+        n_valid = (~invalid).sum(1)
+        assert (n_valid == 0).any() and ((n_valid > 0) & (n_valid < 16)).any()
+    np.testing.assert_array_equal((out_t[0] < 1e18).sum(1), (out_j[0] < 1e18).sum(1))
+
+
+def _spy(seen, side, fn):
+    """fn, recording the gid it is called with under seen[side]."""
+    def wrapped(cand_tab, gid, *args, **kwargs):
+        seen[side] = np.array(gid)
+        return fn(cand_tab, gid, *args, **kwargs)
+    return wrapped
+
+
+@pytest.mark.parametrize("caller", ["gather_candidates", "query_knn_planes"])
+def test_callers_pass_monotone_gid_equal_to_jax(monkeypatch, caller):
+    """The gid the port's callers hand to fused_select does not decrease
+    (the kernel stages a block's rows as one range from its first and last
+    query's group) and equals the one the JAX callers hand to theirs, with
+    masked queries and a group capacity below the number of groups."""
+    seen = {}
+    monkeypatch.setattr(select, "fused_select", _spy(seen, "torch", select.fused_select))
+    monkeypatch.setattr(pallas_select, "fused_select_xla",
+                        _spy(seen, "jax", pallas_select.fused_select_xla))
+    rng = np.random.default_rng(9)
+    map_pts = surface_cloud(4096, 10)
+    queries = surface_cloud(1024, 11) + rng.normal(0, 0.1, (1024, 3)).astype(np.float32)
+    if caller == "gather_candidates":
+        mask = rng.random(1024) < 0.8
+        mj = jgrid.build(DIMS, 8, jnp.asarray(map_pts), jnp.ones(4096, bool), 1.0)
+        eye = np.eye(4, dtype=np.float32)
+        jres.gather_candidates(jnp.asarray(eye), jnp.asarray(queries), jnp.asarray(mask), mj,
+                               1.0, 8, group_capacity=256)
+        tres.gather_candidates(torch.as_tensor(eye), torch.as_tensor(queries),
+                               torch.as_tensor(mask), convert.any_map(mj), 1.0, 8,
+                               group_capacity=256)
+    else:
+        mj = jbm.build(4096, 8, jnp.asarray(map_pts), jnp.ones(4096, bool), 1.0)
+        jbm.query_knn_planes(mj, jnp.asarray(queries), 1.0, 4, group_capacity=256)
+        tbm.query_knn_planes(convert.any_map(mj), torch.as_tensor(queries), 1.0, 4,
+                             group_capacity=256)
+    gid_t, gid_j = seen["torch"], seen["jax"]
+    assert gid_t.dtype == np.int32 and gid_t.shape == (1024,)
+    assert (np.diff(gid_t) >= 0).all() and gid_t.max() == 255
+    np.testing.assert_array_equal(gid_t, gid_j.astype(np.int32))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_wrapper_raises_on_misaligned_cand_tab(offset):
+    """The kernel stages cover rows by bulk copy, which needs a 16-byte
+    aligned source: the wrapper raises on an offset view of cand_tab (a
+    meta tensor, so no card is needed) and launches nothing."""
+    flat = torch.empty(128 * 1536 + offset, device="meta")
+    tab = flat[offset:].view(128, 1536)
+    assert tab.is_contiguous() and tab.data_ptr() % 16
+    gid, qpts, qvox = (torch.empty(s, dtype=d, device="meta") for s, d in
+                       (((256,), torch.int32), ((256, 3), torch.float32),
+                        ((256, 3), torch.int32)))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        select.fused_select(tab, gid, qpts, 16, 64, qvox=qvox)
     assert select.fused_select.launches == 0
