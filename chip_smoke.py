@@ -44,10 +44,20 @@ Phases, each of which raises (non-zero exit) on failure:
      loop closure;
   6. localization end to end: the Localizer against the frozen simulator
      world on the same run (the bench's localization config);
-  7. prints the per-kernel JSON line, the card line and the result line.
-Every path (3b, 4, 5, 6) runs with the kernel launch counts zeroed just
-before it and read just after it. Imports nothing of JAX and nothing of the
-JAX package.
+  3d. fused_select on the LOAM paths' inputs, captured from the first
+     gather of PointToPlane_IVOX (planar queries, nearby18, 0.5 m hashed
+     map) and of LoamFull_KdTree (corner queries, N=2048 and Gp=8192, and
+     planar queries, nearby26) on the simulator run: parity at K=16, at the
+     fitness shape (K=1, Gp=N) and K=1 against brute force over the map's
+     stored points, each shape timed in turns with its bound;
+  7-9. LOAM-geometry mapping end to end on the same run, one phase each:
+     PointToPlane_IVOX, PointToPlane_KdTree and LoamFull_KdTree on the
+     bench's configs (range-image projection and corner/planar features,
+     TightCouplingOptimization);
+and prints the per-kernel JSON line, the card line and the result line.
+Every path (3b, 4, 5, 6, 7, 8, 9) runs with the kernel launch counts zeroed
+just before it and read just after it. Imports nothing of JAX and nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -744,6 +754,139 @@ def phase_hashed_select(torch, ds):
     return {"max_abs_err": max_err, **counts, "shapes": shapes, "k_sweep": sweep}
 
 
+def capture_first_gather(torch, ds, mode):
+    """Init and the first steps of `mode` on the simulator run, recording
+    the state the first match starts from, the fused_select calls of that
+    match, and then the matcher's fitness (K=1, Gp=N) on that state, the
+    match's planar cloud and guess. Returns (state, match calls, fitness
+    call); each call is ((cand_tab, gid, qpts, k, plane), {stencil, qvox})."""
+    from funny_lidar_slam_torch.ops import select
+
+    slam = loam_system(mode)
+    orig_sel, orig_match = select.fused_select, slam.matcher.match
+    first, calls, recording = {}, [], [False]
+
+    def sel(*a, **kw):
+        if recording[0]:
+            calls.append((tuple(x.clone() if torch.is_tensor(x) else x for x in a),
+                          {"stencil": kw["stencil"], "qvox": kw["qvox"].clone()}))
+        return orig_sel(*a, **kw)
+
+    def match(s, *args):
+        if first:
+            return orig_match(s, *args)
+        first.update(state=s, args=args)
+        recording[0] = True
+        try:
+            return orig_match(s, *args)
+        finally:
+            recording[0] = False
+
+    sel.launches = 0
+    select.fused_select, slam.matcher.match = sel, match
+    try:
+        slam.run_dataset(ds, max_scans=3)
+        assert first, f"[{mode}] no scan was matched"
+        n_match = len(calls)
+        recording[0] = True
+        slam.matcher.fitness(first["state"], first["args"][-2], first["args"][-1])
+        recording[0] = False
+    finally:
+        select.fused_select = orig_sel
+    torch.cuda.synchronize()
+    return first["state"], calls[:n_match], calls[n_match]
+
+
+def stencil_within(d, stencil):
+    """Which voxel offsets |d| [M, 3] lie in `stencil` (ops/select.py)."""
+    within = (d <= 1).all(1)
+    if stencil == "nearby18":
+        return within & ~(d == 1).all(1)
+    if stencil == "nearby6":
+        return within & (d.sum(1) <= 1)
+    if stencil == "center":
+        return (d == 0).all(1)
+    return within
+
+
+def brute_force_k1(out_d2, inputs, stored, inv, stencil, step):
+    """K=1 results against brute force over the map's stored points, on
+    every `step`-th sorted row whose cover row is its own voxel's (masked
+    rows and rows past the group capacity borrow another group's cover).
+    Returns the number of rows compared that had a neighbour."""
+    _, gid_t, qs_t, qvox_t = inputs
+    gid, qs, qvox = gid_t.cpu().numpy(), qs_t.cpu().numpy(), qvox_t.cpu().numpy()
+    first_of = {g: i for i, g in reversed(list(enumerate(gid.tolist())))}
+    vox_m = np.floor(stored.astype(np.float32) * np.float32(inv)).astype(np.int64)
+    checked = 0
+    for i in range(0, len(qs), step):
+        if not (qvox[i] == qvox[first_of[gid[i]]]).all():
+            continue
+        within = stencil_within(np.abs(vox_m - qvox[i]), stencil)
+        if not within.any():
+            assert out_d2[i, 0] >= 1e18, (i, out_d2[i, 0])
+            continue
+        d2 = ((stored[within] - qs[i]) ** 2).sum(1).min()
+        assert abs(out_d2[i, 0] - d2) < 1e-4, (i, out_d2[i, 0], d2)
+        checked += 1
+    return checked
+
+
+def phase_loam_select(torch, ds):
+    """fused_select on the LOAM paths' own inputs (`capture_first_gather`):
+    the first gather of PointToPlane_IVOX (planar queries, nearby18, the
+    0.5 m hashed map) and of LoamFull_KdTree (corner queries N=2048 over
+    Gp=8192 cover rows, then planar queries, nearby26), and each matcher's
+    fitness shape (K=1, Gp=N). Each against the plain version at its K and
+    at K=1 against brute force, then timed in turns with its bound."""
+    from funny_lidar_slam_torch.ops import select
+
+    shapes, max_err, checked = {}, 0.0, {}
+    for mode, names in (("PointToPlane_IVOX", ["ivox_planar"]),
+                        ("LoamFull_KdTree", ["loam_corner", "loam_planar"])):
+        state, gathers, fit_call = capture_first_gather(torch, ds, mode)
+        if mode == "PointToPlane_IVOX":
+            maps, fit_map = [(state.m, 2.0)], (state.m, 2.0)
+        else:
+            maps = [(state.corner.m, 1.0), (state.planar.m, 1.0)]
+            fit_map = maps[1]
+        assert len(gathers) >= len(names), f"[{mode}] {len(gathers)} gathers captured"
+        cases = list(zip(names, gathers, maps)) + [(names[-1] + "_fitness", fit_call, fit_map)]
+        for name, ((wnd, gid, qs, k, plane), kw), (m, inv) in cases:
+            inputs, stencil = (wnd, gid, qs, kw["qvox"]), kw["stencil"]
+            out_k, out_p, qs_np = run_both(torch, select, inputs, k, stencil, plane)
+            max_err = max(max_err, assert_parity(out_k, out_p, qs_np))
+            if k != 1:
+                out_k, out_p, qs_np = run_both(torch, select, inputs, 1, stencil, plane)
+                max_err = max(max_err, assert_parity(out_k, out_p, qs_np))
+            checked[name] = brute_force_k1(out_k[0], inputs, stored_points(m), inv, stencil,
+                                           max(1, qs.shape[0] // 2000))
+            assert checked[name] > 0, f"[{name}] no row had a neighbour"
+            t = select_timing(torch, select, inputs, k, stencil, plane)
+            shapes[name] = t
+            log(f"[loam-select] {name} N={t['n']} Gp={t['gp']} K={k} {stencil} rows_read="
+                f"{t['rows_read']}: parity ok, K=1 vs brute force ok ({checked[name]} rows); "
+                f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, topk "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+                f"kernel {t['vs_library']} than topk; turns {t['turns']}")
+    return {"max_abs_err": max_err, "shapes": shapes, "brute_force_rows": checked}
+
+
+def phase_loam_mapping(torch, ds, mode):
+    """One LOAM-family path end to end (phases 7-9): the bench's config of
+    `mode` under the mapping gates, and the keyframes' feature clouds."""
+    slam, res = mapping_run(torch, ds, mode, lambda: loam_system(mode))
+    kfs = slam.keyframes.frames
+    with_feat = sum(1 for kf in kfs if kf.planar is not None and len(kf.planar) > 0)
+    # the init frame is keyframe 0 and carries no features
+    assert with_feat >= len(kfs) - 1, f"[{mode}] {with_feat} of {len(kfs)} keyframes with features"
+    res.update(keyframes_with_features=with_feat,
+               mean_corner_points=float(np.mean([len(kf.corner) for kf in kfs[1:]] or [0])),
+               mean_planar_points=float(np.mean([len(kf.planar) for kf in kfs[1:]] or [0])))
+    log(f"[{mode}] " + json.dumps(res))
+    return res["fused_select_launches"], res
+
+
 def gt_pairs(ds, out):
     """(estimated poses, true poses) at the trajectory's times."""
     gt_map = {round(ti, 4): p for ti, p in zip(ds.gt_times, ds.gt_poses)}
@@ -767,17 +910,47 @@ def mapping_system(cap, **layout):
         scan_capacity=cap, imu_segment_capacity=16))
 
 
-def mapping_run(torch, ds, tag, **layout):
-    """Warm-up over 8 scans, then the counted run with the mapping gates:
-    >= 40 tracked scans, finite poses, ATE < 0.10 m, fused_select launched."""
+LOAM_MODES = ("PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree")
+
+
+def loam_system(mode, cap=16384):
+    """The port's SlamSystem on the bench's LOAM-family config of `mode`
+    (bench.py:296-324): the range-image geometry of a 16-ring, 900-column
+    lidar, the default FeatureConfig, TightCouplingOptimization."""
+    from funny_lidar_slam_torch.loam.projection import LidarGeometry
+    from funny_lidar_slam_torch.pipeline.frontend import FUSION_TIGHT_OPT, FrontendConfig
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
+    from funny_lidar_slam_torch.registration import matchers
+
+    geom = LidarGeometry(n_rows=16, n_cols=900, horizontal_resolution=2 * np.pi / 900,
+                         min_distance=1.5, max_distance=50.0)
+    mcfg = {
+        "PointToPlane_IVOX": lambda: matchers.PointToPlaneConfig(
+            mode="ivox", source_capacity=cap, cloud_capacity=cap, map_capacity=131072),
+        "PointToPlane_KdTree": lambda: matchers.PointToPlaneConfig(
+            mode="window", source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
+            map_capacity=65536),
+        "LoamFull_KdTree": lambda: matchers.LoamFullConfig(
+            corner_capacity=4096, planar_capacity=16384, merged_capacity=65536,
+            map_capacity=65536),
+    }[mode]()
+    return SlamSystem(SystemConfig(
+        registration_mode=mode, matcher_config=mcfg,
+        frontend=FrontendConfig(fusion_method=FUSION_TIGHT_OPT, lidar_geometry=geom),
+        scan_capacity=cap, imu_segment_capacity=16))
+
+
+def mapping_run(torch, ds, tag, make, warm_scans=8):
+    """Warm-up over a few scans, then the counted run of `make()` with the
+    mapping gates: >= 40 tracked scans, finite poses, ATE < 0.10 m,
+    fused_select launched."""
     from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
     from funny_lidar_slam_torch.ops import select
 
-    cap = 16384
-    # warm-up run over a few scans (kernel load, allocator), then the run
-    mapping_system(cap, **layout).run_dataset(ds, max_scans=8)
-    torch.cuda.synchronize()
-    slam = mapping_system(cap, **layout)
+    if warm_scans:  # kernel load and allocator, then the run
+        make().run_dataset(ds, max_scans=warm_scans)
+        torch.cuda.synchronize()
+    slam = make()
     select.fused_select.launches = 0
     t = time.perf_counter()
     out = slam.run_dataset(ds)
@@ -805,7 +978,8 @@ def phase_e2e(torch, ds):
     from funny_lidar_slam_torch.pipeline import frontend as fe_mod
     from funny_lidar_slam_torch.registration import matchers
 
-    _, res = mapping_run(torch, ds, "e2e", map_layout="grid", grid_dims=(96, 96, 16))
+    _, res = mapping_run(torch, ds, "e2e", lambda: mapping_system(
+        16384, map_layout="grid", grid_dims=(96, 96, 16)))
     launches = res["fused_select_launches"]
 
     # per-phase spans from CUDA events, on a second (traced) run of the same
@@ -853,7 +1027,7 @@ def phase_hashed_mapping(torch, ds):
     default layout: the hashed block map with incremental block inserts."""
     from funny_lidar_slam_torch.maps import block_map
 
-    slam, res = mapping_run(torch, ds, "hashed")
+    slam, res = mapping_run(torch, ds, "hashed", lambda: mapping_system(16384))
     m = slam.mstate.m
     assert isinstance(m, block_map.BlockMap)
     res.update(map_blocks=int(block_map.num_blocks(m)),
@@ -933,14 +1107,22 @@ def main() -> int:
     ds = simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7))
     log(f"[sim] simulated {len(ds.scans)} scans in {time.perf_counter() - t:.1f} s")
     hashed = phase_hashed_select(torch, ds)
+    loam = phase_loam_select(torch, ds)
     by_path = {"grid_mapping": phase_e2e(torch, ds)[0],
                "hashed_mapping": phase_hashed_mapping(torch, ds)[0],
                "localization": phase_localization(torch, ds)[0]}
-    entry["max_abs_err"] = max(entry["max_abs_err"], hashed["max_abs_err"])
+    loam_paths = {}
+    for mode in LOAM_MODES:
+        by_path[mode], loam_paths[mode] = phase_loam_mapping(torch, ds, mode)
+    entry["max_abs_err"] = max(entry["max_abs_err"], hashed["max_abs_err"], loam["max_abs_err"])
     entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                  hashed_inputs={k: hashed[k] for k in ("all_miss_rows", "cover_rows",
                                                        "missed_blocks")},
-                 shapes=hashed["shapes"])
+                 shapes={**hashed["shapes"], **loam["shapes"]},
+                 loam_brute_force_rows=loam["brute_force_rows"],
+                 loam_paths={m: {k: r[k] for k in ("ate_m", "rpe_m", "steady_fps", "wall_s",
+                                                   "tracked", "keyframes_with_features")}
+                             for m, r in loam_paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
     print(json.dumps({"kernels": [entry] + probe_entries}))
     print(card)

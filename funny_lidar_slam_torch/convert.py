@@ -12,11 +12,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.cloud import Cloud
 from .core.state import NavState
+from .loam.projection import OrderedScan
 from .maps.block_map import BlockMap
 from .maps.grid_map import GridMap
 from .pipeline.frontend import FrontendState
-from .registration.matchers import WindowMapState
+from .registration.matchers import (
+    LoamFullState,
+    P2PlaneIvoxState,
+    P2PlaneWindowState,
+    WindowMapState,
+)
 from .registration.residuals import CandSet
 
 
@@ -50,6 +57,38 @@ def any_map(m, device="cpu") -> BlockMap | GridMap:
 
 def window_state(s, device="cpu") -> WindowMapState:
     return _fields(WindowMapState, s, device, {"m": any_map})
+
+
+def p2plane_window_state(s, device="cpu") -> P2PlaneWindowState:
+    return _fields(P2PlaneWindowState, s, device, {"w": window_state})
+
+
+def p2plane_ivox_state(s, device="cpu") -> P2PlaneIvoxState:
+    return _fields(P2PlaneIvoxState, s, device, {"m": any_map})
+
+
+def loam_full_state(s, device="cpu") -> LoamFullState:
+    return _fields(LoamFullState, s, device, {"corner": window_state, "planar": window_state})
+
+
+def matcher_state(s, device="cpu"):
+    """Any matcher state of the port's modes, told apart by its fields."""
+    if hasattr(s, "corner"):
+        return loam_full_state(s, device)
+    if hasattr(s, "w"):
+        return p2plane_window_state(s, device)
+    if hasattr(s, "window_pts"):
+        return window_state(s, device)
+    return p2plane_ivox_state(s, device)
+
+
+def cloud(c, device="cpu") -> Cloud:
+    """A (points, mask) cloud, such as a LOAM feature cloud."""
+    return _fields(Cloud, c, device)
+
+
+def ordered_scan(s, device="cpu") -> OrderedScan:
+    return _fields(OrderedScan, s, device)
 
 
 def nav_state(n, device="cpu") -> NavState:

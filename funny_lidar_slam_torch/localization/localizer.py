@@ -71,6 +71,10 @@ class Localizer:
     pass device='cpu' for the CPU)."""
 
     def __init__(self, cfg: LocalizationConfig, device=None):
+        if cfg.registration_mode != "IcpOptimized":
+            raise NotImplementedError(
+                f"localization over {cfg.registration_mode!r} is not ported yet: the port "
+                "localizes with IcpOptimized only")
         self.cfg = cfg
         mcfg = cfg.matcher_config
         if mcfg is not None and hasattr(mcfg, "_replace"):

@@ -187,6 +187,26 @@ def _group_block_major(points, mask, inv_voxel_size) -> _BlockGroups:
     )
 
 
+def _center_policy(g, rows, fresh_pt, pt_ok, base_cnt, inv_voxel_size, plane: int, s: int):
+    """The iVox rule of `insert` (block and grid maps): keep a point only if
+    its voxel is fresh or it is closer to the voxel center than every point
+    its bucket holds (`rows`, the point's slot row after the fresh-slot
+    wipe). Returns (pt_ok, pos), the survivors re-ranked within each voxel
+    run (an exclusive prefix sum re-based at each voxel start)."""
+    centers = (g.sorted_coords.to(g.sorted_pts.dtype) + 0.5) / inv_voxel_size
+    d_new = torch.linalg.vector_norm(g.sorted_pts - centers, dim=-1)
+    local = g.local.to(torch.int64)
+    own = (torch.arange(plane, device=rows.device)[None, :] // s) == local[:, None]
+    d_old2 = sum((rows[:, a * plane:(a + 1) * plane] - centers[:, a:a + 1]) ** 2
+                 for a in range(3))
+    d_old2 = torch.where(own, d_old2, float("inf"))
+    pt_ok = pt_ok & (fresh_pt | ~(d_old2.amin(-1) <= d_new * d_new))
+    keep = pt_ok.to(torch.int64)
+    ex = torch.cumsum(keep, 0) - keep
+    pos = base_cnt + ex - ex[g.vox_start]
+    return pt_ok & (pos < s), pos
+
+
 def insert(m: BlockMap, points: torch.Tensor, mask: torch.Tensor, inv_voxel_size,
            num_probes: int = 8, max_age: int = 0, center_policy: bool = False,
            claim_rounds: int = 3) -> BlockMap:
@@ -268,23 +288,9 @@ def insert(m: BlockMap, points: torch.Tensor, mask: torch.Tensor, inv_voxel_size
     pt_ok = g.sorted_mask & (pt_slot >= 0) & (pos < s)
 
     if center_policy:
-        # keep a point only if its voxel is fresh or it is closer to the
-        # voxel center than the bucket's current best
-        centers = (g.sorted_coords.to(points.dtype) + 0.5) / inv_voxel_size
-        d_new = torch.linalg.vector_norm(g.sorted_pts - centers, dim=-1)
         rows = tab[torch.where(pt_slot >= 0, pt_slot, cb)]  # [n, row_w]
-        own = (torch.arange(plane, device=dev)[None, :] // s) == local[:, None]
-        d_old2 = sum((rows[:, a * plane:(a + 1) * plane] - centers[:, a:a + 1]) ** 2
-                     for a in range(3))
-        d_old2 = torch.where(own, d_old2, float("inf"))
-        closer_exists = d_old2.amin(-1) <= d_new * d_new
-        pt_ok = pt_ok & (fresh[g.blk_id] | ~closer_exists)
-        # survivor rank within the voxel run (exclusive prefix sum re-based
-        # at each voxel start)
-        keep = pt_ok.to(torch.int64)
-        ex = torch.cumsum(keep, 0) - keep
-        pos = base_cnt + ex - ex[g.vox_start]
-        pt_ok = pt_ok & (pos < s)
+        pt_ok, pos = _center_policy(g, rows, fresh[g.blk_id], pt_ok, base_cnt,
+                                    inv_voxel_size, plane, s)
 
     # scatter the three coordinate planes in one flat scatter; dropped
     # points go to the spare element past the table

@@ -24,7 +24,14 @@ from typing import NamedTuple
 
 import torch
 
-from .block_map import _COVER, _MISS, _group_block_major, _nonzero_padded, _with_spare_row
+from .block_map import (
+    _COVER,
+    _MISS,
+    _center_policy,
+    _group_block_major,
+    _nonzero_padded,
+    _with_spare_row,
+)
 
 _EMPTY = -(2**30)  # owner coord sentinel for unclaimed slots
 _WIPE_BOUND = 4096  # eviction wipes at most this many slots per insert
@@ -82,13 +89,14 @@ def slot_of(bc: torch.Tensor, dims: tuple) -> torch.Tensor:
 
 
 def insert(m: GridMap, points: torch.Tensor, mask: torch.Tensor, inv_voxel_size,
-           max_age: int = 0) -> GridMap:
+           max_age: int = 0, center_policy: bool = False) -> GridMap:
     """Scatter-insert a padded point batch. The slot of each block is modulo
     arithmetic; a slot owned by a DIFFERENT block coord is re-claimed by the
     newest writer (counts reset, stale rows wiped). `max_age > 0`: slots
     untouched for more than max_age epochs are evicted and their rows wiped,
     at most `_WIPE_BOUND` slots per insert (the rest stay expired and are
-    wiped by later inserts)."""
+    wiped by later inserts). `center_policy`: the iVox rule, which drops a
+    point whose voxel already holds a point closer to the voxel center."""
     n = points.shape[0]
     dims = m.dims
     s_cap = m.num_slots
@@ -136,17 +144,23 @@ def insert(m: GridMap, points: torch.Tensor, mask: torch.Tensor, inv_voxel_size,
 
     # per-point slot + in-bucket position
     pt_slot = rep_slot[g.blk_id]
-    pos = counts_base[pt_slot, g.local.to(torch.int64)].to(torch.int64) + g.vox_rank
+    local = g.local.to(torch.int64)
+    base_cnt = counts_base[pt_slot, local].to(torch.int64)
+    pos = base_cnt + g.vox_rank
     pt_ok = g.sorted_mask & (pos < s)
 
-    lane0 = g.local.to(torch.int64) * s + pos
+    if center_policy:
+        pt_ok, pos = _center_policy(g, tab[pt_slot], fresh[g.blk_id], pt_ok, base_cnt,
+                                    inv_voxel_size, plane, s)
+
+    lane0 = local * s + pos
     base_idx = pt_slot * row_w + lane0
     drop = torch.full_like(base_idx, (s_cap + 1) * row_w)
     idx3 = torch.cat([torch.where(pt_ok, base_idx + k * plane, drop) for k in range(3)])
     val3 = torch.cat([g.sorted_pts[:, k] for k in range(3)])
     tab_flat[idx3] = val3
 
-    seg = torch.where(pt_ok, pt_slot * 8 + g.local.to(torch.int64),
+    seg = torch.where(pt_ok, pt_slot * 8 + local,
                       torch.full_like(pt_slot, s_cap * 8))
     ins = torch.zeros(s_cap * 8 + 1, dtype=torch.int32, device=dev)
     ins.index_add_(0, seg, pt_ok.to(torch.int32))

@@ -1,5 +1,6 @@
-"""Closed-form small-matrix linear algebra (port of ops/lin3.py, the subset
-the mapping path uses)."""
+"""Closed-form batched small-matrix linear algebra (port of ops/lin3.py):
+3x3 inverse, 3x3 symmetric eigenvalues and principal eigenvector, and the
+damped 6x6 solve."""
 
 from __future__ import annotations
 
@@ -31,6 +32,48 @@ def inv3(a: torch.Tensor) -> torch.Tensor:
         dim=-2,
     )
     return adj * inv_det[..., None, None]
+
+
+def _det3(a: torch.Tensor) -> torch.Tensor:
+    """Determinant of [..., 3, 3] by cofactor expansion along the first row."""
+    return (a[..., 0, 0] * (a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1])
+            - a[..., 0, 1] * (a[..., 1, 0] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 0])
+            + a[..., 0, 2] * (a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]))
+
+
+def sym3_eigvalsh(a: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of symmetric [..., 3, 3], ascending [..., 3].
+
+    Trigonometric closed form (Smith's algorithm), safe for repeated roots:
+    phi = arccos(clip(det(B) / 2)) / 3 with B the normalized deviator."""
+    q = torch.diagonal(a, dim1=-2, dim2=-1).sum(-1) / 3.0
+    d = a - q[..., None, None] * torch.eye(3, dtype=a.dtype, device=a.device)
+    p2 = torch.sum(d * d, dim=(-2, -1))
+    p = torch.sqrt(torch.clamp(p2 / 6.0, min=0.0))
+    b = d / torch.clamp(p, min=1e-30)[..., None, None]
+    r = torch.clamp(_det3(b) / 2.0, -1.0, 1.0)
+    phi = torch.arccos(r) / 3.0
+    two_pi_3 = 2.0943951023931953
+    lam0 = q + 2.0 * p * torch.cos(phi)  # largest
+    lam2 = q + 2.0 * p * torch.cos(phi + two_pi_3)  # smallest
+    lam1 = 3.0 * q - lam0 - lam2
+    lams = torch.stack([lam2, lam1, lam0], dim=-1)
+    return torch.where((p2 < 1e-30)[..., None], q[..., None].expand_as(lams), lams)
+
+
+def sym3_principal_eigvec(a: torch.Tensor, iters: int = 12) -> torch.Tensor:
+    """Unit eigenvector of the largest eigenvalue of symmetric [..., 3, 3].
+
+    Shifted power iteration: the Gershgorin shift makes the target
+    eigenvalue dominant for indefinite inputs, and the fixed start vector
+    (1, 1, 1)/sqrt(3) fixes the sign as the JAX package's."""
+    shift = torch.sum(torch.abs(a), dim=-1).amax(-1)  # max row sum
+    m = a + shift[..., None, None] * torch.eye(3, dtype=a.dtype, device=a.device)
+    v = torch.full(a.shape[:-1], 0.577350269, dtype=a.dtype, device=a.device)
+    for _ in range(iters):
+        v = torch.einsum("...ij,...j->...i", m, v)
+        v = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-30)
+    return v
 
 
 def solve6_damped(h: torch.Tensor, g: torch.Tensor, damping: float = 1e-6) -> torch.Tensor:

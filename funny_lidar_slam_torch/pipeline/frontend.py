@@ -5,9 +5,11 @@ tight or loose fusion. The host streams one packed frame buffer in
 (`step_packed`) and drains one packed result row out (`StepResult.packed`).
 
 Fusion methods ported: TightCouplingOptimization and LooseCoupling. The
-localization mode starts from a given pose (`init_from_pose`). The
-error-state KF (TightCouplingKF) and LOAM feature processing
-(`lidar_geometry`) are later slices.
+localization mode starts from a given pose (`init_from_pose`). With
+`lidar_geometry` set, each deskewed scan is projected onto the range image
+and split into LOAM corner and planar clouds (`_process`) before matching;
+the rings are synthesized from the elevation on the device. The error-state
+KF (TightCouplingKF) is a later slice.
 """
 
 from __future__ import annotations
@@ -26,6 +28,10 @@ from ..fusion import loose
 from ..fusion.tight import TightFusionConfig, fuse as tight_fuse
 from ..imu.preintegration import PreintParams, predict, preintegrate
 from ..lidar.deskew import deskew
+from ..loam.features import FeatureConfig, extract_features
+from ..loam.projection import LidarGeometry, project, synth_rings
+from ..ops.voxel import voxel_downsample
+from ..registration.matchers import LoamFullMatcher
 
 FUSION_LOOSE = "LooseCoupling"
 FUSION_TIGHT_OPT = "TightCouplingOptimization"
@@ -53,7 +59,9 @@ class StepResult(NamedTuple):
     # [pose(16), delta(16), converged, num_valid, iters, fitness] as one f32
     # vector, so the host retires a frame with one device->host copy
     packed: torch.Tensor  # [36]
-    corner: Any = None  # LOAM feature clouds: later slice
+    # LOAM-geometry modes: the extracted feature clouds (body frame), which
+    # keyframes keep; None without lidar_geometry
+    corner: Any = None  # Cloud | None
     planar: Any = None
 
 
@@ -67,7 +75,11 @@ class FrontendConfig:
     integration_noise_cov: float = 1.0e-8
     fusion: TightFusionConfig = TightFusionConfig()
     init_info_diag: Any = None
-    lidar_geometry: Any = None  # LOAM feature processing: later slice
+    # LOAM feature processing: when the geometry is set, scans are projected
+    # and feature-extracted before matching
+    lidar_geometry: LidarGeometry | None = None
+    feature: FeatureConfig = FeatureConfig()
+    planar_voxel_filter_size: float = 0.5
 
 
 def initial_nav_state(segment_quat_last, dtype=torch.float32) -> NavState:
@@ -91,15 +103,13 @@ def _where_nav(cond, a: NavState, b: NavState) -> NavState:
 
 
 class Frontend:
-    """The per-scan step around an `IcpMatcher`; runs on the matcher's device."""
+    """The per-scan step around a matcher (`IcpMatcher`, `PointToPlaneMatcher`
+    or `LoamFullMatcher`); runs on the matcher's device."""
 
     def __init__(self, matcher, cfg: FrontendConfig, dtype=torch.float32):
         if cfg.fusion_method == FUSION_TIGHT_KF:
             raise NotImplementedError(
                 "TightCouplingKF (fusion/eskf.py) is not ported yet: it is a later slice")
-        if cfg.lidar_geometry is not None:
-            raise NotImplementedError(
-                "lidar_geometry (LOAM features) is not ported yet: it is a later slice")
         self.matcher = matcher
         self.cfg = cfg
         self.dtype = dtype
@@ -111,11 +121,12 @@ class Frontend:
                       else torch.as_tensor(cfg.t_lidar_to_imu, dtype=dtype, device=self.device))
 
     # -- first frame: init odometer + seed map --
-    def _init_impl(self, mstate, points, rel_times, mask, ref_time, segment: ImuSegment):
+    def _init_impl(self, mstate, points, rel_times, mask, ref_time, segment: ImuSegment,
+                   ring):
         n_seg = segment.mask.sum()
         nav = initial_nav_state(segment.quat[torch.clamp(n_seg - 1, min=0)], self.dtype)
         pts, msk = deskew(points, rel_times, mask, ref_time, segment, self.t_l2i)
-        mstate = self.matcher.add_first(mstate, Cloud(pts, msk), nav.pose)
+        mstate = self._matcher_add_first(mstate, Cloud(pts, msk), nav.pose, ring, rel_times)
         fstate = FrontendState(
             nav=nav._replace(t=ref_time.to(self.dtype)),
             last_pose=nav.pose,
@@ -125,7 +136,7 @@ class Frontend:
         return mstate, fstate, (pts, msk)
 
     def _step_impl(self, mstate, fstate: FrontendState, points, rel_times, mask,
-                   ref_time, deskew_segment: ImuSegment, preint_segment: ImuSegment):
+                   ref_time, deskew_segment: ImuSegment, preint_segment: ImuSegment, ring):
         cfg = self.cfg
         dtype = self.dtype
         gravity = torch.as_tensor(cfg.gravity, dtype=dtype, device=self.device)
@@ -148,7 +159,8 @@ class Frontend:
         else:
             raise NotImplementedError(cfg.fusion_method)
 
-        mstate, res, _ = self._matcher_match(mstate, Cloud(pts, msk), pred.pose)
+        mstate, res, feats = self._matcher_match(mstate, Cloud(pts, msk), pred.pose, ring,
+                                                 rel_times)
 
         if cfg.fusion_method == FUSION_TIGHT_OPT:
             fused = tight_fuse(nav, pre, res.t_mat, pred._replace(t=ref_t), gravity,
@@ -171,19 +183,49 @@ class Frontend:
         ])
         out = StepResult(pose=curr_pose, delta_pose=delta, converged=res.converged,
                          num_valid=res.num_valid, iters=res.iters, fitness=res.total_res,
-                         points=pts, mask=msk, packed=packed)
+                         points=pts, mask=msk, packed=packed,
+                         corner=feats[0] if feats else None,
+                         planar=feats[1] if feats else None)
         return mstate, new_fstate, out
 
+    def _process(self, cloud: Cloud, ring, rel_times):
+        """LOAM feature branch: project the deskewed cloud and split it into
+        (planar, corner) clouds; the planar cloud is voxel-filtered."""
+        cfg = self.cfg
+        scan = project(cloud.points, ring, rel_times, cloud.mask, cfg.lidar_geometry)
+        corner, planar = extract_features(scan, cfg.feature)
+        planar = voxel_downsample(planar.points, planar.mask, cfg.planar_voxel_filter_size,
+                                  cfg.feature.planar_capacity)
+        return Cloud(planar.points, planar.mask), corner
+
+    def _matcher_add_first(self, mstate, cloud: Cloud, pose, ring=None, rel_times=None):
+        if self.cfg.lidar_geometry is not None:
+            planar, corner = self._process(cloud, ring, rel_times)
+            if isinstance(self.matcher, LoamFullMatcher):
+                return self.matcher.add_first(mstate, corner, planar, pose)
+            return self.matcher.add_first(mstate, planar, pose)
+        return self.matcher.add_first(mstate, cloud, pose)
+
     def _matcher_match(self, mstate, cloud: Cloud, pose, ring=None, rel_times=None):
-        """Returns (mstate, GNResult, feats); feats are the LOAM feature
-        clouds, None without `lidar_geometry` (the only branch ported)."""
-        del ring, rel_times
+        """Returns (mstate, GNResult, feats): feats is the (corner, planar)
+        Cloud pair in LOAM-geometry modes, None otherwise."""
+        if self.cfg.lidar_geometry is not None:
+            planar, corner = self._process(cloud, ring, rel_times)
+            if isinstance(self.matcher, LoamFullMatcher):
+                ms, res = self.matcher.match(mstate, corner, planar, pose)
+            else:
+                ms, res = self.matcher.match(mstate, planar, pose)
+            return ms, res, (corner, planar)
         ms, res = self.matcher.match(mstate, cloud, pose)
         return ms, res, None
 
     # ------------------------------------------------------------------
     def _default_ring(self, points):
-        return torch.zeros(points.shape[0], dtype=torch.int32, device=points.device)
+        """Ring ids: synthesized from the elevation with a lidar geometry,
+        zeros otherwise."""
+        if self.cfg.lidar_geometry is None:
+            return torch.zeros(points.shape[0], dtype=torch.int32, device=points.device)
+        return synth_rings(points, self.cfg.lidar_geometry.n_rows)
 
     def init_from_pose(self, pose, ref_time) -> FrontendState:
         """Localization-mode initialization: the nav state starts at the
@@ -206,10 +248,13 @@ class Frontend:
                           accel=self._tensor(seg.accel), quat=self._tensor(seg.quat),
                           mask=self._tensor(seg.mask, torch.bool))
 
-    def init_frame(self, mstate, scan_points, rel_times, mask, ref_time, segment):
-        return self._init_impl(mstate, self._tensor(scan_points), self._tensor(rel_times),
+    def init_frame(self, mstate, scan_points, rel_times, mask, ref_time, segment, ring=None):
+        pts = self._tensor(scan_points)
+        ring = (self._default_ring(pts) if ring is None
+                else self._tensor(ring, torch.int32))
+        return self._init_impl(mstate, pts, self._tensor(rel_times),
                                self._tensor(mask, torch.bool), self._tensor(ref_time),
-                               self.to_device_segment(segment))
+                               self.to_device_segment(segment), ring)
 
     # -- packed single-transfer feed path --------------------------------
     def packed_layout(self, scan_capacity: int, seg_capacity: int):
@@ -267,4 +312,5 @@ class Frontend:
         rel_times in the buffer are already relative to the reference time."""
         buf = torch.from_numpy(np.asarray(buf_np, np.float32)).to(self.device)
         pts, rts, mask, ref, dseg, pseg = self._unpack(buf, scan_capacity, seg_capacity)
-        return self._step_impl(mstate, fstate, pts, rts, mask, ref, dseg, pseg)
+        return self._step_impl(mstate, fstate, pts, rts, mask, ref, dseg, pseg,
+                               self._default_ring(pts))

@@ -48,11 +48,21 @@ RETIRE_DEPTH = 12
 
 
 def build_matcher(cfg: SystemConfig, device=None):
-    if cfg.registration_mode == "IcpOptimized":
-        return matchers.IcpMatcher(cfg.matcher_config or matchers.IcpConfig(), device=device)
-    raise NotImplementedError(
-        f"registration mode {cfg.registration_mode!r} is not ported yet: "
-        "the LOAM, point-to-plane and NDT matchers are later slices")
+    mode, mcfg = cfg.registration_mode, cfg.matcher_config
+    if mode == "IcpOptimized":
+        return matchers.IcpMatcher(mcfg or matchers.IcpConfig(), device=device)
+    if mode == "PointToPlane_IVOX":
+        return matchers.PointToPlaneMatcher(mcfg or matchers.PointToPlaneConfig(mode="ivox"),
+                                            device=device)
+    if mode == "PointToPlane_KdTree":
+        return matchers.PointToPlaneMatcher(
+            mcfg or matchers.PointToPlaneConfig(mode="window"), device=device)
+    if mode == "LoamFull_KdTree":
+        return matchers.LoamFullMatcher(mcfg or matchers.LoamFullConfig(), device=device)
+    if mode == "IncrementalNDT":
+        raise NotImplementedError(
+            "registration mode 'IncrementalNDT' is not ported yet: it is a later slice")
+    raise ValueError(f"unknown registration mode: {mode}")
 
 
 def pad_scan(points: np.ndarray, rel_times: np.ndarray, capacity: int):
@@ -134,8 +144,11 @@ class SlamSystem:
             self.mstate, self.fstate, out = self.frontend.step_packed(
                 self.mstate, self.fstate, buf, self.cfg.scan_capacity, cap)
             self._last_scan_end = scan_end
+            feat = None
+            if out.corner is not None:
+                feat = (out.corner.points, out.corner.mask, out.planar.points, out.planar.mask)
             return {"init": False, "t": scan_end, "t0": t0, "out": out,
-                    "dpts": out.points, "dmask": out.mask}
+                    "dpts": out.points, "dmask": out.mask, "feat": feat}
 
         # first frame (once per run): unpacked init path; deskew reference =
         # scan end, where the first frame seeds the map
@@ -186,7 +199,8 @@ class SlamSystem:
             if self._is_keyframe(self._accum_delta):
                 self._accum_delta = np.eye(4)
                 kf = KeyFrame(kf_id=len(self.keyframes), timestamp=scan_end, pose=pose,
-                              cloud_dev=(pending["dpts"], pending["dmask"]))
+                              cloud_dev=(pending["dpts"], pending["dmask"]),
+                              feat_dev=pending.get("feat"))
                 self.keyframes.add(kf)
                 self._lazy_kfs.append(kf)
                 stats["keyframe"] = True

@@ -8,10 +8,10 @@ per iteration, one small copy that waits for the iteration to finish. The
 semantics are those of the JAX loop: the trust-region re-gather skip,
 `force_gather`, the exact/stall rules, and `iters` counting gathers.
 
-Update convention (point-to-point ICP, the one matcher of this slice):
-  dx = [t, r]; P += dt; R := R Exp(dr)
-The JAX package's LOAM and NDT conventions (its `GNConfig.update`) come
-with those matchers.
+Update conventions (`GNConfig.update`, matching the reference):
+  UPDATE_ICP:  dx = [t, r]; P += dt; R := R Exp(dr)
+  UPDATE_LOAM: dx = [r, t]; R := Exp(dr) R; P += dt
+  UPDATE_NDT:  dx = [r, t]; R := R Exp(dr); P += dt
 """
 
 from __future__ import annotations
@@ -25,13 +25,18 @@ from ..core.lie import so3_exp
 from ..ops.lin3 import solve6_damped
 from .residuals import HG
 
+UPDATE_ICP = "icp"
+UPDATE_LOAM = "loam"
+UPDATE_NDT = "ndt"
+
 
 class GNConfig(NamedTuple):
     max_iters: int = 30
     rotation_eps: float = 0.05
     position_eps: float = 0.01
     stall_eps: float = 1.0e-4
-    use_stall_check: bool = True
+    update: str = UPDATE_LOAM
+    use_stall_check: bool = True  # the LOAM matchers only, in the reference
     # convergence requires at least this many valid correspondences
     min_valid: int = 10
     # correspondence-cache schedule: the gather runs every `corr_every`
@@ -53,11 +58,27 @@ class GNResult(NamedTuple):
     total_res: torch.Tensor  # [] residual sum at last iteration
 
 
-def apply_update(t_mat: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+def apply_update(t_mat: torch.Tensor, dx: torch.Tensor, update: str) -> torch.Tensor:
     out = t_mat.clone()
-    out[:3, 3] += dx[:3]
-    out[:3, :3] = t_mat[:3, :3] @ so3_exp(dx[3:])
+    if update == UPDATE_ICP:
+        out[:3, 3] += dx[:3]
+        out[:3, :3] = t_mat[:3, :3] @ so3_exp(dx[3:])
+    elif update == UPDATE_LOAM:
+        out[:3, :3] = so3_exp(dx[:3]) @ t_mat[:3, :3]
+        out[:3, 3] += dx[3:]
+    elif update == UPDATE_NDT:
+        out[:3, :3] = t_mat[:3, :3] @ so3_exp(dx[:3])
+        out[:3, 3] += dx[3:]
+    else:
+        raise ValueError(update)
     return out
+
+
+def _dx_split(dx: torch.Tensor, update: str):
+    """(rotation, position) parts of an update."""
+    if update == UPDATE_ICP:
+        return dx[3:], dx[:3]
+    return dx[:3], dx[3:]
 
 
 def _moved(t_mat, t_gather, radius, dist) -> torch.Tensor:
@@ -106,8 +127,9 @@ def run_gn_corr(
             t_gather = t_mat
         hg = hg_fn(t_mat, corr)
         dx = solve6_damped(hg.h, hg.g)
-        t_mat = apply_update(t_mat, dx)
-        rn, pn = torch.linalg.vector_norm(dx[3:]), torch.linalg.vector_norm(dx[:3])
+        t_mat = apply_update(t_mat, dx, cfg.update)
+        rot, pos = _dx_split(dx, cfg.update)
+        rn, pn = torch.linalg.vector_norm(rot), torch.linalg.vector_norm(pos)
         enough = hg.num_valid >= cfg.min_valid
         conv = (rn < cfg.rotation_eps) & (pn < cfg.position_eps) & enough
         # linearizations that are fresh OR still inside the trust region

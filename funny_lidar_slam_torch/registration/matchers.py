@@ -1,17 +1,22 @@
-"""Scan-to-map matchers (port of the IcpOptimized part of
-registration/matchers.py).
+"""Scan-to-map matchers (port of registration/matchers.py).
 
-`IcpMatcher` is point-to-point ICP over either map layout: the hashed block
-map (`maps/block_map.py`, the `IcpConfig` default) or the dense grid
-(`maps/grid_map.py`). Two window policies keep the local map:
-  * incremental (`incremental_map=True`): each converged scan that passes
-    the insertion gate is voxel-filtered and inserted with
+  mode string          matcher
+  -----------          -------
+  IcpOptimized         IcpMatcher (point-to-point)
+  PointToPlane_KdTree  PointToPlaneMatcher, window mode
+  PointToPlane_IVOX    PointToPlaneMatcher, ivox mode
+  LoamFull_KdTree      LoamFullMatcher (corner lines + planar planes)
+
+Map policies, over the hashed block map (`maps/block_map.py`, the default)
+or the dense grid (`maps/grid_map.py`):
+  * window, incremental (`incremental_map=True`): each converged scan that
+    passes the insertion gate is voxel-filtered and inserted with
     `max_age = local_map_size` epoch eviction;
-  * rebuild: a ring buffer of the last W inserted clouds, merged, voxel
-    filtered and rebuilt into a fresh block map on every insertion.
+  * window, rebuild: a ring buffer of the last W inserted clouds, merged,
+    voxel filtered and rebuilt into a fresh block map on every insertion;
+  * ivox: every converged scan is inserted with the closer-to-center rule.
 Localization mode freezes the map (`set_map` replaces it wholesale) and
-adds `fitness`. The LOAM, point-to-plane and NDT matchers are later slices
-of the port.
+adds `fitness`. The NDT matcher is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -25,8 +30,15 @@ from ..core.device import resolve_device
 from ..core.lie import rotation_to_rpy
 from ..maps import block_map, grid_map
 from ..ops.voxel import voxel_downsample
-from .gn import GNConfig, GNResult, run_gn_corr
-from .residuals import fitness_score, gather_candidates, point_to_point_hg_cand
+from .gn import UPDATE_ICP, UPDATE_LOAM, GNConfig, GNResult, run_gn_corr
+from .residuals import (
+    fitness_score,
+    gather_candidates,
+    merge_hg,
+    point_to_line_hg_cand,
+    point_to_plane_hg_cand,
+    point_to_point_hg_cand,
+)
 
 
 def _source_radius(points, mask):
@@ -146,11 +158,20 @@ class IcpConfig(NamedTuple):
     grid_dims: tuple = (96, 96, 24)
 
 
-class IcpMatcher:
-    """Point-to-point ICP over a sliding-window block or grid map. Runs on
-    `device` (default: CUDA; pass device='cpu' for the CPU)."""
+def _window_size(c) -> int:
+    """window_add's window: the incremental policy's eviction age, or 0 for
+    the rebuild policy."""
+    return c.local_map_size if c.incremental_map else 0
 
-    def __init__(self, cfg: IcpConfig, dtype=torch.float32, device=None):
+
+class _Matcher:
+    """A matcher's config, dtype, device and GN settings. Runs on `device`
+    (default: CUDA; pass device='cpu' for the CPU)."""
+
+    update = UPDATE_LOAM  # the GN update convention
+    use_stall_check = True  # the reference's LOAM matchers only
+
+    def __init__(self, cfg, dtype=torch.float32, device=None):
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -158,15 +179,22 @@ class IcpMatcher:
             max_iters=cfg.max_iterations,
             rotation_eps=cfg.rotation_converge_thresh,
             position_eps=cfg.position_converge_thresh,
-            use_stall_check=False,
+            update=self.update,
+            use_stall_check=self.use_stall_check,
             corr_every=cfg.corr_every,
             skip_regather_dist=cfg.regather_skip_dist,
             regather_radius=cfg.regather_radius,
         )
 
-    def _window_size(self) -> int:
-        c = self.cfg
-        return c.local_map_size if c.incremental_map else 0
+    def _as_pose(self, t_mat) -> torch.Tensor:
+        return torch.as_tensor(t_mat, dtype=self.dtype, device=self.device)
+
+
+class IcpMatcher(_Matcher):
+    """Point-to-point ICP over a sliding-window block or grid map."""
+
+    update = UPDATE_ICP
+    use_stall_check = False
 
     def create_state(self) -> WindowMapState:
         c = self.cfg
@@ -179,9 +207,6 @@ class IcpMatcher:
         c = self.cfg
         return voxel_downsample(cloud.points, cloud.mask, c.source_filter_size,
                                 c.source_capacity)
-
-    def _as_pose(self, t_mat) -> torch.Tensor:
-        return torch.as_tensor(t_mat, dtype=self.dtype, device=self.device)
 
     def match(self, s: WindowMapState, cloud: Cloud, t_init) -> tuple[WindowMapState, GNResult]:
         t_init = self._as_pose(t_init)
@@ -206,7 +231,7 @@ class IcpMatcher:
         if bool(do_add):
             world = transform_cloud(res.t_mat, Cloud(src.points, src.mask))
             s = window_add(s, world, res.t_mat, c.map_filter_size, inv,
-                           c.merged_capacity, c.num_probes, window_size=self._window_size())
+                           c.merged_capacity, c.num_probes, window_size=_window_size(self.cfg))
         return s, res
 
     def add_first(self, s: WindowMapState, cloud: Cloud, t_mat) -> WindowMapState:
@@ -216,7 +241,7 @@ class IcpMatcher:
         src = self._source(cloud)
         world = transform_cloud(t_mat, Cloud(src.points, src.mask))
         return window_add(s, world, t_mat, c.map_filter_size, 1.0 / c.nn_voxel_size,
-                          c.merged_capacity, c.num_probes, window_size=self._window_size())
+                          c.merged_capacity, c.num_probes, window_size=_window_size(self.cfg))
 
     def fitness(self, s: WindowMapState, cloud: Cloud, t_mat, max_range=1.0) -> torch.Tensor:
         """Mean squared NN distance of the filtered cloud at `t_mat` against
@@ -238,3 +263,283 @@ class IcpMatcher:
             m = block_map.build(c.map_capacity, c.bucket_size, map_cloud.points,
                                 map_cloud.mask, inv, num_probes=c.num_probes)
         return s._replace(m=m)
+
+
+# ---------------------------------------------------------------------------
+# Point-to-plane (KdTree-window and iVox variants)
+# ---------------------------------------------------------------------------
+
+
+class PointToPlaneConfig(NamedTuple):
+    mode: str = "ivox"  # "window" (PointToPlane_KdTree) | "ivox" (PointToPlane_IVOX)
+    max_iterations: int = 30
+    point_to_planar_thresh: float = 0.1
+    position_converge_thresh: float = 0.01
+    rotation_converge_thresh: float = 0.05
+    rot_thresh_add_cloud: float = 0.2
+    dist_thresh_add_cloud: float = 1.0
+    local_map_size: int = 30  # window mode only
+    map_filter_size: float = 0.5  # window mode only
+    min_valid_planar: int = 50
+    ivox_voxel_size: float = 0.5
+    ivox_max_age: int = 0  # 0 = no eviction
+    stencil: str = "nearby18"
+    num_probes: int = 8
+    max_search_dist: float = 5.0
+    source_capacity: int = 16384
+    cloud_capacity: int = 16384
+    merged_capacity: int = 131072
+    map_capacity: int = 262144
+    bucket_size: int = 8
+    is_localization_mode: bool = False
+    corr_every: int = 10  # candidate-cache GN schedule (see IcpConfig)
+    cand_k: int = 16
+    # grouped stencil gather (0 = one group capacity of N)
+    group_capacity: int = 0
+    incremental_map: bool = True  # window mode: see window_add
+    regather_skip_dist: float = 0.1  # trust-region skip (see IcpConfig)
+    regather_radius: float = 20.0
+    # "block" (hashed) or "grid" (dense, ivox mode only; dims are BLOCKS of
+    # 2x2x2 voxels, so at the 0.5 m ivox voxel the extent is dims * 1 m)
+    map_layout: str = "block"
+    grid_dims: tuple = (192, 192, 32)
+
+
+class P2PlaneWindowState(NamedTuple):
+    w: WindowMapState
+
+
+class P2PlaneIvoxState(NamedTuple):
+    m: block_map.BlockMap | grid_map.GridMap
+    last_added: torch.Tensor
+
+
+class PointToPlaneMatcher(_Matcher):
+    """LOAM point-to-plane over a planar-feature map.
+
+    window mode: the map is the merged window of inserted clouds, gated by
+    the insertion rule. ivox mode: incremental center-policy insertion of
+    EVERY converged scan (the reference's ivox matcher has no gate)."""
+
+    def __init__(self, cfg: PointToPlaneConfig, dtype=torch.float32, device=None):
+        super().__init__(cfg, dtype, device)
+        self.inv = 1.0 / cfg.ivox_voxel_size
+
+    def create_state(self):
+        c = self.cfg
+        if c.mode == "window":
+            return P2PlaneWindowState(window_create(
+                c.local_map_size, c.cloud_capacity, c.map_capacity, c.bucket_size,
+                self.dtype, incremental=c.incremental_map, device=self.device))
+        if c.map_layout == "grid":
+            m = grid_map.create(tuple(c.grid_dims), c.bucket_size, self.dtype, self.device)
+        else:
+            m = block_map.create(c.map_capacity, c.bucket_size, self.dtype, self.device)
+        return P2PlaneIvoxState(m=m, last_added=torch.eye(4, dtype=self.dtype,
+                                                          device=self.device))
+
+    def _map(self, s):
+        return s.w.m if isinstance(s, P2PlaneWindowState) else s.m
+
+    def _ivox_insert(self, m, world: Cloud, claim_rounds: int = 3):
+        c = self.cfg
+        if isinstance(m, grid_map.GridMap):
+            return grid_map.insert(m, world.points, world.mask, self.inv,
+                                   max_age=c.ivox_max_age, center_policy=True)
+        return block_map.insert(m, world.points, world.mask, self.inv,
+                                num_probes=c.num_probes, max_age=c.ivox_max_age,
+                                center_policy=True, claim_rounds=claim_rounds)
+
+    def match(self, s, planar: Cloud, t_init) -> tuple[object, GNResult]:
+        t_init = self._as_pose(t_init)
+        c = self.cfg
+        m = self._map(s)
+        gc = c.group_capacity or None
+
+        def corr_fn(t_mat):
+            return gather_candidates(t_mat, planar.points, planar.mask, m, self.inv,
+                                     c.cand_k, c.stencil, c.num_probes, group_capacity=gc)
+
+        def hg_fn(t_mat, cand):
+            return point_to_plane_hg_cand(t_mat, cand, c.point_to_planar_thresh,
+                                          c.max_search_dist**2)
+
+        res = run_gn_corr(corr_fn, hg_fn, t_init, self.gn_cfg,
+                          regather_radius=_source_radius(planar.points, planar.mask))
+        # convergence requires enough valid planar matches
+        ok = res.num_valid >= c.min_valid_planar
+        res = res._replace(converged=ok)
+        if c.is_localization_mode:
+            return s, res
+
+        if isinstance(s, P2PlaneWindowState):
+            do_add = ok & need_add_cloud(res.t_mat, s.w.last_added, c.dist_thresh_add_cloud,
+                                         c.rot_thresh_add_cloud)
+            if bool(do_add):
+                s = P2PlaneWindowState(window_add(
+                    s.w, transform_cloud(res.t_mat, planar), res.t_mat, c.map_filter_size,
+                    self.inv, c.merged_capacity, c.num_probes,
+                    window_size=_window_size(self.cfg)))
+            return s, res
+        # ivox: insert every converged scan; two claim rounds (per-scan
+        # frontier contention is small, and this matcher inserts every frame)
+        if bool(ok):
+            s = P2PlaneIvoxState(self._ivox_insert(s.m, transform_cloud(res.t_mat, planar),
+                                                   claim_rounds=2), res.t_mat)
+        return s, res
+
+    def add_first(self, s, planar: Cloud, t_mat):
+        t_mat = self._as_pose(t_mat)
+        c = self.cfg
+        world = transform_cloud(t_mat, planar)
+        if isinstance(s, P2PlaneWindowState):
+            return P2PlaneWindowState(window_add(
+                s.w, world, t_mat, c.map_filter_size, self.inv, c.merged_capacity,
+                c.num_probes, window_size=_window_size(self.cfg)))
+        return P2PlaneIvoxState(self._ivox_insert(s.m, world), t_mat)
+
+    def fitness(self, s, planar: Cloud, t_mat, max_range=1.0) -> torch.Tensor:
+        return fitness_score(self._as_pose(t_mat), planar.points, planar.mask, self._map(s),
+                             self.inv, max_range**2, self.cfg.stencil, self.cfg.num_probes)
+
+    def set_map(self, s, map_cloud: Cloud):
+        """Replace the map wholesale (localization mode)."""
+        c = self.cfg
+        if isinstance(s, P2PlaneWindowState):
+            m = block_map.build(c.map_capacity, c.bucket_size, map_cloud.points,
+                                map_cloud.mask, self.inv, num_probes=c.num_probes)
+            return P2PlaneWindowState(s.w._replace(m=m))
+        if c.map_layout == "grid":
+            fresh = grid_map.create(tuple(c.grid_dims), c.bucket_size, self.dtype,
+                                    map_cloud.points.device)
+            m = grid_map.insert(fresh, map_cloud.points, map_cloud.mask, self.inv,
+                                center_policy=True)
+        else:
+            fresh = block_map.create(c.map_capacity, c.bucket_size, self.dtype,
+                                     map_cloud.points.device)
+            m = block_map.insert(fresh, map_cloud.points, map_cloud.mask, self.inv,
+                                 num_probes=c.num_probes, max_age=0, center_policy=True)
+        return P2PlaneIvoxState(m, s.last_added)
+
+
+# ---------------------------------------------------------------------------
+# Full LOAM: corner (line) + planar (plane) maps
+# ---------------------------------------------------------------------------
+
+
+class LoamFullConfig(NamedTuple):
+    max_iterations: int = 30
+    point_to_planar_thresh: float = 0.1
+    point_search_thresh: float = 1.0  # 5th-NN gate (applied squared)
+    line_ratio_thresh: float = 3.0
+    position_converge_thresh: float = 0.01
+    rotation_converge_thresh: float = 0.05
+    rot_thresh_add_cloud: float = 0.2
+    dist_thresh_add_cloud: float = 1.0
+    corner_map_size: int = 30
+    planar_map_size: int = 30
+    corner_filter_size: float = 0.2
+    planar_filter_size: float = 0.4
+    min_valid_planar: int = 50
+    nn_voxel_size: float = 1.0
+    stencil: str = "nearby26"
+    num_probes: int = 8
+    corner_capacity: int = 4096
+    planar_capacity: int = 16384
+    merged_capacity: int = 131072
+    map_capacity: int = 65536
+    bucket_size: int = 8
+    is_localization_mode: bool = False
+    corr_every: int = 8  # candidate-cache GN schedule (see IcpConfig)
+    cand_k: int = 16
+    group_capacity: int = 8192  # grouped stencil gather (0 = N)
+    incremental_map: bool = True  # see window_add
+    regather_skip_dist: float = 0.1  # trust-region skip (see IcpConfig)
+    regather_radius: float = 20.0
+
+
+class LoamFullState(NamedTuple):
+    corner: WindowMapState
+    planar: WindowMapState
+
+
+class LoamFullMatcher(_Matcher):
+    """Full LOAM: point-to-line on the corner map plus point-to-plane on the
+    planar map, one GN over the summed normal equations."""
+
+    def __init__(self, cfg: LoamFullConfig, dtype=torch.float32, device=None):
+        super().__init__(cfg, dtype, device)
+        self.inv = 1.0 / cfg.nn_voxel_size
+
+    def create_state(self) -> LoamFullState:
+        c = self.cfg
+        inc = c.incremental_map
+        return LoamFullState(
+            corner=window_create(c.corner_map_size, c.corner_capacity, c.map_capacity,
+                                 c.bucket_size, self.dtype, incremental=inc,
+                                 device=self.device),
+            planar=window_create(c.planar_map_size, c.planar_capacity, c.map_capacity,
+                                 c.bucket_size, self.dtype, incremental=inc,
+                                 device=self.device),
+        )
+
+    def _add(self, s: LoamFullState, corner: Cloud, planar: Cloud, t_mat) -> LoamFullState:
+        c = self.cfg
+        wc = c.corner_map_size if c.incremental_map else 0
+        wp = c.planar_map_size if c.incremental_map else 0
+        return LoamFullState(
+            corner=window_add(s.corner, transform_cloud(t_mat, corner), t_mat,
+                              c.corner_filter_size, self.inv, c.merged_capacity,
+                              c.num_probes, window_size=wc),
+            planar=window_add(s.planar, transform_cloud(t_mat, planar), t_mat,
+                              c.planar_filter_size, self.inv, c.merged_capacity,
+                              c.num_probes, window_size=wp),
+        )
+
+    def match(self, s: LoamFullState, corner: Cloud, planar: Cloud, t_init):
+        t_init = self._as_pose(t_init)
+        c = self.cfg
+        thr2 = c.point_search_thresh**2
+        gc = c.group_capacity or None
+
+        def corr_fn(t_mat):
+            return (gather_candidates(t_mat, corner.points, corner.mask, s.corner.m, self.inv,
+                                      c.cand_k, c.stencil, c.num_probes, group_capacity=gc),
+                    gather_candidates(t_mat, planar.points, planar.mask, s.planar.m, self.inv,
+                                      c.cand_k, c.stencil, c.num_probes, group_capacity=gc))
+
+        def hg_fn(t_mat, cand):
+            cc, cp = cand
+            hg_c = point_to_line_hg_cand(t_mat, cc, c.line_ratio_thresh, thr2)
+            hg_p = point_to_plane_hg_cand(t_mat, cp, c.point_to_planar_thresh, thr2)
+            # the reference's convergence gate counts PLANAR matches only, so
+            # the merged normal equations carry the planar count
+            return merge_hg(hg_c, hg_p)._replace(num_valid=hg_p.num_valid)
+
+        radius = torch.maximum(_source_radius(corner.points, corner.mask),
+                               _source_radius(planar.points, planar.mask))
+        res = run_gn_corr(corr_fn, hg_fn, t_init, self.gn_cfg, regather_radius=radius)
+        ok = res.num_valid >= c.min_valid_planar
+        res = res._replace(converged=ok)
+        if c.is_localization_mode:
+            return s, res
+        do_add = ok & need_add_cloud(res.t_mat, s.planar.last_added, c.dist_thresh_add_cloud,
+                                     c.rot_thresh_add_cloud)
+        if bool(do_add):
+            s = self._add(s, corner, planar, res.t_mat)
+        return s, res
+
+    def add_first(self, s: LoamFullState, corner: Cloud, planar: Cloud, t_mat) -> LoamFullState:
+        return self._add(s, corner, planar, self._as_pose(t_mat))
+
+    def fitness(self, s: LoamFullState, planar: Cloud, t_mat, max_range=1.0) -> torch.Tensor:
+        return fitness_score(self._as_pose(t_mat), planar.points, planar.mask, s.planar.m,
+                             self.inv, max_range**2, self.cfg.stencil, self.cfg.num_probes)
+
+    def set_map(self, s: LoamFullState, map_cloud: Cloud) -> LoamFullState:
+        """Replace both feature maps with the (unlabelled) local map cloud,
+        as localization mode feeds every matcher."""
+        c = self.cfg
+        m = block_map.build(c.map_capacity, c.bucket_size, map_cloud.points, map_cloud.mask,
+                            self.inv, num_probes=c.num_probes)
+        return LoamFullState(corner=s.corner._replace(m=m), planar=s.planar._replace(m=m))

@@ -1,15 +1,19 @@
-"""Residuals and Jacobians for scan-to-map ICP (port of the IcpOptimized
-subset of registration/residuals.py).
+"""Residuals and Jacobians for scan-to-map registration (port of
+registration/residuals.py: the point-to-point, point-to-plane and
+point-to-line families).
 
 For every padded source point at the current pose: a correspondence, a
 residual, its 6-dof Jacobian and a validity mask, reduced to 6x6 normal
-equations H and right-hand side g. Point-to-point convention (the
-reference's icp_optimized.h): dx = [t(0:3), r(3:6)], P += dt, R := R Exp(dr).
+equations H and right-hand side g. Tangent/update conventions (gn.py):
+  * point_to_point (the reference's icp_optimized.h): dx = [t(0:3), r(3:6)],
+    P += dt, R := R Exp(dr);
+  * point_to_plane / point_to_line (loam_*_kdtree.h): dx = [r(0:3), t(3:6)],
+    R := Exp(dr) R (left), P += dt.
 
 Candidate-set caching: one stencil gather (`gather_candidates`) caches the
 M nearest map points per source point; every GN iteration re-selects the
-nearest among them at the CURRENT pose (`point_to_point_hg_cand`), so the
-expensive gather runs only when the pose has moved.
+nearest among them at the CURRENT pose (`*_hg_cand`), and re-fits the plane
+or line there, so the expensive gather runs only when the pose has moved.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 from ..core.lie import so3_hat
 from ..maps import block_map
 from ..ops import select
+from ..ops.lin3 import inv3, sym3_eigvalsh, sym3_principal_eigvec
 from ..ops.voxel import group_by_voxel
 
 
@@ -31,6 +36,14 @@ class HG(NamedTuple):
     g: torch.Tensor  # [6]
     num_valid: torch.Tensor  # [] int32
     total_res: torch.Tensor  # [] summed residual magnitude
+
+
+def _reduce_scalar(j: torch.Tensor, r: torch.Tensor, valid: torch.Tensor) -> HG:
+    """Scalar residual rows: H = sum J J^T, g = -sum J r (masked)."""
+    w = valid.to(j.dtype)
+    jw = j * w[:, None]
+    return HG(jw.T @ j, -(jw.T @ r), valid.sum(dtype=torch.int32),
+              torch.sum(torch.abs(r) * w))
 
 
 def _reduce_vec3(j: torch.Tensor, r: torch.Tensor, lam: torch.Tensor,
@@ -152,6 +165,159 @@ def point_to_point_hg_corr(t_mat: torch.Tensor, src: torch.Tensor, corr: P2PCorr
     # the reference accumulates |r| (norm), not mahalanobis, for ICP stats
     w = corr.valid.to(src.dtype)
     return hg._replace(total_res=torch.sum(torch.linalg.vector_norm(err, dim=-1) * w))
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum(a * b, dim=-1)
+
+
+def fit_plane_5nn(nbrs: torch.Tensor, ok: torch.Tensor, plane_thresh):
+    """Closed-form plane fit through k neighbours, solving A x = -1 (the
+    plane n.p = -1, as the reference parameterizes it). Returns (unit
+    normal [N,3], the first neighbour [N,3], valid [N]); valid when all k
+    neighbours are ok and each residual |a_i.x + 1|/|x| <= plane_thresh.
+    A^T A is inverted in world coordinates, in the input dtype."""
+    eye = torch.eye(3, dtype=nbrs.dtype, device=nbrs.device)
+    a = nbrs * ok.to(nbrs.dtype)[..., None]  # masked rows contribute zero
+    ata = torch.einsum("nka,nkb->nab", a, a)
+    atb = -torch.sum(a, dim=1)  # A^T (-1)
+    # regularized: masked or degenerate systems must not produce NaN
+    coef = torch.einsum("nab,nb->na", inv3(ata + 1e-9 * eye), atb)
+    safe = torch.clamp(torch.linalg.vector_norm(coef, dim=-1), min=1e-12)
+    resid = torch.abs(torch.einsum("nka,na->nk", nbrs, coef) + 1.0) / safe[:, None]
+    fit_ok = torch.all(ok & (resid <= plane_thresh), dim=-1) & torch.all(ok, dim=-1)
+    return coef / safe[:, None], nbrs[:, 0], fit_ok
+
+
+class PlaneCorr(NamedTuple):
+    normal: torch.Tensor  # [N, 3] unit plane normal
+    q0: torch.Tensor  # [N, 3] plane anchor point
+    valid: torch.Tensor  # [N]
+
+
+def _plane_gates(p_t, src, nbrs, ok, plane_thresh) -> PlaneCorr:
+    """Plane fit through the neighbours, valid where the fit passes and the
+    point is not rejected as near: |src| < 81 d^2, with the body-frame
+    source point and d its transformed point's distance to the plane."""
+    normal, q0, fit_ok = fit_plane_5nn(nbrs, ok, plane_thresh)
+    d = _dot(p_t - q0, normal)
+    near_reject = torch.linalg.vector_norm(src, dim=-1) < 81.0 * d * d
+    return PlaneCorr(normal=normal, q0=q0, valid=fit_ok & ~near_reject)
+
+
+def point_to_plane_hg_cand(t_mat: torch.Tensor, cand: CandSet, plane_thresh,
+                           max_search_dist_sq) -> HG:
+    """Point-to-plane on the candidate cache: 5-NN re-selection, plane re-fit
+    and every gate at the CURRENT pose."""
+    p_t, nbrs, d2, ok = _select_knn(t_mat, cand, 5)
+    corr = _plane_gates(p_t, cand.src, nbrs, ok & (d2 <= max_search_dist_sq), plane_thresh)
+    return point_to_plane_hg_corr(t_mat, cand.src, corr)
+
+
+def point_to_plane_corr(t_mat, src, src_mask, m, inv_voxel_size, plane_thresh,
+                        max_search_dist_sq, stencil: str = "nearby26", num_probes: int = 8,
+                        group_capacity: int | None = None) -> PlaneCorr:
+    """5-NN plane fit + gates at the gather pose: the 5th-NN distance gate,
+    the plane-fit residual gate and the near-point rejection."""
+    p_t = transform_points(t_mat, src)
+    nbrs, d2, ok = query_knn_any(m, p_t, inv_voxel_size, 5, stencil, num_probes,
+                                 group_capacity)
+    corr = _plane_gates(p_t, src, nbrs, ok & (d2 <= max_search_dist_sq), plane_thresh)
+    return corr._replace(valid=src_mask & corr.valid)
+
+
+def point_to_plane_hg_corr(t_mat: torch.Tensor, src: torch.Tensor, corr: PlaneCorr) -> HG:
+    """Point-to-plane linearization: residual |d| with d = (p_t - q0).n;
+    J = [sign(d) (-hat(R p)^T n) | sign(d) n] (dx = [r, t])."""
+    p_t = transform_points(t_mat, src)
+    d = _dot(p_t - corr.q0, corr.normal)
+    sign = torch.where(d > 0, 1.0, -1.0).to(src.dtype)
+    rp = src @ t_mat[:3, :3].T  # R p, no translation
+    j_rot = -torch.einsum("nij,nj->ni", so3_hat(rp).transpose(-1, -2),
+                          corr.normal) * sign[:, None]
+    jac = torch.cat([j_rot, corr.normal * sign[:, None]], dim=-1)  # [N, 6]
+    return _reduce_scalar(jac, torch.abs(d), corr.valid)
+
+
+def point_to_plane_hg(t_mat, src, src_mask, m, inv_voxel_size, plane_thresh,
+                      max_search_dist_sq, stencil: str = "nearby26",
+                      num_probes: int = 8) -> HG:
+    """One-shot gather + linearize."""
+    corr = point_to_plane_corr(t_mat, src, src_mask, m, inv_voxel_size, plane_thresh,
+                               max_search_dist_sq, stencil, num_probes)
+    return point_to_plane_hg_corr(t_mat, src, corr)
+
+
+class LineCorr(NamedTuple):
+    center: torch.Tensor  # [N, 3] 5-NN centroid
+    n_dir: torch.Tensor  # [N, 3] line direction (principal eigenvector)
+    valid: torch.Tensor  # [N]
+
+
+def _fit_line(nbrs: torch.Tensor, ok: torch.Tensor, line_ratio_thresh):
+    """5-NN covariance line fit: (centroid, principal direction, line gate
+    lambda_2 > ratio * lambda_1)."""
+    w = ok.to(nbrs.dtype)[..., None]
+    cnt = torch.clamp(torch.sum(w, dim=1), min=1.0)
+    center = torch.sum(nbrs * w, dim=1) / cnt
+    centered = (nbrs - center[:, None, :]) * w
+    cov = torch.einsum("nka,nkb->nab", centered, centered) / 5.0
+    lams = sym3_eigvalsh(cov)
+    return center, sym3_principal_eigvec(cov), lams[:, 2] > line_ratio_thresh * lams[:, 1]
+
+
+def point_to_line_hg_cand(t_mat: torch.Tensor, cand: CandSet, line_ratio_thresh,
+                          max_search_dist_sq) -> HG:
+    """Point-to-line on the candidate cache: 5-NN re-selection and the
+    covariance line re-fit at the CURRENT pose."""
+    _, nbrs, d2, ok = _select_knn(t_mat, cand, 5)
+    all_ok = torch.all(ok & (d2 <= max_search_dist_sq), dim=-1)
+    center, n_dir, line_ok = _fit_line(nbrs, ok, line_ratio_thresh)
+    corr = LineCorr(center=center, n_dir=n_dir, valid=all_ok & line_ok)
+    return point_to_line_hg_corr(t_mat, cand.src, corr)
+
+
+def point_to_line_corr(t_mat, src, src_mask, m, inv_voxel_size, line_ratio_thresh,
+                       max_search_dist_sq, stencil: str = "nearby26", num_probes: int = 8,
+                       group_capacity: int | None = None) -> LineCorr:
+    """5-NN covariance line fit at the gather pose: the direction is the
+    principal eigenvector, valid when lambda_2 > ratio * lambda_1 (the
+    reference's singular values of the covariance equal its eigenvalues)."""
+    p_t = transform_points(t_mat, src)
+    nbrs, d2, ok = query_knn_any(m, p_t, inv_voxel_size, 5, stencil, num_probes,
+                                 group_capacity)
+    all_ok = torch.all(ok & (d2 <= max_search_dist_sq), dim=-1)
+    center, n_dir, line_ok = _fit_line(nbrs, ok, line_ratio_thresh)
+    return LineCorr(center=center, n_dir=n_dir, valid=src_mask & all_ok & line_ok)
+
+
+def point_to_line_hg_corr(t_mat: torch.Tensor, src: torch.Tensor, corr: LineCorr) -> HG:
+    """Point-to-line linearization: residual |(p_t - c) x n|;
+    J = [ (hat(n) hat(R p))^T u | -hat(n)^T u ] with u the unit residual
+    direction (dx = [r, t])."""
+    diff = transform_points(t_mat, src) - corr.center
+    cx = torch.linalg.cross(diff, corr.n_dir, dim=-1)
+    dist = torch.linalg.vector_norm(cx, dim=-1)
+    u = cx / torch.clamp(dist, min=1e-9)[:, None]
+    valid = corr.valid & (dist > 1e-9)
+    n_hat = so3_hat(corr.n_dir)
+    j_rot = torch.einsum("nji,nj->ni", n_hat @ so3_hat(src @ t_mat[:3, :3].T), u)
+    j_tr = torch.einsum("nji,nj->ni", -n_hat, u)
+    return _reduce_scalar(torch.cat([j_rot, j_tr], dim=-1), dist, valid)
+
+
+def point_to_line_hg(t_mat, src, src_mask, m, inv_voxel_size, line_ratio_thresh,
+                     max_search_dist_sq, stencil: str = "nearby26",
+                     num_probes: int = 8) -> HG:
+    """One-shot gather + linearize."""
+    corr = point_to_line_corr(t_mat, src, src_mask, m, inv_voxel_size, line_ratio_thresh,
+                              max_search_dist_sq, stencil, num_probes)
+    return point_to_line_hg_corr(t_mat, src, corr)
+
+
+def merge_hg(*hgs: HG) -> HG:
+    """Sum of several normal-equation sets (LoamFull: lines + planes)."""
+    return HG(*(sum(getattr(x, f) for x in hgs) for f in HG._fields))
 
 
 def fitness_score(t_mat: torch.Tensor, src: torch.Tensor, src_mask: torch.Tensor, m,

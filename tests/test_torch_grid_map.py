@@ -50,10 +50,12 @@ def assert_same_map(mt, mj):
         assert sets[0] == sets[1], (slot, loc)
 
 
-def both_insert(mt, mj, pts, cap, max_age=0):
+def both_insert(mt, mj, pts, cap, max_age=0, center_policy=False, inv=1.0):
     p, m = padded(pts, cap)
-    mj = jgrid.insert(mj, jnp.asarray(p), jnp.asarray(m), 1.0, max_age=max_age)
-    mt = tgrid.insert(mt, torch.as_tensor(p), torch.as_tensor(m), 1.0, max_age=max_age)
+    mj = jgrid.insert(mj, jnp.asarray(p), jnp.asarray(m), inv, max_age=max_age,
+                      center_policy=center_policy)
+    mt = tgrid.insert(mt, torch.as_tensor(p), torch.as_tensor(m), inv, max_age=max_age,
+                      center_policy=center_policy)
     return mt, mj
 
 
@@ -108,3 +110,21 @@ def test_gather_cover_matches_jax(with_far):
     wj = np.asarray(jgrid.gather_cover(mj, jnp.asarray(q)))
     wt = tgrid.gather_cover(mt, torch.as_tensor(q)).numpy()
     np.testing.assert_array_equal(wt, wj)
+
+
+@pytest.mark.parametrize("max_age", [0, 2])
+def test_center_policy_inserts_match_jax(max_age):
+    """The iVox rule (PointToPlane_IVOX's opt-in grid layout): overlapping
+    scans at the 0.5 m voxel, where a point enters an occupied voxel only if
+    it is closer to the voxel center than the voxel's points. The same
+    buckets, and some points were refused."""
+    mt, mj = tgrid.create(DIMS, 8), jgrid.create(DIMS, 8)
+    for k in range(5):
+        pts = scene(3000, 20 + k, 2.0 * k, 2.0 * k + 12.0)
+        mt, mj = both_insert(mt, mj, pts, 4096, max_age=max_age, center_policy=True, inv=2.0)
+        assert_same_map(mt, mj)
+    plain = jgrid.create(DIMS, 8)
+    for k in range(5):
+        p, m = padded(scene(3000, 20 + k, 2.0 * k, 2.0 * k + 12.0), 4096)
+        plain = jgrid.insert(plain, jnp.asarray(p), jnp.asarray(m), 2.0, max_age=max_age)
+    assert int(np.asarray(mj.counts).sum()) < int(np.asarray(plain.counts).sum())

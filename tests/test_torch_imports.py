@@ -50,5 +50,9 @@ def test_entry_points_default_to_cuda():
         matchers.IcpMatcher(cfg.matcher_config)
     with pytest.raises(RuntimeError, match="CUDA"):
         Localizer(LocalizationConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        matchers.PointToPlaneMatcher(matchers.PointToPlaneConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        matchers.LoamFullMatcher(matchers.LoamFullConfig())
     assert SlamSystem(cfg, device="cpu").device.type == "cpu"
     assert Localizer(LocalizationConfig(), device="cpu").device.type == "cpu"

@@ -61,11 +61,34 @@ def test_mapping_tight_coupling_block_ate():
 
 
 def test_unported_modes_raise():
-    """The default config now builds (the hashed block map is ported); the
-    modes of later slices still refuse to."""
+    """The default config builds (the hashed block map is ported); the modes
+    of later slices still refuse to: IncrementalNDT and TightCouplingKF."""
     assert isinstance(SlamSystem(SystemConfig(), device="cpu").mstate.m, block_map.BlockMap)
     with pytest.raises(NotImplementedError):
-        SlamSystem(SystemConfig(registration_mode="PointToPlane_IVOX"), device="cpu")
+        SlamSystem(SystemConfig(registration_mode="IncrementalNDT"), device="cpu")
     with pytest.raises(NotImplementedError):
         SlamSystem(SystemConfig(frontend=FrontendConfig(fusion_method="TightCouplingKF")),
                    device="cpu")
+
+
+LOAM_MODES = {"PointToPlane_IVOX": matchers.P2PlaneIvoxState,
+              "PointToPlane_KdTree": matchers.P2PlaneWindowState,
+              "LoamFull_KdTree": matchers.LoamFullState}
+
+
+@pytest.mark.parametrize("mode", sorted(LOAM_MODES))
+def test_loam_modes_build(mode):
+    """The three LOAM-family modes build on the CPU with their default
+    matcher configs, each with its own state type."""
+    slam = SlamSystem(SystemConfig(registration_mode=mode), device="cpu")
+    assert isinstance(slam.mstate, LOAM_MODES[mode])
+    assert slam.device.type == "cpu"
+
+
+@pytest.mark.parametrize("mode", sorted(LOAM_MODES))
+def test_localizer_refuses_loam_modes(mode):
+    """Localization keeps to IcpOptimized in the port so far."""
+    from funny_lidar_slam_torch.localization import LocalizationConfig, Localizer
+
+    with pytest.raises(NotImplementedError):
+        Localizer(LocalizationConfig(registration_mode=mode), device="cpu")
