@@ -54,10 +54,21 @@ Phases, each of which raises (non-zero exit) on failure:
      PointToPlane_IVOX, PointToPlane_KdTree and LoamFull_KdTree on the
      bench's configs (range-image projection and corner/planar features,
      TightCouplingOptimization);
+  10. IncrementalNDT mapping end to end on the bench's NDT config (2 m
+     voxel Gaussians, tight coupling): it launches no fused_select (its
+     stencil lookup is plain PyTorch, as the JAX package's is plain XLA),
+     and the phase checks that it launched none;
+  11. TightCouplingKF mapping on phase 4's grid config (ESKF predict, no
+     preintegration, ESKF pose update), then a traced second run with
+     phase 4's spans beside the KF's (deskew, ESKF predict, GN, ESKF
+     update, insert);
+  12a-d. localization over PointToPlane_IVOX, PointToPlane_KdTree,
+     LoamFull_KdTree and IncrementalNDT: phase 6's crop config with each
+     mode's bench config (the LOAM modes with the bench's lidar geometry);
 and prints the per-kernel JSON line, the card line and the result line.
-Every path (3b, 4, 5, 6, 7, 8, 9) runs with the kernel launch counts zeroed
-just before it and read just after it. Imports nothing of JAX and nothing
-of the JAX package.
+Every path (3b, 4-12) runs with the kernel launch counts zeroed just
+before it and read just after it. Imports nothing of JAX and nothing of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -762,7 +773,7 @@ def capture_first_gather(torch, ds, mode):
     call); each call is ((cand_tab, gid, qpts, k, plane), {stencil, qvox})."""
     from funny_lidar_slam_torch.ops import select
 
-    slam = loam_system(mode)
+    slam = bench_system(mode)
     orig_sel, orig_match = select.fused_select, slam.matcher.match
     first, calls, recording = {}, [], [False]
 
@@ -875,7 +886,7 @@ def phase_loam_select(torch, ds):
 def phase_loam_mapping(torch, ds, mode):
     """One LOAM-family path end to end (phases 7-9): the bench's config of
     `mode` under the mapping gates, and the keyframes' feature clouds."""
-    slam, res = mapping_run(torch, ds, mode, lambda: loam_system(mode))
+    slam, res = mapping_run(torch, ds, mode, lambda: bench_system(mode))
     kfs = slam.keyframes.frames
     with_feat = sum(1 for kf in kfs if kf.planar is not None and len(kf.planar) > 0)
     # the init frame is keyframe 0 and carries no features
@@ -895,9 +906,9 @@ def gt_pairs(ds, out):
     return np.asarray([a for a, _ in pairs]), np.asarray([b for _, b in pairs])
 
 
-def mapping_system(cap, **layout):
+def mapping_system(cap, fusion="TightCouplingOptimization", **layout):
     """The port's SlamSystem on the bench's mapping config at `cap` points."""
-    from funny_lidar_slam_torch.pipeline.frontend import FUSION_TIGHT_OPT, FrontendConfig
+    from funny_lidar_slam_torch.pipeline.frontend import FrontendConfig
     from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
     from funny_lidar_slam_torch.registration import matchers
 
@@ -906,25 +917,19 @@ def mapping_system(cap, **layout):
         matcher_config=matchers.IcpConfig(
             source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
             map_capacity=65536, local_map_size=20, **layout),
-        frontend=FrontendConfig(fusion_method=FUSION_TIGHT_OPT),
+        frontend=FrontendConfig(fusion_method=fusion),
         scan_capacity=cap, imu_segment_capacity=16))
 
 
 LOAM_MODES = ("PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree")
 
 
-def loam_system(mode, cap=16384):
-    """The port's SlamSystem on the bench's LOAM-family config of `mode`
-    (bench.py:296-324): the range-image geometry of a 16-ring, 900-column
-    lidar, the default FeatureConfig, TightCouplingOptimization."""
-    from funny_lidar_slam_torch.loam.projection import LidarGeometry
-    from funny_lidar_slam_torch.pipeline.frontend import FUSION_TIGHT_OPT, FrontendConfig
-    from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
+def bench_matcher_config(mode, cap=16384):
+    """The bench's matcher config of a LOAM-family or NDT mode
+    (bench.py:316-330) at `cap` points."""
     from funny_lidar_slam_torch.registration import matchers
 
-    geom = LidarGeometry(n_rows=16, n_cols=900, horizontal_resolution=2 * np.pi / 900,
-                         min_distance=1.5, max_distance=50.0)
-    mcfg = {
+    return {
         "PointToPlane_IVOX": lambda: matchers.PointToPlaneConfig(
             mode="ivox", source_capacity=cap, cloud_capacity=cap, map_capacity=131072),
         "PointToPlane_KdTree": lambda: matchers.PointToPlaneConfig(
@@ -933,17 +938,49 @@ def loam_system(mode, cap=16384):
         "LoamFull_KdTree": lambda: matchers.LoamFullConfig(
             corner_capacity=4096, planar_capacity=16384, merged_capacity=65536,
             map_capacity=65536),
+        "IncrementalNDT": lambda: matchers.NdtConfig(
+            voxel_size=2.0, source_filter_size=0.3, min_points_in_voxel=4,
+            min_effective_pts=50, res_outlier_thresh=30.0, source_capacity=cap,
+            map_capacity=131072),
     }[mode]()
+
+
+def bench_frontend(mode):
+    """TightCouplingOptimization; the LOAM modes add the bench's range-image
+    geometry of a 16-ring, 900-column lidar and the default FeatureConfig."""
+    from funny_lidar_slam_torch.loam.projection import LidarGeometry
+    from funny_lidar_slam_torch.pipeline.frontend import FUSION_TIGHT_OPT, FrontendConfig
+
+    geom = None
+    if mode in LOAM_MODES:
+        geom = LidarGeometry(n_rows=16, n_cols=900, horizontal_resolution=2 * np.pi / 900,
+                             min_distance=1.5, max_distance=50.0)
+    return FrontendConfig(fusion_method=FUSION_TIGHT_OPT, lidar_geometry=geom)
+
+
+def bench_system(mode, cap=16384):
+    """The port's SlamSystem on the bench's config of a LOAM-family or NDT
+    `mode` (bench.py:296-330)."""
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
+
     return SlamSystem(SystemConfig(
-        registration_mode=mode, matcher_config=mcfg,
-        frontend=FrontendConfig(fusion_method=FUSION_TIGHT_OPT, lidar_geometry=geom),
-        scan_capacity=cap, imu_segment_capacity=16))
+        registration_mode=mode, matcher_config=bench_matcher_config(mode, cap),
+        frontend=bench_frontend(mode), scan_capacity=cap, imu_segment_capacity=16))
 
 
-def mapping_run(torch, ds, tag, make, warm_scans=8):
+def check_launches(tag, launches, expect_select):
+    """fused_select launched on a path that gathers through it, and never on
+    one that does not (NDT's stencil lookup is plain PyTorch)."""
+    if expect_select:
+        assert launches > 0, f"[{tag}] the path did not launch fused_select"
+    else:
+        assert launches == 0, f"[{tag}] the path launched fused_select {launches} times"
+
+
+def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True):
     """Warm-up over a few scans, then the counted run of `make()` with the
     mapping gates: >= 40 tracked scans, finite poses, ATE < 0.10 m,
-    fused_select launched."""
+    fused_select launched (or, with `expect_select=False`, not)."""
     from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
     from funny_lidar_slam_torch.ops import select
 
@@ -964,7 +1001,7 @@ def mapping_run(torch, ds, tag, make, warm_scans=8):
     assert np.isfinite(est).all(), f"[{tag}] non-finite poses"
     ate, rpe = ate_rmse(est, gt), rpe_rmse(est, gt)
     assert ate < 0.10, f"[{tag}] ATE {ate:.4f} m"
-    assert launches > 0, f"[{tag}] the path did not launch fused_select"
+    check_launches(tag, launches, expect_select)
     steps = sum(1 for s in slam.stats if not s.get("init"))
     res = {"tracked": n_tracked, "scans": len(ds.scans), "ate_m": ate, "rpe_m": rpe,
            "steady_fps": steady_fps(slam.stats), "wall_s": wall, "steps": steps,
@@ -974,16 +1011,11 @@ def mapping_run(torch, ds, tag, make, warm_scans=8):
     return slam, res
 
 
-def phase_e2e(torch, ds):
-    from funny_lidar_slam_torch.pipeline import frontend as fe_mod
-    from funny_lidar_slam_torch.registration import matchers
-
-    _, res = mapping_run(torch, ds, "e2e", lambda: mapping_system(
-        16384, map_layout="grid", grid_dims=(96, 96, 16)))
-    launches = res["fused_select_launches"]
-
-    # per-phase spans from CUDA events, on a second (traced) run of the same
-    # scans; its wall time less the untraced one is the tracing overhead
+def traced_run(torch, ds, make, patches):
+    """A second (traced) run of `make()` over the same scans with CUDA-event
+    spans around the functions `patches` names ([(module, attribute, span)];
+    calls of one span add up). Returns ({span: device ms per scan}, wall s);
+    the wall time less the untraced run's is the tracing overhead."""
     spans: dict = {}
 
     def timed(name, fn):
@@ -996,30 +1028,76 @@ def phase_e2e(torch, ds):
             return r
         return wrapper
 
-    saved = {k: getattr(fe_mod, k) for k in ("deskew", "preintegrate", "tight_fuse")}
-    saved_m = {k: getattr(matchers, k) for k in ("run_gn_corr", "window_add")}
-    fe_mod.deskew = timed("deskew+preint", saved["deskew"])
-    fe_mod.preintegrate = timed("deskew+preint", saved["preintegrate"])
-    fe_mod.tight_fuse = timed("fusion", saved["tight_fuse"])
-    matchers.run_gn_corr = timed("gn", saved_m["run_gn_corr"])
-    matchers.window_add = timed("insert", saved_m["window_add"])
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    for (mod, attr, name), (_, _, fn) in zip(patches, saved):
+        setattr(mod, attr, timed(name, fn))
     try:
-        prof = mapping_system(16384, map_layout="grid", grid_dims=(96, 96, 16))
+        prof = make()
         t = time.perf_counter()
         prof.run_dataset(ds)
         torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t
+        wall = time.perf_counter() - t
     finally:
-        for k, v in saved.items():
-            setattr(fe_mod, k, v)
-        for k, v in saved_m.items():
-            setattr(matchers, k, v)
-    n_prof = sum(1 for s in prof.stats if not s.get("init"))
-    phase_ms = {k: sum(b.elapsed_time(e) for b, e in v) / n_prof for k, v in spans.items()}
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    n = sum(1 for s in prof.stats if not s.get("init"))
+    return {k: sum(b.elapsed_time(e) for b, e in v) / n for k, v in spans.items()}, wall
 
+
+def grid_system(fusion="TightCouplingOptimization"):
+    """The headline config (bench.py:312-315): the dense grid (96, 96, 16)."""
+    return mapping_system(16384, fusion, map_layout="grid", grid_dims=(96, 96, 16))
+
+
+def phase_e2e(torch, ds):
+    from funny_lidar_slam_torch.pipeline import frontend as fe_mod
+    from funny_lidar_slam_torch.registration import matchers
+
+    _, res = mapping_run(torch, ds, "e2e", grid_system)
+    phase_ms, traced_wall = traced_run(torch, ds, grid_system, [
+        (fe_mod, "deskew", "deskew+preint"), (fe_mod, "preintegrate", "deskew+preint"),
+        (fe_mod, "tight_fuse", "fusion"), (matchers, "run_gn_corr", "gn"),
+        (matchers, "window_add", "insert")])
     res.update(traced_wall_s=traced_wall, phase_ms_per_scan=phase_ms)
     log("[e2e] " + json.dumps(res))
-    return launches, res
+    return res["fused_select_launches"], res
+
+
+def phase_ndt_mapping(torch, ds):
+    """IncrementalNDT on the bench's config (phase 10): the mapping gates,
+    no fused_select launch, and the map's occupied and estimated voxels."""
+    from funny_lidar_slam_torch.maps import ndt_map
+
+    slam, res = mapping_run(torch, ds, "ndt", lambda: bench_system("IncrementalNDT"),
+                            expect_select=False)
+    m = slam.mstate.m
+    res.update(occupied_voxels=int(ndt_map.num_occupied(m)),
+               estimated_voxels=int(ndt_map.num_estimated(m)), map_epoch=int(m.epoch))
+    log("[ndt-mapping] " + json.dumps(res))
+    return res["fused_select_launches"], res
+
+
+def phase_kf_mapping(torch, ds, grid_spans):
+    """TightCouplingKF on the grid headline config (phase 11), then a traced
+    run whose spans print beside phase 4's (`grid_spans`)."""
+    from funny_lidar_slam_torch.fusion import eskf
+    from funny_lidar_slam_torch.pipeline import frontend as fe_mod
+    from funny_lidar_slam_torch.registration import matchers
+
+    def make():
+        return grid_system(fe_mod.FUSION_TIGHT_KF)
+
+    _, res = mapping_run(torch, ds, "kf", make)
+    phase_ms, traced_wall = traced_run(torch, ds, make, [
+        (fe_mod, "deskew", "deskew"), (eskf, "predict", "eskf_predict"),
+        (matchers, "run_gn_corr", "gn"), (eskf, "update_pose", "eskf_update"),
+        (matchers, "window_add", "insert")])
+    res.update(traced_wall_s=traced_wall, phase_ms_per_scan=phase_ms,
+               grid_tight_phase_ms_per_scan=grid_spans)
+    log("[kf-mapping] " + json.dumps(res))
+    log(f"[kf-mapping] ms per scan, KF: {json.dumps(phase_ms)}; tight (phase 4): "
+        f"{json.dumps(grid_spans)}")
+    return res["fused_select_launches"], res
 
 
 def phase_hashed_mapping(torch, ds):
@@ -1036,21 +1114,24 @@ def phase_hashed_mapping(torch, ds):
     return res["fused_select_launches"], res
 
 
-def phase_localization(torch, ds):
-    """The bench's localization config against the frozen simulator world,
-    initialized at the first scan's true pose."""
+def phase_localization(torch, ds, mode="IcpOptimized"):
+    """The bench's localization config (bench.py:202-214) against the frozen
+    simulator world, initialized at the first scan's true pose: phase 6 with
+    IcpOptimized, phases 12a-d with the bench's config of another mode."""
     from funny_lidar_slam_torch.io.simulator import make_world
-    from funny_lidar_slam_torch.io.trajectory import ate_rmse
+    from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
     from funny_lidar_slam_torch.localization import LocalizationConfig, Localizer
     from funny_lidar_slam_torch.ops import select
     from funny_lidar_slam_torch.registration import matchers
 
     cap = 16384
+    tag = "localization" if mode == "IcpOptimized" else f"localization {mode}"
+    mcfg = (matchers.IcpConfig(source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
+                               map_capacity=65536) if mode == "IcpOptimized"
+            else bench_matcher_config(mode, cap))
     loc = Localizer(LocalizationConfig(
-        registration_mode="IcpOptimized",
-        matcher_config=matchers.IcpConfig(
-            source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
-            map_capacity=65536, is_localization_mode=True),
+        registration_mode=mode, matcher_config=mcfg._replace(is_localization_mode=True),
+        frontend=bench_frontend(mode),
         scan_capacity=cap, imu_segment_capacity=16, map_filter_size=0.4,
         local_map_size=80.0, local_map_boundary=20.0, local_map_capacity=65536))
     loc.set_global_map(make_world(seed=7))
@@ -1062,12 +1143,12 @@ def phase_localization(torch, ds):
     launches = select.fused_select.launches
 
     est, gt = gt_pairs(ds, out)
-    assert loc.initialized, "[localization] the init did not pass its fitness gate"
-    assert len(est) >= 40, f"[localization] too few tracked scans: {len(est)}"
-    assert np.isfinite(est).all(), "[localization] non-finite poses"
+    assert loc.initialized, f"[{tag}] the init did not pass its fitness gate"
+    assert len(est) >= 40, f"[{tag}] too few tracked scans: {len(est)}"
+    assert np.isfinite(est).all(), f"[{tag}] non-finite poses"
     ate = ate_rmse(est, gt, align=True)
-    assert ate < 0.10, f"[localization] ATE {ate:.4f} m"
-    assert launches > 0, "[localization] the path did not launch fused_select"
+    assert ate < 0.10, f"[{tag}] ATE {ate:.4f} m"
+    check_launches(tag, launches, mode != "IncrementalNDT")
 
     # what one map refresh costs: set_map on the last crop, host clock
     # around a synchronized build, median of 5
@@ -1081,12 +1162,13 @@ def phase_localization(torch, ds):
     steps = len(loc.stats)
     res = {"tracked": len(est), "scans": len(ds.scans), "ate_m": ate,
            "ate_unaligned_m": ate_rmse(est, gt, align=False),
+           "rpe_m": rpe_rmse(est, gt),
            "steady_fps": steady_fps(loc.stats), "wall_s": wall, "steps": steps,
            "gathers_per_scan": float(np.mean([s["iters"] for s in loc.stats])),
            "map_refreshes": loc.map_refreshes, "refresh_ms": float(np.median(refresh)),
            "local_map_points": int(crop.mask.sum()), "fused_select_launches": launches,
            "launches_per_scan": launches / max(steps, 1)}
-    log("[localization] " + json.dumps(res))
+    log(f"[{tag}] " + json.dumps(res))
     return launches, res
 
 
@@ -1108,21 +1190,27 @@ def main() -> int:
     log(f"[sim] simulated {len(ds.scans)} scans in {time.perf_counter() - t:.1f} s")
     hashed = phase_hashed_select(torch, ds)
     loam = phase_loam_select(torch, ds)
-    by_path = {"grid_mapping": phase_e2e(torch, ds)[0],
-               "hashed_mapping": phase_hashed_mapping(torch, ds)[0],
-               "localization": phase_localization(torch, ds)[0]}
-    loam_paths = {}
+    by_path, paths = {}, {}
+    by_path["grid_mapping"], grid = phase_e2e(torch, ds)
+    by_path["hashed_mapping"] = phase_hashed_mapping(torch, ds)[0]
+    by_path["localization"] = phase_localization(torch, ds)[0]
     for mode in LOAM_MODES:
-        by_path[mode], loam_paths[mode] = phase_loam_mapping(torch, ds, mode)
+        by_path[mode], paths[mode] = phase_loam_mapping(torch, ds, mode)
+    by_path["ndt_mapping"], paths["ndt_mapping"] = phase_ndt_mapping(torch, ds)
+    by_path["kf_mapping"], paths["kf_mapping"] = phase_kf_mapping(
+        torch, ds, grid["phase_ms_per_scan"])
+    for mode in LOAM_MODES + ("IncrementalNDT",):
+        key = f"localization_{mode}"
+        by_path[key], paths[key] = phase_localization(torch, ds, mode)
+    summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
+               "keyframes_with_features")
     entry["max_abs_err"] = max(entry["max_abs_err"], hashed["max_abs_err"], loam["max_abs_err"])
     entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                  hashed_inputs={k: hashed[k] for k in ("all_miss_rows", "cover_rows",
                                                        "missed_blocks")},
                  shapes={**hashed["shapes"], **loam["shapes"]},
                  loam_brute_force_rows=loam["brute_force_rows"],
-                 loam_paths={m: {k: r[k] for k in ("ate_m", "rpe_m", "steady_fps", "wall_s",
-                                                   "tracked", "keyframes_with_features")}
-                             for m, r in loam_paths.items()})
+                 paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
     print(json.dumps({"kernels": [entry] + probe_entries}))
     print(card)

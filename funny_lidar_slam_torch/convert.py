@@ -17,9 +17,11 @@ from .core.state import NavState
 from .loam.projection import OrderedScan
 from .maps.block_map import BlockMap
 from .maps.grid_map import GridMap
+from .maps.ndt_map import NdtMap
 from .pipeline.frontend import FrontendState
 from .registration.matchers import (
     LoamFullState,
+    NdtState,
     P2PlaneIvoxState,
     P2PlaneWindowState,
     WindowMapState,
@@ -55,6 +57,14 @@ def any_map(m, device="cpu") -> BlockMap | GridMap:
     return block_map(m, device) if hasattr(m, "fp") else grid_map(m, device)
 
 
+def ndt_map(m, device="cpu") -> NdtMap:
+    return _fields(NdtMap, m, device, {"fp": _u32_as_int64, "fpwin": _u32_as_int64})
+
+
+def ndt_state(s, device="cpu") -> NdtState:
+    return _fields(NdtState, s, device, {"m": ndt_map})
+
+
 def window_state(s, device="cpu") -> WindowMapState:
     return _fields(WindowMapState, s, device, {"m": any_map})
 
@@ -73,6 +83,8 @@ def loam_full_state(s, device="cpu") -> LoamFullState:
 
 def matcher_state(s, device="cpu"):
     """Any matcher state of the port's modes, told apart by its fields."""
+    if hasattr(s, "first_scan"):
+        return ndt_state(s, device)
     if hasattr(s, "corner"):
         return loam_full_state(s, device)
     if hasattr(s, "w"):

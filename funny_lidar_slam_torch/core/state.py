@@ -54,3 +54,11 @@ class ImuSegment(NamedTuple):
     accel: torch.Tensor  # [..., N, 3]
     quat: torch.Tensor  # [..., N, 4] orientation (w,x,y,z); identity if 6-axis
     mask: torch.Tensor  # [..., N] bool
+
+
+def where_tree(cond, a, b):
+    """torch.where over two NamedTuple trees of the same structure: a
+    selection on the device in place of a branch on a host read."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(cond, a, b)
+    return type(a)(*(where_tree(cond, x, y) for x, y in zip(a, b)))

@@ -4,10 +4,12 @@
   * global map: a PCD file voxel-filtered to `map_filter_size`, a point
     array (`set_global_map`), or a tile-map directory (`maps/split_map.py`);
   * manual init pose: the first scan is matched against a local map around
-    the init pose and accepted when its fitness < `init_fitness` at
-    `init_fitness_range`;
+    the init pose (through the LOAM front end when a lidar geometry is
+    set) and accepted when the fitness of the whole deskewed scan <
+    `init_fitness` at `init_fitness_range`;
   * local map: a `local_map_size` crop box around the latest retired pose,
-    rebuilt (`IcpMatcher.set_map`) when the pose comes within
+    rebuilt (the matcher's `set_map`; any of the five registration modes)
+    when the pose comes within
     `local_map_boundary` of the box edge; in tile mode, the 3x3 tile
     neighbourhood;
   * per scan: the mapping frontend's step with the matcher in localization
@@ -71,10 +73,6 @@ class Localizer:
     pass device='cpu' for the CPU)."""
 
     def __init__(self, cfg: LocalizationConfig, device=None):
-        if cfg.registration_mode != "IcpOptimized":
-            raise NotImplementedError(
-                f"localization over {cfg.registration_mode!r} is not ported yet: the port "
-                "localizes with IcpOptimized only")
         self.cfg = cfg
         mcfg = cfg.matcher_config
         if mcfg is not None and hasattr(mcfg, "_replace"):

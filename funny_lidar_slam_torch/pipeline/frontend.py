@@ -1,15 +1,18 @@
 """Frontend odometry: the per-scan step (port of pipeline/frontend.py).
 
-Per scan: deskew -> IMU preintegration -> predict -> scan-to-map GN ->
-tight or loose fusion. The host streams one packed frame buffer in
-(`step_packed`) and drains one packed result row out (`StepResult.packed`).
+Per scan: deskew -> IMU predict -> scan-to-map GN -> fusion. The host
+streams one packed frame buffer in (`step_packed`) and drains one packed
+result row out (`StepResult.packed`).
 
-Fusion methods ported: TightCouplingOptimization and LooseCoupling. The
-localization mode starts from a given pose (`init_from_pose`). With
-`lidar_geometry` set, each deskewed scan is projected onto the range image
-and split into LOAM corner and planar clouds (`_process`) before matching;
-the rings are synthesized from the elevation on the device. The error-state
-KF (TightCouplingKF) is a later slice.
+Fusion methods: TightCouplingOptimization (preintegration predict and the
+30-dof fusion), LooseCoupling (IMU delta-rotation predict, matcher pose
+taken) and TightCouplingKF (the error-state KF of `fusion/eskf.py`, which
+keeps its 15x15 error covariance in the nav state's `info` slot and skips
+the preintegration). The localization mode starts from a given pose
+(`init_from_pose`). With `lidar_geometry` set, each deskewed scan is
+projected onto the range image and split into LOAM corner and planar
+clouds (`_process`) before matching; the rings are synthesized from the
+elevation on the device.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ import torch
 
 from ..core.cloud import Cloud
 from ..core.lie import quat_conj, quat_mul, quat_to_mat, se3_inv
-from ..core.state import ImuSegment, NavState
-from ..fusion import loose
+from ..core.state import ImuSegment, NavState, where_tree
+from ..fusion import eskf, loose
 from ..fusion.tight import TightFusionConfig, fuse as tight_fuse
 from ..imu.preintegration import PreintParams, predict, preintegrate
 from ..lidar.deskew import deskew
@@ -98,24 +101,20 @@ def _nav_with_init_prior(r0, p0) -> NavState:
     return NavState.identity(r0.dtype, r0.device)._replace(r=r0, p=p0, info=info)
 
 
-def _where_nav(cond, a: NavState, b: NavState) -> NavState:
-    return NavState(*(torch.where(cond, x, y) for x, y in zip(a, b)))
-
-
 class Frontend:
-    """The per-scan step around a matcher (`IcpMatcher`, `PointToPlaneMatcher`
-    or `LoamFullMatcher`); runs on the matcher's device."""
+    """The per-scan step around a matcher (any of the five of
+    `registration/matchers.py`); runs on the matcher's device."""
 
     def __init__(self, matcher, cfg: FrontendConfig, dtype=torch.float32):
-        if cfg.fusion_method == FUSION_TIGHT_KF:
-            raise NotImplementedError(
-                "TightCouplingKF (fusion/eskf.py) is not ported yet: it is a later slice")
         self.matcher = matcher
         self.cfg = cfg
         self.dtype = dtype
         self.device = matcher.device
         self.params = PreintParams.from_std(cfg.gyro_noise_std, cfg.acc_noise_std,
                                             cfg.integration_noise_cov, dtype, self.device)
+        self.eskf_params = eskf.EskfParams.from_std(
+            cfg.gyro_noise_std, cfg.acc_noise_std, cfg.fusion.gyro_rw_std,
+            cfg.fusion.acc_rw_std, dtype, self.device)
         self.t_l2i = (torch.eye(4, dtype=dtype, device=self.device)
                       if cfg.t_lidar_to_imu is None
                       else torch.as_tensor(cfg.t_lidar_to_imu, dtype=dtype, device=self.device))
@@ -124,7 +123,8 @@ class Frontend:
     def _init_impl(self, mstate, points, rel_times, mask, ref_time, segment: ImuSegment,
                    ring):
         n_seg = segment.mask.sum()
-        nav = initial_nav_state(segment.quat[torch.clamp(n_seg - 1, min=0)], self.dtype)
+        nav = self._kf_prior(initial_nav_state(segment.quat[torch.clamp(n_seg - 1, min=0)],
+                                               self.dtype))
         pts, msk = deskew(points, rel_times, mask, ref_time, segment, self.t_l2i)
         mstate = self._matcher_add_first(mstate, Cloud(pts, msk), nav.pose, ring, rel_times)
         fstate = FrontendState(
@@ -144,9 +144,14 @@ class Frontend:
         ref_t = ref_time.to(dtype)
 
         pts, msk = deskew(points, rel_times, mask, ref_time, deskew_segment, self.t_l2i)
-        pre = preintegrate(preint_segment, self.params, nav.bg, nav.ba)
+        if cfg.fusion_method != FUSION_TIGHT_KF:
+            pre = preintegrate(preint_segment, self.params, nav.bg, nav.ba)
         if cfg.fusion_method == FUSION_TIGHT_OPT:
             pred = predict(pre, nav, gravity)
+        elif cfg.fusion_method == FUSION_TIGHT_KF:
+            es = eskf.predict(eskf.EskfState(nav=nav, cov=nav.info), preint_segment,
+                              self.eskf_params, gravity)
+            pred = es.nav
         elif cfg.fusion_method == FUSION_LOOSE:
             # loose predict: chain the delta pose; rotation from the IMU
             # orientation increment
@@ -157,7 +162,7 @@ class Frontend:
             pose_pred = nav.pose @ fstate.delta_pose
             pred = nav._replace(r=nav.r @ quat_to_mat(dq), p=pose_pred[:3, 3])
         else:
-            raise NotImplementedError(cfg.fusion_method)
+            raise ValueError(f"unknown fusion method: {cfg.fusion_method}")
 
         mstate, res, feats = self._matcher_match(mstate, Cloud(pts, msk), pred.pose, ring,
                                                  rel_times)
@@ -165,11 +170,15 @@ class Frontend:
         if cfg.fusion_method == FUSION_TIGHT_OPT:
             fused = tight_fuse(nav, pre, res.t_mat, pred._replace(t=ref_t), gravity,
                                cfg.fusion)
+        elif cfg.fusion_method == FUSION_TIGHT_KF:
+            es = eskf.update_pose(es, res.t_mat, cfg.fusion.lidar_rotation_std,
+                                  cfg.fusion.lidar_position_std)
+            fused = es.nav._replace(info=es.cov, t=ref_t)
         else:
             fused = loose.fuse(pred._replace(t=ref_t), res.t_mat)
 
         # the scan is dropped when registration fails
-        new_nav = _where_nav(res.converged, fused, nav)
+        new_nav = where_tree(res.converged, fused, nav)
         curr_pose = new_nav.pose
         delta = torch.where(res.converged, se3_inv(fstate.last_pose) @ curr_pose,
                             fstate.delta_pose)
@@ -232,13 +241,19 @@ class Frontend:
         fitness-gated matched pose with the standard first-frame prior; the
         frozen map is not touched."""
         pose = self._tensor(pose)
-        nav = _nav_with_init_prior(pose[:3, :3], pose[:3, 3])
+        nav = self._kf_prior(_nav_with_init_prior(pose[:3, :3], pose[:3, 3]))
         return FrontendState(
             nav=nav._replace(t=self._tensor(ref_time)),
             last_pose=nav.pose,
             delta_pose=torch.eye(4, dtype=self.dtype, device=self.device),
             initialized=torch.tensor(True, device=self.device),
         )
+
+    def _kf_prior(self, nav: NavState) -> NavState:
+        """In KF mode the nav state's info slot holds the error COVARIANCE."""
+        if self.cfg.fusion_method == FUSION_TIGHT_KF:
+            return nav._replace(info=eskf.create(nav).cov)
+        return nav
 
     def _tensor(self, x, dtype=None):
         return torch.as_tensor(x, dtype=dtype or self.dtype, device=self.device)

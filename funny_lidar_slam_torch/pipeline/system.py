@@ -60,8 +60,7 @@ def build_matcher(cfg: SystemConfig, device=None):
     if mode == "LoamFull_KdTree":
         return matchers.LoamFullMatcher(mcfg or matchers.LoamFullConfig(), device=device)
     if mode == "IncrementalNDT":
-        raise NotImplementedError(
-            "registration mode 'IncrementalNDT' is not ported yet: it is a later slice")
+        return matchers.NdtMatcher(mcfg or matchers.NdtConfig(), device=device)
     raise ValueError(f"unknown registration mode: {mode}")
 
 

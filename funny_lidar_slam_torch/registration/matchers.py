@@ -6,6 +6,7 @@
   PointToPlane_KdTree  PointToPlaneMatcher, window mode
   PointToPlane_IVOX    PointToPlaneMatcher, ivox mode
   LoamFull_KdTree      LoamFullMatcher (corner lines + planar planes)
+  IncrementalNDT       NdtMatcher (voxel Gaussians, maps/ndt_map.py)
 
 Map policies, over the hashed block map (`maps/block_map.py`, the default)
 or the dense grid (`maps/grid_map.py`):
@@ -16,7 +17,8 @@ or the dense grid (`maps/grid_map.py`):
     voxel filtered and rebuilt into a fresh block map on every insertion;
   * ivox: every converged scan is inserted with the closer-to-center rule.
 Localization mode freezes the map (`set_map` replaces it wholesale) and
-adds `fitness`. The NDT matcher is a later slice of the port.
+adds `fitness`. The NDT matcher inserts every scan with enough matches
+into its Gaussian map, selected on the device without a host read.
 """
 
 from __future__ import annotations
@@ -28,13 +30,16 @@ import torch
 from ..core.cloud import Cloud, transform_cloud
 from ..core.device import resolve_device
 from ..core.lie import rotation_to_rpy
-from ..maps import block_map, grid_map
+from ..core.state import where_tree
+from ..maps import block_map, grid_map, ndt_map
 from ..ops.voxel import voxel_downsample
-from .gn import UPDATE_ICP, UPDATE_LOAM, GNConfig, GNResult, run_gn_corr
+from .gn import UPDATE_ICP, UPDATE_LOAM, UPDATE_NDT, GNConfig, GNResult, run_gn_corr
 from .residuals import (
     fitness_score,
     gather_candidates,
     merge_hg,
+    ndt_corr,
+    ndt_hg_corr,
     point_to_line_hg_cand,
     point_to_plane_hg_cand,
     point_to_point_hg_cand,
@@ -182,9 +187,10 @@ class _Matcher:
             update=self.update,
             use_stall_check=self.use_stall_check,
             corr_every=cfg.corr_every,
-            skip_regather_dist=cfg.regather_skip_dist,
-            regather_radius=cfg.regather_radius,
         )
+        if hasattr(cfg, "regather_skip_dist"):  # NdtConfig has no trust-region skip
+            self.gn_cfg = self.gn_cfg._replace(skip_regather_dist=cfg.regather_skip_dist,
+                                               regather_radius=cfg.regather_radius)
 
     def _as_pose(self, t_mat) -> torch.Tensor:
         return torch.as_tensor(t_mat, dtype=self.dtype, device=self.device)
@@ -543,3 +549,111 @@ class LoamFullMatcher(_Matcher):
         m = block_map.build(c.map_capacity, c.bucket_size, map_cloud.points, map_cloud.mask,
                             self.inv, num_probes=c.num_probes)
         return LoamFullState(corner=s.corner._replace(m=m), planar=s.planar._replace(m=m))
+
+
+# ---------------------------------------------------------------------------
+# Incremental NDT
+# ---------------------------------------------------------------------------
+
+
+class NdtConfig(NamedTuple):
+    voxel_size: float = 1.0
+    res_outlier_thresh: float = 20.0
+    source_filter_size: float = 1.0
+    rotation_converge_thresh: float = 0.05
+    position_converge_thresh: float = 0.01
+    min_points_in_voxel: int = 3
+    max_points_in_voxel: int = 50
+    min_effective_pts: int = 10
+    max_iterations: int = 30
+    max_age: int = 0
+    source_capacity: int = 16384
+    map_capacity: int = 262144
+    is_localization_mode: bool = False
+    # the stencil lookup changes whenever a point crosses a voxel boundary,
+    # so NDT keeps the reference's search-every-iteration schedule
+    corr_every: int = 1
+
+
+class NdtState(NamedTuple):
+    m: ndt_map.NdtMap
+    first_scan: torch.Tensor  # [] bool: the next insert estimates every voxel
+
+
+class NdtMatcher(_Matcher):
+    """Incremental NDT: Mahalanobis residuals against the 7-voxel stencil
+    Gaussians, every converged scan merged into the map."""
+
+    update = UPDATE_NDT
+    use_stall_check = False
+
+    def __init__(self, cfg: NdtConfig, dtype=torch.float32, device=None):
+        super().__init__(cfg, dtype, device)
+        self.inv = 1.0 / cfg.voxel_size
+
+    def create_state(self) -> NdtState:
+        return NdtState(ndt_map.create(self.cfg.map_capacity, self.dtype, self.device),
+                        torch.tensor(True, device=self.device))
+
+    def _source(self, cloud: Cloud):
+        c = self.cfg
+        return voxel_downsample(cloud.points, cloud.mask, c.source_filter_size,
+                                c.source_capacity)
+
+    def _insert(self, s: NdtState, world: Cloud) -> NdtState:
+        """One insert; the first scan (and a localization map) estimates every
+        voxel whatever its count. In localization mode the flag stays set, so
+        every frozen-map reload re-estimates all voxels."""
+        c = self.cfg
+        m = ndt_map.insert(s.m, world.points, world.mask, self.inv, max_age=c.max_age,
+                           min_points=c.min_points_in_voxel, max_points=c.max_points_in_voxel,
+                           estimate_all=s.first_scan)
+        return NdtState(m, torch.full_like(s.first_scan, c.is_localization_mode))
+
+    def match(self, s: NdtState, cloud: Cloud, t_init) -> tuple[NdtState, GNResult]:
+        t_init = self._as_pose(t_init)
+        c = self.cfg
+        src = self._source(cloud)
+
+        def corr_fn(t_mat):
+            return ndt_corr(t_mat, src.points, src.mask, s.m, self.inv, c.res_outlier_thresh)
+
+        def hg_fn(t_mat, corr):
+            return ndt_hg_corr(t_mat, src.points, corr)
+
+        res = run_gn_corr(corr_fn, hg_fn, t_init, self.gn_cfg)
+        # the reference forces convergence after the loop unless too few
+        # effective points matched
+        enough = res.num_valid >= c.min_effective_pts
+        res = res._replace(converged=enough)
+        if c.is_localization_mode:
+            return s, res
+        # insert unconditionally and keep it where enough: no host read
+        added = self._insert(s, transform_cloud(res.t_mat, Cloud(src.points, src.mask)))
+        return where_tree(enough, added, s), res
+
+    def add_first(self, s: NdtState, cloud: Cloud, t_mat) -> NdtState:
+        t_mat = self._as_pose(t_mat)
+        src = self._source(cloud)
+        return self._insert(s, transform_cloud(t_mat, Cloud(src.points, src.mask)))
+
+    def set_map(self, s: NdtState, map_cloud: Cloud) -> NdtState:
+        """Replace the map wholesale (localization mode): every voxel Gaussian
+        re-estimated from the frozen local map."""
+        fresh = NdtState(ndt_map.create(self.cfg.map_capacity, self.dtype,
+                                        map_cloud.points.device),
+                         torch.tensor(True, device=map_cloud.points.device))
+        return self._insert(fresh, map_cloud)
+
+    def fitness(self, s: NdtState, cloud: Cloud, t_mat, max_range=1.0) -> torch.Tensor:
+        """Mean distance of the filtered cloud at `t_mat` to the nearest
+        estimated stencil voxel mean, over points within `max_range`."""
+        t_mat = self._as_pose(t_mat)
+        src = self._source(cloud)
+        world = src.points @ t_mat[:3, :3].T + t_mat[:3, 3]
+        mu, _, valid = ndt_map.query_stencil(s.m, world, self.inv)
+        d2 = torch.sum((world[:, None, :] - mu) ** 2, dim=-1)
+        dmin2 = torch.where(valid, d2, float("inf")).amin(1)
+        ok = src.mask & (dmin2 <= max_range**2)
+        return (torch.where(ok, torch.sqrt(dmin2), 0.0).sum()
+                / torch.clamp(ok.sum(), min=1))

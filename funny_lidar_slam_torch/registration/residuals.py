@@ -1,6 +1,6 @@
 """Residuals and Jacobians for scan-to-map registration (port of
-registration/residuals.py: the point-to-point, point-to-plane and
-point-to-line families).
+registration/residuals.py: the point-to-point, point-to-plane,
+point-to-line and NDT families).
 
 For every padded source point at the current pose: a correspondence, a
 residual, its 6-dof Jacobian and a validity mask, reduced to 6x6 normal
@@ -8,7 +8,8 @@ equations H and right-hand side g. Tangent/update conventions (gn.py):
   * point_to_point (the reference's icp_optimized.h): dx = [t(0:3), r(3:6)],
     P += dt, R := R Exp(dr);
   * point_to_plane / point_to_line (loam_*_kdtree.h): dx = [r(0:3), t(3:6)],
-    R := Exp(dr) R (left), P += dt.
+    R := Exp(dr) R (left), P += dt;
+  * ndt (incremental_ndt.h): dx = [r, t], R := R Exp(dr), P += dt.
 
 Candidate-set caching: one stencil gather (`gather_candidates`) caches the
 M nearest map points per source point; every GN iteration re-selects the
@@ -23,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.lie import so3_hat
-from ..maps import block_map
+from ..maps import block_map, ndt_map
 from ..ops import select
 from ..ops.lin3 import inv3, sym3_eigvalsh, sym3_principal_eigvec
 from ..ops.voxel import group_by_voxel
@@ -313,6 +314,47 @@ def point_to_line_hg(t_mat, src, src_mask, m, inv_voxel_size, line_ratio_thresh,
     corr = point_to_line_corr(t_mat, src, src_mask, m, inv_voxel_size, line_ratio_thresh,
                               max_search_dist_sq, stencil, num_probes)
     return point_to_line_hg_corr(t_mat, src, corr)
+
+
+class NdtCorr(NamedTuple):
+    mu: torch.Tensor  # [N, 7, 3] voxel means
+    lam: torch.Tensor  # [N, 7, 3, 3] voxel information matrices
+    valid: torch.Tensor  # [N, 7]
+
+
+def ndt_corr(t_mat, src, src_mask, m: ndt_map.NdtMap, inv_voxel_size, outlier_thresh) -> NdtCorr:
+    """7-voxel stencil Gaussian lookup and the outlier gate on the
+    Mahalanobis residual, at the gather pose."""
+    p_t = transform_points(t_mat, src)
+    mu, lam, valid_v = ndt_map.query_stencil(m, p_t, inv_voxel_size)
+    err = p_t[:, None, :] - mu
+    res = torch.einsum("nva,nvab,nvb->nv", err, lam, err)
+    valid = valid_v & src_mask[:, None] & (res <= outlier_thresh) & torch.isfinite(res)
+    # an under-populated slot's info can be inf/NaN; it is gated invalid
+    # above, but NaN * 0 would still poison the masked reduction
+    lam = torch.where(valid[..., None, None] & torch.isfinite(lam), lam, 0.0)
+    mu = torch.where(valid[..., None], mu, p_t[:, None, :])
+    return NdtCorr(mu=mu, lam=lam, valid=valid)
+
+
+def ndt_hg_corr(t_mat: torch.Tensor, src: torch.Tensor, corr: NdtCorr) -> HG:
+    """NDT Mahalanobis linearization: e = p_t - mu per stencil voxel,
+    J = [-R hat(p) | I] (dx = [r, t])."""
+    n = src.shape[0]
+    err = transform_points(t_mat, src)[:, None, :] - corr.mu  # [N, 7, 3]
+    eye = torch.eye(3, dtype=src.dtype, device=src.device)
+    jac = torch.cat([-torch.einsum("ij,njk->nik", t_mat[:3, :3], so3_hat(src)),
+                     eye.expand(n, 3, 3)], dim=-1)  # [N, 3, 6]
+    v = err.shape[1]
+    jac7 = jac[:, None].expand(n, v, 3, 6).reshape(n * v, 3, 6)
+    return _reduce_vec3(jac7, err.reshape(n * v, 3), corr.lam.reshape(n * v, 3, 3),
+                        corr.valid.reshape(n * v))
+
+
+def ndt_hg(t_mat, src, src_mask, m: ndt_map.NdtMap, inv_voxel_size, outlier_thresh) -> HG:
+    """One-shot gather + linearize."""
+    return ndt_hg_corr(t_mat, src, ndt_corr(t_mat, src, src_mask, m, inv_voxel_size,
+                                            outlier_thresh))
 
 
 def merge_hg(*hgs: HG) -> HG:
