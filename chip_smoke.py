@@ -65,8 +65,18 @@ Phases, each of which raises (non-zero exit) on failure:
   12a-d. localization over PointToPlane_IVOX, PointToPlane_KdTree,
      LoamFull_KdTree and IncrementalNDT: phase 6's crop config with each
      mode's bench config (the LOAM modes with the bench's lidar geometry);
+  13. mapping with loop closure on the bench's Figure8_Loop config (24 s,
+     hashed ICP, the pose graph): loops, keyframe ATE, the synchronized
+     time of every verification (split into keyframe fetch, host merge and
+     device cascade) and of every pose-graph optimize; then fused_select at
+     the first verification's refine (K=5) and fitness (K=1) inputs against
+     its plain version and brute force, timed in turns, and that cascade
+     replayed stage by stage and under torch.profiler;
+  14. kill and resume: phase 4's grid config with a keyframe store, half
+     the run scan by scan, SlamSystem.resume, the rest; then save_map of
+     phase 13's system, read back with its tiles;
 and prints the per-kernel JSON line, the card line and the result line.
-Every path (3b, 4-12) runs with the kernel launch counts zeroed just
+Every path (3b, 4-14) runs with the kernel launch counts zeroed just
 before it and read just after it. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -906,19 +916,27 @@ def gt_pairs(ds, out):
     return np.asarray([a for a, _ in pairs]), np.asarray([b for _, b in pairs])
 
 
-def mapping_system(cap, fusion="TightCouplingOptimization", **layout):
-    """The port's SlamSystem on the bench's mapping config at `cap` points."""
+def mapping_config(cap, fusion="TightCouplingOptimization", system=None, **layout):
+    """The bench's mapping SystemConfig at `cap` points; `system` adds
+    SystemConfig fields (loop closure, the keyframe store)."""
     from funny_lidar_slam_torch.pipeline.frontend import FrontendConfig
-    from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
+    from funny_lidar_slam_torch.pipeline.system import SystemConfig
     from funny_lidar_slam_torch.registration import matchers
 
-    return SlamSystem(SystemConfig(
+    return SystemConfig(
         registration_mode="IcpOptimized",
         matcher_config=matchers.IcpConfig(
             source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
             map_capacity=65536, local_map_size=20, **layout),
         frontend=FrontendConfig(fusion_method=fusion),
-        scan_capacity=cap, imu_segment_capacity=16))
+        scan_capacity=cap, imu_segment_capacity=16, **(system or {}))
+
+
+def mapping_system(cap, fusion="TightCouplingOptimization", **layout):
+    """The port's SlamSystem on the bench's mapping config at `cap` points."""
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem
+
+    return SlamSystem(mapping_config(cap, fusion, **layout))
 
 
 LOAM_MODES = ("PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree")
@@ -1172,6 +1190,391 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
     return launches, res
 
 
+FIGURE8_SIM = dict(duration=24.0, points_per_scan=16384, seed=11)
+
+
+def figure8_system():
+    """The bench's Figure8_Loop config (bench.py:238-255): the hashed ICP
+    mapping config with loop closure on (the figure-8's tighter index
+    gates, the LoopClosureConfig defaults otherwise)."""
+    from funny_lidar_slam_torch.backend.loop_closure import LoopClosureConfig
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem
+
+    return SlamSystem(mapping_config(16384, system=dict(
+        enable_loopclosure=True,
+        loopclosure=LoopClosureConfig(skip_near_loopclosure=20, skip_near_keyframe=40,
+                                      near_neighbor_distance=5.0))))
+
+
+def keyframe_ate(ds, slam):
+    """ATE of the keyframe poses (after the pose-graph optimizations)."""
+    from funny_lidar_slam_torch.io.trajectory import ate_rmse
+
+    out = {"times": [f.timestamp for f in slam.keyframes.frames],
+           "poses": list(slam.keyframes.poses())}
+    est, gt = gt_pairs(ds, out)
+    return ate_rmse(est, gt, align=True)
+
+
+class LoopProbe:
+    """Instruments one loop-closure run: a synchronized host clock and the
+    fused_select launches (counted apart) around every verification and
+    every pose-graph optimize, and the GN iterations of each verification
+    (one host read each); each verification's time is split into the
+    keyframe fetch, the host merge of the submaps and the device cascade.
+    During the first verification it keeps the block map the cascade
+    builds, the cascade's inputs, and the inputs of its first K=5 gather
+    (the point-to-plane refine) and first K=1 call (the fitness)."""
+
+    def __init__(self, torch):
+        from funny_lidar_slam_torch.backend import loop_closure
+        from funny_lidar_slam_torch.maps import block_map
+        from funny_lidar_slam_torch.ops import select
+        from funny_lidar_slam_torch.pipeline import system
+
+        self.torch, self.select, self.block_map = torch, select, block_map
+        self.lc, self.system = loop_closure, system
+        self.verifications, self.optimize_ms, self.captured = [], [], {}
+        self.map = self.cascade_args = None
+        self.gn_iters = []  # the iteration counts (tensors) of the current verification
+        self.parts = {"fetch_ms": [], "merge_ms": [], "cascade_ms": []}
+        self.saved = [(loop_closure, "verify_candidate", loop_closure.verify_candidate),
+                      (system, "pg_optimize", system.pg_optimize),
+                      (loop_closure, "run_gn", loop_closure.run_gn),
+                      (loop_closure, "materialize_batch", loop_closure.materialize_batch),
+                      (loop_closure, "_merge_submap", loop_closure._merge_submap),
+                      (loop_closure, "_verify_cascade", loop_closure._verify_cascade)]
+
+    def __enter__(self):
+        ((lc, _, verify), (system, _, optimize), (_, _, run_gn), (_, _, fetch), (_, _, merge),
+         (_, _, cascade)) = self.saved
+        lc.verify_candidate = self._verify(verify)
+        system.pg_optimize = self._timed(optimize, self.optimize_ms)
+        lc.materialize_batch = self._timed(fetch, self.parts["fetch_ms"])
+        lc._merge_submap = self._timed(merge, self.parts["merge_ms"])
+        timed_cascade = self._timed(cascade, self.parts["cascade_ms"])
+
+        def kept_cascade(*a):
+            if self.cascade_args is None:
+                self.cascade_args = (a[0], tuple(x.clone() for x in a[1:]))
+            return timed_cascade(*a)
+        lc._verify_cascade = kept_cascade
+
+        def counted_gn(*a, **kw):
+            res = run_gn(*a, **kw)
+            self.gn_iters.append(res.iters)
+            return res
+        lc.run_gn = counted_gn
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+    def _timed(self, fn, sink):
+        def wrapper(*a, **kw):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            sink.append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    def _verify(self, verify):
+        def wrapper(frames, poses, current_id, candidate_id, cfg, device=None):
+            sel = self.select
+            outer, sel.fused_select.launches = sel.fused_select.launches, 0
+            first = not self.verifications
+            if first:
+                orig_sel, orig_build = sel.fused_select, self.block_map.build
+                sel.fused_select = self._recorder(orig_sel)
+                self.block_map.build = self._keep_map(orig_build)
+            ms = []
+            try:
+                res = self._timed(verify, ms)(frames, poses, current_id, candidate_id, cfg,
+                                             device)
+            finally:
+                if first:
+                    orig_sel.launches = sel.fused_select.launches
+                    sel.fused_select, self.block_map.build = orig_sel, orig_build
+                inside = sel.fused_select.launches
+                sel.fused_select.launches = outer + inside
+            self.verifications.append({
+                "current_id": current_id, "candidate_id": candidate_id, "ms": ms[0],
+                "accepted": res is not None, "fitness": None if res is None else res.fitness,
+                "fused_select_launches": inside,
+                "gn_iterations": [int(i) for i in self.gn_iters],
+                **{k: float(sum(v)) for k, v in self.parts.items()}})
+            self.gn_iters.clear()
+            for v in self.parts.values():
+                v.clear()
+            return res
+        return wrapper
+
+    def _recorder(self, fn):
+        torch = self.torch
+
+        def rec(*a, **kw):
+            key = {5: "loop_refine_k5", 1: "loop_fitness_k1"}.get(a[3])
+            if key and key not in self.captured:
+                self.captured[key] = (tuple(x.clone() if torch.is_tensor(x) else x for x in a),
+                                      {"stencil": kw["stencil"], "qvox": kw["qvox"].clone()})
+            return fn(*a, **kw)
+        rec.launches = 0
+        return rec
+
+    def _keep_map(self, fn):
+        def build(*a, **kw):
+            self.map = fn(*a, **kw)
+            return self.map
+        return build
+
+
+def phase_figure8(torch):
+    """Phase 13: mapping with loop closure on the bench's Figure-8 config,
+    its gates, then fused_select held against its plain version at the first
+    verification's refine (K=5) and fitness (K=1) inputs."""
+    from funny_lidar_slam_torch.io.simulator import Figure8Trajectory, SimConfig, simulate
+    from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
+    from funny_lidar_slam_torch.ops import select
+
+    t = time.perf_counter()
+    ds = simulate(SimConfig(**FIGURE8_SIM),
+                  traj=Figure8Trajectory(amp_x=18.0, amp_y=9.0, omega=0.35))
+    log(f"[figure8] simulated {len(ds.scans)} scans in {time.perf_counter() - t:.1f} s")
+    slam = figure8_system()
+    select.fused_select.launches = 0
+    with LoopProbe(torch) as probe:
+        t = time.perf_counter()
+        out = slam.run_dataset(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = select.fused_select.launches
+
+    est, gt = gt_pairs(ds, out)
+    period = ds.scans[1].t - ds.scans[0].t
+    after_warmup = sum(1 for sc in ds.scans if sc.t + period >= out["times"][0] - 1e-6)
+    n_tracked = len(out["poses"])
+    loops = slam.loop_results
+    kf_ate = keyframe_ate(ds, slam)
+    verify_ms = [v["ms"] for v in probe.verifications]
+    res = {"tracked": n_tracked, "scans": len(ds.scans), "scans_after_warmup": after_warmup,
+           "ate_m": ate_rmse(est, gt), "kf_ate_m": kf_ate, "rpe_m": rpe_rmse(est, gt),
+           "steady_fps": steady_fps(slam.stats), "wall_s": wall,
+           "keyframes": len(slam.keyframes), "vertices": slam.graph.n_vertices,
+           "edges": slam.graph.n_edges, "verifications": len(probe.verifications),
+           "loops_accepted": len(loops),
+           "loops": [{"current_id": r.current_id, "candidate_id": r.candidate_id,
+                      "fitness": r.fitness} for r in loops],
+           "verify_ms_median": float(np.median(verify_ms)) if verify_ms else None,
+           "verify_ms_max": float(np.max(verify_ms)) if verify_ms else None,
+           "optimize_ms": probe.optimize_ms, "fused_select_launches": launches,
+           "fused_select_launches_in_verifications": sum(
+               v["fused_select_launches"] for v in probe.verifications),
+           "verify_gn_iterations": sum(sum(v["gn_iterations"]) for v in probe.verifications),
+           "verification_log": probe.verifications}
+    log("[figure8] " + json.dumps(res))
+    assert np.isfinite(est).all(), "[figure8] non-finite poses"
+    assert n_tracked >= 0.95 * after_warmup, f"[figure8] {n_tracked} of {after_warmup} tracked"
+    assert loops, "[figure8] no loop accepted"
+    for r in loops:
+        assert r.fitness < 1.5 and r.current_id - r.candidate_id > 40, f"[figure8] loop {r}"
+    assert kf_ate < 0.5, f"[figure8] keyframe ATE {kf_ate:.4f} m"
+    check_launches("figure8", launches, True)
+    res["select"] = loop_select(torch, probe)
+    res["cascade"] = cascade_breakdown(torch, probe)
+    return slam, launches, res
+
+
+def loop_select(torch, probe) -> dict:
+    """fused_select at the first verification's inputs (N = Gp = 16384 over
+    the cascade's 131,072-capacity block map, nearby26): the refine gather
+    at K=5 and K=1, the fitness call at K=1, each against the plain version,
+    K=1 against brute force over the map's stored points; both shapes timed
+    in turns with the bound and torch.topk."""
+    from funny_lidar_slam_torch.ops import select
+
+    assert set(probe.captured) == {"loop_refine_k5", "loop_fitness_k1"}, sorted(probe.captured)
+    stored = stored_points(probe.map)
+    shapes, max_err, checked = {}, 0.0, {}
+    for name, ((wnd, gid, qs, k, plane), kw) in sorted(probe.captured.items()):
+        inputs, stencil = (wnd, gid, qs, kw["qvox"]), kw["stencil"]
+        out_k, out_p, qs_np = run_both(torch, select, inputs, k, stencil, plane)
+        max_err = max(max_err, assert_parity(out_k, out_p, qs_np))
+        if k != 1:
+            out_k, out_p, qs_np = run_both(torch, select, inputs, 1, stencil, plane)
+            max_err = max(max_err, assert_parity(out_k, out_p, qs_np))
+        checked[name] = brute_force_k1(out_k[0], inputs, stored, 1.0, stencil,
+                                       max(1, qs.shape[0] // 2000))
+        assert checked[name] > 0, f"[{name}] no row had a neighbour"
+        t = select_timing(torch, select, inputs, k, stencil, plane)
+        shapes[name] = t
+        log(f"[figure8-select] {name} N={t['n']} Gp={t['gp']} K={k} {stencil} rows_read="
+            f"{t['rows_read']}: parity ok, K=1 vs brute force ok ({checked[name]} rows); "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, topk "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); "
+            f"kernel {t['vs_library']} than topk; turns {t['turns']}")
+    return {"max_abs_err": max_err, "shapes": shapes, "brute_force_rows": checked,
+            "map_points": len(stored)}
+
+
+def device_busy_ms(torch, run) -> tuple:
+    """(wall ms, device-busy ms) of `run()` under torch.profiler: the busy
+    time is the union of the traced device events; None when the trace
+    holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, -np.inf
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return wall, (busy / 1e3 if spans else None)
+
+
+def cascade_breakdown(torch, probe) -> dict:
+    """The first verification's device cascade replayed on its captured
+    inputs: its synchronized ms, then one replay with a synchronized clock
+    around each stage kind (voxel filters, block map, NDT map create and
+    load, GN loops with their iterations, each one host read, fitness
+    calls), then one under torch.profiler for the device's busy share."""
+    from funny_lidar_slam_torch.maps import block_map, ndt_map
+
+    lc = probe.lc
+    cfg, args = probe.cascade_args
+
+    def run():
+        return lc._verify_cascade(cfg, *args)
+
+    run()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+
+    stages, iters = {}, []
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            n, ms = stages.get(name, (0, 0.0))
+            stages[name] = (n + 1, ms + (time.perf_counter() - t) * 1e3)
+            if hasattr(out, "iters"):
+                iters.append(int(out.iters))
+            return out
+        return wrapper
+
+    saved = [(m, a, getattr(m, a)) for m, a in (
+        (lc, "voxel_downsample"), (block_map, "build"), (ndt_map, "create"),
+        (ndt_map, "insert"), (lc, "run_gn"), (lc, "fitness_score"))]
+    try:
+        for m, a, fn in saved:
+            setattr(m, a, timed(a, fn))
+        run()
+    finally:
+        for m, a, fn in saved:
+            setattr(m, a, fn)
+    try:
+        prof_wall, busy = device_busy_ms(torch, run)
+    except RuntimeError as e:  # without CUPTI tracing the split is unmeasured, not a fault
+        log(f"[figure8-cascade] torch.profiler failed ({e}): device busy time not measured")
+        prof_wall, busy = None, None
+    gn_n, gn_ms = stages["run_gn"]
+    res = {"cascade_ms": wall_ms, "stages": {k: {"calls": n, "ms": ms}
+                                             for k, (n, ms) in stages.items()},
+           "gn_iterations": iters, "host_reads": sum(iters),
+           "gn_ms_per_iteration": gn_ms / max(sum(iters), 1),
+           "profiled_ms": prof_wall, "device_busy_ms": busy,
+           "device_idle_share": None if busy is None else 1.0 - busy / prof_wall}
+    log("[figure8-cascade] " + json.dumps(res))
+    assert gn_n == len(cfg.ndt_resolutions) + 1, f"[figure8-cascade] {gn_n} GN loops"
+    return res
+
+
+def phase_resume_and_map(torch, ds, fig8_slam):
+    """Phase 14: the grid config with a keyframe store fed the first half
+    of the run scan by scan, then SlamSystem.resume fed the rest, under
+    tests/test_resume.py's gates; then save_map(split=True) of phase 13's
+    system, read back, its tiles covering every point."""
+    import tempfile
+
+    from funny_lidar_slam_torch.io.pcd import read_pcd
+    from funny_lidar_slam_torch.io.trajectory import ate_rmse
+    from funny_lidar_slam_torch.maps import split_map
+    from funny_lidar_slam_torch.ops import select
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem
+
+    period = ds.scans[1].t - ds.scans[0].t
+
+    def feed(slam, lo, hi):
+        t_hi = ds.scans[hi - 1].t + period + 0.05 if hi < len(ds.scans) else np.inf
+        for k in range(len(ds.imu_t)):
+            if ds.imu_t[k] > t_hi:
+                break
+            slam.push_imu(ds.imu_t[k], ds.imu_gyro[k], ds.imu_accel[k])
+        for sc in ds.scans[lo:hi]:
+            slam.process_scan(sc.t, sc.t + period, sc.points, sc.rel_times)
+
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        cfg = mapping_config(16384, map_layout="grid", grid_dims=(96, 96, 16),
+                             system=dict(keyframe_save_dir=os.path.join(tmp, "keyframes")))
+        half = len(ds.scans) // 2
+        select.fused_select.launches = 0
+        t = time.perf_counter()
+        a = SlamSystem(cfg)
+        feed(a, 0, half)
+        n_kf_a, poses_a, times_a = len(a.keyframes), list(a.trajectory), list(a.trajectory_t)
+        del a  # "kill"
+        b = SlamSystem.resume(cfg)
+        assert len(b.keyframes) == n_kf_a >= 2 and b.graph.n_vertices == n_kf_a, \
+            f"[resume] {len(b.keyframes)} keyframes, {b.graph.n_vertices} vertices, {n_kf_a} saved"
+        feed(b, half, len(ds.scans))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = select.fused_select.launches
+        est, gt = gt_pairs(ds, {"times": times_a + list(b.trajectory_t),
+                                "poses": poses_a + list(b.trajectory)})
+        ate = ate_rmse(est, gt, align=True)
+        d0 = float(np.linalg.norm(b.trajectory[0][:3, 3]
+                                  - b.keyframes.frames[n_kf_a - 1].pose[:3, 3]))
+        res = {"keyframes_saved": n_kf_a, "keyframes_after": len(b.keyframes),
+               "tracked_before": len(poses_a), "tracked_after": len(b.trajectory), "ate_m": ate,
+               "resume_jump_m": d0, "wall_s": wall, "fused_select_launches": launches}
+        assert len(b.trajectory) >= 10, f"[resume] {len(b.trajectory)} scans after the resume"
+        assert ate < 0.4, f"[resume] combined ATE {ate:.4f} m"
+        assert d0 < 2.5, f"[resume] the resume jumped {d0:.2f} m"
+        check_launches("resume", launches, True)
+
+        map_dir = os.path.join(tmp, "map")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        path = fig8_slam.save_map(map_dir, split=True)
+        map_ms = (time.perf_counter() - t) * 1e3
+        pts, _ = read_pcd(path)
+        tiles = split_map.load_tile_indices(map_dir)
+        tiled = [split_map.load_tile(map_dir, *ij) for ij in tiles]
+        assert len(pts) > 0 and np.isfinite(pts).all(), "[save_map] empty or non-finite map"
+        assert sum(len(p) for p in tiled) == len(pts), "[save_map] tiles miss points"
+        for (gx, gy), p in zip(tiles, tiled):
+            assert (split_map.tile_index_of(p[:, :2]) == [gx, gy]).all(), "[save_map] tile"
+        res.update(map_points=len(pts), map_tiles=len(tiles), save_map_ms=map_ms,
+                   map_keyframes=len(fig8_slam.keyframes))
+    log("[resume+map] " + json.dumps(res))
+    return launches, res
+
+
 def main() -> int:
     import torch
 
@@ -1202,14 +1605,22 @@ def main() -> int:
     for mode in LOAM_MODES + ("IncrementalNDT",):
         key = f"localization_{mode}"
         by_path[key], paths[key] = phase_localization(torch, ds, mode)
+    fig8_slam, by_path["figure8_loopclosure"], fig8 = phase_figure8(torch)
+    paths["figure8_loopclosure"] = fig8
+    by_path["resume"], paths["resume"] = phase_resume_and_map(torch, ds, fig8_slam)
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
-               "keyframes_with_features")
-    entry["max_abs_err"] = max(entry["max_abs_err"], hashed["max_abs_err"], loam["max_abs_err"])
+               "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
+               "verify_ms_median", "verify_ms_max", "optimize_ms",
+               "fused_select_launches_in_verifications", "resume_jump_m", "map_points",
+               "save_map_ms")
+    entry["max_abs_err"] = max(entry["max_abs_err"], hashed["max_abs_err"], loam["max_abs_err"],
+                               fig8["select"]["max_abs_err"])
     entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                  hashed_inputs={k: hashed[k] for k in ("all_miss_rows", "cover_rows",
                                                        "missed_blocks")},
-                 shapes={**hashed["shapes"], **loam["shapes"]},
+                 shapes={**hashed["shapes"], **loam["shapes"], **fig8["select"]["shapes"]},
                  loam_brute_force_rows=loam["brute_force_rows"],
+                 loop_brute_force_rows=fig8["select"]["brute_force_rows"],
                  paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
     print(json.dumps({"kernels": [entry] + probe_entries}))

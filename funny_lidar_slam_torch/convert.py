@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .backend.pose_graph import PoseGraph
 from .core.cloud import Cloud
 from .core.state import NavState
 from .loam.projection import OrderedScan
@@ -113,6 +114,11 @@ def frontend_state(fs, device="cpu") -> FrontendState:
 
 def cand_set(c, device="cpu") -> CandSet:
     return _fields(CandSet, c, device)
+
+
+def pose_graph(g, device="cpu") -> PoseGraph:
+    """A padded pose graph (`PoseGraphBuilder.to_device` of either package)."""
+    return _fields(PoseGraph, g, device)
 
 
 def to_numpy(tree):

@@ -1,12 +1,12 @@
-"""Lie-group math for SO(3)/SE(3) on tensors (port of core/lie.py).
+"""Lie-group math for SO(3)/SE(3) on tensors (port of core/lie.py, whole).
 
-Only the functions the mapping path uses. Every function takes arbitrary
-leading batch dimensions, has no data-dependent Python control flow
+Every function takes arbitrary leading batch dimensions, has no data-dependent Python control flow
 (small-angle branches are `torch.where` with safe denominators) and works in
 float32 and float64.
 
 Conventions follow the JAX package: quaternions are [w, x, y, z],
-`rotation_to_rpy` is the fixed-axis Rz*Ry*Rx extraction.
+`rotation_to_rpy` is the fixed-axis Rz*Ry*Rx extraction, and `se3_exp`
+takes (and `se3_log` returns) tangents ordered [translation, rotation].
 """
 
 from __future__ import annotations
@@ -40,6 +40,11 @@ def so3_hat(v: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def so3_vee(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of `so3_hat`: [..., 3, 3] -> [..., 3]."""
+    return torch.stack([m[..., 2, 1], m[..., 0, 2], m[..., 1, 0]], dim=-1)
 
 
 def _theta(v: torch.Tensor):
@@ -127,6 +132,24 @@ def quat_nlerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     return q / torch.clamp(_norm(q, keepdim=True), min=_eps(q0.dtype))
 
 
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Spherical interpolation, nlerp fallback for nearly-parallel quats."""
+    eps = _eps(q0.dtype)
+    dot = torch.sum(q0 * q1, dim=-1)
+    q1 = torch.where(dot[..., None] < 0, -q1, q1)
+    dot = torch.clamp(torch.abs(dot), -1.0, 1.0)
+    theta = torch.acos(torch.clamp(dot, 0.0, 1.0 - eps))
+    sin_theta = torch.clamp(torch.sin(theta), min=eps)
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)
+    w0 = torch.sin((1.0 - t) * theta) / sin_theta
+    w1 = torch.sin(t * theta) / sin_theta
+    close = dot > 1.0 - 1e-6
+    q_slerp = w0[..., None] * q0 + w1[..., None] * q1
+    q_nlerp = q0 + (q1 - q0) * t[..., None]
+    q = torch.where(close[..., None], q_nlerp, q_slerp)
+    return q / torch.clamp(_norm(q, keepdim=True), min=eps)
+
+
 def so3_log(r: torch.Tensor) -> torch.Tensor:
     """SO(3) -> so(3), quaternion based (robust at theta = pi)."""
     q = mat_to_quat(r)
@@ -175,6 +198,68 @@ def so3_jl_inv(v: torch.Tensor) -> torch.Tensor:
 def so3_jr_inv(v: torch.Tensor) -> torch.Tensor:
     """Inverse right Jacobian: Jr_inv(v) = Jl_inv(-v)."""
     return so3_jl_inv(-v)
+
+
+def _se3_q_block(rho: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """Upper-right Q block of the SE(3) left Jacobian (Barfoot's closed
+    form)."""
+    theta_sq = torch.sum(phi * phi, dim=-1)
+    theta = torch.sqrt(theta_sq)
+    eps = _eps(phi.dtype)
+    small = theta_sq < eps
+    safe = torch.clamp(theta, min=eps)
+    st, ct = torch.sin(safe), torch.cos(safe)
+    it = 1.0 / safe
+    it2 = it * it
+    it4 = it2 * it2
+    c1 = torch.where(small, 1.0 / 6.0, it2 - st * it2 * it)
+    c2 = torch.where(small, 1.0 / 24.0, 0.5 * it2 + ct * it4 - it4)
+    c3 = torch.where(small, 1.0 / 120.0, it4 + 0.5 * ct * it4 - 1.5 * st * it * it4)
+    u, w = so3_hat(rho), so3_hat(phi)
+    wu = w @ u
+    wuw = wu @ w
+    uw = u @ w
+    return (0.5 * u
+            + c1[..., None, None] * (wu + uw + wuw)
+            - c2[..., None, None] * (theta_sq[..., None, None] * u + 2.0 * wuw)
+            + c3[..., None, None] * (wuw @ w + w @ wuw))
+
+
+def se3_exp(v: torch.Tensor) -> torch.Tensor:
+    """se(3) -> SE(3). v = [..., 6] ordered [translation, rotation]."""
+    rho, phi = v[..., :3], v[..., 3:]
+    t = torch.einsum("...ij,...j->...i", so3_jl(phi), rho)
+    return make_se3(so3_exp(phi), t)
+
+
+def se3_log(t_mat: torch.Tensor) -> torch.Tensor:
+    """SE(3) -> se(3), [translation, rotation] ordering."""
+    phi = so3_log(t_mat[..., :3, :3])
+    rho = torch.einsum("...ij,...j->...i", so3_jl_inv(phi), t_mat[..., :3, 3])
+    return torch.cat([rho, phi], dim=-1)
+
+
+def _blocks(a, b, c, d) -> torch.Tensor:
+    """[[a, b], [c, d]] of [..., 3, 3] blocks -> [..., 6, 6]."""
+    return torch.cat([torch.cat([a, b], dim=-1), torch.cat([c, d], dim=-1)], dim=-2)
+
+
+def se3_adj(t_mat: torch.Tensor) -> torch.Tensor:
+    """Adjoint of SE(3) for the [translation, rotation] tangent ordering."""
+    r = t_mat[..., :3, :3]
+    return _blocks(r, so3_hat(t_mat[..., :3, 3]) @ r, torch.zeros_like(r), r)
+
+
+def se3_jl(v: torch.Tensor) -> torch.Tensor:
+    """Left Jacobian of SE(3), 6x6, [translation, rotation] ordering."""
+    rho, phi = v[..., :3], v[..., 3:]
+    j = so3_jl(phi)
+    return _blocks(j, _se3_q_block(rho, phi), torch.zeros_like(j), j)
+
+
+def se3_jr(v: torch.Tensor) -> torch.Tensor:
+    """Right Jacobian of SE(3): Jr(v) = Jl(-v)."""
+    return se3_jl(-v)
 
 
 def make_se3(r: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

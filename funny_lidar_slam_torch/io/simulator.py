@@ -105,6 +105,62 @@ class Trajectory:
 
 
 @dataclass
+class Figure8Trajectory:
+    """Planar figure-8 (Lissajous 1:2) with heading along velocity and
+    optional z bobbing — the 'harder acceptance scenario': aggressive yaw
+    reversals, self-crossings, and genuine revisits that trigger loop
+    closures (the circle never revisits with a large index gap).
+
+    x = A sin(w t), y = B sin(2 w t), yaw = atan2(vy, vx).
+    """
+
+    amp_x: float = 25.0
+    amp_y: float = 12.0
+    omega: float = 0.08  # rad/s of the base harmonic (cycle = 2*pi/omega)
+    z_amp: float = 0.0
+    z_freq: float = 0.0
+
+    def _v(self, t):
+        w = self.omega
+        return np.array([
+            self.amp_x * w * np.cos(w * t),
+            2 * self.amp_y * w * np.cos(2 * w * t),
+            self.z_amp * self.z_freq * np.cos(self.z_freq * t),
+        ])
+
+    def _a(self, t):
+        w = self.omega
+        return np.array([
+            -self.amp_x * w * w * np.sin(w * t),
+            -4 * self.amp_y * w * w * np.sin(2 * w * t),
+            -self.z_amp * self.z_freq ** 2 * np.sin(self.z_freq * t),
+        ])
+
+    def pose(self, t):
+        w = self.omega
+        p = np.array([
+            self.amp_x * np.sin(w * t),
+            self.amp_y * np.sin(2 * w * t),
+            1.5 + self.z_amp * np.sin(self.z_freq * t),
+        ])
+        v = self._v(t)
+        yaw = np.arctan2(v[1], v[0])
+        return _rz(yaw), p
+
+    def velocity(self, t):
+        return self._v(t)
+
+    def accel(self, t):
+        return self._a(t)
+
+    def gyro_body(self, t):
+        # R = Rz(yaw): body rate = yaw rate about z
+        v, a = self._v(t), self._a(t)
+        den = max(v[0] ** 2 + v[1] ** 2, 1e-9)
+        return np.array([0.0, 0.0, (v[0] * a[1] - v[1] * a[0]) / den])
+
+
+@dataclass
 class SimConfig:
     duration: float = 30.0
     scan_hz: float = 10.0

@@ -9,10 +9,11 @@ Fusion methods: TightCouplingOptimization (preintegration predict and the
 taken) and TightCouplingKF (the error-state KF of `fusion/eskf.py`, which
 keeps its 15x15 error covariance in the nav state's `info` slot and skips
 the preintegration). The localization mode starts from a given pose
-(`init_from_pose`). With `lidar_geometry` set, each deskewed scan is
-projected onto the range image and split into LOAM corner and planar
-clouds (`_process`) before matching; the rings are synthesized from the
-elevation on the device.
+(`init_from_pose`), a resumed mapping run from the last keyframe's pose
+and velocity (`init_frame_at`). With `lidar_geometry` set, each deskewed
+scan is projected onto the range image and split into LOAM corner and
+planar clouds (`_process`) before matching; the rings are synthesized from
+the elevation on the device.
 """
 
 from __future__ import annotations
@@ -123,8 +124,27 @@ class Frontend:
     def _init_impl(self, mstate, points, rel_times, mask, ref_time, segment: ImuSegment,
                    ring):
         n_seg = segment.mask.sum()
-        nav = self._kf_prior(initial_nav_state(segment.quat[torch.clamp(n_seg - 1, min=0)],
-                                               self.dtype))
+        nav = initial_nav_state(segment.quat[torch.clamp(n_seg - 1, min=0)], self.dtype)
+        return self._init_from_nav(mstate, nav, points, rel_times, mask, ref_time, segment,
+                                   ring)
+
+    def _init_at_impl(self, mstate, pose, vel, points, rel_times, mask, ref_time,
+                      segment: ImuSegment, ring):
+        """Init at a GIVEN pose (mapping resume): the last keyframe's pose
+        and the finite-difference velocity of the last two keyframes, biases
+        at zero with the first-frame prior. A resumed run is in motion, so
+        the velocity's std is 0.5 m/s, not the standstill 0.01."""
+        nav = initial_nav_state(segment.quat[0], self.dtype)
+        info = nav.info.clone()
+        info[3:6, 3:6] = torch.eye(3, dtype=self.dtype, device=self.device) / 0.5 ** 2
+        nav = nav._replace(r=pose[:3, :3].to(self.dtype), p=pose[:3, 3].to(self.dtype),
+                           v=vel.to(self.dtype), info=info)
+        return self._init_from_nav(mstate, nav, points, rel_times, mask, ref_time, segment,
+                                   ring)
+
+    def _init_from_nav(self, mstate, nav, points, rel_times, mask, ref_time,
+                       segment: ImuSegment, ring):
+        nav = self._kf_prior(nav)
         pts, msk = deskew(points, rel_times, mask, ref_time, segment, self.t_l2i)
         mstate = self._matcher_add_first(mstate, Cloud(pts, msk), nav.pose, ring, rel_times)
         fstate = FrontendState(
@@ -270,6 +290,18 @@ class Frontend:
         return self._init_impl(mstate, pts, self._tensor(rel_times),
                                self._tensor(mask, torch.bool), self._tensor(ref_time),
                                self.to_device_segment(segment), ring)
+
+    def init_frame_at(self, mstate, pose, scan_points, rel_times, mask, ref_time, segment,
+                      ring=None, velocity=None):
+        """Init at a given world pose (mapping resume)."""
+        pts = self._tensor(scan_points)
+        ring = (self._default_ring(pts) if ring is None
+                else self._tensor(ring, torch.int32))
+        vel = (torch.zeros(3, dtype=self.dtype, device=self.device) if velocity is None
+               else self._tensor(velocity))
+        return self._init_at_impl(mstate, self._tensor(pose), vel, pts, self._tensor(rel_times),
+                                  self._tensor(mask, torch.bool), self._tensor(ref_time),
+                                  self.to_device_segment(segment), ring)
 
     # -- packed single-transfer feed path --------------------------------
     def packed_layout(self, scan_capacity: int, seg_capacity: int):

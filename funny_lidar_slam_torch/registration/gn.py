@@ -92,6 +92,13 @@ def _moved(t_mat, t_gather, radius, dist) -> torch.Tensor:
     return dt + theta * radius > dist
 
 
+def run_gn(hg_fn: Callable[[torch.Tensor], HG], t0: torch.Tensor, cfg: GNConfig) -> GNResult:
+    """Iterate GN from `t0` with residual evaluator `hg_fn(T) -> HG`,
+    re-gathering every iteration (the reference semantics)."""
+    return run_gn_corr(lambda t: None, lambda t, _corr: hg_fn(t), t0,
+                       cfg._replace(corr_every=1))
+
+
 def run_gn_corr(
     corr_fn: Callable[[torch.Tensor], object],
     hg_fn: Callable[[torch.Tensor, object], HG],

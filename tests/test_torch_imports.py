@@ -30,12 +30,15 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 44  # the package's module count, maps/ndt_map and fusion/eskf included
+    # the package's module count, backend/pose_graph and backend/loop_closure included
+    assert n_modules >= 47
 
 
 def test_entry_points_default_to_cuda():
     import torch
 
+    from funny_lidar_slam_torch.backend.loop_closure import LoopCloser
+    from funny_lidar_slam_torch.backend.pose_graph import PoseGraphBuilder
     from funny_lidar_slam_torch.localization import LocalizationConfig, Localizer
     from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
     from funny_lidar_slam_torch.registration import matchers
@@ -56,5 +59,14 @@ def test_entry_points_default_to_cuda():
         matchers.LoamFullMatcher(matchers.LoamFullConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         matchers.NdtMatcher(matchers.NdtConfig())
+    loop_cfg = SystemConfig(matcher_config=cfg.matcher_config, enable_loopclosure=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlamSystem(loop_cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LoopCloser()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PoseGraphBuilder().to_device()
     assert SlamSystem(cfg, device="cpu").device.type == "cpu"
+    assert SlamSystem(loop_cfg, device="cpu").loop_closer.device.type == "cpu"
+    assert PoseGraphBuilder().to_device(device="cpu").poses.device.type == "cpu"
     assert Localizer(LocalizationConfig(), device="cpu").device.type == "cpu"
