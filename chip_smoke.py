@@ -75,8 +75,18 @@ Phases, each of which raises (non-zero exit) on failure:
   14. kill and resume: phase 4's grid config with a keyframe store, half
      the run scan by scan, SlamSystem.resume, the rest; then save_map of
      phase 13's system, read back with its tiles;
+  15. the CLI (`run_slam.main`, in process) on three unmodified presets,
+     each over a bag the port's bag_export wrote from a 10 s simulator run
+     (seed 7) under the preset's topics, at its LiDAR's points a scan:
+     15a M2DGR mapping (PointToPlane_IVOX, tight coupling, loop closure
+     on, 57,600 points) with --save-map, and fused_select at its first
+     gather against its plain version and brute force, timed in turns;
+     15b Turing ICP mapping (the "None" LiDAR model, loose coupling, 28,800
+     points) with --split-map; 15c Turing ICP localization on 15b's tiles
+     from the identity; each under tests/test_bag_path.py's gates, with bag
+     write and read s and the host preprocess ms a scan;
 and prints the per-kernel JSON line, the card line and the result line.
-Every path (3b, 4-14) runs with the kernel launch counts zeroed just
+Every path (3b, 4-15) runs with the kernel launch counts zeroed just
 before it and read just after it. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -1575,6 +1585,195 @@ def phase_resume_and_map(torch, ds, fig8_slam):
     return launches, res
 
 
+# ------------------------------------------------------- phase 15: the CLI
+CLI_SIM = dict(duration=10.0, seed=7)  # each bag: a 10 s simulator run
+CLI_M2DGR = os.path.join("configs", "mapping", "config_M2DGR.yaml")
+CLI_TURING_MAPPING = os.path.join("configs", "mapping", "config_turing_icp.yaml")
+CLI_TURING_LOCALIZATION = os.path.join("configs", "localization", "config_turing_icp.yaml")
+
+
+def cli_bag(preset, points, path):
+    """A bag written by the port's bag_export from a 10 s simulator run at
+    `points` a scan under the preset's own topics, then read back once
+    apart from any run: (dataset, {bag write s, read s, preprocess ms a
+    scan, points a scan before and after the filter})."""
+    from funny_lidar_slam_torch.config import load_config
+    from funny_lidar_slam_torch.io import bag_export, rosbag
+    from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
+    from funny_lidar_slam_torch.pipeline.preprocess import range_and_jump_filter
+
+    cfg = load_config(os.path.join(HERE, preset))
+    ds = simulate(SimConfig(points_per_scan=points, **CLI_SIM))
+    t = time.perf_counter()
+    bag_export.dataset_to_bag(ds, path, lidar_topic=cfg.lidar_topic, imu_topic=cfg.imu_topic)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    scans = [ev[1] for ev in rosbag.read_bag(path, cfg.lidar_topic, cfg.imu_topic,
+                                             cfg.lidar_model.lidar_type,
+                                             cfg.lidar_point_time_scale, cfg.lidar_model)
+             if ev[0] == "scan"]
+    read_s = time.perf_counter() - t
+    t = time.perf_counter()
+    kept = [range_and_jump_filter(s, cfg.lidar_use_min_distance, cfg.lidar_use_max_distance,
+                                  cfg.lidar_point_jump_span) for s in scans]
+    pre_ms = (time.perf_counter() - t) * 1e3 / len(scans)
+    assert len(scans) == len(ds.scans), f"[cli] {len(scans)} of {len(ds.scans)} scans read"
+    return ds, {"bag_mb": os.path.getsize(path) / 1e6, "bag_write_s": write_s,
+                "bag_read_s": read_s, "preprocess_ms_per_scan": pre_ms,
+                "points_per_scan": float(np.mean([len(s.points) for s in ds.scans])),
+                "points_per_scan_read": float(np.mean([len(s.points) for s in scans])),
+                "points_per_scan_kept": float(np.mean([len(s.points) for s in kept]))}
+
+
+def cli_run(torch, tag, ds, out_dir, argv):
+    """One in-process `run_slam.main(argv)` with the launch counts zeroed
+    just before and read just after, under tests/test_bag_path.py's gates
+    (>= 40 frames, every TUM stamp within 0.06 s of a truth stamp, ATE
+    < 0.3 m against the nearest-stamp truth) and fused_select launched
+    (each preset's matcher gathers through it)."""
+    from funny_lidar_slam_torch.io.trajectory import ate_rmse, read_tum, rpe_rmse
+    from funny_lidar_slam_torch.ops import select
+    from funny_lidar_slam_torch.pipeline import run_slam
+
+    select.fused_select.launches = 0
+    t = time.perf_counter()
+    summary, runner = run_slam.main(argv + ["--output", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = select.fused_select.launches
+
+    times, poses = read_tum(os.path.join(out_dir, "trajectory_tum.txt"))
+    idx = np.abs(ds.gt_times[None, :] - times[:, None]).argmin(1)
+    stamp_err = float(np.abs(ds.gt_times[idx] - times).max())
+    gt = ds.gt_poses[idx]
+    res = {"frames": len(poses), "scans": len(ds.scans), "stamp_err_s": stamp_err,
+           "ate_m": ate_rmse(poses, gt, align=True), "rpe_m": rpe_rmse(poses, gt),
+           "steady_fps": steady_fps(runner.stats), "wall_s": wall,
+           "fused_select_launches": launches, "summary": summary}
+    assert len(poses) >= 40, f"[{tag}] too few frames: {len(poses)}"
+    assert np.isfinite(poses).all(), f"[{tag}] non-finite poses"
+    assert stamp_err < 0.06, f"[{tag}] a TUM stamp is {stamp_err:.3f} s from the truth"
+    assert res["ate_m"] < 0.3, f"[{tag}] ATE {res['ate_m']:.4f} m"
+    check_launches(tag, launches, True)
+    return runner, res
+
+
+class FirstGather:
+    """Records the first fused_select call of a run and the state of the
+    PointToPlane match it belongs to, forwarding every call. While the probe
+    is entered it stands as `select.fused_select`, so the wrapper counts its
+    launches into the probe's `launches`."""
+
+    def __init__(self, torch):
+        from funny_lidar_slam_torch.ops import select
+        from funny_lidar_slam_torch.registration import matchers
+
+        self.torch, self.select, self.cls = torch, select, matchers.PointToPlaneMatcher
+        self.call, self.state, self.launches = None, None, 0
+
+    def __call__(self, *a, **kw):
+        if self.call is None:
+            self.call = (tuple(x.clone() if self.torch.is_tensor(x) else x for x in a),
+                         {"stencil": kw["stencil"], "qvox": kw["qvox"].clone()})
+        return self.orig_sel(*a, **kw)
+
+    def __enter__(self):
+        self.orig_sel, self.orig_match = self.select.fused_select, self.cls.match
+        probe = self
+
+        def match(matcher, s, *args):
+            if probe.state is None:
+                probe.state = (s, matcher.inv)
+            return probe.orig_match(matcher, s, *args)
+
+        self.select.fused_select, self.cls.match = self, match
+        return self
+
+    def __exit__(self, *exc):
+        self.select.fused_select, self.cls.match = self.orig_sel, self.orig_match
+
+
+def cli_select(torch, probe) -> dict:
+    """fused_select at the CLI's first gather (M2DGR's IVOX planar queries):
+    parity at its K and at K=1, K=1 against brute force over the map's
+    stored points, timed in turns with its bound and torch.topk."""
+    from funny_lidar_slam_torch.ops import select
+
+    (wnd, gid, qs, k, plane), kw = probe.call
+    state, inv = probe.state
+    inputs, stencil = (wnd, gid, qs, kw["qvox"]), kw["stencil"]
+    out_k, out_p, qs_np = run_both(torch, select, inputs, k, stencil, plane)
+    max_err = assert_parity(out_k, out_p, qs_np)
+    out_k, out_p, qs_np = run_both(torch, select, inputs, 1, stencil, plane)
+    max_err = max(max_err, assert_parity(out_k, out_p, qs_np))
+    checked = brute_force_k1(out_k[0], inputs, stored_points(state.m), inv, stencil,
+                             max(1, qs.shape[0] // 2000))
+    assert checked > 0, "[cli-select] no row had a neighbour"
+    t = select_timing(torch, select, inputs, k, stencil, plane)
+    log(f"[cli-select] m2dgr_ivox_planar N={t['n']} Gp={t['gp']} K={k} {stencil} rows_read="
+        f"{t['rows_read']}: parity ok, K=1 vs brute force ok ({checked} rows); kernel "
+        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, topk {t['library_ms']:.4f} ms, "
+        f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); kernel {t['vs_library']} than "
+        f"topk; turns {t['turns']}")
+    return {"max_abs_err": max_err, "shapes": {"m2dgr_ivox_planar": t},
+            "brute_force_rows": checked}
+
+
+def phase_cli(torch):
+    """Phase 15: the port's CLI (`run_slam.main`) on three unmodified presets,
+    each over a bag the port's bag_export wrote from a 10 s simulator run
+    (seed 7) at the preset LiDAR's points a scan: 15a M2DGR mapping
+    (PointToPlane_IVOX, tight coupling, 57,600 points), with fused_select
+    held at its first gather; 15b Turing ICP mapping (the "None" LiDAR
+    model, loose coupling, 28,800 points) with a split map; 15c Turing ICP
+    localization on 15b's tiles from the identity."""
+    import tempfile
+
+    from funny_lidar_slam_torch.maps import split_map
+
+    by_path, paths = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        bag = os.path.join(tmp, "m2dgr.bag")
+        ds, io_a = cli_bag(CLI_M2DGR, 32 * 1800, bag)
+        out_a = os.path.join(tmp, "m2dgr")
+        with FirstGather(torch) as probe:  # counts the launches of the run
+            _, res = cli_run(torch, "cli_m2dgr", ds, out_a, [
+                "--config", os.path.join(HERE, CLI_M2DGR), "--dataset", bag, "--save-map"])
+        for product in ("map/map.pcd", "pose_graph.g2o"):
+            assert os.path.exists(os.path.join(out_a, product)), f"[cli_m2dgr] no {product}"
+        by_path["cli_m2dgr"] = res["fused_select_launches"]
+        paths["cli_m2dgr"] = {**res, **io_a}
+        select_res = cli_select(torch, probe)
+
+        bag = os.path.join(tmp, "turing.bag")
+        ds, io_b = cli_bag(CLI_TURING_MAPPING, 16 * 1800, bag)
+        out_b = os.path.join(tmp, "turing_mapping")
+        _, res = cli_run(torch, "cli_turing_mapping", ds, out_b, [
+            "--config", os.path.join(HERE, CLI_TURING_MAPPING), "--dataset", bag,
+            "--save-map", "--split-map"])
+        tiles = split_map.load_tile_indices(os.path.join(out_b, "map"))
+        assert tiles, "[cli_turing_mapping] no tiles written"
+        assert os.path.exists(os.path.join(out_b, "pose_graph.g2o")), \
+            "[cli_turing_mapping] no pose_graph.g2o"
+        res["map_tiles"] = len(tiles)
+        by_path["cli_turing_mapping"] = res["fused_select_launches"]
+        paths["cli_turing_mapping"] = {**res, **io_b}
+
+        out_c = os.path.join(tmp, "turing_localization")
+        _, res = cli_run(torch, "cli_turing_localization", ds, out_c, [
+            "--config", os.path.join(HERE, CLI_TURING_LOCALIZATION), "--dataset", bag,
+            "--map-dir", os.path.join(out_b, "map"),
+            "--init-pose", *[str(v) for v in np.eye(4).ravel()]])
+        assert res["summary"]["initialized"] is True, "[cli_turing_localization] no init"
+        by_path["cli_turing_localization"] = res["fused_select_launches"]
+        paths["cli_turing_localization"] = res
+    for tag, res in paths.items():
+        log(f"[{tag}] " + json.dumps(res))
+    log(f"[cli] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path, paths, select_res
+
+
 def main() -> int:
     import torch
 
@@ -1608,19 +1807,25 @@ def main() -> int:
     fig8_slam, by_path["figure8_loopclosure"], fig8 = phase_figure8(torch)
     paths["figure8_loopclosure"] = fig8
     by_path["resume"], paths["resume"] = phase_resume_and_map(torch, ds, fig8_slam)
+    del fig8_slam
+    cli_by_path, cli_paths, cli_sel = phase_cli(torch)
+    by_path.update(cli_by_path)
+    paths.update(cli_paths)
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
                "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
                "verify_ms_median", "verify_ms_max", "optimize_ms",
                "fused_select_launches_in_verifications", "resume_jump_m", "map_points",
-               "save_map_ms")
+               "save_map_ms", "frames", "bag_write_s", "bag_read_s", "preprocess_ms_per_scan")
     entry["max_abs_err"] = max(entry["max_abs_err"], hashed["max_abs_err"], loam["max_abs_err"],
-                               fig8["select"]["max_abs_err"])
+                               fig8["select"]["max_abs_err"], cli_sel["max_abs_err"])
     entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                  hashed_inputs={k: hashed[k] for k in ("all_miss_rows", "cover_rows",
                                                        "missed_blocks")},
-                 shapes={**hashed["shapes"], **loam["shapes"], **fig8["select"]["shapes"]},
+                 shapes={**hashed["shapes"], **loam["shapes"], **fig8["select"]["shapes"],
+                         **cli_sel["shapes"]},
                  loam_brute_force_rows=loam["brute_force_rows"],
                  loop_brute_force_rows=fig8["select"]["brute_force_rows"],
+                 cli_brute_force_rows=cli_sel["brute_force_rows"],
                  paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
     print(json.dumps({"kernels": [entry] + probe_entries}))

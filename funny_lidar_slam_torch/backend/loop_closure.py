@@ -17,7 +17,8 @@ Port notes: the JAX package runs the cascade as one cached executable
 (`aot_jit`); here it is a plain call, whose GN loops read their control
 flags back once per iteration. The keyframe clouds of both submaps are
 fetched with one copy (`materialize_batch`), and an over-capacity submap is
-pre-filtered on the host by `io/pcd.voxel_downsample_np`.
+pre-filtered on the host by the C++ voxel filter (`native`), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -28,8 +29,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..io.pcd import voxel_downsample_np
 from ..maps import block_map, ndt_map
+from ..native import voxel_downsample as host_voxel
 from ..ops.voxel import voxel_downsample
 from ..pipeline.keyframes import materialize_batch
 from ..registration.gn import UPDATE_LOAM, UPDATE_NDT, GNConfig, run_gn
@@ -96,7 +97,7 @@ def _merge_submap(frames, ids, poses, local_frame_of: int | None, cfg: LoopClosu
     merged = np.concatenate(pts).astype(np.float32)
     size = cfg.submap_filter_size
     while len(merged) > capacity:
-        merged = voxel_downsample_np(merged, size)
+        merged = host_voxel(merged, size)
         size *= 1.5
     out = np.zeros((capacity, 3), np.float32)
     msk = np.zeros(capacity, bool)

@@ -1,10 +1,41 @@
-"""Trajectory evaluation (ATE/RPE), NumPy: a copy of the JAX package's
-io/trajectory.py metrics, which are the acceptance metric of a mapping run.
+"""Trajectory export (TUM) and evaluation (ATE/RPE), NumPy: a copy of the
+JAX package's io/trajectory.py; ATE is the acceptance metric of a run.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..core.lie import mat_to_quat, quat_to_mat
+
+
+def write_tum(path: str, times, poses) -> None:
+    """poses: [K, 4, 4]. TUM line: t x y z qx qy qz qw."""
+    poses = np.asarray(poses, np.float64).reshape(-1, 4, 4)
+    quats = mat_to_quat(torch.from_numpy(poses[:, :3, :3].copy())).numpy()  # [w, x, y, z]
+    with open(path, "w") as f:
+        for t, p, q in zip(times, poses, quats):
+            f.write(
+                f"{t:.6f} {p[0, 3]:.6f} {p[1, 3]:.6f} {p[2, 3]:.6f} "
+                f"{q[1]:.9f} {q[2]:.9f} {q[3]:.9f} {q[0]:.9f}\n"
+            )
+
+
+def read_tum(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Read a TUM trajectory -> (times [K], poses [K, 4, 4])."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line and not line.startswith("#"):
+                rows.append([float(v) for v in line.split()])
+    rows = np.asarray(rows, np.float64).reshape(-1, 8)
+    poses = np.tile(np.eye(4), (len(rows), 1, 1))
+    quat = torch.from_numpy(rows[:, [7, 4, 5, 6]].copy())  # [w, x, y, z]
+    poses[:, :3, :3] = quat_to_mat(quat).numpy()
+    poses[:, :3, 3] = rows[:, 1:4]
+    return rows[:, 0], poses
 
 
 def umeyama_alignment(est: np.ndarray, gt: np.ndarray):

@@ -19,10 +19,10 @@ The host crops the map on its side (NumPy); matching and fusion run on the
 matcher's device. Scans are dispatched ahead and retired in batches, each
 batch with one device-to-host copy of the stacked result rows.
 
-Port notes: the host voxel filter is `io/pcd.py::voxel_downsample_np`
-(lexicographic output order, f64 sums), where the JAX package calls its g++
-library; the JAX package's executable-cached programs for the map swap and
-the init match are plain calls here.
+Port notes: the host voxel filter is the port's copy of the JAX package's
+g++ library (`native`), so both load the same map; the JAX package's
+executable-cached programs for the map swap and the init match are plain
+calls here.
 """
 
 from __future__ import annotations
@@ -36,9 +36,10 @@ import torch
 
 from ..core.cloud import Cloud
 from ..imu.stream import ImuStream
-from ..io.pcd import read_pcd, voxel_downsample_np
+from ..io.pcd import read_pcd
 from ..lidar.deskew import deskew
 from ..maps.split_map import TileMapLoader
+from ..native import voxel_downsample as host_voxel
 from ..pipeline.frontend import Frontend, FrontendConfig, FrontendState
 from ..pipeline.system import SystemConfig, build_matcher, pad_scan
 
@@ -105,14 +106,14 @@ class Localizer:
             self.tiles = TileMapLoader(cfg.tile_map_dir)
         elif cfg.map_path:
             pts, _ = read_pcd(cfg.map_path)
-            self.global_map = voxel_downsample_np(pts, cfg.map_filter_size)
+            self.global_map = host_voxel(pts, cfg.map_filter_size)
         self._map_center: np.ndarray | None = None
         self.initialized = False
 
     # -- map management ------------------------------------------------
     def set_global_map(self, points: np.ndarray) -> None:
         """Directly provide the global map cloud (test/benchmark path)."""
-        self.global_map = voxel_downsample_np(points, self.cfg.map_filter_size)
+        self.global_map = host_voxel(points, self.cfg.map_filter_size)
 
     def _crop_local(self, center: np.ndarray) -> np.ndarray:
         half = self.cfg.local_map_size / 2.0
@@ -134,7 +135,7 @@ class Localizer:
             # coarsen the voxel filter until the crop fits: uniform thinning
             size = self.cfg.map_filter_size * 1.5
             while len(pts) > cap:
-                pts = voxel_downsample_np(pts, size)
+                pts = host_voxel(pts, size)
                 size *= 1.5
             warnings.warn(
                 f"local map exceeded local_map_capacity={cap}; re-filtered to {len(pts)} "
@@ -154,7 +155,7 @@ class Localizer:
         if self.tiles is not None:
             if not (self.tiles.update(position[:2]) or force):
                 return False
-            local = voxel_downsample_np(self.tiles.local_cloud(), self.cfg.map_filter_size)
+            local = host_voxel(self.tiles.local_cloud(), self.cfg.map_filter_size)
         else:
             if self.global_map is None:
                 raise RuntimeError(

@@ -28,8 +28,9 @@ from ..backend.loop_closure import LoopCloser, LoopClosureConfig
 from ..backend.pose_graph import PoseGraphBuilder, optimize as pg_optimize
 from ..core.cloud import Cloud
 from ..imu.stream import ImuStream
-from ..io.pcd import voxel_downsample_np, write_pcd
+from ..io.pcd import write_pcd
 from ..maps.split_map import save_tiles
+from ..native import voxel_downsample as host_voxel
 from ..registration import matchers
 from .frontend import Frontend, FrontendConfig, FrontendState
 from .keyframes import KeyFrame, KeyFrameStore, materialize_batch
@@ -359,9 +360,9 @@ class SlamSystem:
         their index (`maps/split_map.save_tiles`)."""
         os.makedirs(map_dir, exist_ok=True)
         materialize_batch(self.keyframes.frames)
-        merged = [voxel_downsample_np(kf.cloud, voxel_size) @ kf.pose[:3, :3].T + kf.pose[:3, 3]
+        merged = [host_voxel(kf.cloud, voxel_size) @ kf.pose[:3, :3].T + kf.pose[:3, 3]
                   for kf in self.keyframes.frames]
-        cloud = (voxel_downsample_np(np.concatenate(merged), voxel_size) if merged
+        cloud = (host_voxel(np.concatenate(merged), voxel_size) if merged
                  else np.zeros((0, 3), np.float32))
         path = os.path.join(map_dir, "map.pcd")
         write_pcd(path, cloud)

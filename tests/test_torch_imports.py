@@ -1,6 +1,8 @@
 """Import guard of the port: every module of funny_lidar_slam_torch, and
-chip_smoke.py, imports without pulling in JAX or the JAX package; and the
-entry points refuse to run without CUDA unless the caller asks for the CPU."""
+chip_smoke.py, imports without pulling in JAX, the JAX package, PyYAML or
+matplotlib (the port runs where neither of the last two is installed);
+and the entry points, the CLI included, refuse to run without CUDA unless
+the caller asks for the CPU."""
 
 import os
 import subprocess
@@ -18,7 +20,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "funny_lidar_slam_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "funny_lidar_slam_tpu", "yaml",
+                                    "matplotlib"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -30,8 +33,10 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    # the package's module count, backend/pose_graph and backend/loop_closure included
-    assert n_modules >= 47
+    # the package's module count, the CLI and its readers (config, lidar/model,
+    # io/{bag_export,bag_format,formats,pointcloud2,rosbag,viz}, native,
+    # pipeline/{preprocess,run_slam}) included
+    assert n_modules >= 58
 
 
 def test_entry_points_default_to_cuda():
@@ -70,3 +75,20 @@ def test_entry_points_default_to_cuda():
     assert SlamSystem(loop_cfg, device="cpu").loop_closer.device.type == "cpu"
     assert PoseGraphBuilder().to_device(device="cpu").poses.device.type == "cpu"
     assert Localizer(LocalizationConfig(), device="cpu").device.type == "cpu"
+
+
+def test_cli_needs_cuda_unless_told_cpu(tmp_path):
+    import torch
+
+    from funny_lidar_slam_torch.pipeline import run_slam
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    args = ["--config", os.path.join(ROOT, "configs", "mapping", "config_turing_icp.yaml"),
+            "--dataset", "synthetic", "--duration", "3.0", "--points-per-scan", "1024",
+            "--max-scans", "2"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_slam.main(args + ["--output", str(tmp_path / "cuda")])
+    assert not (tmp_path / "cuda").exists()
+    summary, runner = run_slam.main(args + ["--output", str(tmp_path / "cpu"), "--device", "cpu"])
+    assert runner.device.type == "cpu" and summary["mode"] == "mapping"

@@ -8,10 +8,9 @@ of funny_lidar_slam_torch against the JAX package.
   tight and KF fusion: the nav state to 1e-6 (relative to each field's
   largest entry: the prior information holds 1e12), the deskewed cloud to
   1e-5 m, the grid map's counts exactly and its points to 1e-5 m.
-- `save_map` of the same host keyframes: equal point counts, the points
-  equal as sorted sets to 1e-5 m, the same tile indices and counts. (The
-  JAX package filters with the g++ native library where it builds, the
-  port with `voxel_downsample_np`: the order of the points differs.)"""
+- `save_map` of the same host keyframes: both packages filter with the
+  same C++ voxel filter (the JAX package's `native`, the port's copy), so
+  `map.pcd` and every tile equal exactly, in the same order."""
 
 import os
 
@@ -176,17 +175,14 @@ def test_save_map_matches_jax(tmp_path):
     pt = tsys.save_map(str(tmp_path / "t"), voxel_size=0.5, split=True, tile_size=20.0)
     cj, _ = jread_pcd(pj)
     ct, _ = read_pcd(pt)
-    assert len(ct) == len(cj) > 1000
-
-    def sorted_rows(a):
-        """By voxel: each centroid lies in its own 0.5 m voxel."""
-        key = np.floor(a / 0.5).astype(np.int64)
-        return a[np.lexsort(key.T[::-1])]
-
-    np.testing.assert_allclose(sorted_rows(ct), sorted_rows(cj), atol=1e-5, rtol=0)
+    assert len(cj) > 1000
+    np.testing.assert_array_equal(ct, cj)
     tiles_j = jsplit.load_tile_indices(str(tmp_path / "j"))
     tiles_t = split_map.load_tile_indices(str(tmp_path / "t"))
     assert tiles_t == tiles_j and len(tiles_t) >= 3
-    counts = [len(split_map.load_tile(str(tmp_path / "t"), *ij)) for ij in tiles_t]
-    assert counts == [len(jsplit.load_tile(str(tmp_path / "j"), *ij)) for ij in tiles_j]
+    counts = []
+    for ij in tiles_t:
+        tile = split_map.load_tile(str(tmp_path / "t"), *ij)
+        np.testing.assert_array_equal(tile, jsplit.load_tile(str(tmp_path / "j"), *ij))
+        counts.append(len(tile))
     assert sum(counts) == len(ct)

@@ -2,13 +2,19 @@
 
     python3 tools/profile_torch_mapping.py [--scans 12] [--path grid|block|localization]
         [--out build/profile_torch_mapping.json]
+    python3 tools/profile_torch_mapping.py --path preset --config configs/mapping/X.yaml
+        [--points 57600] [--segment-capacity 16]
 
 Runs funny_lidar_slam_torch over the simulator on one of the paths that
 chip_smoke.py drives (IcpOptimized + TightCouplingOptimization, 16384
 points per scan): SlamSystem on the headline mapping config with the dense
 grid (96, 96, 16) (`grid`) or the hashed block map, the IcpConfig default
 (`block`), or the Localizer on the bench's localization config against the
-simulator world (`localization`). It then profiles `--scans` steady scans
+simulator world (`localization`). `preset` runs SlamSystem on a mapping
+preset's configuration, as the CLI builds it (without the keyframe store),
+over `--points` points a scan passed through the preset's range and jump
+filter, as the CLI's bag replay feeds them; `--segment-capacity`
+overrides the preset's IMU segment capacity. It then profiles `--scans` steady scans
 with torch.profiler. From the profiler's trace it reports the wall time per
 scan, the device's busy time and idle share over the window, the device
 time by kernel and the host time of each step phase (spans named after the
@@ -63,10 +69,27 @@ def _busy_us(intervals) -> float:
     return busy
 
 
+def preset_filtered(cfg, scan):
+    """A simulator scan through the preset's range and jump filter."""
+    from funny_lidar_slam_torch.io.formats import RawScan
+    from funny_lidar_slam_torch.pipeline.preprocess import range_and_jump_filter
+
+    n = len(scan.points)
+    raw = RawScan(scan.t, scan.points, np.zeros(n, np.float32), np.zeros(n, np.int32),
+                  scan.rel_times)
+    kept = range_and_jump_filter(raw, cfg.lidar_use_min_distance, cfg.lidar_use_max_distance,
+                                 cfg.lidar_point_jump_span)
+    return dataclasses.replace(scan, points=kept.points, rel_times=kept.rel_times)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scans", type=int, default=12)
-    ap.add_argument("--path", choices=("grid", "block", "localization"), default="grid")
+    ap.add_argument("--path", choices=("grid", "block", "localization", "preset"),
+                    default="grid")
+    ap.add_argument("--config", help="--path preset: a mapping preset under configs/")
+    ap.add_argument("--points", type=int, default=16384)
+    ap.add_argument("--segment-capacity", type=int, default=None)
     ap.add_argument("--out", default="build/profile_torch_mapping.json")
     args = ap.parse_args()
 
@@ -76,6 +99,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_mapping: CUDA is not available")
+    from funny_lidar_slam_torch.config import load_config
     from funny_lidar_slam_torch.io.simulator import SimConfig, make_world, simulate
     from funny_lidar_slam_torch.localization import LocalizationConfig, Localizer
     from funny_lidar_slam_torch.ops import select
@@ -84,8 +108,15 @@ def main() -> int:
     from funny_lidar_slam_torch.registration import matchers
 
     cap = 16384
-    ds = simulate(SimConfig(duration=10.0, points_per_scan=cap, seed=7))
-    if args.path == "localization":
+    ds = simulate(SimConfig(duration=10.0, points_per_scan=args.points, seed=7))
+    if args.path == "preset":
+        cfg = load_config(args.config)
+        if args.segment_capacity:
+            cfg.system.imu_segment_capacity = args.segment_capacity
+        runner = SlamSystem(cfg.system)
+        ds = dataclasses.replace(ds, scans=[preset_filtered(cfg, sc) for sc in ds.scans])
+        run = runner.run_dataset
+    elif args.path == "localization":
         runner = Localizer(LocalizationConfig(
             registration_mode="IcpOptimized",
             matcher_config=matchers.IcpConfig(
@@ -150,6 +181,10 @@ def main() -> int:
     report = {
         "device": torch.cuda.get_device_name(0),
         "path": args.path,
+        "config": args.config,
+        "points_per_scan": float(np.mean([len(sc.points) for sc in ds.scans])),
+        "imu_segment_capacity": getattr(getattr(runner, "cfg", None),
+                                        "imu_segment_capacity", None),
         "scans": steps,
         "wall_ms_per_scan": wall * 1e3 / steps,
         "device_busy_ms_per_scan": busy / 1e3 / steps,
