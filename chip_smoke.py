@@ -85,8 +85,20 @@ Phases, each of which raises (non-zero exit) on failure:
      points) with --split-map; 15c Turing ICP localization on 15b's tiles
      from the identity; each under tests/test_bag_path.py's gates, with bag
      write and read s and the host preprocess ms a scan;
+  16. multi-device (parallel/dryrun.py's workloads at the simulator's
+     size): the 1,000-keyframe pose graph by sharded_optimize, the
+     region-sharded map of make_world(seed=7) (insert_sharded in chunks of
+     65,536, then sharded_gn_step of one displaced 16,384-point scan) and
+     sharded_icp_step over a voxel_hash.build of the same world; 16a one
+     NCCL rank in this process, 16b four gloo ranks on CUDA tensors, worker
+     processes on this card; the JAX dry run's gates (< 0.25 m, < 0.03 m,
+     >= 4 shards, the halo bound), the 4-rank pose against the 1-rank one
+     (1e-4 on the JAX dry run's map, which runs beside; reported on the
+     world, whose overfull voxels keep rank-dependent points), and
+     fused_select at each run's first sharded gather against its plain
+     version and brute force, timed in turns;
 and prints the per-kernel JSON line, the card line and the result line.
-Every path (3b, 4-15) runs with the kernel launch counts zeroed just
+Every path (3b, 4-16) runs with the kernel launch counts zeroed just
 before it and read just after it. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -1774,6 +1786,120 @@ def phase_cli(torch):
     return by_path, paths, select_res
 
 
+# ------------------------------------------------ phase 16: multi-device
+def sharded_select(torch, tag, capture) -> dict:
+    """fused_select at one rank's first gather of the sharded GN step (all
+    N = Gp queries of the replicated scan over the rank's region+halo map):
+    parity with the plain version, K=1 against brute force over the rank's
+    stored points, the all-miss cover-row share, timed in turns with its
+    bound and torch.topk."""
+    from funny_lidar_slam_torch.maps.block_map import BlockMap
+    from funny_lidar_slam_torch.ops import select
+
+    c = torch.load(capture)
+    inputs = tuple(c[key].cuda() for key in ("wnd", "gid", "qs", "qvox"))
+    k, plane, stencil = c["k"], c["plane"], c["stencil"]
+    out_k, out_p, qs_np = run_both(torch, select, inputs, k, stencil, plane)
+    max_err = assert_parity(out_k, out_p, qs_np)
+    stored = stored_points(BlockMap(**c["map"]))
+    checked = brute_force_k1(out_k[0], inputs, stored, 1.0, stencil,
+                             max(1, qs_np.shape[0] // 2000))
+    assert checked > 0, f"[{tag}] no row had a neighbour"
+    rows = int(torch.unique(inputs[1]).numel())
+    miss = int((inputs[0][:rows] >= 1e29).all(1).sum())
+    t = select_timing(torch, select, inputs, k, stencil, plane)
+    t.update(all_miss_rows=miss, cover_rows=rows, brute_force_rows=checked,
+             map_points=len(stored))
+    log(f"[{tag}-select] N={t['n']} Gp={t['gp']} K={k} {stencil} rows_read={rows} "
+        f"({miss} all-miss, {miss / rows:.3f}): parity ok, K=1 vs brute force ok ({checked} "
+        f"rows over {len(stored)} stored points); kernel {t['ms']:.4f} ms, plain "
+        f"{t['plain_ms']:.4f} ms, topk {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}); kernel {t['vs_library']} than topk; turns {t['turns']}")
+    return {"max_abs_err": max_err, "shape": t}
+
+
+def log_ranks(tag, results):
+    for r in results:
+        sm, icp, pg = r["sharded_map"], r["icp"], r["pose_graph"]
+        log(f"[{tag}] rank {r['rank']}/{r['size']} {r['backend']} on {r['device']}: occupancy "
+            f"{sm['occupancy']} (replicated build {sm['replicated_blocks']} blocks), load "
+            f"{sm['load_factor']:.4f}, insert ms {[round(x, 3) for x in sm['insert_ms']]}, GN "
+            f"step {sm['gn_ms']:.2f} ms, error {sm['t_err_m']:.6f} m, fused_select "
+            f"{sm['launches']}; ICP build {icp['build_ms']:.2f} ms, step {icp['ms']:.2f} ms, "
+            f"error {icp['t_err_m']:.6f} m, load {icp['load_factor']:.4f}; pose graph "
+            f"{pg['keyframes']} keyframes / {pg['edges']} edges, {pg['ms']:.1f} ms, max error "
+            f"{pg['max_err_m']:.4f} m, CG iterations {pg['cg_iters']}, idle share of one GN "
+            f"iteration (64 CG) {pg.get('idle_share_1gn')}; all_reduce of 6K f32 "
+            f"{r['allreduce_ms']:.4f} ms; the dry run's map: occupancy "
+            f"{r['sharded_map_parity']['occupancy']}, GN error "
+            f"{r['sharded_map_parity']['t_err_m']:.6f} m")
+
+
+def phase_multidevice(torch):
+    """Phase 16: the multi-device workloads of `parallel/dryrun.py` at the
+    simulator's size (the 1,000-keyframe pose graph, the region-sharded map
+    of make_world(seed=7) and the sharded ICP step over one displaced
+    16,384-point scan): 16a one NCCL rank in this process (FileStore),
+    16b four gloo ranks on CUDA tensors in four worker processes on this
+    card; gates of the JAX dry run, and fused_select at each run's first
+    sharded gather."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from funny_lidar_slam_torch.parallel import comm, dryrun
+
+    t_phase = time.perf_counter()
+    data, parity = dryrun.scene_data("sim"), dryrun.scene_data("dryrun")
+    with tempfile.TemporaryDirectory(dir=HERE) as tmp:
+        t = time.perf_counter()
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            one = [dryrun.run_workloads(comm.make_mesh(), data, profile=True,
+                                        capture=os.path.join(tmp, "gather1.pt"), parity=parity)]
+        finally:
+            dist.destroy_process_group()
+        one_s = time.perf_counter() - t
+        s1 = dryrun.check(one)
+        log_ranks("multidevice-1rank", one)
+        t = time.perf_counter()
+        # no profile here: a gloo all_reduce of a CUDA tensor takes ~7 ms among
+        # four processes on one card, and the solve makes ~8,200 of them
+        four = dryrun.spawn(4, "gloo", "cuda", data, tmp, timeout=600,
+                            capture=os.path.join(tmp, "gather4.pt"), parity=parity)
+        four_s = time.perf_counter() - t
+        s4 = dryrun.check(four)
+        log_ranks("multidevice-4rank", four)
+        diff, pdiff = (float(np.abs(np.asarray(four[0][w]["pose"])
+                                    - np.asarray(one[0][w]["pose"])).max())
+                       for w in ("sharded_map", "sharded_map_parity"))
+        log(f"[multidevice] sharded GN pose, 4 ranks against 1: max |diff| {pdiff:.3e} on the "
+            f"JAX dry run's map, {diff:.3e} on the simulator's world")
+        assert pdiff < 1e-4, f"[multidevice] the 4-rank pose is {pdiff:.3e} from the 1-rank one"
+        if diff >= 1e-4:  # the parity boundary of parallel/sharded_map.py (ROADMAP Queue 3)
+            log("[multidevice] on the simulator's world, voxels hold more points than the "
+                "bucket, and which of them a rank keeps depends on its halo mask")
+        sel = {"sharded_gn_1rank_k1": sharded_select(torch, "multidevice-1rank",
+                                                     os.path.join(tmp, "gather1.pt")),
+               "sharded_gn_4rank_k1": sharded_select(torch, "multidevice-4rank",
+                                                     os.path.join(tmp, "gather4.pt"))}
+    by_path = {"sharded_map_gn_1rank": one[0]["sharded_map"]["launches"],
+               "sharded_map_gn_4rank": sum(r["sharded_map"]["launches"] for r in four),
+               "sharded_icp_1rank": one[0]["icp"]["launches"],
+               "sharded_icp_4rank": sum(r["icp"]["launches"] for r in four),
+               "pose_graph_pcg_1rank": one[0]["pose_graph"]["launches"],
+               "pose_graph_pcg_4rank": sum(r["pose_graph"]["launches"] for r in four)}
+    res = {"1rank": {**s1, "wall_s": one_s}, "4rank": {**s4, "wall_s": four_s},
+           "pose_4rank_vs_1rank": diff, "pose_4rank_vs_1rank_dryrun_map": pdiff,
+           "nccl_allreduce_ms": one[0]["allreduce_ms"],
+           "gloo_allreduce_ms": [r["allreduce_ms"] for r in four]}
+    log("[multidevice] " + json.dumps(res))
+    log(f"[multidevice] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path, res, sel
+
+
 def main() -> int:
     import torch
 
@@ -1811,18 +1937,23 @@ def main() -> int:
     cli_by_path, cli_paths, cli_sel = phase_cli(torch)
     by_path.update(cli_by_path)
     paths.update(cli_paths)
+    md_by_path, paths["multidevice"], md_sel = phase_multidevice(torch)
+    by_path.update(md_by_path)
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
                "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
                "verify_ms_median", "verify_ms_max", "optimize_ms",
                "fused_select_launches_in_verifications", "resume_jump_m", "map_points",
-               "save_map_ms", "frames", "bag_write_s", "bag_read_s", "preprocess_ms_per_scan")
+               "save_map_ms", "frames", "bag_write_s", "bag_read_s", "preprocess_ms_per_scan",
+               "1rank", "4rank", "pose_4rank_vs_1rank", "pose_4rank_vs_1rank_dryrun_map",
+               "nccl_allreduce_ms", "gloo_allreduce_ms")
     entry["max_abs_err"] = max(entry["max_abs_err"], hashed["max_abs_err"], loam["max_abs_err"],
-                               fig8["select"]["max_abs_err"], cli_sel["max_abs_err"])
+                               fig8["select"]["max_abs_err"], cli_sel["max_abs_err"],
+                               *(v["max_abs_err"] for v in md_sel.values()))
     entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                  hashed_inputs={k: hashed[k] for k in ("all_miss_rows", "cover_rows",
                                                        "missed_blocks")},
                  shapes={**hashed["shapes"], **loam["shapes"], **fig8["select"]["shapes"],
-                         **cli_sel["shapes"]},
+                         **cli_sel["shapes"], **{k: v["shape"] for k, v in md_sel.items()}},
                  loam_brute_force_rows=loam["brute_force_rows"],
                  loop_brute_force_rows=fig8["select"]["brute_force_rows"],
                  cli_brute_force_rows=cli_sel["brute_force_rows"],

@@ -19,6 +19,7 @@ from .loam.projection import OrderedScan
 from .maps.block_map import BlockMap
 from .maps.grid_map import GridMap
 from .maps.ndt_map import NdtMap
+from .maps.voxel_hash import VoxelHashMap
 from .pipeline.frontend import FrontendState
 from .registration.matchers import (
     LoamFullState,
@@ -51,6 +52,16 @@ def _u32_as_int64(a, device):
 
 def block_map(m, device="cpu") -> BlockMap:
     return _fields(BlockMap, m, device, {"fp": _u32_as_int64, "fpwin": _u32_as_int64})
+
+
+def sharded_block_map(sm, rank: int, device="cpu") -> BlockMap:
+    """Rank `rank`'s map of the JAX package's region-sharded map, whose
+    fields are stacked [n_dev, ...] on a leading mesh axis."""
+    return block_map(type(sm)(*(np.asarray(a)[rank] for a in sm)), device)
+
+
+def voxel_hash_map(m, device="cpu") -> VoxelHashMap:
+    return _fields(VoxelHashMap, m, device, {"fp": _u32_as_int64, "fpwin": _u32_as_int64})
 
 
 def any_map(m, device="cpu") -> BlockMap | GridMap:

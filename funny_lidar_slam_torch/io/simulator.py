@@ -286,3 +286,45 @@ def simulate(cfg: SimConfig = SimConfig(), traj: Trajectory | None = None, world
         gt_times=np.asarray(gt_times),
         gt_poses=np.asarray(gt_poses),
     )
+
+
+def noisy_circle_graph(n=40, seed=0, k_cap=64, e_cap=128, radius=10.0,
+                       extra_loops=1):
+    """Synthetic noisy-circle pose graph with loop edges (the reference's
+    loop-closure unit-test pattern): exact relative-pose measurements, a
+    noisy initial chain. Returns (the port's `PoseGraphBuilder`, the true
+    poses [n, 4, 4]); the builder's arrays equal the JAX package's for the
+    same arguments."""
+    from ..backend import pose_graph
+
+    rng = np.random.default_rng(seed)
+    b = pose_graph.PoseGraphBuilder(k_cap, e_cap)
+    gt = []
+    for i in range(n):
+        a = 2 * np.pi * i / n
+        t = np.eye(4, dtype=np.float32)
+        c, s = np.cos(a), np.sin(a)
+        t[:3, :3] = [[c, -s, 0], [s, c, 0], [0, 0, 1]]
+        t[:3, 3] = [radius * c, radius * s, 0.0]
+        gt.append(t)
+    noisy = [gt[0]]
+    for i in range(1, n):
+        meas = np.linalg.inv(gt[i - 1]) @ gt[i]
+        pert = np.eye(4, dtype=np.float32)
+        pert[:3, 3] = rng.normal(0, 0.03, 3)
+        noisy.append(noisy[-1] @ meas @ pert)
+    b.add_vertex(noisy[0])
+    for i in range(1, n):
+        meas = np.linalg.inv(gt[i - 1]) @ gt[i]
+        b.poses[i] = noisy[i]
+        b.pose_mask[i] = True
+        b.n_vertices += 1
+        b.add_edge(i - 1, i, meas, (1e2,) * 3 + (1e4,) * 3)
+    for l in range(extra_loops):
+        i = (l * n // max(extra_loops, 1)) % n
+        j = (i + n // 2) % n
+        if abs(i - j) < 2:
+            continue
+        b.add_edge(i, j, np.linalg.inv(gt[i]) @ gt[j], (1e2,) * 3 + (1e4,) * 3)
+    b.add_edge(n - 1, 0, np.linalg.inv(gt[n - 1]) @ gt[0], (1e2,) * 3 + (1e4,) * 3)
+    return b, np.asarray(gt)

@@ -29,7 +29,15 @@ import torch
 
 from ..ops import select
 from ..ops.voxel import _INVALID_KEY, _first_of_run, group_by_voxel, spatial_hash, voxel_coords
-from .voxel_hash import PROBE_WINDOW, _window, fingerprint
+from .voxel_hash import (
+    PROBE_WINDOW,
+    _first_true,
+    _nonzero_padded,
+    _take,
+    _window,
+    _with_spare_row,
+    fingerprint,
+)
 
 _MISS = 1e30
 
@@ -91,18 +99,6 @@ def _block_of(coords: torch.Tensor):
     return bc, local
 
 
-def _first_true(mask: torch.Tensor) -> torch.Tensor:
-    """Index of the first True along the last axis, 0 where there is none
-    (`jnp.argmax` on a bool array)."""
-    w = mask.shape[-1]
-    first = torch.where(mask, torch.arange(w, device=mask.device), w).amin(-1)
-    return torch.where(first < w, first, 0)
-
-
-def _take(slots: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.gather(slots, -1, idx[..., None])[..., 0]
-
-
 def _probe_blocks(m: BlockMap, bcoords: torch.Tensor, num_probes: int):
     """Linear fingerprint probing: (slots, match, empty), each [..., P]."""
     assert num_probes <= PROBE_WINDOW
@@ -119,23 +115,6 @@ def find_block_slots(m: BlockMap, bcoords: torch.Tensor, num_probes: int = 8) ->
     """int64 slot of each block coord, or -1. [..., 3] -> [...]."""
     slots, match, _ = _probe_blocks(m, bcoords, num_probes)
     return torch.where(match.any(-1), _take(slots, _first_true(match)), -1)
-
-
-def _nonzero_padded(flag: torch.Tensor, size: int, fill: int) -> torch.Tensor:
-    """`jnp.nonzero(flag, size=size, fill_value=fill)[0]` without a host sync:
-    the indices of the first `size` true entries, padded with `fill`."""
-    n = flag.shape[0]
-    rank = torch.cumsum(flag, 0) - 1
-    tgt = torch.where(flag & (rank < size), rank, torch.full_like(rank, size))
-    out = torch.full((size + 1,), fill, dtype=torch.int64, device=flag.device)
-    out.scatter_(0, tgt, torch.arange(n, device=flag.device))
-    out[size] = fill
-    return out[:size]
-
-
-def _with_spare_row(x: torch.Tensor) -> torch.Tensor:
-    """Copy of x with one extra trailing row that absorbs dropped writes."""
-    return torch.cat([x, torch.zeros_like(x[:1])])
 
 
 class _BlockGroups(NamedTuple):

@@ -24,14 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-from .block_map import (
-    _COVER,
-    _MISS,
-    _center_policy,
-    _group_block_major,
-    _nonzero_padded,
-    _with_spare_row,
-)
+from .block_map import _COVER, _MISS, _center_policy, _group_block_major
+from .voxel_hash import _nonzero_padded, _with_spare_row
 
 _EMPTY = -(2**30)  # owner coord sentinel for unclaimed slots
 _WIPE_BOUND = 4096  # eviction wipes at most this many slots per insert

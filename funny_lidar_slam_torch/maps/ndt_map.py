@@ -30,8 +30,15 @@ import torch
 
 from ..ops.lin3 import inv3, sym3_eigvalsh
 from ..ops.voxel import group_by_voxel, spatial_hash, voxel_coords
-from .block_map import _first_true, _nonzero_padded, _take, _with_spare_row
-from .voxel_hash import PROBE_WINDOW, _window, fingerprint
+from .voxel_hash import (
+    PROBE_WINDOW,
+    _first_true,
+    _nonzero_padded,
+    _take,
+    _window,
+    _with_spare_row,
+    fingerprint,
+)
 
 
 class NdtMap(NamedTuple):

@@ -1,6 +1,6 @@
 """Residuals and Jacobians for scan-to-map registration (port of
 registration/residuals.py: the point-to-point, point-to-plane,
-point-to-line and NDT families).
+point-to-line and NDT families, over block, grid and voxel-hash maps).
 
 For every padded source point at the current pose: a correspondence, a
 residual, its 6-dof Jacobian and a validity mask, reduced to 6x6 normal
@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.lie import so3_hat
-from ..maps import block_map, ndt_map
+from ..maps import block_map, ndt_map, voxel_hash
 from ..ops import select
 from ..ops.lin3 import inv3, sym3_eigvalsh, sym3_principal_eigvec
 from ..ops.voxel import group_by_voxel
@@ -89,11 +89,18 @@ def gather_candidates(
     group_capacity: int | None = None,
 ) -> CandSet:
     """One stencil gather -> M nearest candidates per transformed source
-    point: voxel-sort the transformed points, gather the 8-block cover per
-    unique voxel (`block_map.gather_cover_any`: the hashed block map or the
-    dense grid), then `select.fused_select` (the CUDA kernel on the card,
-    its plain version on the CPU). Results stay in sorted order."""
+    point. On a block or grid map: voxel-sort the transformed points,
+    gather the 8-block cover per unique voxel (`block_map.gather_cover_any`),
+    then `select.fused_select` (the CUDA kernel on the card, its plain
+    version on the CPU); results stay in sorted order. On a `VoxelHashMap`:
+    the per-voxel stencil gather of `voxel_hash.query_knn`, in the original
+    order."""
     p_t = transform_points(t_mat, src)
+    if isinstance(m, voxel_hash.VoxelHashMap):
+        nbrs, _, ok = voxel_hash.query_knn(m, p_t, inv_voxel_size, k=m_cand, stencil=stencil,
+                                           num_probes=num_probes, group_capacity=group_capacity)
+        return CandSet(px=nbrs[..., 0], py=nbrs[..., 1], pz=nbrs[..., 2],
+                       valid=ok & src_mask[:, None], src=src, src_mask=src_mask)
     n = src.shape[0]
     gcap = group_capacity or n
     gcap = -(-gcap // select.TQ) * select.TQ
@@ -114,9 +121,11 @@ def gather_candidates(
 
 
 def query_knn_any(m, queries, inv_voxel_size, k, stencil, num_probes, group_capacity=None):
-    """Stencil k-NN over a block or grid map (`block_map.query_knn`)."""
-    return block_map.query_knn(m, queries, inv_voxel_size, k=k, stencil=stencil,
-                               num_probes=num_probes, group_capacity=group_capacity)
+    """Stencil k-NN dispatched by map type: `voxel_hash.query_knn` on a
+    `VoxelHashMap`, else `block_map.query_knn` (block and grid maps)."""
+    mod = voxel_hash if isinstance(m, voxel_hash.VoxelHashMap) else block_map
+    return mod.query_knn(m, queries, inv_voxel_size, k=k, stencil=stencil,
+                         num_probes=num_probes, group_capacity=group_capacity)
 
 
 def _take_lanes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -146,6 +155,17 @@ class P2PCorr(NamedTuple):
     valid: torch.Tensor  # [N]
 
 
+def point_to_point_corr(t_mat, src, src_mask, m, inv_voxel_size, max_corr_dist_sq,
+                        stencil: str = "nearby26", num_probes: int = 8,
+                        group_capacity: int | None = None) -> P2PCorr:
+    """Nearest map point within the correspondence distance, at the gather
+    pose (the reference's optimized-ICP search)."""
+    p_t = transform_points(t_mat, src)
+    nbrs, d2, ok = query_knn_any(m, p_t, inv_voxel_size, 1, stencil, num_probes,
+                                 group_capacity)
+    return P2PCorr(q=nbrs[:, 0], valid=src_mask & ok[:, 0] & (d2[:, 0] <= max_corr_dist_sq))
+
+
 def point_to_point_hg_cand(t_mat: torch.Tensor, cand: CandSet, max_corr_dist_sq) -> HG:
     """ICP linearization on the candidate cache: exact NN re-selection at
     the current pose, restricted to the cached candidates."""
@@ -166,6 +186,14 @@ def point_to_point_hg_corr(t_mat: torch.Tensor, src: torch.Tensor, corr: P2PCorr
     # the reference accumulates |r| (norm), not mahalanobis, for ICP stats
     w = corr.valid.to(src.dtype)
     return hg._replace(total_res=torch.sum(torch.linalg.vector_norm(err, dim=-1) * w))
+
+
+def point_to_point_hg(t_mat, src, src_mask, m, inv_voxel_size, max_corr_dist_sq,
+                      stencil: str = "nearby26", num_probes: int = 8) -> HG:
+    """One-shot gather + linearize (the reference's per-iteration search)."""
+    corr = point_to_point_corr(t_mat, src, src_mask, m, inv_voxel_size, max_corr_dist_sq,
+                               stencil, num_probes)
+    return point_to_point_hg_corr(t_mat, src, corr)
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Import guard of the port: every module of funny_lidar_slam_torch, and
 chip_smoke.py, imports without pulling in JAX, the JAX package, PyYAML or
 matplotlib (the port runs where neither of the last two is installed);
-and the entry points, the CLI included, refuse to run without CUDA unless
-the caller asks for the CPU."""
+and the entry points, the CLI and the multi-rank dry run included, refuse
+to run without CUDA unless the caller asks for the CPU."""
 
 import os
 import subprocess
@@ -35,8 +35,9 @@ def test_port_imports_no_jax():
     n_modules = int(out.stdout.split()[0])
     # the package's module count, the CLI and its readers (config, lidar/model,
     # io/{bag_export,bag_format,formats,pointcloud2,rosbag,viz}, native,
-    # pipeline/{preprocess,run_slam}) included
-    assert n_modules >= 58
+    # pipeline/{preprocess,run_slam}) and multi-device (backend/distributed,
+    # parallel/{comm,dryrun,sharded_gn,sharded_map}) included
+    assert n_modules >= 64
 
 
 def test_entry_points_default_to_cuda():
@@ -92,3 +93,23 @@ def test_cli_needs_cuda_unless_told_cpu(tmp_path):
     assert not (tmp_path / "cuda").exists()
     summary, runner = run_slam.main(args + ["--output", str(tmp_path / "cpu"), "--device", "cpu"])
     assert runner.device.type == "cpu" and summary["mode"] == "mapping"
+
+
+def test_dryrun_needs_cuda_unless_told_cpu():
+    """The multi-rank dry run: make_mesh and the entry point raise without
+    CUDA; with --device cpu it runs two gloo ranks (worker processes, with
+    a timeout) through every workload and its gates."""
+    import torch
+
+    from funny_lidar_slam_torch.parallel import comm, dryrun
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        comm.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun.main(["--world-size", "1", "--backend", "gloo"])
+    summary = dryrun.main(["--world-size", "2", "--backend", "gloo", "--device", "cpu",
+                           "--timeout", "300"])
+    assert summary["size"] == 2 and summary["pose_graph_max_err_m"] < 0.25
+    assert summary["sharded_map_t_err_m"] < 0.03 and summary["icp_t_err_m"] < 0.05
