@@ -97,8 +97,20 @@ Phases, each of which raises (non-zero exit) on failure:
      world, whose overfull voxels keep rank-dependent points), and
      fused_select at each run's first sharded gather against its plain
      version and brute force, timed in turns;
+  17. the unpacked step and the per-stage profile: 17a phase 4's grid config
+     warmed over 24 scans, then 8 scans each fed from the same state and
+     the same f32 inputs to `Frontend.step` (one host->device copy an
+     array) and to `step_packed` (one copy of the packed frame): pose
+     within 1e-4 m and 1e-4 rad, the same `converged`, equal fused_select
+     launches; both timed over those scans in turns (packed, unpacked,
+     unpacked, packed; twice) with a synchronized host clock, and the
+     first scan on each under torch.profiler (CUDA runtime calls and ATen
+     ops counted); fused_select at the unpacked step's first gather
+     against its plain version and brute force, timed in turns; 17b
+     tools/profile_torch_frontend.py's `profile` in process at its full
+     configuration, its report on one line;
 and prints the per-kernel JSON line, the card line and the result line.
-Every path (3b, 4-16) runs with the kernel launch counts zeroed just
+Every path (3b, 4-17) runs with the kernel launch counts zeroed just
 before it and read just after it. Imports nothing of JAX and nothing of
 the JAX package.
 """
@@ -1441,10 +1453,10 @@ def loop_select(torch, probe) -> dict:
             "map_points": len(stored)}
 
 
-def device_busy_ms(torch, run) -> tuple:
-    """(wall ms, device-busy ms) of `run()` under torch.profiler: the busy
-    time is the union of the traced device events; None when the trace
-    holds none."""
+def profiled(torch, run):
+    """(profiler, wall ms, device-busy ms) of `run()` under torch.profiler:
+    the busy time is the union of the traced device events; None when the
+    trace holds none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1459,7 +1471,26 @@ def device_busy_ms(torch, run) -> tuple:
     for lo, hi in spans:
         busy += max(0.0, hi - max(lo, end))
         end = max(end, hi)
-    return wall, (busy / 1e3 if spans else None)
+    return prof, wall, (busy / 1e3 if spans else None)
+
+
+def device_busy_ms(torch, run) -> tuple:
+    """(wall ms, device-busy ms) of `run()` under torch.profiler."""
+    return profiled(torch, run)[1:]
+
+
+def runtime_calls(torch, run) -> dict:
+    """Wall and device-busy ms of `run()` under torch.profiler, its CUDA
+    runtime calls by name (launches, copies, synchronizations: count and
+    host ms) and its ATen operator calls (count, host ms)."""
+    prof, wall, busy = profiled(torch, run)
+    events = prof.key_averages()
+    calls = {e.key: {"count": e.count, "host_ms": e.self_cpu_time_total / 1e3}
+             for e in events if e.key.startswith("cuda")}
+    aten = [e for e in events if e.key.startswith("aten::")]
+    return {"wall_ms": wall, "busy_ms": busy, "runtime": calls,
+            "aten_ops": sum(e.count for e in aten),
+            "aten_host_ms": sum(e.self_cpu_time_total for e in aten) / 1e3}
 
 
 def cascade_breakdown(torch, probe) -> dict:
@@ -1900,6 +1931,159 @@ def phase_multidevice(torch):
     return by_path, res, sel
 
 
+def step_inputs(slam, ds, scan):
+    """One scan's f32 inputs for both feeds: the padded scan, the ref time,
+    the two IMU segments cast to f32, and the packed buffer of the same
+    values."""
+    from funny_lidar_slam_torch.core.state import ImuSegment
+    from funny_lidar_slam_torch.pipeline.system import pad_scan
+
+    period = ds.scans[1].t - ds.scans[0].t
+    end, seg_cap = scan.t + period, slam.cfg.imu_segment_capacity
+    segs = [slam.imu.get_segment(t0, end, seg_cap) for t0 in (scan.t, slam._last_scan_end)]
+    assert all(g is not None for g in segs), "[unpacked-step] the IMU does not cover the scan"
+    segs = [ImuSegment(*(np.asarray(a, np.float32) for a in g[:4]), mask=g.mask) for g in segs]
+    rel = scan.rel_times - period
+    pts, rts, mask = pad_scan(scan.points, rel, slam.cfg.scan_capacity)
+    buf = slam.frontend.pack_frame(scan.points, rel, slam.cfg.scan_capacity, end, *segs)
+    return end, (pts, rts, mask, end, *segs), buf
+
+
+UNPACKED_WARM_SCANS, UNPACKED_STEPS = 24, 8  # phase 17a: scans run, then compared
+
+
+def phase_unpacked_step(torch, ds):
+    """Phase 17a: `Frontend.step` (one host->device copy an array) against
+    `step_packed` (one copy of the packed frame) on phase 4's grid config:
+    after UNPACKED_WARM_SCANS scans, UNPACKED_STEPS scans each fed to both
+    from the same state with the same f32 inputs; gates: pose within 1e-4 m
+    and 1e-4 rad, the same `converged`, equal fused_select launches. The
+    packed result advances the run. Then both are timed over those scans in turns
+    (packed, unpacked, unpacked, packed; twice) with a synchronized host
+    clock, the first scan runs on each under torch.profiler, and
+    fused_select is held against its plain version and brute force at the
+    unpacked step's first gather."""
+    from funny_lidar_slam_torch.core.lie import chord_angle
+    from funny_lidar_slam_torch.ops import select
+
+    slam = grid_system()
+    slam.run_dataset(ds, max_scans=UNPACKED_WARM_SCANS)
+    assert sum(1 for st in slam.stats if not st.get("init")) >= 8, "[unpacked-step] not steady"
+    fe, cap = slam.frontend, slam.cfg.scan_capacity
+    seg_cap = slam.cfg.imu_segment_capacity
+    period = ds.scans[1].t - ds.scans[0].t
+    imu_idx = int(np.searchsorted(ds.imu_t, ds.scans[UNPACKED_WARM_SCANS - 1].t + period + 0.05,
+                                  side="right"))
+    cases, diffs, launches = [], [], {"packed": 0, "unpacked": 0}
+    for scan in ds.scans[UNPACKED_WARM_SCANS:UNPACKED_WARM_SCANS + UNPACKED_STEPS]:
+        end = scan.t + period
+        while imu_idx < len(ds.imu_t) and ds.imu_t[imu_idx] <= end + 0.05:
+            slam.push_imu(ds.imu_t[imu_idx], ds.imu_gyro[imu_idx], ds.imu_accel[imu_idx])
+            imu_idx += 1
+        end, args, buf = step_inputs(slam, ds, scan)
+        state = (slam.mstate, slam.fstate)
+        outs = {}
+        for kind, run in (("packed", lambda: fe.step_packed(*state, buf, cap, seg_cap)),
+                          ("unpacked", lambda: fe.step(*state, *args))):
+            select.fused_select.launches = 0
+            outs[kind] = run()
+            torch.cuda.synchronize()
+            launches[kind] += select.fused_select.launches
+        (ms, fs, op), (_, _, ou) = outs["packed"], outs["unpacked"]
+        pp, pu = (o.pose.cpu().numpy().astype(np.float64) for o in (op, ou))
+        assert bool(op.converged) == bool(ou.converged), "[unpacked-step] converged differs"
+        diffs.append((float(np.linalg.norm(pp[:3, 3] - pu[:3, 3])), float(chord_angle(pp, pu))))
+        assert diffs[-1][0] < 1e-4 and diffs[-1][1] < 1e-4, f"[unpacked-step] {diffs[-1]}"
+        cases.append((state, args, buf))
+        slam.mstate, slam.fstate, slam._last_scan_end = ms, fs, end
+    assert launches["packed"] == launches["unpacked"] > 0, f"[unpacked-step] {launches}"
+
+    def feed(kind, cases=cases):
+        for state, args, buf in cases:
+            if kind == "packed":
+                fe.step_packed(*state, buf, cap, seg_cap)
+            else:
+                fe.step(*state, *args)
+
+    def host_ms(fn):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / len(cases)
+
+    before = select.fused_select.launches
+    turns = in_turns(host_ms, {kind: (lambda kind=kind: feed(kind)) for kind in launches},
+                     ["packed", "unpacked", "unpacked", "packed"] * 2)
+    # where the feeds differ: the first scan on each under the profiler
+    # (which slows a step of ~10,000 launches several times over)
+    calls = {kind: runtime_calls(torch, lambda kind=kind: feed(kind, cases[:1]))
+             for kind in launches}
+    select.fused_select.launches = before  # timing launches do not count
+
+    # fused_select at the unpacked step's first gather (from the first case)
+    state, args, _ = cases[0]
+    with FirstGather(torch) as probe:
+        fe.step(*state, *args)
+        torch.cuda.synchronize()
+    (wnd, gid, qs, k, plane), kw = probe.call
+    inputs, stencil = (wnd, gid, qs, kw["qvox"]), kw["stencil"]
+    max_err = 0.0
+    for kk in (k, 1):
+        out_k, out_p, qs_np = run_both(torch, select, inputs, kk, stencil, plane)
+        max_err = max(max_err, assert_parity(out_k, out_p, qs_np))
+    checked = brute_force_k1(out_k[0], inputs, stored_points(state[0].m), 1.0, stencil,
+                             max(1, qs.shape[0] // 2000))
+    assert checked > 0, "[unpacked-step] no row had a neighbour"
+    t = select_timing(torch, select, inputs, k, stencil, plane)
+    med = {kind: float(np.median(v)) for kind, v in turns.items()}
+    res = {"steps": len(cases), "warm_scans": UNPACKED_WARM_SCANS,
+           "pose_max_diff_m": max(d[0] for d in diffs),
+           "rot_max_diff_rad": max(d[1] for d in diffs),
+           "launches_packed": launches["packed"], "launches_unpacked": launches["unpacked"],
+           "packed_ms_per_scan": med["packed"], "unpacked_ms_per_scan": med["unpacked"],
+           "unpacked_minus_packed_ms": med["unpacked"] - med["packed"],
+           "unpacked_vs_packed": versus(turns["unpacked"], turns["packed"]), "turns_ms": turns,
+           "profiled_scan": calls, "fused_select_launches": launches["unpacked"]}
+    for name, key in (("launch_calls", "cudaLaunchKernel"), ("copy_calls", "cudaMemcpyAsync"),
+                      ("sync_calls", "cudaStreamSynchronize")):
+        res[name] = {kind: c["runtime"].get(key, {}).get("count", 0) for kind, c in calls.items()}
+    log("[unpacked-step] " + json.dumps(res))
+    log(f"[unpacked-step] grid_first_gather N={t['n']} Gp={t['gp']} K={k} {stencil} "
+        f"rows_read={t['rows_read']}: parity ok, K=1 vs brute force ok ({checked} rows); "
+        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, topk {t['library_ms']:.4f} "
+        f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}); turns {t['turns']}")
+    return res, {"max_abs_err": max_err, "shapes": {"unpacked_step_first_gather": t},
+                 "brute_force_rows": checked}
+
+
+def phase_profile_frontend(torch):
+    """Phase 17b: tools/profile_torch_frontend.py's `profile` in process at
+    its full configuration, counted as one path; its report on one line."""
+    import importlib.util
+
+    from funny_lidar_slam_torch.ops import select
+
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_frontend", os.path.join(HERE, "tools", "profile_torch_frontend.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    select.fused_select.launches = 0
+    t = time.perf_counter()
+    report = tool.profile(log=lambda *a: log("[profile-frontend]", *a))
+    wall = time.perf_counter() - t
+    launches = select.fused_select.launches
+    check_launches("profile-frontend", launches, True)
+    ms = report["ms"]
+    assert set(tool.CALLS) | {"full_step", "live_frame_wall"} <= set(ms), sorted(ms)
+    assert all(np.isfinite(v) and v > 0 for v in ms.values()), ms
+    assert report["fused_select_launches"]["full_step"] > 0, report["fused_select_launches"]
+    log("[profile-frontend] " + json.dumps(report))
+    return launches, {"wall_s": wall, "fused_select_launches": launches,
+                      "full_step_ms": ms["full_step"],
+                      "step_packed_device_ms": ms["step_packed_device"],
+                      "est_fps_full_step": report["est_fps_full_step"]}
+
+
 def main() -> int:
     import torch
 
@@ -1939,24 +2123,36 @@ def main() -> int:
     paths.update(cli_paths)
     md_by_path, paths["multidevice"], md_sel = phase_multidevice(torch)
     by_path.update(md_by_path)
+    t = time.perf_counter()
+    paths["frontend_step_unpacked"], step_sel = phase_unpacked_step(torch, ds)
+    by_path["frontend_step_unpacked"] = paths["frontend_step_unpacked"]["fused_select_launches"]
+    by_path["profile_frontend"], paths["profile_frontend"] = phase_profile_frontend(torch)
+    log(f"[phase17] took {time.perf_counter() - t:.1f} s")
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
                "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
                "verify_ms_median", "verify_ms_max", "optimize_ms",
                "fused_select_launches_in_verifications", "resume_jump_m", "map_points",
                "save_map_ms", "frames", "bag_write_s", "bag_read_s", "preprocess_ms_per_scan",
                "1rank", "4rank", "pose_4rank_vs_1rank", "pose_4rank_vs_1rank_dryrun_map",
-               "nccl_allreduce_ms", "gloo_allreduce_ms")
+               "nccl_allreduce_ms", "gloo_allreduce_ms", "pose_max_diff_m",
+               "rot_max_diff_rad", "packed_ms_per_scan", "unpacked_ms_per_scan",
+               "unpacked_minus_packed_ms", "unpacked_vs_packed", "launch_calls",
+               "copy_calls", "sync_calls",
+               "full_step_ms", "step_packed_device_ms", "est_fps_full_step")
     entry["max_abs_err"] = max(entry["max_abs_err"], hashed["max_abs_err"], loam["max_abs_err"],
                                fig8["select"]["max_abs_err"], cli_sel["max_abs_err"],
+                               step_sel["max_abs_err"],
                                *(v["max_abs_err"] for v in md_sel.values()))
     entry.update(launches=sum(by_path.values()), launches_by_path=by_path,
                  hashed_inputs={k: hashed[k] for k in ("all_miss_rows", "cover_rows",
                                                        "missed_blocks")},
                  shapes={**hashed["shapes"], **loam["shapes"], **fig8["select"]["shapes"],
-                         **cli_sel["shapes"], **{k: v["shape"] for k, v in md_sel.items()}},
+                         **cli_sel["shapes"], **step_sel["shapes"],
+                         **{k: v["shape"] for k, v in md_sel.items()}},
                  loam_brute_force_rows=loam["brute_force_rows"],
                  loop_brute_force_rows=fig8["select"]["brute_force_rows"],
                  cli_brute_force_rows=cli_sel["brute_force_rows"],
+                 unpacked_step_brute_force_rows=step_sel["brute_force_rows"],
                  paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
     print(json.dumps({"kernels": [entry] + probe_entries}))

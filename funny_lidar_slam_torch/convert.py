@@ -13,8 +13,8 @@ import numpy as np
 import torch
 
 from .backend.pose_graph import PoseGraph
-from .core.cloud import Cloud
-from .core.state import NavState
+from .core.cloud import Cloud, ScanBundle
+from .core.state import ImuSegment, NavState
 from .loam.projection import OrderedScan
 from .maps.block_map import BlockMap
 from .maps.grid_map import GridMap
@@ -109,6 +109,16 @@ def matcher_state(s, device="cpu"):
 def cloud(c, device="cpu") -> Cloud:
     """A (points, mask) cloud, such as a LOAM feature cloud."""
     return _fields(Cloud, c, device)
+
+
+def imu_segment(seg, device="cpu") -> ImuSegment:
+    return _fields(ImuSegment, seg, device)
+
+
+def scan_bundle(b, device="cpu") -> ScanBundle:
+    """A preprocessed scan: timestamp, the three clouds and the IMU segment."""
+    return _fields(ScanBundle, b, device, {"ordered": cloud, "planar": cloud,
+                                           "corner": cloud, "imu": imu_segment})
 
 
 def ordered_scan(s, device="cpu") -> OrderedScan:

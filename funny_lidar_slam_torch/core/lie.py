@@ -286,6 +286,18 @@ def rotation_to_rpy(r: torch.Tensor) -> torch.Tensor:
     return torch.stack([roll, pitch, yaw], dim=-1)
 
 
+def chord_angle(a, b) -> torch.Tensor:
+    """Angle between the rotations of `a` and `b` (rotation matrices or
+    poses: the top-left 3x3 block), rad, in float64 from the chord
+    |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2). Equal rotations give exactly 0,
+    where arccos((trace(Ra^T Rb) - 1) / 2) reads an f32 rotation's
+    orthonormality error (~1e-7 in the trace) as ~1e-3 rad."""
+    ra = torch.as_tensor(a, dtype=torch.float64)[..., :3, :3]
+    rb = torch.as_tensor(b, dtype=torch.float64, device=ra.device)[..., :3, :3]
+    chord = torch.linalg.matrix_norm(ra - rb)
+    return 2.0 * torch.asin(torch.clamp(chord / (2.0 * 2.0 ** 0.5), max=1.0))
+
+
 def marginalize(h: torch.Tensor, start: int, end: int,
                 sv_thresh: float = 1e-6) -> torch.Tensor:
     """Schur-marginalize the block [start, end] (inclusive) out of the square

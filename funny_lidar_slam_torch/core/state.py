@@ -9,6 +9,7 @@ from typing import NamedTuple
 
 import torch
 
+from .device import resolve_device
 from .lie import make_se3
 
 
@@ -54,6 +55,16 @@ class ImuSegment(NamedTuple):
     accel: torch.Tensor  # [..., N, 3]
     quat: torch.Tensor  # [..., N, 4] orientation (w,x,y,z); identity if 6-axis
     mask: torch.Tensor  # [..., N] bool
+
+
+def to_device_segment(seg: ImuSegment, dtype=torch.float32, device=None) -> ImuSegment:
+    """A host segment (NumPy, from `ImuStream.get_segment`) as tensors on
+    `device` (default: CUDA; raises without it): t, gyro, accel and quat
+    cast to `dtype`, the mask to bool; one host->device copy a field."""
+    device = resolve_device(device)
+    return ImuSegment(*(torch.as_tensor(a, dtype=dtype, device=device)
+                        for a in (seg.t, seg.gyro, seg.accel, seg.quat)),
+                      mask=torch.as_tensor(seg.mask, dtype=torch.bool, device=device))
 
 
 def where_tree(cond, a, b):

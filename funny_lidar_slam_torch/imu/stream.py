@@ -16,6 +16,8 @@ Reference semantics preserved:
   * 6-axis IMUs integrate orientation with midpoint gyro; 9-axis uses the
     reported orientation.
   * segment extraction lerps boundary samples at exactly [t_left, t_right].
+  * `DataSynchronizer` pops each consumed span (the reference's
+    DataSynchronizer), for a feed that owns its stream.
 """
 
 from __future__ import annotations
@@ -212,3 +214,24 @@ class ImuStream:
         q_arr[:n] = rows_q
         mask[:n] = True
         return ImuSegment(t=t_arr, gyro=g_arr, accel=a_arr, quat=q_arr, mask=mask)
+
+
+class DataSynchronizer:
+    """Consuming segment extraction: `ImuStream.get_segment`, then the
+    consumed span is popped from the stream so each sample is handed out
+    once and the buffer never regrows. The last sample at or before the
+    right boundary stays, so the next segment's left-boundary
+    interpolation still has its bracketing pair."""
+
+    def __init__(self, stream: ImuStream):
+        self.stream = stream
+
+    def get_segment(self, t0: float, t1: float, capacity: int) -> ImuSegment | None:
+        seg = self.stream.get_segment(t0, t1, capacity)
+        if seg is None:
+            return None
+        s = self.stream
+        # drop everything strictly before the bracketing sample of t1
+        j = max(int(np.searchsorted(np.asarray(s.t), t1, side="right")) - 1, 0)
+        del s.t[:j], s.gyro[:j], s.accel[:j], s.quat[:j]
+        return seg

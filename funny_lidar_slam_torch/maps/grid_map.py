@@ -178,3 +178,15 @@ def build(dims: tuple, bucket_size: int, points, mask, inv_voxel_size,
           dtype=torch.float32) -> GridMap:
     return insert(create(dims, bucket_size, dtype, points.device), points, mask,
                   inv_voxel_size)
+
+
+def num_occupied(m: GridMap) -> torch.Tensor:
+    """Occupied voxels of the grid."""
+    return (m.counts > 0).sum(dtype=torch.int32)
+
+
+def stored_block_coords(m: GridMap):
+    """Owner block coords of every slot [S, 3] and which slots are claimed
+    (a test helper)."""
+    flat = m.bc.reshape(-1, 3)
+    return flat, flat[:, 0] != _EMPTY

@@ -2,7 +2,8 @@
 
 Per scan: deskew -> IMU predict -> scan-to-map GN -> fusion. The host
 streams one packed frame buffer in (`step_packed`) and drains one packed
-result row out (`StepResult.packed`).
+result row out (`StepResult.packed`); `step` takes the frame unpacked, one
+host->device copy an array.
 
 Fusion methods: TightCouplingOptimization (preintegration predict and the
 30-dof fusion), LooseCoupling (IMU delta-rotation predict, matcher pose
@@ -27,7 +28,7 @@ import torch
 
 from ..core.cloud import Cloud
 from ..core.lie import quat_conj, quat_mul, quat_to_mat, se3_inv
-from ..core.state import ImuSegment, NavState, where_tree
+from ..core.state import ImuSegment, NavState, to_device_segment, where_tree
 from ..fusion import eskf, loose
 from ..fusion.tight import TightFusionConfig, fuse as tight_fuse
 from ..imu.preintegration import PreintParams, predict, preintegrate
@@ -279,9 +280,7 @@ class Frontend:
         return torch.as_tensor(x, dtype=dtype or self.dtype, device=self.device)
 
     def to_device_segment(self, seg: ImuSegment) -> ImuSegment:
-        return ImuSegment(t=self._tensor(seg.t), gyro=self._tensor(seg.gyro),
-                          accel=self._tensor(seg.accel), quat=self._tensor(seg.quat),
-                          mask=self._tensor(seg.mask, torch.bool))
+        return to_device_segment(seg, self.dtype, self.device)
 
     def init_frame(self, mstate, scan_points, rel_times, mask, ref_time, segment, ring=None):
         pts = self._tensor(scan_points)
@@ -302,6 +301,19 @@ class Frontend:
         return self._init_at_impl(mstate, self._tensor(pose), vel, pts, self._tensor(rel_times),
                                   self._tensor(mask, torch.bool), self._tensor(ref_time),
                                   self.to_device_segment(segment), ring)
+
+    def step(self, mstate, fstate, scan_points, rel_times, mask, ref_time, deskew_seg,
+             preint_seg, ring=None):
+        """The unpacked step: host arrays (or tensors) moved to the device
+        one array at a time (scan points, rel times, mask, ref time and the
+        two segments' fields), then the same step as `step_packed`."""
+        pts = self._tensor(scan_points)
+        ring = (self._default_ring(pts) if ring is None
+                else self._tensor(ring, torch.int32))
+        return self._step_impl(mstate, fstate, pts, self._tensor(rel_times),
+                               self._tensor(mask, torch.bool), self._tensor(ref_time),
+                               self.to_device_segment(deskew_seg),
+                               self.to_device_segment(preint_seg), ring)
 
     # -- packed single-transfer feed path --------------------------------
     def packed_layout(self, scan_capacity: int, seg_capacity: int):

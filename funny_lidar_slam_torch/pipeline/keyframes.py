@@ -42,6 +42,11 @@ class KeyFrame:
     def materialized(self) -> bool:
         return self._cloud_dev is None and self._feat_dev is None
 
+    def materialize(self) -> None:
+        """Fetch this keyframe's pending device clouds with one copy; a
+        no-op once materialized."""
+        materialize_batch([self])
+
     @property
     def cloud(self) -> np.ndarray:
         materialize_batch([self])

@@ -11,8 +11,9 @@ loop closure (`backend/loop_closure.py`), and an accepted loop adds its
 edge, optimizes the graph on the device and rewrites every keyframe pose.
 With `keyframe_save_dir` the keyframes persist as npz files, from which
 `SlamSystem.resume` continues a killed run; `save_map` writes the merged
-map and its tiles. `build_matcher` also serves the localization mode
-(`localization/localizer.py`).
+map and its tiles. `build_matcher`, `pad_scan` and `to_device_segment`
+(defined beside `ImuSegment` in `core/state.py`) also serve the
+localization mode (`localization/localizer.py`) and the profile tool.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import torch
 from ..backend.loop_closure import LoopCloser, LoopClosureConfig
 from ..backend.pose_graph import PoseGraphBuilder, optimize as pg_optimize
 from ..core.cloud import Cloud
+from ..core.state import to_device_segment  # noqa: F401  (re-exported)
 from ..imu.stream import ImuStream
 from ..io.pcd import write_pcd
 from ..maps.split_map import save_tiles

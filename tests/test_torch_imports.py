@@ -1,8 +1,9 @@
-"""Import guard of the port: every module of funny_lidar_slam_torch, and
-chip_smoke.py, imports without pulling in JAX, the JAX package, PyYAML or
-matplotlib (the port runs where neither of the last two is installed);
-and the entry points, the CLI and the multi-rank dry run included, refuse
-to run without CUDA unless the caller asks for the CPU."""
+"""Import guard of the port: every module of funny_lidar_slam_torch, the
+port's tools (tools/profile_torch_*.py) and chip_smoke.py import without
+pulling in JAX, the JAX package, PyYAML or matplotlib (the port runs where
+neither of the last two is installed); and the entry points, the CLI and
+the multi-rank dry run included, refuse to run without CUDA unless the
+caller asks for the CPU."""
 
 import os
 import subprocess
@@ -13,11 +14,15 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _GUARD = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import funny_lidar_slam_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+for tool in ("profile_torch_frontend", "profile_torch_mapping"):
+    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(tool)
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "funny_lidar_slam_tpu", "yaml",
@@ -33,11 +38,12 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    # the package's module count, the CLI and its readers (config, lidar/model,
+    # the package's 64 modules, the CLI and its readers (config, lidar/model,
     # io/{bag_export,bag_format,formats,pointcloud2,rosbag,viz}, native,
     # pipeline/{preprocess,run_slam}) and multi-device (backend/distributed,
-    # parallel/{comm,dryrun,sharded_gn,sharded_map}) included
-    assert n_modules >= 64
+    # parallel/{comm,dryrun,sharded_gn,sharded_map}) included, and the two
+    # profile tools
+    assert n_modules >= 66
 
 
 def test_entry_points_default_to_cuda():
@@ -45,8 +51,11 @@ def test_entry_points_default_to_cuda():
 
     from funny_lidar_slam_torch.backend.loop_closure import LoopCloser
     from funny_lidar_slam_torch.backend.pose_graph import PoseGraphBuilder
+    from funny_lidar_slam_torch.core.cloud import Cloud
+    from funny_lidar_slam_torch.imu.stream import ImuStream
     from funny_lidar_slam_torch.localization import LocalizationConfig, Localizer
-    from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
+    from funny_lidar_slam_torch.pipeline.system import (SlamSystem, SystemConfig,
+                                                        to_device_segment)
     from funny_lidar_slam_torch.registration import matchers
 
     if torch.cuda.is_available():
@@ -72,6 +81,15 @@ def test_entry_points_default_to_cuda():
         LoopCloser()
     with pytest.raises(RuntimeError, match="CUDA"):
         PoseGraphBuilder().to_device()
+    imu = ImuStream(require_static_init=False)
+    for i in range(4):
+        imu.push(0.01 * i, [0.0, 0.0, 0.0], [0.0, 0.0, 9.81])
+    seg = imu.get_segment(0.0, 0.02, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        to_device_segment(seg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Cloud.empty(8)
+    assert to_device_segment(seg, device="cpu").t.device.type == "cpu"
     assert SlamSystem(cfg, device="cpu").device.type == "cpu"
     assert SlamSystem(loop_cfg, device="cpu").loop_closer.device.type == "cpu"
     assert PoseGraphBuilder().to_device(device="cpu").poses.device.type == "cpu"
