@@ -109,9 +109,13 @@ Phases, each of which raises (non-zero exit) on failure:
      against its plain version and brute force, timed in turns; 17b
      tools/profile_torch_frontend.py's `profile` in process at its full
      configuration, its report on one line;
+  18. the bench: `python3 bench_torch.py` in its own process at
+     BENCH_BUDGET_S=0 (the grid headline once over the bench's 14 s run, the
+     other six sections skipped), its JSON line gated (rc 0, no partial or
+     error, >= 100 frames, ATE < 0.10 m, fused_select launched);
 and prints the per-kernel JSON line, the card line and the result line.
-Every path (3b, 4-17) runs with the kernel launch counts zeroed just
-before it and read just after it. Imports nothing of JAX and nothing of
+Every path (3b, 4-18) runs with the kernel launch counts zeroed just
+before it and read just after it (phase 18 inside the bench's process). Imports nothing of JAX and nothing of
 the JAX package.
 """
 
@@ -125,6 +129,8 @@ import sys
 import time
 
 import numpy as np
+
+import bench_torch as bench
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -304,9 +310,7 @@ def steady_fps(stats) -> float:
 def phase_device(torch):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
+    card = bench.card_line()
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
     return card
@@ -950,74 +954,11 @@ def gt_pairs(ds, out):
     return np.asarray([a for a, _ in pairs]), np.asarray([b for _, b in pairs])
 
 
-def mapping_config(cap, fusion="TightCouplingOptimization", system=None, **layout):
-    """The bench's mapping SystemConfig at `cap` points; `system` adds
-    SystemConfig fields (loop closure, the keyframe store)."""
-    from funny_lidar_slam_torch.pipeline.frontend import FrontendConfig
-    from funny_lidar_slam_torch.pipeline.system import SystemConfig
-    from funny_lidar_slam_torch.registration import matchers
-
-    return SystemConfig(
-        registration_mode="IcpOptimized",
-        matcher_config=matchers.IcpConfig(
-            source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
-            map_capacity=65536, local_map_size=20, **layout),
-        frontend=FrontendConfig(fusion_method=fusion),
-        scan_capacity=cap, imu_segment_capacity=16, **(system or {}))
-
-
-def mapping_system(cap, fusion="TightCouplingOptimization", **layout):
-    """The port's SlamSystem on the bench's mapping config at `cap` points."""
+def bench_system(mode, cap=16384):
+    """The port's SlamSystem on the bench's config of `mode` (bench.py:296-330)."""
     from funny_lidar_slam_torch.pipeline.system import SlamSystem
 
-    return SlamSystem(mapping_config(cap, fusion, **layout))
-
-
-LOAM_MODES = ("PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree")
-
-
-def bench_matcher_config(mode, cap=16384):
-    """The bench's matcher config of a LOAM-family or NDT mode
-    (bench.py:316-330) at `cap` points."""
-    from funny_lidar_slam_torch.registration import matchers
-
-    return {
-        "PointToPlane_IVOX": lambda: matchers.PointToPlaneConfig(
-            mode="ivox", source_capacity=cap, cloud_capacity=cap, map_capacity=131072),
-        "PointToPlane_KdTree": lambda: matchers.PointToPlaneConfig(
-            mode="window", source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
-            map_capacity=65536),
-        "LoamFull_KdTree": lambda: matchers.LoamFullConfig(
-            corner_capacity=4096, planar_capacity=16384, merged_capacity=65536,
-            map_capacity=65536),
-        "IncrementalNDT": lambda: matchers.NdtConfig(
-            voxel_size=2.0, source_filter_size=0.3, min_points_in_voxel=4,
-            min_effective_pts=50, res_outlier_thresh=30.0, source_capacity=cap,
-            map_capacity=131072),
-    }[mode]()
-
-
-def bench_frontend(mode):
-    """TightCouplingOptimization; the LOAM modes add the bench's range-image
-    geometry of a 16-ring, 900-column lidar and the default FeatureConfig."""
-    from funny_lidar_slam_torch.loam.projection import LidarGeometry
-    from funny_lidar_slam_torch.pipeline.frontend import FUSION_TIGHT_OPT, FrontendConfig
-
-    geom = None
-    if mode in LOAM_MODES:
-        geom = LidarGeometry(n_rows=16, n_cols=900, horizontal_resolution=2 * np.pi / 900,
-                             min_distance=1.5, max_distance=50.0)
-    return FrontendConfig(fusion_method=FUSION_TIGHT_OPT, lidar_geometry=geom)
-
-
-def bench_system(mode, cap=16384):
-    """The port's SlamSystem on the bench's config of a LOAM-family or NDT
-    `mode` (bench.py:296-330)."""
-    from funny_lidar_slam_torch.pipeline.system import SlamSystem, SystemConfig
-
-    return SlamSystem(SystemConfig(
-        registration_mode=mode, matcher_config=bench_matcher_config(mode, cap),
-        frontend=bench_frontend(mode), scan_capacity=cap, imu_segment_capacity=16))
+    return SlamSystem(bench.mode_config(mode, cap))
 
 
 def check_launches(tag, launches, expect_select):
@@ -1098,7 +1039,9 @@ def traced_run(torch, ds, make, patches):
 
 def grid_system(fusion="TightCouplingOptimization"):
     """The headline config (bench.py:312-315): the dense grid (96, 96, 16)."""
-    return mapping_system(16384, fusion, map_layout="grid", grid_dims=(96, 96, 16))
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem
+
+    return SlamSystem(bench.headline_config(16384, fusion))
 
 
 def phase_e2e(torch, ds):
@@ -1156,8 +1099,9 @@ def phase_hashed_mapping(torch, ds):
     """The figure-8 bench config without loop closure, on the IcpConfig
     default layout: the hashed block map with incremental block inserts."""
     from funny_lidar_slam_torch.maps import block_map
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem
 
-    slam, res = mapping_run(torch, ds, "hashed", lambda: mapping_system(16384))
+    slam, res = mapping_run(torch, ds, "hashed", lambda: SlamSystem(bench.mapping_config()))
     m = slam.mstate.m
     assert isinstance(m, block_map.BlockMap)
     res.update(map_blocks=int(block_map.num_blocks(m)),
@@ -1172,20 +1116,11 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
     IcpOptimized, phases 12a-d with the bench's config of another mode."""
     from funny_lidar_slam_torch.io.simulator import make_world
     from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
-    from funny_lidar_slam_torch.localization import LocalizationConfig, Localizer
+    from funny_lidar_slam_torch.localization import Localizer
     from funny_lidar_slam_torch.ops import select
-    from funny_lidar_slam_torch.registration import matchers
 
-    cap = 16384
     tag = "localization" if mode == "IcpOptimized" else f"localization {mode}"
-    mcfg = (matchers.IcpConfig(source_capacity=cap, cloud_capacity=cap, merged_capacity=65536,
-                               map_capacity=65536) if mode == "IcpOptimized"
-            else bench_matcher_config(mode, cap))
-    loc = Localizer(LocalizationConfig(
-        registration_mode=mode, matcher_config=mcfg._replace(is_localization_mode=True),
-        frontend=bench_frontend(mode),
-        scan_capacity=cap, imu_segment_capacity=16, map_filter_size=0.4,
-        local_map_size=80.0, local_map_boundary=20.0, local_map_capacity=65536))
+    loc = Localizer(bench.localization_config(16384, mode))
     loc.set_global_map(make_world(seed=7))
     select.fused_select.launches = 0
     t = time.perf_counter()
@@ -1224,20 +1159,13 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
     return launches, res
 
 
-FIGURE8_SIM = dict(duration=24.0, points_per_scan=16384, seed=11)
-
-
 def figure8_system():
     """The bench's Figure8_Loop config (bench.py:238-255): the hashed ICP
     mapping config with loop closure on (the figure-8's tighter index
     gates, the LoopClosureConfig defaults otherwise)."""
-    from funny_lidar_slam_torch.backend.loop_closure import LoopClosureConfig
     from funny_lidar_slam_torch.pipeline.system import SlamSystem
 
-    return SlamSystem(mapping_config(16384, system=dict(
-        enable_loopclosure=True,
-        loopclosure=LoopClosureConfig(skip_near_loopclosure=20, skip_near_keyframe=40,
-                                      near_neighbor_distance=5.0))))
+    return SlamSystem(bench.figure8_config(16384))
 
 
 def keyframe_ate(ds, slam):
@@ -1369,13 +1297,13 @@ def phase_figure8(torch):
     """Phase 13: mapping with loop closure on the bench's Figure-8 config,
     its gates, then fused_select held against its plain version at the first
     verification's refine (K=5) and fitness (K=1) inputs."""
-    from funny_lidar_slam_torch.io.simulator import Figure8Trajectory, SimConfig, simulate
+    from funny_lidar_slam_torch.io.simulator import simulate
     from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
     from funny_lidar_slam_torch.ops import select
 
     t = time.perf_counter()
-    ds = simulate(SimConfig(**FIGURE8_SIM),
-                  traj=Figure8Trajectory(amp_x=18.0, amp_y=9.0, omega=0.35))
+    sim_cfg, traj = bench.figure8_sim(16384)
+    ds = simulate(sim_cfg, traj=traj)
     log(f"[figure8] simulated {len(ds.scans)} scans in {time.perf_counter() - t:.1f} s")
     slam = figure8_system()
     select.fused_select.launches = 0
@@ -1581,8 +1509,8 @@ def phase_resume_and_map(torch, ds, fig8_slam):
             slam.process_scan(sc.t, sc.t + period, sc.points, sc.rel_times)
 
     with tempfile.TemporaryDirectory(dir=HERE) as tmp:
-        cfg = mapping_config(16384, map_layout="grid", grid_dims=(96, 96, 16),
-                             system=dict(keyframe_save_dir=os.path.join(tmp, "keyframes")))
+        cfg = bench.mapping_config(16384, map_layout="grid", grid_dims=bench.GRID_DIMS,
+                                   system=dict(keyframe_save_dir=os.path.join(tmp, "keyframes")))
         half = len(ds.scans) // 2
         select.fused_select.launches = 0
         t = time.perf_counter()
@@ -2084,6 +2012,41 @@ def phase_profile_frontend(torch):
                       "est_fps_full_step": report["est_fps_full_step"]}
 
 
+def phase_bench(torch):
+    """Phase 18: `python3 bench_torch.py` as its own process with
+    BENCH_BUDGET_S=0 (bench.py's knob: the headline runs once, the other six
+    sections go to `skipped`); its last stdout line parsed and gated: rc 0,
+    no `partial`, no `error`, the headline's frames >= 100 of the 14 s run,
+    ATE < 0.10 m, an RPE, fps > 0, fused_select launched (counted by the
+    bench around its run), and the device named as this card."""
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(HERE, "bench_torch.py")], cwd=HERE,
+                         env=dict(os.environ, BENCH_BUDGET_S="0"), capture_output=True,
+                         text=True, timeout=300)
+    wall = time.perf_counter() - t
+    for x in out.stderr.strip().splitlines()[-20:]:
+        log(f"[bench] {x}")
+    assert out.returncode == 0, f"[bench] rc {out.returncode}"
+    text = out.stdout.strip().splitlines()[-1]
+    log(f"[bench] {text}")
+    line = json.loads(text)
+    assert "partial" not in line, line["partial"]
+    assert all("error" not in r for r in line["per_mode"].values()), line["per_mode"]
+    assert line["skipped"] == list(bench.MODES[1:]) + ["Localization", "Figure8_Loop"], \
+        line["skipped"]
+    head = line["per_mode"]["IcpOptimized"]
+    assert head["frames"] >= 100, f"[bench] {head['frames']} frames"
+    assert head["ate_m"] < 0.10, f"[bench] ATE {head['ate_m']} m"
+    assert head["rpe_m"] >= 0 and head["fps"] > 0 and line["value"] == head["fps"], head
+    check_launches("bench", head["fused_select_launches"], True)
+    assert line["device"] == torch.cuda.get_device_name(0), line["device"]
+    log(f"[bench] phase 18 took {wall:.1f} s")
+    return head["fused_select_launches"], {
+        **{k: head[k] for k in ("fps", "ate_m", "rpe_m", "frames", "excluded_deltas")},
+        "bench_wall_s": line["bench_wall_s"], "wall_s": wall,
+        "fused_select_launches": head["fused_select_launches"]}
+
+
 def main() -> int:
     import torch
 
@@ -2106,12 +2069,12 @@ def main() -> int:
     by_path["grid_mapping"], grid = phase_e2e(torch, ds)
     by_path["hashed_mapping"] = phase_hashed_mapping(torch, ds)[0]
     by_path["localization"] = phase_localization(torch, ds)[0]
-    for mode in LOAM_MODES:
+    for mode in bench.LOAM_MODES:
         by_path[mode], paths[mode] = phase_loam_mapping(torch, ds, mode)
     by_path["ndt_mapping"], paths["ndt_mapping"] = phase_ndt_mapping(torch, ds)
     by_path["kf_mapping"], paths["kf_mapping"] = phase_kf_mapping(
         torch, ds, grid["phase_ms_per_scan"])
-    for mode in LOAM_MODES + ("IncrementalNDT",):
+    for mode in bench.LOAM_MODES + ("IncrementalNDT",):
         key = f"localization_{mode}"
         by_path[key], paths[key] = phase_localization(torch, ds, mode)
     fig8_slam, by_path["figure8_loopclosure"], fig8 = phase_figure8(torch)
@@ -2128,6 +2091,7 @@ def main() -> int:
     by_path["frontend_step_unpacked"] = paths["frontend_step_unpacked"]["fused_select_launches"]
     by_path["profile_frontend"], paths["profile_frontend"] = phase_profile_frontend(torch)
     log(f"[phase17] took {time.perf_counter() - t:.1f} s")
+    by_path["bench_headline"], paths["bench_headline"] = phase_bench(torch)
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
                "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
                "verify_ms_median", "verify_ms_max", "optimize_ms",
@@ -2138,7 +2102,8 @@ def main() -> int:
                "rot_max_diff_rad", "packed_ms_per_scan", "unpacked_ms_per_scan",
                "unpacked_minus_packed_ms", "unpacked_vs_packed", "launch_calls",
                "copy_calls", "sync_calls",
-               "full_step_ms", "step_packed_device_ms", "est_fps_full_step")
+               "full_step_ms", "step_packed_device_ms", "est_fps_full_step", "fps",
+               "excluded_deltas", "bench_wall_s")
     entry["max_abs_err"] = max(entry["max_abs_err"], hashed["max_abs_err"], loam["max_abs_err"],
                                fig8["select"]["max_abs_err"], cli_sel["max_abs_err"],
                                step_sel["max_abs_err"],

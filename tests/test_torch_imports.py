@@ -1,9 +1,9 @@
 """Import guard of the port: every module of funny_lidar_slam_torch, the
-port's tools (tools/profile_torch_*.py) and chip_smoke.py import without
-pulling in JAX, the JAX package, PyYAML or matplotlib (the port runs where
-neither of the last two is installed); and the entry points, the CLI and
-the multi-rank dry run included, refuse to run without CUDA unless the
-caller asks for the CPU."""
+port's tools (tools/profile_torch_*.py), bench_torch.py and chip_smoke.py
+import without pulling in JAX, the JAX package, PyYAML or matplotlib (the
+port runs where neither of the last two is installed); and the entry
+points, the CLI and the multi-rank dry run included, refuse to run without
+CUDA unless the caller asks for the CPU."""
 
 import os
 import subprocess
@@ -23,6 +23,8 @@ for tool in ("profile_torch_frontend", "profile_torch_mapping"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     names.append(tool)
+import bench_torch
+names.append("bench_torch")
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "funny_lidar_slam_tpu", "yaml",
@@ -41,9 +43,9 @@ def test_port_imports_no_jax():
     # the package's 64 modules, the CLI and its readers (config, lidar/model,
     # io/{bag_export,bag_format,formats,pointcloud2,rosbag,viz}, native,
     # pipeline/{preprocess,run_slam}) and multi-device (backend/distributed,
-    # parallel/{comm,dryrun,sharded_gn,sharded_map}) included, and the two
-    # profile tools
-    assert n_modules >= 66
+    # parallel/{comm,dryrun,sharded_gn,sharded_map}) included, the two
+    # profile tools and the bench
+    assert n_modules >= 67
 
 
 def test_entry_points_default_to_cuda():
