@@ -113,10 +113,26 @@ Phases, each of which raises (non-zero exit) on failure:
      BENCH_BUDGET_S=0 (the grid headline once over the bench's 14 s run, the
      other six sections skipped), its JSON line gated (rc 0, no partial or
      error, >= 100 frames, ATE < 0.10 m, fused_select launched);
+  19. the device loops: preintegrate, eskf_predict and tight_fuse (csrc/
+     imu_scan.cu, csrc/tight_fuse.cu) against their plain versions on every
+     call captured from phase 4's grid run, phase 11's KF run and 15a's
+     M2DGR run (1e-5 absolute on deltas and states, 1e-4 of the largest
+     entry on covariances and Jacobians; tight_fuse within 2e-3 m and 2e-3
+     rad and 1e-2 of the largest information entry on every call, within
+     1e-4 m and 1e-5 rad with the plain version's LM iteration count on at
+     least 95 %, the distributions printed); the three entry points on
+     device inputs under torch.cuda.set_sync_debug_mode("error"); each
+     kernel timed in turns beside its plain version and one empty launch
+     at the bench's shape (16 slots, 12 LM iterations) and M2DGR's (64
+     slots, 20), with its bound and its ptxas registers and shared memory;
 and prints the per-kernel JSON line, the card line and the result line.
 Every path (3b, 4-18) runs with the kernel launch counts zeroed just
-before it and read just after it (phase 18 inside the bench's process). Imports nothing of JAX and nothing of
-the JAX package.
+before it and read just after it (phase 18 inside the bench's process,
+which counts fused_select only); every path that steps the frontend checks
+the device-loop kernels' launches against its steps: one preintegrate and
+one tight_fuse a step under TightCouplingOptimization, one eskf_predict a
+step under TightCouplingKF, none under LooseCoupling (the Turing CLI
+preset). Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -970,23 +986,118 @@ def check_launches(tag, launches, expect_select):
         assert launches == 0, f"[{tag}] the path launched fused_select {launches} times"
 
 
-def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True):
+def zero_counts():
+    """Every kernel wrapper's launch count set to 0, just before a path."""
+    from funny_lidar_slam_torch.ops import recurrences, select
+
+    select.fused_select.launches = 0
+    for fn in recurrences.KERNELS:
+        fn.launches = 0
+
+
+# path -> launches of the device-loop kernels in it (read just after it)
+LOOP_LAUNCHES: dict = {}
+
+
+def loop_launches(tag, stats, fusion) -> dict:
+    """The device-loop kernels' launches of the path just run, recorded and
+    checked against its steps (`stats` rows without "init"): one
+    preintegrate and one tight_fuse a step under TightCouplingOptimization,
+    one eskf_predict a step under TightCouplingKF, none under
+    LooseCoupling."""
+    from funny_lidar_slam_torch.ops import recurrences
+    from funny_lidar_slam_torch.pipeline import frontend as fe
+
+    counts = {fn.__name__: fn.launches for fn in recurrences.KERNELS}
+    steps = sum(1 for s in stats if not s.get("init"))
+    tight, kf = fusion == fe.FUSION_TIGHT_OPT, fusion == fe.FUSION_TIGHT_KF
+    expect = {"preintegrate": steps * tight, "eskf_predict": steps * kf,
+              "tight_fuse": steps * tight}
+    assert counts == expect, f"[{tag}] device-loop launches {counts}, expected {expect}"
+    assert steps > 0, f"[{tag}] no step"
+    LOOP_LAUNCHES[tag] = counts
+    return counts
+
+
+def clone_tree(x):
+    """Tensors cloned (on their device) through nested tuples."""
+    if hasattr(x, "clone"):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [clone_tree(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+# "grid" / "kf" / "m2dgr" -> [(kernel, args)] of the step's device-loop calls
+LOOP_CAPTURES: dict = {}
+# the same keys -> {kernel: launches while capturing}
+LOOP_CAPTURE_LAUNCHES: dict = {}
+
+
+class LoopCapture:
+    """While active, records the arguments (cloned) of every preintegrate,
+    eskf.predict and tight fuse call of the frontend step under `key`, and
+    the kernels' launches meanwhile. The clones cost time a step, so a
+    capture runs outside every timed or counted run."""
+
+    def __init__(self, key):
+        self.key = key
+        self.calls = LOOP_CAPTURES.setdefault(key, [])
+
+    def __enter__(self):
+        from funny_lidar_slam_torch.fusion import eskf
+        from funny_lidar_slam_torch.ops import recurrences
+        from funny_lidar_slam_torch.pipeline import frontend as fe
+
+        self.start = {fn.__name__: fn.launches for fn in recurrences.KERNELS}
+
+        self.saved = [(fe, "preintegrate", "preintegrate"), (eskf, "predict", "eskf_predict"),
+                      (fe, "tight_fuse", "tight_fuse")]
+        self.saved = [(mod, attr, kind, getattr(mod, attr)) for mod, attr, kind in self.saved]
+        for mod, attr, kind, fn in self.saved:
+            def wrapper(*args, kind=kind, fn=fn):
+                self.calls.append((kind, clone_tree(args)))
+                return fn(*args)
+            setattr(mod, attr, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        from funny_lidar_slam_torch.ops import recurrences
+
+        for mod, attr, _, fn in self.saved:
+            setattr(mod, attr, fn)
+        counts = LOOP_CAPTURE_LAUNCHES.setdefault(self.key, {})
+        for fn in recurrences.KERNELS:
+            name = fn.__name__
+            counts[name] = counts.get(name, 0) + fn.launches - self.start[name]
+
+
+def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=None):
     """Warm-up over a few scans, then the counted run of `make()` with the
     mapping gates: >= 40 tracked scans, finite poses, ATE < 0.10 m,
-    fused_select launched (or, with `expect_select=False`, not)."""
+    fused_select launched (or, with `expect_select=False`, not), the
+    device-loop kernels launched once a step as the fusion method asks;
+    with `capture`, the warm-up runs every scan and keeps its device-loop
+    inputs under that key, so the counted run stays the bare main path."""
     from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
     from funny_lidar_slam_torch.ops import select
 
-    if warm_scans:  # kernel load and allocator, then the run
+    if capture:  # kernel load and allocator, and the inputs phase 19 replays
+        with LoopCapture(capture):
+            make().run_dataset(ds)
+        torch.cuda.synchronize()
+    elif warm_scans:  # kernel load and allocator, then the run
         make().run_dataset(ds, max_scans=warm_scans)
         torch.cuda.synchronize()
     slam = make()
-    select.fused_select.launches = 0
+    zero_counts()
     t = time.perf_counter()
     out = slam.run_dataset(ds)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = select.fused_select.launches
+    loop_counts = loop_launches(tag, slam.stats, slam.frontend.cfg.fusion_method)
 
     est, gt = gt_pairs(ds, out)
     n_tracked = len(out["poses"])
@@ -1000,7 +1111,7 @@ def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True):
            "steady_fps": steady_fps(slam.stats), "wall_s": wall, "steps": steps,
            "gathers_per_scan": float(np.mean([s["iters"] for s in slam.stats if "iters" in s])),
            "fused_select_launches": launches, "launches_per_scan": launches / steps,
-           "keyframes": out["n_keyframes"]}
+           "loop_launches": loop_counts, "keyframes": out["n_keyframes"]}
     return slam, res
 
 
@@ -1048,7 +1159,7 @@ def phase_e2e(torch, ds):
     from funny_lidar_slam_torch.pipeline import frontend as fe_mod
     from funny_lidar_slam_torch.registration import matchers
 
-    _, res = mapping_run(torch, ds, "e2e", grid_system)
+    _, res = mapping_run(torch, ds, "e2e", grid_system, capture="grid")
     phase_ms, traced_wall = traced_run(torch, ds, grid_system, [
         (fe_mod, "deskew", "deskew+preint"), (fe_mod, "preintegrate", "deskew+preint"),
         (fe_mod, "tight_fuse", "fusion"), (matchers, "run_gn_corr", "gn"),
@@ -1082,7 +1193,7 @@ def phase_kf_mapping(torch, ds, grid_spans):
     def make():
         return grid_system(fe_mod.FUSION_TIGHT_KF)
 
-    _, res = mapping_run(torch, ds, "kf", make)
+    _, res = mapping_run(torch, ds, "kf", make, capture="kf")
     phase_ms, traced_wall = traced_run(torch, ds, make, [
         (fe_mod, "deskew", "deskew"), (eskf, "predict", "eskf_predict"),
         (matchers, "run_gn_corr", "gn"), (eskf, "update_pose", "eskf_update"),
@@ -1122,12 +1233,13 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
     tag = "localization" if mode == "IcpOptimized" else f"localization {mode}"
     loc = Localizer(bench.localization_config(16384, mode))
     loc.set_global_map(make_world(seed=7))
-    select.fused_select.launches = 0
+    zero_counts()
     t = time.perf_counter()
     out = loc.run_dataset(ds, ds.scans[0].gt_pose)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = select.fused_select.launches
+    loop_counts = loop_launches(tag, loc.stats, loc.frontend.cfg.fusion_method)
 
     est, gt = gt_pairs(ds, out)
     assert loc.initialized, f"[{tag}] the init did not pass its fitness gate"
@@ -1154,7 +1266,7 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
            "gathers_per_scan": float(np.mean([s["iters"] for s in loc.stats])),
            "map_refreshes": loc.map_refreshes, "refresh_ms": float(np.median(refresh)),
            "local_map_points": int(crop.mask.sum()), "fused_select_launches": launches,
-           "launches_per_scan": launches / max(steps, 1)}
+           "launches_per_scan": launches / max(steps, 1), "loop_launches": loop_counts}
     log(f"[{tag}] " + json.dumps(res))
     return launches, res
 
@@ -1306,13 +1418,14 @@ def phase_figure8(torch):
     ds = simulate(sim_cfg, traj=traj)
     log(f"[figure8] simulated {len(ds.scans)} scans in {time.perf_counter() - t:.1f} s")
     slam = figure8_system()
-    select.fused_select.launches = 0
+    zero_counts()
     with LoopProbe(torch) as probe:
         t = time.perf_counter()
         out = slam.run_dataset(ds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     launches = select.fused_select.launches
+    loop_counts = loop_launches("figure8", slam.stats, slam.frontend.cfg.fusion_method)
 
     est, gt = gt_pairs(ds, out)
     period = ds.scans[1].t - ds.scans[0].t
@@ -1332,6 +1445,7 @@ def phase_figure8(torch):
            "verify_ms_median": float(np.median(verify_ms)) if verify_ms else None,
            "verify_ms_max": float(np.max(verify_ms)) if verify_ms else None,
            "optimize_ms": probe.optimize_ms, "fused_select_launches": launches,
+           "loop_launches": loop_counts,
            "fused_select_launches_in_verifications": sum(
                v["fused_select_launches"] for v in probe.verifications),
            "verify_gn_iterations": sum(sum(v["gn_iterations"]) for v in probe.verifications),
@@ -1512,11 +1626,12 @@ def phase_resume_and_map(torch, ds, fig8_slam):
         cfg = bench.mapping_config(16384, map_layout="grid", grid_dims=bench.GRID_DIMS,
                                    system=dict(keyframe_save_dir=os.path.join(tmp, "keyframes")))
         half = len(ds.scans) // 2
-        select.fused_select.launches = 0
+        zero_counts()
         t = time.perf_counter()
         a = SlamSystem(cfg)
         feed(a, 0, half)
         n_kf_a, poses_a, times_a = len(a.keyframes), list(a.trajectory), list(a.trajectory_t)
+        stats_a = list(a.stats)
         del a  # "kill"
         b = SlamSystem.resume(cfg)
         assert len(b.keyframes) == n_kf_a >= 2 and b.graph.n_vertices == n_kf_a, \
@@ -1525,6 +1640,7 @@ def phase_resume_and_map(torch, ds, fig8_slam):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = select.fused_select.launches
+        loop_counts = loop_launches("resume", stats_a + b.stats, b.frontend.cfg.fusion_method)
         est, gt = gt_pairs(ds, {"times": times_a + list(b.trajectory_t),
                                 "poses": poses_a + list(b.trajectory)})
         ate = ate_rmse(est, gt, align=True)
@@ -1532,7 +1648,8 @@ def phase_resume_and_map(torch, ds, fig8_slam):
                                   - b.keyframes.frames[n_kf_a - 1].pose[:3, 3]))
         res = {"keyframes_saved": n_kf_a, "keyframes_after": len(b.keyframes),
                "tracked_before": len(poses_a), "tracked_after": len(b.trajectory), "ate_m": ate,
-               "resume_jump_m": d0, "wall_s": wall, "fused_select_launches": launches}
+               "resume_jump_m": d0, "wall_s": wall, "fused_select_launches": launches,
+               "loop_launches": loop_counts}
         assert len(b.trajectory) >= 10, f"[resume] {len(b.trajectory)} scans after the resume"
         assert ate < 0.4, f"[resume] combined ATE {ate:.4f} m"
         assert d0 < 2.5, f"[resume] the resume jumped {d0:.2f} m"
@@ -1606,12 +1723,13 @@ def cli_run(torch, tag, ds, out_dir, argv):
     from funny_lidar_slam_torch.ops import select
     from funny_lidar_slam_torch.pipeline import run_slam
 
-    select.fused_select.launches = 0
+    zero_counts()
     t = time.perf_counter()
     summary, runner = run_slam.main(argv + ["--output", out_dir])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = select.fused_select.launches
+    loop_counts = loop_launches(tag, runner.stats, runner.frontend.cfg.fusion_method)
 
     times, poses = read_tum(os.path.join(out_dir, "trajectory_tum.txt"))
     idx = np.abs(ds.gt_times[None, :] - times[:, None]).argmin(1)
@@ -1620,7 +1738,7 @@ def cli_run(torch, tag, ds, out_dir, argv):
     res = {"frames": len(poses), "scans": len(ds.scans), "stamp_err_s": stamp_err,
            "ate_m": ate_rmse(poses, gt, align=True), "rpe_m": rpe_rmse(poses, gt),
            "steady_fps": steady_fps(runner.stats), "wall_s": wall,
-           "fused_select_launches": launches, "summary": summary}
+           "fused_select_launches": launches, "loop_launches": loop_counts, "summary": summary}
     assert len(poses) >= 40, f"[{tag}] too few frames: {len(poses)}"
     assert np.isfinite(poses).all(), f"[{tag}] non-finite poses"
     assert stamp_err < 0.06, f"[{tag}] a TUM stamp is {stamp_err:.3f} s from the truth"
@@ -1697,10 +1815,12 @@ def phase_cli(torch):
     (PointToPlane_IVOX, tight coupling, 57,600 points), with fused_select
     held at its first gather; 15b Turing ICP mapping (the "None" LiDAR
     model, loose coupling, 28,800 points) with a split map; 15c Turing ICP
-    localization on 15b's tiles from the identity."""
+    localization on 15b's tiles from the identity. 15a runs a second time,
+    untimed, to keep its device-loop inputs for phase 19."""
     import tempfile
 
     from funny_lidar_slam_torch.maps import split_map
+    from funny_lidar_slam_torch.pipeline import run_slam
 
     by_path, paths = {}, {}
     t_phase = time.perf_counter()
@@ -1708,9 +1828,12 @@ def phase_cli(torch):
         bag = os.path.join(tmp, "m2dgr.bag")
         ds, io_a = cli_bag(CLI_M2DGR, 32 * 1800, bag)
         out_a = os.path.join(tmp, "m2dgr")
-        with FirstGather(torch) as probe:  # counts the launches of the run
-            _, res = cli_run(torch, "cli_m2dgr", ds, out_a, [
-                "--config", os.path.join(HERE, CLI_M2DGR), "--dataset", bag, "--save-map"])
+        argv = ["--config", os.path.join(HERE, CLI_M2DGR), "--dataset", bag, "--save-map"]
+        with FirstGather(torch) as probe:  # the run's launches count
+            _, res = cli_run(torch, "cli_m2dgr", ds, out_a, argv)
+        with LoopCapture("m2dgr"):  # a second, untimed run: phase 19's inputs
+            run_slam.main(argv + ["--output", os.path.join(tmp, "m2dgr_capture")])
+        torch.cuda.synchronize()
         for product in ("map/map.pcd", "pose_graph.g2o"):
             assert os.path.exists(os.path.join(out_a, product)), f"[cli_m2dgr] no {product}"
         by_path["cli_m2dgr"] = res["fused_select_launches"]
@@ -1892,7 +2015,7 @@ def phase_unpacked_step(torch, ds):
     fused_select is held against its plain version and brute force at the
     unpacked step's first gather."""
     from funny_lidar_slam_torch.core.lie import chord_angle
-    from funny_lidar_slam_torch.ops import select
+    from funny_lidar_slam_torch.ops import recurrences, select
 
     slam = grid_system()
     slam.run_dataset(ds, max_scans=UNPACKED_WARM_SCANS)
@@ -1903,6 +2026,7 @@ def phase_unpacked_step(torch, ds):
     imu_idx = int(np.searchsorted(ds.imu_t, ds.scans[UNPACKED_WARM_SCANS - 1].t + period + 0.05,
                                   side="right"))
     cases, diffs, launches = [], [], {"packed": 0, "unpacked": 0}
+    loop_counts = {"packed": {}, "unpacked": {}}
     for scan in ds.scans[UNPACKED_WARM_SCANS:UNPACKED_WARM_SCANS + UNPACKED_STEPS]:
         end = scan.t + period
         while imu_idx < len(ds.imu_t) and ds.imu_t[imu_idx] <= end + 0.05:
@@ -1913,10 +2037,13 @@ def phase_unpacked_step(torch, ds):
         outs = {}
         for kind, run in (("packed", lambda: fe.step_packed(*state, buf, cap, seg_cap)),
                           ("unpacked", lambda: fe.step(*state, *args))):
-            select.fused_select.launches = 0
+            zero_counts()
             outs[kind] = run()
             torch.cuda.synchronize()
             launches[kind] += select.fused_select.launches
+            for fn in recurrences.KERNELS:
+                loop_counts[kind][fn.__name__] = (loop_counts[kind].get(fn.__name__, 0)
+                                                  + fn.launches)
         (ms, fs, op), (_, _, ou) = outs["packed"], outs["unpacked"]
         pp, pu = (o.pose.cpu().numpy().astype(np.float64) for o in (op, ou))
         assert bool(op.converged) == bool(ou.converged), "[unpacked-step] converged differs"
@@ -1925,6 +2052,10 @@ def phase_unpacked_step(torch, ds):
         cases.append((state, args, buf))
         slam.mstate, slam.fstate, slam._last_scan_end = ms, fs, end
     assert launches["packed"] == launches["unpacked"] > 0, f"[unpacked-step] {launches}"
+    one_a_step = {"preintegrate": len(cases), "eskf_predict": 0, "tight_fuse": len(cases)}
+    assert loop_counts["packed"] == loop_counts["unpacked"] == one_a_step, \
+        f"[unpacked-step] {loop_counts}"
+    LOOP_LAUNCHES["frontend_step_unpacked"] = loop_counts["unpacked"]
 
     def feed(kind, cases=cases):
         for state, args, buf in cases:
@@ -1989,18 +2120,22 @@ def phase_profile_frontend(torch):
     its full configuration, counted as one path; its report on one line."""
     import importlib.util
 
-    from funny_lidar_slam_torch.ops import select
+    from funny_lidar_slam_torch.ops import recurrences, select
 
     spec = importlib.util.spec_from_file_location(
         "profile_torch_frontend", os.path.join(HERE, "tools", "profile_torch_frontend.py"))
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    select.fused_select.launches = 0
+    zero_counts()
     t = time.perf_counter()
     report = tool.profile(log=lambda *a: log("[profile-frontend]", *a))
     wall = time.perf_counter() - t
     launches = select.fused_select.launches
     check_launches("profile-frontend", launches, True)
+    loop_counts = {fn.__name__: fn.launches for fn in recurrences.KERNELS}
+    assert loop_counts["preintegrate"] > 0 and loop_counts["tight_fuse"] > 0, \
+        f"[profile-frontend] {loop_counts}"
+    LOOP_LAUNCHES["profile_frontend"] = loop_counts
     ms = report["ms"]
     assert set(tool.CALLS) | {"full_step", "live_frame_wall"} <= set(ms), sorted(ms)
     assert all(np.isfinite(v) and v > 0 for v in ms.values()), ms
@@ -2045,6 +2180,252 @@ def phase_bench(torch):
         **{k: head[k] for k in ("fps", "ate_m", "rpe_m", "frames", "excluded_deltas")},
         "bench_wall_s": line["bench_wall_s"], "wall_s": wall,
         "fused_select_launches": head["fused_select_launches"]}
+
+
+# ------------------------------------------------ phase 19: device loops
+LOOP_SOURCES = {
+    "preintegrate": ("funny_lidar_slam_torch/csrc/imu_scan.cu",
+                     "funny_lidar_slam_tpu/imu/preintegration.py:185"),
+    "eskf_predict": ("funny_lidar_slam_torch/csrc/imu_scan.cu",
+                     "funny_lidar_slam_tpu/fusion/eskf.py:100"),
+    "tight_fuse": ("funny_lidar_slam_torch/csrc/tight_fuse.cu",
+                   "funny_lidar_slam_tpu/fusion/tight.py:293"),
+}
+# kSweeps of tight_fuse.cu: an eigensolve that rotated in every sweep stopped unconverged
+TIGHT_SWEEPS = 12
+LOOP_SYMBOLS = {"preintegrate": ("imu_scan", "preintegrate_kernel"),
+                "eskf_predict": ("imu_scan", "eskf_predict_kernel"),
+                "tight_fuse": ("tight_fuse", "tight_fuse_kernel")}
+# the shapes timed: the bench's (phase 4 grid and phase 11 KF, 16 slots,
+# 12 LM iterations) and M2DGR's (64 slots, 20 iterations)
+LOOP_TIMED = {"preintegrate": ("grid", "m2dgr"), "eskf_predict": ("kf",),
+              "tight_fuse": ("grid", "m2dgr")}
+
+
+def valid_slots(seg) -> int:
+    """Slots of a segment that move the state (both samples valid, dt > 0)."""
+    t = seg.t.float()
+    ok = seg.mask[1:] & seg.mask[:-1] & (t[1:] > t[:-1])
+    return int(ok.sum())
+
+
+# (residual rows, state columns its Jacobian blocks touch) of the six
+# factors of fusion/tight.py: the prior, lidar rotation, lidar position,
+# preintegration, the gyro and accel bias random walks
+TIGHT_FACTORS = ((15, 15), (3, 3), (3, 3), (9, 24), (3, 6), (3, 6))
+
+
+def tight_ops(iterations) -> int:
+    """Operations `fuse_plain` needs for `iterations` LM iterations, counted
+    from the reference's steps (not the kernel's): the 9x9 preintegration
+    information (2 n^3); an assembly at the start, one an iteration and one
+    at the optimum, each ~1,400 for the residuals and their 3x3 Jacobian
+    blocks plus, a factor of m rows over c columns, lam J (2 m^2 c), one
+    triangle of J^T lam J (m c (c+1)), lam e, b and the cost; an iteration's
+    Jacobi scaling, 30x30 LU (2 n^3 / 3), two triangular solves and trial
+    state; the tail's two 15x15 eigendecompositions (9 n^3 each), the
+    pseudo-inverse and the PSD projection (one triangle of V w V^T each),
+    h_km pinv (2 n^3) and its product with h_mk (one triangle)."""
+    assembly = 1_400 + sum(2 * m * m * c + m * c * (c + 1) + 2 * m * m + 2 * m * c + 2 * m
+                           for m, c in TIGHT_FACTORS)
+    n, k = 30, 15
+    solve = 2 * n * n + 2 * n ** 3 // 3 + 2 * n * n + 4 * n + 300
+    tail = 2 * 9 * k ** 3 + 3 * k * k * (k + 1) + 2 * k ** 3 + 3 * k * k
+    return 2 * 9 ** 3 + (iterations + 2) * assembly + iterations * solve + tail
+
+
+def loop_cost(kind, args, iterations) -> tuple:
+    """(bytes, operations) the call needs: its packed inputs read once and
+    its outputs written once; the operations of the slots that move the
+    state (preintegrate: A cov A^T, B Sigma B^T and the 3x3 updates, ~4,900
+    a slot; ESKF: F cov F^T, ~13,600 a slot) or of the reference's LM
+    iterations and tail (`tight_ops`)."""
+    from funny_lidar_slam_torch.ops import recurrences as rec
+
+    if kind == "preintegrate":
+        seg, _, _, _ = args[:4]
+        s = seg.t.shape[0]
+        return (15 + 8 * s + rec._size(rec.PREINT_STATE)) * 4, valid_slots(seg) * 4_900
+    if kind == "eskf_predict":
+        s = args[1].t.shape[0]
+        return (258 + 8 * s + rec._size(rec.ESKF_OUT)) * 4, valid_slots(args[1]) * 13_600
+    return (425 + rec._size(rec.TIGHT_OUT)) * 4, tight_ops(iterations)
+
+
+def fuse_plain_counted(args) -> tuple:
+    """(`fuse_plain(*args)`, the LM iterations it ran): each iteration
+    applies its step once."""
+    from funny_lidar_slam_torch.fusion import tight
+
+    n, orig = [0], tight._apply_dx
+
+    def counted(s, dx):
+        n[0] += 1
+        return orig(s, dx)
+
+    tight._apply_dx = counted
+    try:
+        return tight.fuse_plain(*args), n[0]
+    finally:
+        tight._apply_dx = orig
+
+
+def loop_compare(torch, kind, args) -> dict:
+    """The kernel against its plain version on one captured call: the
+    errors the gates read (absolute on the states, relative to the
+    largest entry on covariances, Jacobians and the information)."""
+    from funny_lidar_slam_torch.core.lie import chord_angle
+    from funny_lidar_slam_torch.fusion import eskf, tight
+    from funny_lidar_slam_torch.imu import preintegration as pi
+    from funny_lidar_slam_torch.ops import recurrences as rec
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    def ab(a, b):
+        return float((a - b).abs().max())
+
+    if kind == "preintegrate":
+        k, p = pi.preintegrate(*args), pi.preintegrate_plain(*args)
+        out = {"abs": max(ab(getattr(k, f), getattr(p, f)) for f in ("d_r", "d_v", "d_p", "dt")),
+               "rel": max(rel(getattr(k, f), getattr(p, f))
+                          for f in ("cov", "dr_dbg", "dv_dbg", "dv_dba", "dp_dbg", "dp_dba"))}
+        out["ok"] = out["abs"] < 1e-5 and out["rel"] < 1e-4
+        return out
+    if kind == "eskf_predict":
+        k, p = eskf.predict(*args), eskf.predict_plain(*args)
+        out = {"abs": max(ab(getattr(k.nav, f), getattr(p.nav, f)) for f in ("r", "v", "p")),
+               "rel": rel(k.cov, p.cov)}
+        out["ok"] = out["abs"] < 1e-5 and out["rel"] < 1e-4
+        return out
+    r, v, pos, bg, ba, info, its, sweeps = rec.tight_fuse(*args)
+    ref, n = fuse_plain_counted(args)
+    out = {"dp": ab(pos, ref.p), "da": float(chord_angle(r, ref.r)), "dv": ab(v, ref.v),
+           "dbg": ab(bg, ref.bg), "dba": ab(ba, ref.ba),
+           "abs": max(ab(a, b) for a, b in ((r, ref.r), (v, ref.v), (pos, ref.p),
+                                            (bg, ref.bg), (ba, ref.ba))),
+           "rel": rel(info, ref.info), "iterations": int(its), "plain_iterations": n,
+           "sweeps": [int(x) for x in sweeps.tolist()]}
+    # v, bg and ba are the next step's prior and preintegration biases: held
+    # at 1e-3 (m/s, rad/s, m/s^2), and at 1e-4 for a close call
+    out["ok"] = (out["dp"] < 2e-3 and out["da"] < 2e-3 and out["rel"] < 1e-2
+                 and max(out["dv"], out["dbg"], out["dba"]) < 1e-3
+                 and max(out["sweeps"]) < TIGHT_SWEEPS)
+    out["close"] = (out["dp"] < 1e-4 and out["da"] < 1e-5 and int(its) == n
+                    and max(out["dv"], out["dbg"], out["dba"]) < 1e-4)
+    return out
+
+
+def phase_device_loops(torch, report) -> list:
+    """Phase 19: the three device-loop kernels against their plain versions
+    on every call captured from phase 4's grid run, phase 11's KF run and
+    15a's M2DGR run; the launches of every path; the ptxas report; each
+    kernel timed beside its plain version and one empty launch at the
+    bench's and M2DGR's shapes, in turns, with its bound; the three
+    entry points under torch.cuda.set_sync_debug_mode("error"). Returns
+    the three JSON entries."""
+    from funny_lidar_slam_torch.fusion import eskf, tight
+    from funny_lidar_slam_torch.imu import preintegration as pi
+    from funny_lidar_slam_torch.ops import recurrences as rec
+
+    t_phase = time.perf_counter()
+    saved = {fn.__name__: fn.launches for fn in rec.KERNELS}  # comparisons do not count
+    results: dict = {}
+    for key, calls in LOOP_CAPTURES.items():
+        seen = {}
+        for kind, args in calls:
+            seen[kind] = seen.get(kind, 0) + 1
+            results.setdefault(kind, {}).setdefault(key, []).append(
+                loop_compare(torch, kind, args))
+        launched = {k: v for k, v in LOOP_CAPTURE_LAUNCHES[key].items() if v}
+        assert launched == seen, f"[device-loops] {key}: captured {seen}, launched {launched}"
+    torch.cuda.synchronize()
+    for kind, by_key in results.items():
+        for key, rows in by_key.items():
+            bad = [i for i, r in enumerate(rows) if not r["ok"]]
+            assert not bad, f"[device-loops] {kind} {key}: calls {bad} out of tolerance: " \
+                f"{[rows[i] for i in bad[:3]]}"
+            summary = {f: [float(np.quantile([r[f] for r in rows], q)) for q in (0.5, 0.95, 1)]
+                       for f in rows[0] if f not in ("ok", "close", "iterations",
+                                                     "plain_iterations", "sweeps")}
+            if kind == "tight_fuse":
+                close = sum(r["close"] for r in rows) / len(rows)
+                same_its = sum(r["iterations"] == r["plain_iterations"] for r in rows) / len(rows)
+                summary.update(close_share=close, same_iterations_share=same_its,
+                               iterations=[r["iterations"] for r in rows],
+                               jacobi_sweeps_max=max(max(r["sweeps"]) for r in rows),
+                               jacobi_sweeps=[r["sweeps"] for r in rows])
+                assert close >= 0.95, f"[device-loops] tight_fuse {key}: {close:.3f} close"
+            log(f"[device-loops] {kind} {key}: {len(rows)} calls within tolerance; "
+                f"median / p95 / max {json.dumps(summary)}")
+
+    # the three entry points on device inputs may not wait for the device
+    pre_args = next(a for k, a in LOOP_CAPTURES["grid"] if k == "preintegrate")
+    kf_args = next(a for k, a in LOOP_CAPTURES["kf"] if k == "eskf_predict")
+    fuse_args = next(a for k, a in LOOP_CAPTURES["grid"] if k == "tight_fuse")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pi.preintegrate(*pre_args)
+        eskf.predict(*kf_args)
+        tight.fuse(*fuse_args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[device-loops] preintegrate, eskf.predict and tight.fuse ran under "
+        "set_sync_debug_mode('error')")
+
+    plain = {"preintegrate": pi.preintegrate_plain, "eskf_predict": eskf.predict_plain,
+             "tight_fuse": tight.fuse_plain}
+    kernel = {"preintegrate": pi.preintegrate, "eskf_predict": eskf.predict,
+              "tight_fuse": tight.fuse}
+    order = ["kernel", "plain", "floor", "floor", "plain", "kernel"]
+    entries = []
+    for kind, keys in LOOP_TIMED.items():
+        shapes = {}
+        for key in keys:
+            args = [a for k, a in LOOP_CAPTURES[key] if k == kind][-1]
+            reps = {"kernel": 50, "plain": 3, "floor": 50}
+            turns = in_turns(lambda f: time_ms(torch, f[0], f[1]),
+                             {"kernel": (lambda: kernel[kind](*args), reps["kernel"]),
+                              "plain": (lambda: plain[kind](*args), reps["plain"]),
+                              "floor": (lambda: torch.cuda._sleep(0), reps["floor"])}, order)
+            ms = {c: float(np.median(v)) for c, v in turns.items()}
+            its = int(rec.tight_fuse(*args)[6]) if kind == "tight_fuse" else 0
+            nbytes, ops = loop_cost(kind, args, its)
+            bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+            slots = (args[0] if kind == "preintegrate" else args[1]).t.shape[0] \
+                if kind != "tight_fuse" else None
+            shapes[key] = {"ms": ms["kernel"], "plain_ms": ms["plain"], "floor_ms": ms["floor"],
+                           "bound_ms": max(bound_bytes, bound_ops),
+                           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+                           "bytes": nbytes, "ops": ops, "slots": slots,
+                           "lm_iterations": its if kind == "tight_fuse" else None,
+                           "turns": turns, "vs_plain": versus(turns["kernel"], turns["plain"])}
+            log(f"[device-loops] {kind} at the {key} shape (slots {slots}, LM iterations "
+                f"{its if kind == 'tight_fuse' else '-'}): kernel {ms['kernel']:.4f} ms, plain "
+                f"{ms['plain']:.2f} ms, empty launch {ms['floor']:.5f} ms, bound "
+                f"{shapes[key]['bound_ms']:.6f} ms ({shapes[key]['bound_by']}); turns {turns}")
+        lib, sym = LOOP_SYMBOLS[kind]
+        resources = report.get(lib, {}).get(sym, {})
+        log(f"[device-loops] {kind} ptxas: {resources}")
+        rows = [r for by_key in results[kind].values() for r in by_key]
+        first = shapes[keys[0]]
+        entries.append({
+            "name": kind, "route": "cuda", "source": LOOP_SOURCES[kind][0],
+            "replaces": LOOP_SOURCES[kind][1],
+            "launches": sum(v[kind] for v in LOOP_LAUNCHES.values()),
+            "max_abs_err": max(r["abs"] for r in rows),
+            "max_rel_err_cov_or_info": max(r["rel"] for r in rows),
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None, "floor_ms": first["floor_ms"],
+            "shape": keys[0], "shapes": shapes, "calls_compared": len(rows),
+            "launches_by_path": {p: v[kind] for p, v in LOOP_LAUNCHES.items() if v[kind]},
+            "resources": resources})
+    for fn in rec.KERNELS:
+        fn.launches = saved[fn.__name__]
+    log(f"[device-loops] phase 19 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 def main() -> int:
@@ -2092,6 +2473,7 @@ def main() -> int:
     by_path["profile_frontend"], paths["profile_frontend"] = phase_profile_frontend(torch)
     log(f"[phase17] took {time.perf_counter() - t:.1f} s")
     by_path["bench_headline"], paths["bench_headline"] = phase_bench(torch)
+    loop_entries = phase_device_loops(torch, report)
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
                "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
                "verify_ms_median", "verify_ms_max", "optimize_ms",
@@ -2120,7 +2502,7 @@ def main() -> int:
                  unpacked_step_brute_force_rows=step_sel["brute_force_rows"],
                  paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
-    print(json.dumps({"kernels": [entry] + probe_entries}))
+    print(json.dumps({"kernels": [entry] + probe_entries + loop_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

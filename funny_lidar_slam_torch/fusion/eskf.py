@@ -6,12 +6,14 @@ R = R_hat Exp(dR); gravity is the static initializer's constant. `predict`
 propagates mean and covariance through the IMU segment; `update_pose`
 corrects them with the scan matcher's pose.
 
-Port notes: the JAX `lax.scan` of `predict` is a Python loop over the
-segment's samples, each step masked by its validity with `torch.where`
-(no host read). The biases are constant through a prediction, so the
-corrected rates, the rotation increments and the process noise of every
-step are computed for the whole segment up front. The 6x6 innovation is
-inverted with `inv_ex`, which neither checks its result nor syncs.
+Port notes: the JAX `lax.scan` of `predict` is one CUDA kernel for CUDA
+tensors (`ops/recurrences.py`, csrc/imu_scan.cu) and `predict_plain`, a
+Python loop over the segment's samples, each step masked by its validity
+with `torch.where` (no host read), for CPU tensors. The biases are
+constant through a prediction, so the plain version computes the corrected
+rates, the rotation increments and the process noise of every step for the
+whole segment up front. The 6x6 innovation is inverted with `inv_ex`,
+which neither checks its result nor syncs.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from ..core.lie import so3_exp, so3_hat, so3_jr_inv, so3_log
 from ..core.state import ImuSegment, NavState
+from ..ops import recurrences
 
 
 class EskfParams(NamedTuple):
@@ -52,7 +55,19 @@ def create(nav: NavState, init_cov_diag=None) -> EskfState:
 
 
 def predict(s: EskfState, segment: ImuSegment, params: EskfParams, gravity) -> EskfState:
-    """Propagate mean and covariance through the padded IMU segment."""
+    """Propagate mean and covariance through the padded IMU segment.
+
+    CPU tensors take `predict_plain`; CUDA tensors launch the kernel
+    (float32, one unbatched segment, gravity as host values) or raise."""
+    if recurrences.on_cpu(*s.nav, s.cov, *segment, *params):
+        return predict_plain(s, segment, params, gravity)
+    r, v, p, cov = recurrences.eskf_predict(s.nav, s.cov, segment, params, gravity)
+    return EskfState(nav=s.nav._replace(r=r, v=v, p=p), cov=cov)
+
+
+def predict_plain(s: EskfState, segment: ImuSegment, params: EskfParams,
+                  gravity) -> EskfState:
+    """The plain PyTorch version of `predict`."""
     r, v, p, cov = s.nav.r, s.nav.v, s.nav.p, s.cov
     dtype, dev = r.dtype, r.device
     g = torch.as_tensor(gravity, dtype=dtype, device=dev)

@@ -10,8 +10,13 @@ State ordering:
   [R_i(0) V_i(3) P_i(6) bg_i(9) ba_i(12) R_j(15) V_j(18) P_j(21) bg_j(24) ba_j(27)]
 Rotation vertices use RIGHT perturbation R <- R Exp(d).
 
-Known deviation: the LM loop runs on the host (the JAX package keeps it in
-a `lax.while_loop`) and reads its `done` flag once per iteration.
+`fuse` runs the whole solve (the JAX `lax.while_loop` LM, the posterior,
+the marginalization and the PSD projection) as one CUDA kernel for CUDA
+tensors (`ops/recurrences.py`, csrc/tight_fuse.cu) and as `fuse_plain` for
+CPU tensors; `fuse_plain` runs the LM loop on the host and reads its exit
+flag once an iteration. The kernel deviates from `fuse_plain` in one step:
+it refines the marginalization's pseudo-inverse (a float32 Jacobi
+eigensolve in place of the SVD) by one Newton-Schulz step.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from ..core.lie import marginalize, so3_exp, so3_hat, so3_jr, so3_jr_inv, so3_log
 from ..core.state import NavState
 from ..imu.preintegration import PreintState
+from ..ops import recurrences
 
 
 class TightFusionConfig(NamedTuple):
@@ -139,7 +145,20 @@ def fuse(last: NavState, pre: PreintState, lidar_pose: torch.Tensor,
          predict_nav: NavState, gravity, cfg: TightFusionConfig) -> NavState:
     """Run the per-frame fusion and return the current NavState with its
     marginalized prior information. `predict_nav` seeds the current
-    vertices; bias vertices start at the last state's biases."""
+    vertices; bias vertices start at the last state's biases.
+
+    CPU tensors take `fuse_plain`; CUDA tensors launch the kernel (float32,
+    gravity as host values) or raise."""
+    if recurrences.on_cpu(*last, *pre, lidar_pose, *predict_nav):
+        return fuse_plain(last, pre, lidar_pose, predict_nav, gravity, cfg)
+    r, v, p, bg, ba, info, _, _ = recurrences.tight_fuse(last, pre, lidar_pose, predict_nav,
+                                                         gravity, cfg)
+    return NavState(r=r, v=v, p=p, bg=bg, ba=ba, info=info, t=predict_nav.t)
+
+
+def fuse_plain(last: NavState, pre: PreintState, lidar_pose: torch.Tensor,
+               predict_nav: NavState, gravity, cfg: TightFusionConfig) -> NavState:
+    """The plain PyTorch version of `fuse`."""
     dtype, dev = last.r.dtype, last.r.device
     g = torch.as_tensor(gravity, dtype=dtype, device=dev)
     lidar_r = lidar_pose[:3, :3].to(dtype)

@@ -1,7 +1,9 @@
 """Forster-style IMU preintegration (port of imu/preintegration.py).
 
-The JAX `lax.scan` over the padded segment (at most 16-32 samples) becomes
-a Python loop over samples; each step is the same midpoint update:
+`preintegrate` runs the JAX `lax.scan` over the padded segment on the
+device as one CUDA kernel for CUDA tensors (`ops/recurrences.py`,
+csrc/imu_scan.cu) and as `preintegrate_plain`, a Python loop over the
+samples, for CPU tensors. Each step is the same midpoint update:
   * midpoint gyro/accel between consecutive samples,
   * deltas updated in the order P, V, R with the previous dR,
   * bias Jacobians updated before the deltas,
@@ -18,6 +20,7 @@ import torch
 
 from ..core.lie import so3_exp, so3_hat, so3_jr
 from ..core.state import ImuSegment, NavState
+from ..ops import recurrences
 
 
 class PreintState(NamedTuple):
@@ -117,7 +120,19 @@ def _step(state: PreintState, dt, gyro0, acc0, gyro1, acc1, valid,
 def preintegrate(segment: ImuSegment, params: PreintParams, bg: torch.Tensor,
                  ba: torch.Tensor, init: PreintState | None = None) -> PreintState:
     """Integrate a padded, time-ordered IMU segment; `segment.mask` marks
-    valid samples and the first valid sample seeds the integration."""
+    valid samples and the first valid sample seeds the integration.
+
+    CPU tensors take `preintegrate_plain`; CUDA tensors launch the kernel
+    (float32, one unbatched segment) or raise."""
+    if recurrences.on_cpu(*segment, *params, bg, ba, *(init or ())):
+        return preintegrate_plain(segment, params, bg, ba, init)
+    return PreintState(*recurrences.preintegrate(segment, params, bg, ba, init))
+
+
+def preintegrate_plain(segment: ImuSegment, params: PreintParams, bg: torch.Tensor,
+                       ba: torch.Tensor, init: PreintState | None = None) -> PreintState:
+    """The plain PyTorch version of `preintegrate`: one masked update a
+    slot, every padded slot visited."""
     dtype = segment.gyro.dtype
     bg = torch.as_tensor(bg, dtype=dtype, device=segment.gyro.device)
     ba = torch.as_tensor(ba, dtype=dtype, device=segment.gyro.device)

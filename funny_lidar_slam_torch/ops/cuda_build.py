@@ -23,6 +23,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # ctypes signatures of each library's C entry points: (argtypes, restype)
 SIGNATURES = {
     "fused_select": {
@@ -35,6 +36,13 @@ SIGNATURES = {
         "probe_row_gather_vector_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
         "probe_lane_gather_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
         "probe_dma_rows_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    },
+    "imu_scan": {
+        "preintegrate_launch": ([_P, _P, _I, _I, _P], _I),
+        "eskf_predict_launch": ([_P, _P, _I, _F, _F, _F, _P], _I),
+    },
+    "tight_fuse": {
+        "tight_fuse_launch": ([_P, _P, _F, _F, _F, _I, _F, _F, _F, _F, _P], _I),
     },
 }
 

@@ -8,13 +8,13 @@ host->device copy an array.
 Fusion methods: TightCouplingOptimization (preintegration predict and the
 30-dof fusion), LooseCoupling (IMU delta-rotation predict, matcher pose
 taken) and TightCouplingKF (the error-state KF of `fusion/eskf.py`, which
-keeps its 15x15 error covariance in the nav state's `info` slot and skips
-the preintegration). The localization mode starts from a given pose
-(`init_from_pose`), a resumed mapping run from the last keyframe's pose
-and velocity (`init_frame_at`). With `lidar_geometry` set, each deskewed
-scan is projected onto the range image and split into LOAM corner and
-planar clouds (`_process`) before matching; the rings are synthesized from
-the elevation on the device.
+keeps its 15x15 error covariance in the nav state's `info` slot); only
+TightCouplingOptimization preintegrates. The localization mode starts
+from a given pose (`init_from_pose`), a resumed mapping run from the last
+keyframe's pose and velocity (`init_frame_at`). With `lidar_geometry` set,
+each deskewed scan is projected onto the range image and split into LOAM
+corner and planar clouds (`_process`) before matching; the rings are
+synthesized from the elevation on the device.
 """
 
 from __future__ import annotations
@@ -165,13 +165,13 @@ class Frontend:
         ref_t = ref_time.to(dtype)
 
         pts, msk = deskew(points, rel_times, mask, ref_time, deskew_segment, self.t_l2i)
-        if cfg.fusion_method != FUSION_TIGHT_KF:
-            pre = preintegrate(preint_segment, self.params, nav.bg, nav.ba)
+        # the kernels take gravity by value, so they get the host values
         if cfg.fusion_method == FUSION_TIGHT_OPT:
+            pre = preintegrate(preint_segment, self.params, nav.bg, nav.ba)
             pred = predict(pre, nav, gravity)
         elif cfg.fusion_method == FUSION_TIGHT_KF:
             es = eskf.predict(eskf.EskfState(nav=nav, cov=nav.info), preint_segment,
-                              self.eskf_params, gravity)
+                              self.eskf_params, cfg.gravity)
             pred = es.nav
         elif cfg.fusion_method == FUSION_LOOSE:
             # loose predict: chain the delta pose; rotation from the IMU
@@ -189,7 +189,7 @@ class Frontend:
                                                  rel_times)
 
         if cfg.fusion_method == FUSION_TIGHT_OPT:
-            fused = tight_fuse(nav, pre, res.t_mat, pred._replace(t=ref_t), gravity,
+            fused = tight_fuse(nav, pre, res.t_mat, pred._replace(t=ref_t), cfg.gravity,
                                cfg.fusion)
         elif cfg.fusion_method == FUSION_TIGHT_KF:
             es = eskf.update_pose(es, res.t_mat, cfg.fusion.lidar_rotation_std,

@@ -146,7 +146,8 @@ def build_stages(slam, scan, period: float) -> dict:
         "gn_matcher_match": lambda: slam.matcher.match(mstate, Cloud(pts, mask), t0),
         # the reference semantics: a direct gather every iteration
         "gn_uncached_direct": lambda: run_gn(hg, t0, slam.matcher.gn_cfg._replace(corr_every=1)),
-        "tight_fuse": lambda: tight_fuse(nav, pre_v, t0, pred_v, grav, slam.cfg.frontend.fusion),
+        "tight_fuse": lambda: tight_fuse(nav, pre_v, t0, pred_v, slam.cfg.frontend.gravity,
+                                         slam.cfg.frontend.fusion),
         "window_add": lambda: matchers.window_add(
             mstate, Cloud(src.points, src.mask), t0, mcfg.map_filter_size, inv,
             mcfg.merged_capacity, mcfg.num_probes, window_size=matchers._window_size(mcfg)),
