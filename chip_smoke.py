@@ -38,7 +38,7 @@ Phases, each of which raises (non-zero exit) on failure:
   4. grid mapping end to end: the port's SlamSystem on the headline config
      (IcpOptimized + TightCouplingOptimization, dense grid (96,96,16),
      16384 points per scan) over a 10 s simulated run, then a traced
-     second run for per-phase spans;
+     second run for per-phase spans (the GN span: run_gn_icp_cand);
   5. hashed mapping end to end: the same run on the IcpConfig default
      layout (the hashed block map), the bench's figure-8 config without
      loop closure;
@@ -125,6 +125,16 @@ Phases, each of which raises (non-zero exit) on failure:
      kernel timed in turns beside its plain version and one empty launch
      at the bench's shape (16 slots, 12 LM iterations) and M2DGR's (64
      slots, 20), with its bound and its ptxas registers and shared memory;
+  20. the ICP GN loop: icp_gn_rounds (csrc/gn_loop.cu, the JAX
+     `run_gn_corr` while_loop over cached candidates, one launch a gather
+     round) against its plain version on every call captured in untimed
+     runs beside phases 4 (grid), 11 (KF), 6 (ICP localization) and 15b
+     (Turing mapping): the same status, iterations and gathers on >= 95 %
+     of a path's calls, and there the pose within 1e-4 m and 1e-5 rad,
+     num_valid within 1 %, total_res within 1e-3 relative; GN iterations a
+     match; the launch under set_sync_debug_mode("error"); timed at the
+     headline shape (N 16,384, M 16) beside its plain version and one empty
+     launch, with its bound and its ptxas registers and shared memory;
 and prints the per-kernel JSON line, the card line and the result line.
 Every path (3b, 4-18) runs with the kernel launch counts zeroed just
 before it and read just after it (phase 18 inside the bench's process,
@@ -132,7 +142,10 @@ which counts fused_select only); every path that steps the frontend checks
 the device-loop kernels' launches against its steps: one preintegrate and
 one tight_fuse a step under TightCouplingOptimization, one eskf_predict a
 step under TightCouplingKF, none under LooseCoupling (the Turing CLI
-preset). Imports nothing of JAX and nothing of the JAX package.
+preset); and icp_gn_rounds once a gather round of the GN driver on the
+ICP paths (phase 4 gates its host reads a scan, one a round, equal to its
+gathers a scan), never on the others. Imports nothing of JAX and nothing
+of the JAX package.
 """
 
 from __future__ import annotations
@@ -987,27 +1000,48 @@ def check_launches(tag, launches, expect_select):
 
 
 def zero_counts():
-    """Every kernel wrapper's launch count set to 0, just before a path."""
-    from funny_lidar_slam_torch.ops import recurrences, select
+    """Every kernel wrapper's launch count set to 0, just before a path,
+    and the GN driver's count of gather rounds."""
+    from funny_lidar_slam_torch.ops import gn_loop, recurrences, select
+    from funny_lidar_slam_torch.registration import gn
 
     select.fused_select.launches = 0
-    for fn in recurrences.KERNELS:
+    for fn in recurrences.KERNELS + gn_loop.KERNELS:
         fn.launches = 0
+    gn.run_gn_icp_cand.rounds = 0
 
 
 # path -> launches of the device-loop kernels in it (read just after it)
 LOOP_LAUNCHES: dict = {}
+# path -> icp_gn_rounds launches in it (read just after it)
+GN_LAUNCHES: dict = {}
 
 
-def loop_launches(tag, stats, fusion) -> dict:
+def gn_launches(tag, icp: bool) -> int:
+    """The GN kernel's launches of the path just run, recorded and checked:
+    one a gather round of the ICP driver (> 0 on a path whose matcher is
+    IcpMatcher), none on any other path."""
+    from funny_lidar_slam_torch.ops import gn_loop
+    from funny_lidar_slam_torch.registration import gn
+
+    n, rounds = gn_loop.icp_gn_rounds.launches, gn.run_gn_icp_cand.rounds
+    assert n == rounds, f"[{tag}] icp_gn_rounds launched {n} times in {rounds} rounds"
+    assert (n > 0) == icp, f"[{tag}] icp_gn_rounds launched {n} times (ICP path: {icp})"
+    GN_LAUNCHES[tag] = n
+    return n
+
+
+def loop_launches(tag, stats, frontend) -> dict:
     """The device-loop kernels' launches of the path just run, recorded and
     checked against its steps (`stats` rows without "init"): one
     preintegrate and one tight_fuse a step under TightCouplingOptimization,
     one eskf_predict a step under TightCouplingKF, none under
-    LooseCoupling."""
+    LooseCoupling; and the GN kernel's (`gn_launches`)."""
     from funny_lidar_slam_torch.ops import recurrences
     from funny_lidar_slam_torch.pipeline import frontend as fe
+    from funny_lidar_slam_torch.registration import matchers
 
+    fusion = frontend.cfg.fusion_method
     counts = {fn.__name__: fn.launches for fn in recurrences.KERNELS}
     steps = sum(1 for s in stats if not s.get("init"))
     tight, kf = fusion == fe.FUSION_TIGHT_OPT, fusion == fe.FUSION_TIGHT_KF
@@ -1016,6 +1050,7 @@ def loop_launches(tag, stats, fusion) -> dict:
     assert counts == expect, f"[{tag}] device-loop launches {counts}, expected {expect}"
     assert steps > 0, f"[{tag}] no step"
     LOOP_LAUNCHES[tag] = counts
+    gn_launches(tag, isinstance(frontend.matcher, matchers.IcpMatcher))
     return counts
 
 
@@ -1033,44 +1068,64 @@ def clone_tree(x):
 LOOP_CAPTURES: dict = {}
 # the same keys -> {kernel: launches while capturing}
 LOOP_CAPTURE_LAUNCHES: dict = {}
+# "grid" / "localization" / "turing" -> [args] of the ICP driver's
+# icp_gn_rounds calls (carry before the call, candidates, radius, config,
+# max_corr_dist_sq), and the launches while capturing
+GN_CAPTURES: dict = {}
+GN_CAPTURE_LAUNCHES: dict = {}
 
 
 class LoopCapture:
     """While active, records the arguments (cloned) of every preintegrate,
-    eskf.predict and tight fuse call of the frontend step under `key`, and
+    eskf.predict and tight fuse call of the frontend step under `key`
+    (with `loops`), and of every icp_gn_rounds call of the GN driver, and
     the kernels' launches meanwhile. The clones cost time a step, so a
     capture runs outside every timed or counted run."""
 
-    def __init__(self, key):
+    def __init__(self, key, loops=True):
         self.key = key
-        self.calls = LOOP_CAPTURES.setdefault(key, [])
+        self.calls = LOOP_CAPTURES.setdefault(key, []) if loops else None
+        self.gn_calls = GN_CAPTURES.setdefault(key, [])
 
     def __enter__(self):
         from funny_lidar_slam_torch.fusion import eskf
-        from funny_lidar_slam_torch.ops import recurrences
+        from funny_lidar_slam_torch.ops import gn_loop, recurrences
         from funny_lidar_slam_torch.pipeline import frontend as fe
+        from funny_lidar_slam_torch.registration import gn
 
         self.start = {fn.__name__: fn.launches for fn in recurrences.KERNELS}
+        self.gn_start = gn_loop.icp_gn_rounds.launches
 
         self.saved = [(fe, "preintegrate", "preintegrate"), (eskf, "predict", "eskf_predict"),
-                      (fe, "tight_fuse", "tight_fuse")]
+                      (fe, "tight_fuse", "tight_fuse")] if self.calls is not None else []
         self.saved = [(mod, attr, kind, getattr(mod, attr)) for mod, attr, kind in self.saved]
         for mod, attr, kind, fn in self.saved:
             def wrapper(*args, kind=kind, fn=fn):
                 self.calls.append((kind, clone_tree(args)))
                 return fn(*args)
             setattr(mod, attr, wrapper)
+        rounds = gn.icp_gn_rounds
+
+        def gn_wrapper(*args):
+            self.gn_calls.append(clone_tree(args))
+            return rounds(*args)
+
+        self.saved.append((gn, "icp_gn_rounds", "icp_gn_rounds", rounds))
+        gn.icp_gn_rounds = gn_wrapper
         return self
 
     def __exit__(self, *exc):
-        from funny_lidar_slam_torch.ops import recurrences
+        from funny_lidar_slam_torch.ops import gn_loop, recurrences
 
         for mod, attr, _, fn in self.saved:
             setattr(mod, attr, fn)
-        counts = LOOP_CAPTURE_LAUNCHES.setdefault(self.key, {})
-        for fn in recurrences.KERNELS:
-            name = fn.__name__
-            counts[name] = counts.get(name, 0) + fn.launches - self.start[name]
+        if self.calls is not None:
+            counts = LOOP_CAPTURE_LAUNCHES.setdefault(self.key, {})
+            for fn in recurrences.KERNELS:
+                name = fn.__name__
+                counts[name] = counts.get(name, 0) + fn.launches - self.start[name]
+        GN_CAPTURE_LAUNCHES[self.key] = (GN_CAPTURE_LAUNCHES.get(self.key, 0)
+                                         + gn_loop.icp_gn_rounds.launches - self.gn_start)
 
 
 def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=None):
@@ -1097,7 +1152,7 @@ def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = select.fused_select.launches
-    loop_counts = loop_launches(tag, slam.stats, slam.frontend.cfg.fusion_method)
+    loop_counts = loop_launches(tag, slam.stats, slam.frontend)
 
     est, gt = gt_pairs(ds, out)
     n_tracked = len(out["poses"])
@@ -1107,11 +1162,17 @@ def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=
     assert ate < 0.10, f"[{tag}] ATE {ate:.4f} m"
     check_launches(tag, launches, expect_select)
     steps = sum(1 for s in slam.stats if not s.get("init"))
+    gathers = [s["iters"] for s in slam.stats if "iters" in s]
     res = {"tracked": n_tracked, "scans": len(ds.scans), "ate_m": ate, "rpe_m": rpe,
            "steady_fps": steady_fps(slam.stats), "wall_s": wall, "steps": steps,
-           "gathers_per_scan": float(np.mean([s["iters"] for s in slam.stats if "iters" in s])),
+           "gathers_per_scan": float(np.mean(gathers)),
            "fused_select_launches": launches, "launches_per_scan": launches / steps,
-           "loop_launches": loop_counts, "keyframes": out["n_keyframes"]}
+           "loop_launches": loop_counts, "keyframes": out["n_keyframes"],
+           "gn_kernel_launches": GN_LAUNCHES[tag]}
+    if GN_LAUNCHES[tag]:  # the ICP driver: one host read a gather round
+        res["gn_host_reads_per_scan"] = GN_LAUNCHES[tag] / steps
+        assert GN_LAUNCHES[tag] == sum(gathers), \
+            f"[{tag}] {GN_LAUNCHES[tag]} GN host reads for {sum(gathers)} gathers"
     return slam, res
 
 
@@ -1162,7 +1223,7 @@ def phase_e2e(torch, ds):
     _, res = mapping_run(torch, ds, "e2e", grid_system, capture="grid")
     phase_ms, traced_wall = traced_run(torch, ds, grid_system, [
         (fe_mod, "deskew", "deskew+preint"), (fe_mod, "preintegrate", "deskew+preint"),
-        (fe_mod, "tight_fuse", "fusion"), (matchers, "run_gn_corr", "gn"),
+        (fe_mod, "tight_fuse", "fusion"), (matchers, "run_gn_icp_cand", "gn"),
         (matchers, "window_add", "insert")])
     res.update(traced_wall_s=traced_wall, phase_ms_per_scan=phase_ms)
     log("[e2e] " + json.dumps(res))
@@ -1196,7 +1257,7 @@ def phase_kf_mapping(torch, ds, grid_spans):
     _, res = mapping_run(torch, ds, "kf", make, capture="kf")
     phase_ms, traced_wall = traced_run(torch, ds, make, [
         (fe_mod, "deskew", "deskew"), (eskf, "predict", "eskf_predict"),
-        (matchers, "run_gn_corr", "gn"), (eskf, "update_pose", "eskf_update"),
+        (matchers, "run_gn_icp_cand", "gn"), (eskf, "update_pose", "eskf_update"),
         (matchers, "window_add", "insert")])
     res.update(traced_wall_s=traced_wall, phase_ms_per_scan=phase_ms,
                grid_tight_phase_ms_per_scan=grid_spans)
@@ -1231,15 +1292,22 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
     from funny_lidar_slam_torch.ops import select
 
     tag = "localization" if mode == "IcpOptimized" else f"localization {mode}"
+    world = make_world(seed=7)
+    if mode == "IcpOptimized":  # an untimed run first: phase 20's GN inputs
+        with LoopCapture("localization", loops=False):
+            cap = Localizer(bench.localization_config(16384, mode))
+            cap.set_global_map(world)
+            cap.run_dataset(ds, ds.scans[0].gt_pose)
+        torch.cuda.synchronize()
     loc = Localizer(bench.localization_config(16384, mode))
-    loc.set_global_map(make_world(seed=7))
+    loc.set_global_map(world)
     zero_counts()
     t = time.perf_counter()
     out = loc.run_dataset(ds, ds.scans[0].gt_pose)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = select.fused_select.launches
-    loop_counts = loop_launches(tag, loc.stats, loc.frontend.cfg.fusion_method)
+    loop_counts = loop_launches(tag, loc.stats, loc.frontend)
 
     est, gt = gt_pairs(ds, out)
     assert loc.initialized, f"[{tag}] the init did not pass its fitness gate"
@@ -1425,7 +1493,7 @@ def phase_figure8(torch):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     launches = select.fused_select.launches
-    loop_counts = loop_launches("figure8", slam.stats, slam.frontend.cfg.fusion_method)
+    loop_counts = loop_launches("figure8", slam.stats, slam.frontend)
 
     est, gt = gt_pairs(ds, out)
     period = ds.scans[1].t - ds.scans[0].t
@@ -1640,7 +1708,7 @@ def phase_resume_and_map(torch, ds, fig8_slam):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = select.fused_select.launches
-        loop_counts = loop_launches("resume", stats_a + b.stats, b.frontend.cfg.fusion_method)
+        loop_counts = loop_launches("resume", stats_a + b.stats, b.frontend)
         est, gt = gt_pairs(ds, {"times": times_a + list(b.trajectory_t),
                                 "poses": poses_a + list(b.trajectory)})
         ate = ate_rmse(est, gt, align=True)
@@ -1729,7 +1797,7 @@ def cli_run(torch, tag, ds, out_dir, argv):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = select.fused_select.launches
-    loop_counts = loop_launches(tag, runner.stats, runner.frontend.cfg.fusion_method)
+    loop_counts = loop_launches(tag, runner.stats, runner.frontend)
 
     times, poses = read_tum(os.path.join(out_dir, "trajectory_tum.txt"))
     idx = np.abs(ds.gt_times[None, :] - times[:, None]).argmin(1)
@@ -1816,7 +1884,8 @@ def phase_cli(torch):
     held at its first gather; 15b Turing ICP mapping (the "None" LiDAR
     model, loose coupling, 28,800 points) with a split map; 15c Turing ICP
     localization on 15b's tiles from the identity. 15a runs a second time,
-    untimed, to keep its device-loop inputs for phase 19."""
+    untimed, to keep its device-loop inputs for phase 19, and 15b its GN
+    inputs for phase 20."""
     import tempfile
 
     from funny_lidar_slam_torch.maps import split_map
@@ -1843,9 +1912,12 @@ def phase_cli(torch):
         bag = os.path.join(tmp, "turing.bag")
         ds, io_b = cli_bag(CLI_TURING_MAPPING, 16 * 1800, bag)
         out_b = os.path.join(tmp, "turing_mapping")
-        _, res = cli_run(torch, "cli_turing_mapping", ds, out_b, [
-            "--config", os.path.join(HERE, CLI_TURING_MAPPING), "--dataset", bag,
-            "--save-map", "--split-map"])
+        argv = ["--config", os.path.join(HERE, CLI_TURING_MAPPING), "--dataset", bag]
+        _, res = cli_run(torch, "cli_turing_mapping", ds, out_b,
+                         argv + ["--save-map", "--split-map"])
+        with LoopCapture("turing", loops=False):  # untimed again: phase 20's GN inputs
+            run_slam.main(argv + ["--output", os.path.join(tmp, "turing_capture")])
+        torch.cuda.synchronize()
         tiles = split_map.load_tile_indices(os.path.join(out_b, "map"))
         assert tiles, "[cli_turing_mapping] no tiles written"
         assert os.path.exists(os.path.join(out_b, "pose_graph.g2o")), \
@@ -2015,7 +2087,8 @@ def phase_unpacked_step(torch, ds):
     fused_select is held against its plain version and brute force at the
     unpacked step's first gather."""
     from funny_lidar_slam_torch.core.lie import chord_angle
-    from funny_lidar_slam_torch.ops import recurrences, select
+    from funny_lidar_slam_torch.ops import gn_loop, recurrences, select
+    from funny_lidar_slam_torch.registration import gn
 
     slam = grid_system()
     slam.run_dataset(ds, max_scans=UNPACKED_WARM_SCANS)
@@ -2027,6 +2100,7 @@ def phase_unpacked_step(torch, ds):
                                   side="right"))
     cases, diffs, launches = [], [], {"packed": 0, "unpacked": 0}
     loop_counts = {"packed": {}, "unpacked": {}}
+    gn_counts = {"packed": 0, "unpacked": 0}
     for scan in ds.scans[UNPACKED_WARM_SCANS:UNPACKED_WARM_SCANS + UNPACKED_STEPS]:
         end = scan.t + period
         while imu_idx < len(ds.imu_t) and ds.imu_t[imu_idx] <= end + 0.05:
@@ -2041,6 +2115,10 @@ def phase_unpacked_step(torch, ds):
             outs[kind] = run()
             torch.cuda.synchronize()
             launches[kind] += select.fused_select.launches
+            assert gn_loop.icp_gn_rounds.launches == gn.run_gn_icp_cand.rounds > 0, \
+                f"[unpacked-step] {kind}: icp_gn_rounds launched " \
+                f"{gn_loop.icp_gn_rounds.launches} times in {gn.run_gn_icp_cand.rounds} rounds"
+            gn_counts[kind] += gn_loop.icp_gn_rounds.launches
             for fn in recurrences.KERNELS:
                 loop_counts[kind][fn.__name__] = (loop_counts[kind].get(fn.__name__, 0)
                                                   + fn.launches)
@@ -2056,6 +2134,8 @@ def phase_unpacked_step(torch, ds):
     assert loop_counts["packed"] == loop_counts["unpacked"] == one_a_step, \
         f"[unpacked-step] {loop_counts}"
     LOOP_LAUNCHES["frontend_step_unpacked"] = loop_counts["unpacked"]
+    assert gn_counts["packed"] == gn_counts["unpacked"], f"[unpacked-step] {gn_counts}"
+    GN_LAUNCHES["frontend_step_unpacked"] = gn_counts["unpacked"]
 
     def feed(kind, cases=cases):
         for state, args, buf in cases:
@@ -2102,7 +2182,8 @@ def phase_unpacked_step(torch, ds):
            "packed_ms_per_scan": med["packed"], "unpacked_ms_per_scan": med["unpacked"],
            "unpacked_minus_packed_ms": med["unpacked"] - med["packed"],
            "unpacked_vs_packed": versus(turns["unpacked"], turns["packed"]), "turns_ms": turns,
-           "profiled_scan": calls, "fused_select_launches": launches["unpacked"]}
+           "profiled_scan": calls, "fused_select_launches": launches["unpacked"],
+           "gn_kernel_launches": gn_counts}
     for name, key in (("launch_calls", "cudaLaunchKernel"), ("copy_calls", "cudaMemcpyAsync"),
                       ("sync_calls", "cudaStreamSynchronize")):
         res[name] = {kind: c["runtime"].get(key, {}).get("count", 0) for kind, c in calls.items()}
@@ -2136,6 +2217,7 @@ def phase_profile_frontend(torch):
     assert loop_counts["preintegrate"] > 0 and loop_counts["tight_fuse"] > 0, \
         f"[profile-frontend] {loop_counts}"
     LOOP_LAUNCHES["profile_frontend"] = loop_counts
+    gn_launches("profile-frontend", True)
     ms = report["ms"]
     assert set(tool.CALLS) | {"full_step", "live_frame_wall"} <= set(ms), sorted(ms)
     assert all(np.isfinite(v) and v > 0 for v in ms.values()), ms
@@ -2428,6 +2510,213 @@ def phase_device_loops(torch, report) -> list:
     return entries
 
 
+# ----------------------------------------- phase 20: the ICP GN loop kernel
+GN_SOURCE = ("funny_lidar_slam_torch/csrc/gn_loop.cu", "funny_lidar_slam_tpu/registration/gn.py:232")
+GN_SAME_SHARE = 0.95  # calls with the plain version's status, iterations and gathers
+
+
+def gn_cost(args, iterations) -> tuple:
+    """(bytes, operations) of one call: each input read once (px, py, pz
+    [N, M] f32, valid [N, M] u8, src [N, 3] f32, the carry and radius) and
+    the carry written once; ~9 operations a lane (d2, the compare) and ~80 a
+    valid row (J, J^T J, J^T r, |r|) an iteration. The kernel itself reads
+    the candidates once an iteration: `reread_bytes`."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    cand = args[1]
+    n, m = cand.px.shape
+    once = n * m * 13 + n * 12
+    nbytes = once + 4 * (2 * gn_loop.CARRY_SIZE + 1)
+    return nbytes, iterations * (n * m * 9 + n * 80), iterations * once
+
+
+GN_POSE_TOL = (1e-4, 1e-5)  # m, rad (chord)
+
+
+def pose_diff(a, b) -> tuple:
+    """(largest translation difference, chord angle) of two poses."""
+    from funny_lidar_slam_torch.core.lie import chord_angle
+
+    return float((a.double() - b.double())[:3, 3].abs().max()), float(chord_angle(a, b))
+
+
+def gn_compare(torch, args) -> dict:
+    """The kernel against its plain version on one captured call, each
+    from its own copy of the carry. The pose is held to the plain
+    version's; where the two part by more than GN_POSE_TOL, it is held to a
+    float64 run of the plain version on the same call instead (`dp64`,
+    `da64`): the float32 normal equations (condition ~1e3) leave the plain
+    version itself up to ~1e-4 m from the float64 pose."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    carry, cand, radius = args[:3]
+    ck, cp = carry.clone(), carry.clone()
+    gn_loop.icp_gn_rounds(ck, *args[1:])
+    gn_loop.icp_gn_rounds_plain(cp, *args[1:])
+    o = gn_loop.OFFSET
+    ik, ip = ck[o["it"]:].tolist(), cp[o["it"]:].tolist()
+    vk, vp = gn_loop.result_views(ck), gn_loop.result_views(cp)
+    names = ("status", "it", "gathers")
+    out = {f: (ck[o[f]].item(), cp[o[f]].item()) for f in names}
+    out["dp"], out["da"] = pose_diff(vk.t_mat, vp.t_mat)
+    out.update(
+        same=all(ck[o[f]].item() == cp[o[f]].item() for f in names),
+        nv_rel=abs(int(vk.num_valid) - int(vp.num_valid)) / max(int(vp.num_valid), 1),
+        res_rel=abs(float(vk.total_res) - float(vp.total_res))
+        / max(abs(float(vp.total_res)), 1e-30),
+        iterations=ik[0] - int(carry[o["it"]]), first=int(carry[o["it"]]) == 0,
+        finite=bool(torch.isfinite(vk.t_mat).all()), carry_k=ik, carry_p=ip)
+    pose_ok = out["dp"] < GN_POSE_TOL[0] and out["da"] < GN_POSE_TOL[1]
+    if not pose_ok:  # the float64 reference of the same call
+        c64 = carry.clone()
+        cand64 = cand._replace(px=cand.px.double(), py=cand.py.double(), pz=cand.pz.double(),
+                               src=cand.src.double())
+        gn_loop.icp_gn_rounds_plain(c64, cand64, radius.double(), *args[3:])
+        v64 = gn_loop.result_views(c64)
+        out["dp64"], out["da64"] = pose_diff(vk.t_mat, v64.t_mat)
+        out["plain_dp64"], out["plain_da64"] = pose_diff(vp.t_mat, v64.t_mat)
+        pose_ok = out["dp64"] < GN_POSE_TOL[0] and out["da64"] < GN_POSE_TOL[1]
+    out["close"] = pose_ok and out["nv_rel"] <= 0.01 and out["res_rel"] < 1e-3
+    return out
+
+
+def gn_timing(torch, args, label) -> dict:
+    """The kernel timed on one captured call beside its plain version and
+    one empty launch, in turns, each call from its own copy of the carry,
+    with the call's bound."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    pools = {k: args[0].repeat(512, 1) for k in ("kernel", "plain")}
+    used = {"kernel": 0, "plain": 0}
+
+    def call(kind):
+        carry = pools[kind][used[kind]]
+        used[kind] += 1
+        fn = gn_loop.icp_gn_rounds if kind == "kernel" else gn_loop.icp_gn_rounds_plain
+        return fn(carry, *args[1:])
+
+    turns = in_turns(lambda f: time_ms(torch, f[0], f[1]),
+                     {"kernel": (lambda: call("kernel"), 50), "plain": (lambda: call("plain"), 3),
+                      "floor": (lambda: torch.cuda._sleep(0), 50)},
+                     ["kernel", "plain", "floor", "floor", "plain", "kernel"])
+    assert max(used.values()) <= 512, used
+    ms = {c: float(np.median(v)) for c, v in turns.items()}
+    n, m = args[1].px.shape
+    its = gn_compare(torch, args)["iterations"]
+    nbytes, ops, reread = gn_cost(args, its)
+    bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    out = {"ms": ms["kernel"], "plain_ms": ms["plain"], "floor_ms": ms["floor"],
+           "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "bound_ms_reading_each_iteration": reread / HBM_BYTES_PER_S * 1e3,
+           "n": n, "m": m, "iterations": its, "bytes": nbytes, "ops": ops, "turns": turns,
+           "vs_plain": versus(turns["kernel"], turns["plain"])}
+    log(f"[gn-loop] icp_gn_rounds at the {label} shape (N {n}, M {m}, {its} iterations): "
+        f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.2f} ms, empty launch "
+        f"{out['floor_ms']:.5f} ms, bound {out['bound_ms']:.6f} ms ({out['bound_by']}; the "
+        f"candidates read once an iteration: {out['bound_ms_reading_each_iteration']:.6f} "
+        f"ms); turns {turns}")
+    return out
+
+
+def phase_gn_loop(torch, report) -> dict:
+    """Phase 20: icp_gn_rounds (csrc/gn_loop.cu) against its plain version
+    on every call captured from untimed runs of phase 4 (grid), phase 11
+    (KF), phase 6 (ICP localization) and 15b (the Turing CLI); gates: the
+    same status, iterations and gathers on >= 95 % of a path's calls, and on
+    those the pose within 1e-4 m and 1e-5 rad (chord) of the plain version's
+    or, where the two float32 poses part by more, of a float64 run of the
+    plain version (`gn_compare`), num_valid within 1 % and total_res within
+    1e-3 relative; every call's pose finite and within 0.05 m; the launches
+    while capturing equal to the calls captured. Then, on the headline call
+    (a grid match's first round, N = 16,384, M = 16): the launch under
+    set_sync_debug_mode("error"); the any-M kernel bit-equal to the M = 16
+    one on misaligned planes and within the gates at M = 12; the kernel
+    timed beside its plain version and one empty launch, with its bound,
+    there and on the captured call with the most iterations. Returns the
+    JSON entry."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    t_phase = time.perf_counter()
+    saved = gn_loop.icp_gn_rounds.launches  # comparisons do not count
+    by_key, rows_all, replayed = {}, [], []
+    for key, calls in GN_CAPTURES.items():
+        if not calls:
+            continue
+        assert GN_CAPTURE_LAUNCHES[key] == len(calls), \
+            f"[gn-loop] {key}: {len(calls)} calls captured, {GN_CAPTURE_LAUNCHES[key]} launched"
+        rows = [gn_compare(torch, args) for args in calls]
+        rows_all += rows
+        replayed += [(key, args, r["iterations"]) for args, r in zip(calls, rows)]
+        same = sum(r["same"] for r in rows) / len(rows)
+        bad = [i for i, r in enumerate(rows) if (r["same"] and not r["close"])
+               or not r["finite"] or r["dp"] > 0.05]
+        matches = sum(r["first"] for r in rows)
+        summary = {"calls": len(rows), "matches": matches, "same_share": same,
+                   "held_to_float64": [{k: r[k] for k in ("dp", "da", "dp64", "da64",
+                                                          "plain_dp64", "plain_da64")}
+                                       for r in rows if "dp64" in r],
+                   "iterations_per_match": sum(r["iterations"] for r in rows) / max(matches, 1),
+                   "rounds_per_match": len(rows) / max(matches, 1),
+                   **{f: [float(np.quantile([r[f] for r in rows], q)) for q in (0.5, 0.95, 1)]
+                      for f in ("dp", "da", "nv_rel", "res_rel")},
+                   "differing": [{k: r[k] for k in ("status", "it", "gathers", "dp", "da")}
+                                 for r in rows if not r["same"]][:5]}
+        by_key[key] = summary
+        log(f"[gn-loop] {key}: " + json.dumps(summary))
+        assert not bad, f"[gn-loop] {key}: calls {bad} out of tolerance: " \
+            f"{[rows[i] for i in bad[:3]]}"
+        assert same >= GN_SAME_SHARE, f"[gn-loop] {key}: {same:.3f} of calls agree"
+    assert "grid" in by_key, "[gn-loop] no grid call captured"
+
+    # the headline shape: the first round of the last grid match
+    args = [a for a in GN_CAPTURES["grid"] if int(a[0][gn_loop.OFFSET["it"]]) == 0][-1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gn_loop.icp_gn_rounds(args[0].clone(), *args[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[gn-loop] icp_gn_rounds ran under set_sync_debug_mode('error')")
+    # the any-M kernel (icp_gn_kernel<0>): the headline call with px 4 bytes
+    # off its 16-byte alignment (the same arithmetic: bit-equal carries), and
+    # with the first 12 lanes (M = 12) against the plain version
+    carry, cand = args[0], args[1]
+    px = torch.empty(cand.px.numel() + 1, dtype=cand.px.dtype, device=cand.px.device)
+    px = px[1:].view(cand.px.shape).copy_(cand.px)
+    c16, c0 = carry.clone(), carry.clone()
+    gn_loop.icp_gn_rounds(c16, *args[1:])
+    gn_loop.icp_gn_rounds(c0, cand._replace(px=px), *args[2:])
+    assert torch.equal(c16, c0), "[gn-loop] the any-M kernel differs on misaligned planes"
+    lanes = cand._replace(**{f: getattr(cand, f)[:, :12].contiguous()
+                             for f in ("px", "py", "pz", "valid")})
+    r12 = gn_compare(torch, (carry, lanes, *args[2:]))
+    assert r12["same"] and r12["close"], f"[gn-loop] M = 12: {r12}"
+    log(f"[gn-loop] icp_gn_kernel<0>: bit-equal to <16> on misaligned planes; at M = 12 "
+        f"within tolerance of the plain version ({ {k: r12[k] for k in ('it', 'dp', 'da')} })")
+    head = gn_timing(torch, args, "headline")
+    # and the captured call that ran the most iterations
+    key, args, _ = max(replayed, key=lambda r: r[2])
+    most = gn_timing(torch, args, f"most iterations ({key})")
+    resources = report.get("gn_loop", {})  # icp_gn_kernel<16> (M = 16) and <0> (any M)
+    log(f"[gn-loop] ptxas {resources}")
+    gn_loop.icp_gn_rounds.launches = saved
+    log(f"[gn-loop] phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    close = [r for r in rows_all if r["same"]]
+    held64 = [r for r in rows_all if "dp64" in r]
+    return {"name": "icp_gn_rounds", "route": "cuda", "source": GN_SOURCE[0],
+            "replaces": GN_SOURCE[1], "launches": sum(GN_LAUNCHES.values()),
+            "max_abs_err": max(r["dp"] for r in close),
+            "max_rot_err_rad": max(r["da"] for r in close),
+            "held_to_float64": len(held64),
+            "max_abs_err_vs_float64_where_held": max((r["dp64"] for r in held64), default=None),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")},
+            "library_ms": None, "shapes": {"headline": head, "most_iterations": most},
+            "launches_by_path": {p: v for p, v in GN_LAUNCHES.items() if v},
+            "calls_compared": len(rows_all), "by_path": by_key, "resources": resources}
+
+
 def main() -> int:
     import torch
 
@@ -2474,6 +2763,7 @@ def main() -> int:
     log(f"[phase17] took {time.perf_counter() - t:.1f} s")
     by_path["bench_headline"], paths["bench_headline"] = phase_bench(torch)
     loop_entries = phase_device_loops(torch, report)
+    gn_entry = phase_gn_loop(torch, report)
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
                "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
                "verify_ms_median", "verify_ms_max", "optimize_ms",
@@ -2502,7 +2792,7 @@ def main() -> int:
                  unpacked_step_brute_force_rows=step_sel["brute_force_rows"],
                  paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
-    print(json.dumps({"kernels": [entry] + probe_entries + loop_entries}))
+    print(json.dumps({"kernels": [entry] + probe_entries + loop_entries + [gn_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,9 @@ SIGNATURES = {
     "tight_fuse": {
         "tight_fuse_launch": ([_P, _P, _F, _F, _F, _I, _F, _F, _F, _F, _P], _I),
     },
+    "gn_loop": {
+        "icp_gn_launch": ([_P] * 7 + [_I] * 7 + [_F] * 5 + [_P], _I),
+    },
 }
 
 _loaded: dict = {}

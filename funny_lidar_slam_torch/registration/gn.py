@@ -1,12 +1,18 @@
 """Gauss-Newton iteration loop of the scan-to-map matcher (port of
 registration/gn.py).
 
-Known deviation: the JAX package keeps the whole loop on the device in one
-`lax.while_loop`; here the loop runs on the host and reads its control
-flags (done, converged, the trust-region test) back from the device once
-per iteration, one small copy that waits for the iteration to finish. The
-semantics are those of the JAX loop: the trust-region re-gather skip,
-`force_gather`, the exact/stall rules, and `iters` counting gathers.
+The JAX package keeps the whole loop on the device in one
+`lax.while_loop`. Here two routes run it:
+  * `run_gn_icp_cand` (IcpMatcher, the point-to-point linearization over
+    cached candidates) keeps the iterations on the device: between two
+    gathers they run in one launch of csrc/gn_loop.cu (ops/gn_loop.py), and
+    the host reads one status word a gather round;
+  * `run_gn_corr` (every other matcher) is the known deviation: its loop
+    runs on the host and reads its control flags (done, converged, the
+    trust-region test) back from the device once per iteration, one small
+    copy that waits for the iteration to finish.
+The semantics of both are those of the JAX loop: the trust-region re-gather
+skip, `force_gather`, the exact/stall rules, and `iters` counting gathers.
 
 Update conventions (`GNConfig.update`, matching the reference):
   UPDATE_ICP:  dx = [t, r]; P += dt; R := R Exp(dr)
@@ -16,14 +22,16 @@ Update conventions (`GNConfig.update`, matching the reference):
 
 from __future__ import annotations
 
-import math
 from typing import Callable, NamedTuple
 
 import torch
 
 from ..core.lie import so3_exp
+from ..ops import gn_loop
+# looked up here at call time, so that a run can wrap the driver's calls
+from ..ops.gn_loop import icp_gn_rounds, trust_region_moved
 from ..ops.lin3 import solve6_damped
-from .residuals import HG
+from .residuals import HG, CandSet
 
 UPDATE_ICP = "icp"
 UPDATE_LOAM = "loam"
@@ -79,17 +87,6 @@ def _dx_split(dx: torch.Tensor, update: str):
     if update == UPDATE_ICP:
         return dx[3:], dx[:3]
     return dx[:3], dx[3:]
-
-
-def _moved(t_mat, t_gather, radius, dist) -> torch.Tensor:
-    """Pose displacement since the gather beyond the trust region:
-    translation + small-angle rotation scaled by the source radius
-    (|dR - I|_F = 2 sqrt(2) sin(theta/2) ~= sqrt(2) theta)."""
-    dt = torch.linalg.vector_norm(t_mat[:3, 3] - t_gather[:3, 3])
-    dr = t_mat[:3, :3] @ t_gather[:3, :3].T
-    eye = torch.eye(3, dtype=t_mat.dtype, device=t_mat.device)
-    theta = torch.linalg.matrix_norm(dr - eye) / math.sqrt(2.0)
-    return dt + theta * radius > dist
 
 
 def run_gn(hg_fn: Callable[[torch.Tensor], HG], t0: torch.Tensor, cfg: GNConfig) -> GNResult:
@@ -149,7 +146,7 @@ def run_gn_corr(
             stall = torch.zeros((), dtype=torch.bool, device=dev)
         if exact:
             last_rot, last_pos = rn, pn
-        nxt_moved = (_moved(t_mat, t_gather, radius, cfg.skip_regather_dist) if skip
+        nxt_moved = (trust_region_moved(t_mat, t_gather, radius, cfg.skip_regather_dist) if skip
                      else torch.ones((), dtype=torch.bool, device=dev))
         # the one host read of the iteration
         settled_h, conv_h, nxt_moved_h = torch.stack(
@@ -170,3 +167,51 @@ def run_gn_corr(
         num_valid,
         total_res,
     )
+
+
+def _host_read(flags: torch.Tensor) -> list:
+    """The one host read of a gather round: the status word and, when the
+    caller asked for one, its gate, in one small copy."""
+    return flags.tolist()
+
+
+def run_gn_icp_cand(
+    corr_fn: Callable[[torch.Tensor], CandSet],
+    t0: torch.Tensor,
+    cfg: GNConfig,
+    max_corr_dist_sq: float,
+    regather_radius=None,
+    gate_fn: Callable[[GNResult], torch.Tensor] | None = None,
+) -> tuple[GNResult, bool | None]:
+    """`run_gn_corr` with the ICP update and `point_to_point_hg_cand` on the
+    candidates of `corr_fn(T)`, in gather rounds: gather at the carry's
+    pose (on the device, no read), run the iterations up to the next gather
+    in one `icp_gn_rounds` call (the kernel on CUDA tensors, the plain
+    version on CPU tensors), read the status word, and stop on DONE.
+
+    `gate_fn(result)`, if given, is evaluated on the device after each call
+    and read in the same copy as the status word; returns (the result,
+    views of the loop's carry; the gate of the last round as a host bool,
+    or None)."""
+    if cfg.update != UPDATE_ICP:
+        raise ValueError(f"run_gn_icp_cand: the ICP update, not {cfg.update!r}")
+    dev = t0.device
+    radius = (torch.full((), cfg.regather_radius, dtype=torch.float32, device=dev)
+              if regather_radius is None else regather_radius)
+    carry = gn_loop.init_carry(t0)
+    res = GNResult(*gn_loop.result_views(carry))
+    o = gn_loop.OFFSET["status"]
+    while True:
+        cand = corr_fn(res.t_mat)
+        status = icp_gn_rounds(carry, cand, radius, cfg, max_corr_dist_sq)
+        run_gn_icp_cand.rounds += 1
+        flags = (carry[o:o + 1] if gate_fn is None
+                 else torch.stack([status, gate_fn(res).to(torch.int32)]))
+        read = _host_read(flags)
+        if read[0] == gn_loop.DONE:
+            return res, (bool(read[1]) if gate_fn is not None else None)
+        if read[0] != gn_loop.NEED_GATHER:
+            raise RuntimeError(f"run_gn_icp_cand: status word {read[0]}")
+
+
+run_gn_icp_cand.rounds = 0  # gather rounds run, each one host read

@@ -33,7 +33,15 @@ from ..core.lie import rotation_to_rpy
 from ..core.state import where_tree
 from ..maps import block_map, grid_map, ndt_map
 from ..ops.voxel import voxel_downsample
-from .gn import UPDATE_ICP, UPDATE_LOAM, UPDATE_NDT, GNConfig, GNResult, run_gn_corr
+from .gn import (
+    UPDATE_ICP,
+    UPDATE_LOAM,
+    UPDATE_NDT,
+    GNConfig,
+    GNResult,
+    run_gn_corr,
+    run_gn_icp_cand,
+)
 from .residuals import (
     fitness_score,
     gather_candidates,
@@ -42,7 +50,6 @@ from .residuals import (
     ndt_hg_corr,
     point_to_line_hg_cand,
     point_to_plane_hg_cand,
-    point_to_point_hg_cand,
 )
 
 
@@ -225,16 +232,17 @@ class IcpMatcher(_Matcher):
             return gather_candidates(t_mat, src.points, src.mask, s.m, inv, c.cand_k,
                                      c.stencil, c.num_probes, group_capacity=gc)
 
-        def hg_fn(t_mat, cand):
-            return point_to_point_hg_cand(t_mat, cand, c.max_correspond_distance**2)
+        def gate_fn(r):  # the map-insertion gate, read with the last status word
+            return r.converged & need_add_cloud(r.t_mat, s.last_added, c.dist_thresh_add_cloud,
+                                                c.rot_thresh_add_cloud)
 
-        res = run_gn_corr(corr_fn, hg_fn, t_init, self.gn_cfg,
-                          regather_radius=_source_radius(src.points, src.mask))
+        res, do_add = run_gn_icp_cand(corr_fn, t_init, self.gn_cfg,
+                                      c.max_correspond_distance**2,
+                                      regather_radius=_source_radius(src.points, src.mask),
+                                      gate_fn=None if c.is_localization_mode else gate_fn)
         if c.is_localization_mode:
             return s, res
-        do_add = res.converged & need_add_cloud(
-            res.t_mat, s.last_added, c.dist_thresh_add_cloud, c.rot_thresh_add_cloud)
-        if bool(do_add):
+        if do_add:
             world = transform_cloud(res.t_mat, Cloud(src.points, src.mask))
             s = window_add(s, world, res.t_mat, c.map_filter_size, inv,
                            c.merged_capacity, c.num_probes, window_size=_window_size(self.cfg))

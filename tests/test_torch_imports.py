@@ -19,7 +19,7 @@ import funny_lidar_slam_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-for tool in ("profile_torch_frontend", "profile_torch_mapping"):
+for tool in ("profile_torch_frontend", "profile_torch_mapping", "profile_torch_gn"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     names.append(tool)
@@ -45,7 +45,7 @@ def test_port_imports_no_jax():
     # pipeline/{preprocess,run_slam}) and multi-device (backend/distributed,
     # parallel/{comm,dryrun,sharded_gn,sharded_map}) included, the two
     # profile tools and the bench
-    assert n_modules >= 67
+    assert n_modules >= 69
 
 
 def test_entry_points_default_to_cuda():
