@@ -120,11 +120,17 @@ Phases, each of which raises (non-zero exit) on failure:
      entry on covariances and Jacobians; tight_fuse within 2e-3 m and 2e-3
      rad and 1e-2 of the largest information entry on every call, within
      1e-4 m and 1e-5 rad with the plain version's LM iteration count on at
-     least 95 %, the distributions printed); the three entry points on
-     device inputs under torch.cuda.set_sync_debug_mode("error"); each
-     kernel timed in turns beside its plain version and one empty launch
-     at the bench's shape (16 slots, 12 LM iterations) and M2DGR's (64
-     slots, 20), with its bound and its ptxas registers and shared memory;
+     least 95 %, the distributions printed), and on the synthetic edge
+     cases of `loop_edge_cases` (preintegrate with every sample masked, one
+     valid slot, slots of dt <= 0 between valid ones, a chained second
+     segment, 64 slots all valid; tight_fuse at 0 and 1 LM iterations);
+     no ptxas spills in preintegrate_kernel or tight_fuse_kernel; the three
+     entry points on device inputs under
+     torch.cuda.set_sync_debug_mode("error"); each kernel timed in turns
+     beside its plain version and one empty launch at the bench's shape
+     (16 slots, 12 LM iterations) and M2DGR's (64 slots, 20), tight_fuse
+     also at the bench's call with 0 and 1 LM iterations, with its bound
+     and its ptxas registers, stack frame and shared memory;
   20. the ICP GN loop: icp_gn_rounds (csrc/gn_loop.cu, the JAX
      `run_gn_corr` while_loop over cached candidates, one launch a gather
      round) against its plain version on every call captured in untimed
@@ -358,16 +364,18 @@ def kernel_name(symbol: str) -> str:
 
 
 def ptxas_report(text: str) -> dict:
-    """{kernel: {registers, spill_stores, spill_loads, static_smem_bytes}}
-    from nvcc's -Xptxas=-v output."""
+    """{kernel: {registers, spill_stores, spill_loads, stack_frame_bytes,
+    static_smem_bytes}} from nvcc's -Xptxas=-v output."""
     report, name = {}, None
     for line in text.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
             name = kernel_name(m.group(1))
             report[name] = {"registers": None, "spill_stores": 0, "spill_loads": 0,
-                            "static_smem_bytes": 0}
+                            "stack_frame_bytes": 0, "static_smem_bytes": 0}
         elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             report[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            if sf := re.search(r"(\d+) bytes stack frame", line):
+                report[name]["stack_frame_bytes"] = int(sf.group(1))
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             report[name]["registers"] = int(m.group(1))
             if sm := re.search(r"(\d+) bytes smem", line):
@@ -2282,6 +2290,11 @@ LOOP_SYMBOLS = {"preintegrate": ("imu_scan", "preintegrate_kernel"),
 # 12 LM iterations) and M2DGR's (64 slots, 20 iterations)
 LOOP_TIMED = {"preintegrate": ("grid", "m2dgr"), "eskf_predict": ("kf",),
               "tight_fuse": ("grid", "m2dgr")}
+# besides: tight_fuse at the grid call with the LM iteration budget cut to
+# 0 (set-up, posterior, marginalization and projection alone) and to 1
+LOOP_TIMED_ITERATIONS = (0, 1)
+# the loop kernels that keep their chains in registers: ptxas may report no spills
+LOOP_NO_SPILLS = ("preintegrate", "tight_fuse")
 
 
 def valid_slots(seg) -> int:
@@ -2289,6 +2302,76 @@ def valid_slots(seg) -> int:
     t = seg.t.float()
     ok = seg.mask[1:] & seg.mask[:-1] & (t[1:] > t[:-1])
     return int(ok.sum())
+
+
+def loop_entry(kind):
+    """(the entry point a step calls, its plain version) of a device loop."""
+    from funny_lidar_slam_torch.fusion import eskf, tight
+    from funny_lidar_slam_torch.imu import preintegration as pi
+
+    return {"preintegrate": (pi.preintegrate, pi.preintegrate_plain),
+            "eskf_predict": (eskf.predict, eskf.predict_plain),
+            "tight_fuse": (tight.fuse, tight.fuse_plain)}[kind]
+
+
+def synthetic_segment(torch, device, slots, seed, mask=None, t=None):
+    """A float32 IMU segment on `device`: stamps 5 ms apart from 5.0 s (or
+    `t`), gyro N(0, 0.4) rad/s, accel (0.3, -0.2, 9.81) + N(0, 0.3) m/s^2
+    from a NumPy generator of `seed`, every sample valid (or `mask`)."""
+    from funny_lidar_slam_torch.core.state import ImuSegment
+
+    rng = np.random.default_rng(seed)
+    t = (5.0 + np.arange(slots) * 0.005).astype(np.float32) if t is None else t
+    mask = np.ones(slots, bool) if mask is None else mask
+    arrays = (t, rng.normal(0, 0.4, (slots, 3)).astype(np.float32),
+              (np.array([0.3, -0.2, 9.81]) + rng.normal(0, 0.3, (slots, 3))).astype(np.float32),
+              np.tile(np.array([1, 0, 0, 0], np.float32), (slots, 1)))
+    return ImuSegment(*(torch.as_tensor(a, device=device) for a in arrays),
+                      mask=torch.as_tensor(mask, device=device))
+
+
+def with_iterations(fuse_args, n):
+    """A tight fuse call's arguments with the LM iteration budget `n`."""
+    return fuse_args[:5] + (fuse_args[5]._replace(iterations=n),)
+
+
+def loop_edge_cases(torch, pre_args, fuse_args) -> list:
+    """[(name, (kind, args))]: the synthetic edge cases of the two loop
+    kernels, with the noise, biases and fusion inputs of the captured calls
+    `pre_args` (preintegrate) and `fuse_args` (tight fuse), on their
+    device: `preintegrate` over 16 slots with every sample masked, with one
+    valid slot, with slots of dt <= 0 (a repeated and a decreasing stamp)
+    between valid ones, a second segment chained on the state of a first
+    (has_init; the plain version's state, the same for both), and 64 slots
+    all valid; `tight_fuse` at 0 LM iterations (set-up and the tail alone)
+    and at 1."""
+    from funny_lidar_slam_torch.imu import preintegration as pi
+
+    _, params, bg, ba = pre_args[:4]
+    dev, n = bg.device, 16
+    one = np.zeros(n, bool)
+    one[5:7] = True
+    t_bad = (5.0 + np.arange(n) * 0.005).astype(np.float32)
+    t_bad[6] = t_bad[5]  # dt = 0 in slot 5
+    t_bad[9] = t_bad[8] - np.float32(0.002)  # dt < 0 in slot 8
+    first = synthetic_segment(torch, dev, n, 41)
+    second = synthetic_segment(torch, dev, n, 42, t=(5.0 + (n + np.arange(n)) * 0.005
+                                                     ).astype(np.float32))
+    init = pi.preintegrate_plain(first, params, bg, ba)
+
+    def pre(seg, *extra):
+        return "preintegrate", (seg, params, bg, ba, *extra)
+
+    return [
+        ("preintegrate_all_masked", pre(synthetic_segment(torch, dev, n, 43,
+                                                          mask=np.zeros(n, bool)))),
+        ("preintegrate_one_valid_slot", pre(synthetic_segment(torch, dev, n, 44, mask=one))),
+        ("preintegrate_nonpositive_dt", pre(synthetic_segment(torch, dev, n, 45, t=t_bad))),
+        ("preintegrate_chained", pre(second, init)),
+        ("preintegrate_all_valid_64", pre(synthetic_segment(torch, dev, 64, 46))),
+        ("tight_fuse_it0", ("tight_fuse", with_iterations(fuse_args, 0))),
+        ("tight_fuse_it1", ("tight_fuse", with_iterations(fuse_args, 1))),
+    ]
 
 
 # (residual rows, state columns its Jacobian blocks touch) of the six
@@ -2401,17 +2484,32 @@ def loop_compare(torch, kind, args) -> dict:
 def phase_device_loops(torch, report) -> list:
     """Phase 19: the three device-loop kernels against their plain versions
     on every call captured from phase 4's grid run, phase 11's KF run and
-    15a's M2DGR run; the launches of every path; the ptxas report; each
-    kernel timed beside its plain version and one empty launch at the
-    bench's and M2DGR's shapes, in turns, with its bound; the three
-    entry points under torch.cuda.set_sync_debug_mode("error"). Returns
-    the three JSON entries."""
+    15a's M2DGR run, and on the synthetic edge cases of `loop_edge_cases`;
+    the launches of every path; the ptxas report (no spills in preintegrate
+    and tight_fuse); each kernel timed beside its plain version and one
+    empty launch at the bench's and M2DGR's shapes, in turns, with its
+    bound, and tight_fuse also at 0 and 1 LM iterations; the three entry
+    points under torch.cuda.set_sync_debug_mode("error"). Returns the three
+    JSON entries."""
     from funny_lidar_slam_torch.fusion import eskf, tight
     from funny_lidar_slam_torch.imu import preintegration as pi
     from funny_lidar_slam_torch.ops import recurrences as rec
 
     t_phase = time.perf_counter()
+    for kind in LOOP_NO_SPILLS:
+        lib, sym = LOOP_SYMBOLS[kind]
+        res = report.get(lib, {}).get(sym)
+        assert res and res["registers"], f"[device-loops] no ptxas report for {sym}: {res}"
+        assert res["spill_stores"] == 0 and res["spill_loads"] == 0, \
+            f"[device-loops] {sym} spills: {res}"
     saved = {fn.__name__: fn.launches for fn in rec.KERNELS}  # comparisons do not count
+    pre_args = next(a for k, a in LOOP_CAPTURES["grid"] if k == "preintegrate")
+    fuse_args = next(a for k, a in LOOP_CAPTURES["grid"] if k == "tight_fuse")
+    edge = {}
+    for name, (kind, args) in loop_edge_cases(torch, pre_args, fuse_args):
+        edge[name] = loop_compare(torch, kind, args)
+        assert edge[name]["ok"], f"[device-loops] edge case {name}: {edge[name]}"
+    log(f"[device-loops] {len(edge)} edge cases within tolerance: {json.dumps(edge)}")
     results: dict = {}
     for key, calls in LOOP_CAPTURES.items():
         seen = {}
@@ -2442,9 +2540,7 @@ def phase_device_loops(torch, report) -> list:
                 f"median / p95 / max {json.dumps(summary)}")
 
     # the three entry points on device inputs may not wait for the device
-    pre_args = next(a for k, a in LOOP_CAPTURES["grid"] if k == "preintegrate")
     kf_args = next(a for k, a in LOOP_CAPTURES["kf"] if k == "eskf_predict")
-    fuse_args = next(a for k, a in LOOP_CAPTURES["grid"] if k == "tight_fuse")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2457,20 +2553,20 @@ def phase_device_loops(torch, report) -> list:
     log("[device-loops] preintegrate, eskf.predict and tight.fuse ran under "
         "set_sync_debug_mode('error')")
 
-    plain = {"preintegrate": pi.preintegrate_plain, "eskf_predict": eskf.predict_plain,
-             "tight_fuse": tight.fuse_plain}
-    kernel = {"preintegrate": pi.preintegrate, "eskf_predict": eskf.predict,
-              "tight_fuse": tight.fuse}
     order = ["kernel", "plain", "floor", "floor", "plain", "kernel"]
     entries = []
     for kind, keys in LOOP_TIMED.items():
+        kernel, plain = loop_entry(kind)
         shapes = {}
-        for key in keys:
-            args = [a for k, a in LOOP_CAPTURES[key] if k == kind][-1]
+        timed = [(key, [a for k, a in LOOP_CAPTURES[key] if k == kind][-1]) for key in keys]
+        if kind == "tight_fuse":
+            timed += [(f"{keys[0]}_it{n}", with_iterations(timed[0][1], n))
+                      for n in LOOP_TIMED_ITERATIONS]
+        for key, args in timed:
             reps = {"kernel": 50, "plain": 3, "floor": 50}
             turns = in_turns(lambda f: time_ms(torch, f[0], f[1]),
-                             {"kernel": (lambda: kernel[kind](*args), reps["kernel"]),
-                              "plain": (lambda: plain[kind](*args), reps["plain"]),
+                             {"kernel": (lambda: kernel(*args), reps["kernel"]),
+                              "plain": (lambda: plain(*args), reps["plain"]),
                               "floor": (lambda: torch.cuda._sleep(0), reps["floor"])}, order)
             ms = {c: float(np.median(v)) for c, v in turns.items()}
             its = int(rec.tight_fuse(*args)[6]) if kind == "tight_fuse" else 0
@@ -2492,6 +2588,7 @@ def phase_device_loops(torch, report) -> list:
         resources = report.get(lib, {}).get(sym, {})
         log(f"[device-loops] {kind} ptxas: {resources}")
         rows = [r for by_key in results[kind].values() for r in by_key]
+        rows += [e for n, e in edge.items() if n.startswith(kind)]
         first = shapes[keys[0]]
         entries.append({
             "name": kind, "route": "cuda", "source": LOOP_SOURCES[kind][0],
@@ -2502,6 +2599,7 @@ def phase_device_loops(torch, report) -> list:
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": None, "floor_ms": first["floor_ms"],
             "shape": keys[0], "shapes": shapes, "calls_compared": len(rows),
+            "edge_cases": {n: e for n, e in edge.items() if n.startswith(kind)},
             "launches_by_path": {p: v[kind] for p, v in LOOP_LAUNCHES.items() if v[kind]},
             "resources": resources})
     for fn in rec.KERNELS:

@@ -13,15 +13,42 @@
 // Bound: both are serial recurrences over the segment's slots with a few
 // thousand operations each (a 9x9 or 15x15 sandwich product) on a few KB
 // of input, so neither bytes nor operations bound them on this card: the
-// chain of dependent steps and the block barriers between them do. The
-// design keeps the whole carried state in shared memory, one block per
-// call, so the loop runs on the device without a launch a slot: one thread
-// takes the slot's scalar 3x3 work, then every thread takes entries of the
-// small dense products. A slot that is not valid (masked, or a dt that is
-// not positive) is skipped by the whole block, which is exact: the plain
-// version's torch.where leaves the state untouched there. Every thread
-// reads the validity from global memory itself, so the branch is uniform
-// without a barrier.
+// chain of dependent steps does.
+//
+// preintegrate_kernel takes the per-slot work off that chain. Of a slot's
+// update only d_r (the prefix product of the r_step rotations), the bias
+// Jacobians and the covariance are carried; r_step = Exp(w dt), Jr(w dt),
+// the mean accel, the noise / dt and the validity are per slot. So the
+// kernel stages up to kChunk slots at a time in four parts, a block
+// barrier between parts (four a chunk, none a slot):
+//   1. two threads a slot, all at once: validity, dt, the midpoint gyro and
+//      accel, r_step, noise / max(dt, 1e-9) on one, Jr on the other;
+//   2. the valid slots as two ballots; then serial, each chain one thread
+//      in its own warp, the next slot's inputs loaded while the current one
+//      is taken: d_r (27 FMAs a slot) with d_v, d_p and the total dt beside
+//      it; dr_dbg, one column a lane (the column recurrences are
+//      independent). Each valid slot's d_r and dr_dbg before the update go
+//      to shared memory;
+//   3. one thread a (valid slot, row): A = [[R^T,0,0],[X,I,0],[Y,dt I,I]]
+//      by rows (X, Y from d_r hat(a)), d_r hat(a) dr_dbg, and
+//      B (Sigma / dt) B^T;
+//   4. serial over the valid slots: the covariance A cov A^T + B Sigma B^T
+//      in one warp, lane 3i + b holding row i, columns 3b..3b+2, the rows
+//      and columns the products need broadcast by shuffles, so no barrier
+//      at all; the four other bias Jacobians in another warp, one entry a
+//      lane.
+// Every entry keeps the plain version's order of operations: the products
+// with A skip its structural zeros and ones, which leaves each sum's
+// rounding as the dense product's. A slot that is not valid (masked, or a
+// dt that is not positive) is left out of every chain, which is exact: the
+// plain version's torch.where leaves the state untouched there. A build
+// with -DFLS_STAGE_CLOCKS (stage_clock.cuh) writes the cycles of each part
+// (C_* below) after the output.
+//
+// eskf_predict_kernel keeps the whole carried state in shared memory: one
+// thread takes the slot's scalar 3x3 work, then every thread takes entries
+// of the small dense products, with block barriers between; an invalid slot
+// is skipped by the whole block (every thread reads the validity itself).
 //
 // Layouts (float32, packed by ops/recurrences.py):
 //   preintegrate input:  bg[3] ba[3] gyro_var[3] acc_var[3] integ_var[3] |
@@ -37,6 +64,7 @@
 #include <cuda_runtime.h>
 
 #include "so3.cuh"
+#include "stage_clock.cuh"
 
 namespace {
 
@@ -52,8 +80,12 @@ enum {
 };
 enum { EO_R = 0, EO_V = 9, EO_P = 12, EO_COV = 15, EO_SIZE = 240 };
 
-constexpr int kPreintThreads = 128;
+constexpr int kPreintThreads = 256;
 constexpr int kEskfThreads = 256;
+constexpr int kChunk = 64;  // slots staged at a time
+constexpr unsigned kFull = 0xffffffffu;
+// stage clocks of a profiling build (stage_clock.cuh)
+enum { C_INIT, C_SLOTS, C_PREFIX, C_BLOCKS, C_SERIAL, C_OUTPUT };
 
 // slot k runs from sample k to k+1 (the plain version's `valid`)
 __device__ inline bool slot_valid(const float* t, const float* mask, int k, float* dt) {
@@ -61,139 +93,309 @@ __device__ inline bool slot_valid(const float* t, const float* mask, int k, floa
   return mask[k] > 0.5f && mask[k + 1] > 0.5f && *dt > 0.f;
 }
 
+// row i (0..8) of B [9,6] of a slot: Jr dt, d_r dt, 0.5 d_r dt^2 blocks
+__device__ inline void b_row(int i, const float* jrm, const float* dr, float dt, float b[6]) {
+  for (int m = 0; m < 6; ++m) b[m] = 0.f;
+  for (int m = 0; m < 3; ++m) {
+    if (i < 3) b[m] = jrm[3 * i + m] * dt;
+    else if (i < 6) b[3 + m] = dr[3 * (i - 3) + m] * dt;
+    else b[3 + m] = 0.5f * dr[3 * (i - 6) + m] * dt * dt;
+  }
+}
+
+// the slots of a chunk (kChunk = 64) that are valid, as two lane masks
+struct SlotMasks {
+  unsigned lo, hi;
+  __device__ int count() const { return __popc(lo) + __popc(hi); }
+  // the next valid slot, removed from the masks; -1 when none is left
+  __device__ int pop() {
+    if (lo) {
+      const int k = __ffs(lo) - 1;
+      lo &= lo - 1;
+      return k;
+    }
+    if (hi) {
+      const int k = __ffs(hi) - 1;
+      hi &= hi - 1;
+      return 32 + k;
+    }
+    return -1;
+  }
+};
+
 __global__ void __launch_bounds__(kPreintThreads)
 preintegrate_kernel(const float* __restrict__ in, float* __restrict__ out, int slots,
                     int has_init) {
-  __shared__ float st[PS_SIZE];           // the carried state
-  __shared__ float a[81], b[54], tm[81];  // A, B and A cov of the slot
-  __shared__ float rs[9], jrm[9], dra[9], dracc[3], noise[6];
-  const int tid = threadIdx.x;
+  // part 1, by slot of the chunk
+  __shared__ float s_dt[kChunk], s_rs[kChunk][9], s_jr[kChunk][9], s_acc[kChunk][3];
+  __shared__ float s_noise[kChunk][6];
+  __shared__ int s_valid[kChunk];
+  // parts 2-3, by valid slot of the chunk, in order: the slot, d_r and
+  // dr_dbg before it, A by rows (the three entries on rows 0-2 of cov, the
+  // entry on row i-3, the entry on row i), d_r hat(a) dr_dbg, B Sigma B^T
+  __shared__ int v_slot[kChunk];
+  __shared__ float v_dr[kChunk][9], v_drdbg[kChunk][9], v_a[kChunk][9][5];
+  __shared__ float v_m[kChunk][9], v_q[kChunk][81];
+  StageClock clk;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float* hdr = in;
   const float* t = in + PH_SIZE;
   const float* gyro = t + slots;
   const float* accel = gyro + 3 * slots;
   const float* mask = accel + 3 * slots;
+  const float* init = mask + slots;  // PS_SIZE floats when has_init
+  // warp 0 lane 3i + b (i < 9, b < 3): row i, columns 3b..3b+2 of cov
+  const int ci = min(lane / 3, 8), cb = lane < 27 ? lane % 3 : 2;
 
-  for (int i = tid; i < PS_SIZE; i += blockDim.x)
-    st[i] = has_init ? mask[slots + i]
-                     : ((i == PS_DR || i == PS_DR + 4 || i == PS_DR + 8) ? 1.f : 0.f);
-  __syncthreads();
-
-  for (int k = 0; k + 1 < slots; ++k) {
-    float dt;
-    if (!slot_valid(t, mask, k, &dt)) continue;  // uniform over the block
-    if (tid == 0) {
-      float g[3], acc[3], phi[3], ah[9];
-      for (int c = 0; c < 3; ++c) {
-        g[c] = 0.5f * (gyro[3 * k + c] + gyro[3 * k + 3 + c]) - hdr[PH_BG + c];
-        acc[c] = 0.5f * (accel[3 * k + c] + accel[3 * k + 3 + c]) - hdr[PH_BA + c];
-        phi[c] = g[c] * dt;
-      }
-      so3::exp(phi, rs);
-      so3::jr(phi, jrm);
-      so3::hat(acc, ah);
-      so3::mul(st + PS_DR, ah, dra);
-      so3::mv(st + PS_DR, acc, dracc);
-      const float safe_dt = fmaxf(dt, 1e-9f);
-      for (int c = 0; c < 3; ++c) {
-        noise[c] = hdr[PH_GVAR + c] / safe_dt;
-        noise[3 + c] = hdr[PH_AVAR + c] / safe_dt;
-      }
-    }
-    __syncthreads();
-
-    // A [9,9] and B [9,6] of the slot; each thread's new Jacobian or delta
-    // entry from the old state
-    const float* dr = st + PS_DR;
-    for (int e = tid; e < 81 + 54; e += blockDim.x) {
-      if (e < 81) {
-        const int i = e / 9, j = e % 9;
-        float v = 0.f;
-        if (j < 3) {
-          if (i < 3) v = rs[3 * j + i];
-          else if (i < 6) v = -dra[3 * (i - 3) + j] * dt;
-          else v = -0.5f * dra[3 * (i - 6) + j] * dt * dt;
-        } else if (j < 6) {
-          if (i >= 3 && i - 3 == j - 3) v = 1.f;
-          else if (i >= 6 && i - 6 == j - 3) v = dt;
-        } else if (i == j) {
-          v = 1.f;
-        }
-        a[e] = v;
-      } else {
-        const int f = e - 81, i = f / 6, j = f % 6;
-        float v = 0.f;
-        if (i < 3 && j < 3) v = jrm[3 * i + j] * dt;
-        else if (i >= 3 && i < 6 && j >= 3) v = dr[3 * (i - 3) + (j - 3)] * dt;
-        else if (i >= 6 && j >= 3) v = 0.5f * dr[3 * (i - 6) + (j - 3)] * dt * dt;
-        b[f] = v;
-      }
-    }
-    float nv = 0.f;
-    int slot_out = -1;
-    if (tid < 45) {  // the five bias Jacobians, 3x3 each
-      const int which = tid / 9, i = (tid % 9) / 3, j = tid % 3, ij = 3 * i + j;
-      const float* drdbg = st + PS_DR_DBG;
-      // (d_r acc_hat dr_dbg)_ij
-      const float m = dra[3 * i] * drdbg[j] + dra[3 * i + 1] * drdbg[3 + j]
-                      + dra[3 * i + 2] * drdbg[6 + j];
-      if (which == 0) {
-        nv = st[PS_DP_DBG + ij] + st[PS_DV_DBG + ij] * dt - 0.5f * m * dt * dt;
-        slot_out = PS_DP_DBG + ij;
-      } else if (which == 1) {
-        nv = st[PS_DP_DBA + ij] + st[PS_DV_DBA + ij] * dt - 0.5f * dr[ij] * dt * dt;
-        slot_out = PS_DP_DBA + ij;
-      } else if (which == 2) {
-        nv = st[PS_DV_DBG + ij] - m * dt;
-        slot_out = PS_DV_DBG + ij;
-      } else if (which == 3) {
-        nv = st[PS_DV_DBA + ij] - dr[ij] * dt;
-        slot_out = PS_DV_DBA + ij;
-      } else {
-        nv = (rs[i] * drdbg[j] + rs[3 + i] * drdbg[3 + j] + rs[6 + i] * drdbg[6 + j])
-             - jrm[ij] * dt;
-        slot_out = PS_DR_DBG + ij;
-      }
-    } else if (tid < 54) {  // d_r <- d_r r_step
-      const int ij = tid - 45, i = ij / 3, j = ij % 3;
-      nv = dr[3 * i] * rs[j] + dr[3 * i + 1] * rs[3 + j] + dr[3 * i + 2] * rs[6 + j];
-      slot_out = PS_DR + ij;
-    } else if (tid < 57) {  // d_v <- d_v + d_r acc dt
-      const int c = tid - 54;
-      nv = st[PS_DV + c] + dracc[c] * dt;
-      slot_out = PS_DV + c;
-    } else if (tid < 60) {  // d_p <- d_p + d_v dt + 0.5 d_r acc dt^2
-      const int c = tid - 57;
-      nv = st[PS_DP + c] + st[PS_DV + c] * dt + 0.5f * dracc[c] * dt * dt;
-      slot_out = PS_DP + c;
-    }
-    __syncthreads();
-
-    // A cov; the new entries replace the old ones
-    for (int e = tid; e < 81; e += blockDim.x) {
-      const int i = e / 9, j = e % 9;
-      float s = 0.f;
-      for (int m = 0; m < 9; ++m) s += a[9 * i + m] * st[PS_COV + 9 * m + j];
-      tm[e] = s;
-    }
-    if (slot_out >= 0) st[slot_out] = nv;
-    __syncthreads();
-
-    // cov <- A cov A^T + B (Sigma / dt) B^T, plus the position integration noise
-    for (int e = tid; e < 81; e += blockDim.x) {
-      const int i = e / 9, j = e % 9;
-      float s = 0.f;
-      for (int m = 0; m < 9; ++m) s += tm[9 * i + m] * a[9 * j + m];
-      float q = 0.f;
-      for (int m = 0; m < 6; ++m) q += b[6 * i + m] * (noise[m] * b[6 * j + m]);
-      float c = s + q;
-      if (i == j && i >= 6) c += hdr[PH_IVAR + i - 6] * dt;
-      st[PS_COV + e] = c;
-    }
-    if (tid == 0) st[PS_DT] += dt;
-    __syncthreads();
+  // the carried state, each part in the registers of the lanes that chain it
+  float dr[9], dv[3], dp[3], dt_sum = 0.f;  // warp 0 lane 0
+  float drdbg_col[3];                        // warp 1 lanes 0-2: column `lane`
+  float cov[3];                              // warp 0 lanes 0-26: C[ci][3 cb + 0..2]
+  float jv = 0.f, jp = 0.f;                  // warp 1 lanes 0-17: dv_dbg, dp_dbg
+                                             // entry lane, or dv_dba, dp_dba lane - 9
+  for (int k = 0; k < 9; ++k) dr[k] = has_init ? init[PS_DR + k] : (k % 4 == 0 ? 1.f : 0.f);
+  for (int c = 0; c < 3; ++c) {
+    dv[c] = has_init ? init[PS_DV + c] : 0.f;
+    dp[c] = has_init ? init[PS_DP + c] : 0.f;
+    drdbg_col[c] = has_init && lane < 3 ? init[PS_DR_DBG + 3 * c + lane] : 0.f;
+    cov[c] = has_init ? init[PS_COV + 9 * ci + 3 * cb + c] : 0.f;
   }
-  for (int i = tid; i < PS_SIZE; i += blockDim.x) out[i] = st[i];
+  if (has_init) dt_sum = init[PS_DT];
+  if (has_init && lane < 18) {
+    const int e = lane % 9;
+    jv = init[(lane < 9 ? PS_DV_DBG : PS_DV_DBA) + e];
+    jp = init[(lane < 9 ? PS_DP_DBG : PS_DP_DBA) + e];
+  }
+  clk.mark(C_INIT);
+
+  for (int c0 = 0; c0 + 1 < slots; c0 += kChunk) {
+    const int n = min(kChunk, slots - 1 - c0);
+    // 1. the per-slot values, two threads a slot (warps 0-1: validity,
+    // accel, r_step, noise; warps 2-3: Jr)
+    if (tid < 2 * kChunk) {
+      const int sl = tid % kChunk, k = c0 + sl;
+      float dt = 0.f;
+      const bool ok = sl < n && slot_valid(t, mask, k, &dt);
+      if (tid < kChunk) {
+        s_valid[sl] = ok;
+        s_dt[sl] = dt;
+      }
+      if (ok) {
+        float phi[3];
+        for (int c = 0; c < 3; ++c)
+          phi[c] = (0.5f * (gyro[3 * k + c] + gyro[3 * k + 3 + c]) - hdr[PH_BG + c]) * dt;
+        if (tid < kChunk) {
+          for (int c = 0; c < 3; ++c)
+            s_acc[sl][c] = 0.5f * (accel[3 * k + c] + accel[3 * k + 3 + c]) - hdr[PH_BA + c];
+          so3::exp(phi, s_rs[sl]);
+          const float safe_dt = fmaxf(dt, 1e-9f);
+          for (int c = 0; c < 3; ++c) {
+            s_noise[sl][c] = hdr[PH_GVAR + c] / safe_dt;
+            s_noise[sl][3 + c] = hdr[PH_AVAR + c] / safe_dt;
+          }
+        } else {
+          so3::jr(phi, s_jr[sl]);
+        }
+      }
+    }
+    __syncthreads();
+    clk.mark(C_SLOTS);
+    SlotMasks valid = {__ballot_sync(kFull, s_valid[lane]),
+                       __ballot_sync(kFull, s_valid[32 + lane])};
+    const int nv = valid.count();
+
+    // 2. the serial chains over the valid slots, the next slot's inputs
+    // loaded while the current one is taken: d_r with d_v, d_p and dt (warp
+    // 0 lane 0) and dr_dbg by columns (warp 1 lanes 0-2)
+    if (warp == 0) {
+      if (s_valid[lane]) v_slot[__popc(valid.lo & ((1u << lane) - 1))] = lane;
+      if (s_valid[32 + lane])
+        v_slot[__popc(valid.lo) + __popc(valid.hi & ((1u << lane) - 1))] = 32 + lane;
+    }
+    if (tid == 0) {
+      SlotMasks left = valid;
+      int k = left.pop();
+      float rs[9], acc[3], dt = 0.f;
+      if (k >= 0) {
+        for (int e = 0; e < 9; ++e) rs[e] = s_rs[k][e];
+        for (int c = 0; c < 3; ++c) acc[c] = s_acc[k][c];
+        dt = s_dt[k];
+      }
+      for (int v = 0; v < nv; ++v) {
+        const int kn = left.pop();
+        float rs_n[9], acc_n[3], dt_n = 0.f;
+        if (kn >= 0) {
+          for (int e = 0; e < 9; ++e) rs_n[e] = s_rs[kn][e];
+          for (int c = 0; c < 3; ++c) acc_n[c] = s_acc[kn][c];
+          dt_n = s_dt[kn];
+        }
+        float dracc[3], nr[9];
+        for (int e = 0; e < 9; ++e) v_dr[v][e] = dr[e];
+        so3::mv(dr, acc, dracc);
+        for (int c = 0; c < 3; ++c) {
+          const float pv = dp[c] + dv[c] * dt + 0.5f * dracc[c] * dt * dt;
+          dv[c] = dv[c] + dracc[c] * dt;
+          dp[c] = pv;
+        }
+        so3::mul(dr, rs, nr);
+        for (int e = 0; e < 9; ++e) {
+          dr[e] = nr[e];
+          rs[e] = rs_n[e];
+        }
+        for (int c = 0; c < 3; ++c) acc[c] = acc_n[c];
+        dt_sum += dt;
+        dt = dt_n;
+      }
+    } else if (warp == 1 && lane < 3) {
+      SlotMasks left = valid;
+      int k = left.pop();
+      float rs[9], jr[3], dt = 0.f;
+      if (k >= 0) {
+        for (int e = 0; e < 9; ++e) rs[e] = s_rs[k][e];
+        for (int i = 0; i < 3; ++i) jr[i] = s_jr[k][3 * i + lane];
+        dt = s_dt[k];
+      }
+      for (int v = 0; v < nv; ++v) {
+        const int kn = left.pop();
+        float rs_n[9], jr_n[3], dt_n = 0.f;
+        if (kn >= 0) {
+          for (int e = 0; e < 9; ++e) rs_n[e] = s_rs[kn][e];
+          for (int i = 0; i < 3; ++i) jr_n[i] = s_jr[kn][3 * i + lane];
+          dt_n = s_dt[kn];
+        }
+        float nc[3];
+        for (int i = 0; i < 3; ++i) {
+          v_drdbg[v][3 * i + lane] = drdbg_col[i];
+          nc[i] = (rs[i] * drdbg_col[0] + rs[3 + i] * drdbg_col[1] + rs[6 + i] * drdbg_col[2])
+                  - jr[i] * dt;
+        }
+        for (int i = 0; i < 3; ++i) {
+          drdbg_col[i] = nc[i];
+          jr[i] = jr_n[i];
+        }
+        for (int e = 0; e < 9; ++e) rs[e] = rs_n[e];
+        dt = dt_n;
+      }
+    }
+    __syncthreads();
+    clk.mark(C_PREFIX);
+
+    // 3. one thread a (valid slot, row i): A's row i (for i < 3 also rows
+    // 3 + i and 6 + i, from d_r hat(a)), the dr_dbg term of the bias
+    // Jacobians, and row i of B (Sigma / dt) B^T
+    for (int e = tid; e < nv * 9; e += blockDim.x) {
+      const int v = e / 9, i = e % 9, k = v_slot[v];
+      const float dt = s_dt[k];
+      const float* d = v_dr[v];
+      if (i < 3) {
+        const float* rs = s_rs[k];
+        float ah[9];
+        so3::hat(s_acc[k], ah);
+        const float* g = v_drdbg[v];
+        float dra[3];  // row i of d_r hat(a)
+        for (int j = 0; j < 3; ++j) {
+          dra[j] = d[3 * i] * ah[j] + d[3 * i + 1] * ah[3 + j] + d[3 * i + 2] * ah[6 + j];
+          v_a[v][i][j] = rs[3 * j + i];        // A_00 = r_step^T
+          v_a[v][3 + i][j] = -dra[j] * dt;     // X = -d_r hat(a) dt
+          v_a[v][6 + i][j] = -0.5f * dra[j] * dt * dt;  // Y
+        }
+        v_a[v][i][3] = 0.f;
+        v_a[v][i][4] = 0.f;
+        v_a[v][3 + i][3] = 0.f;
+        v_a[v][3 + i][4] = 1.f;
+        v_a[v][6 + i][3] = dt;
+        v_a[v][6 + i][4] = 1.f;
+        for (int j = 0; j < 3; ++j)
+          v_m[v][3 * i + j] = dra[0] * g[j] + dra[1] * g[3 + j] + dra[2] * g[6 + j];
+      }
+      float bi[6], bj[6];
+      b_row(i, s_jr[k], d, dt, bi);
+      for (int j = 0; j < 9; ++j) {
+        float q = 0.f;
+        if ((i < 3) == (j < 3)) {  // B's two column blocks meet no other row block
+          b_row(j, s_jr[k], d, dt, bj);
+          for (int m = 0; m < 6; ++m) q += bi[m] * (s_noise[k][m] * bj[m]);
+        }
+        v_q[v][9 * i + j] = q;
+      }
+    }
+    __syncthreads();
+    clk.mark(C_BLOCKS);
+
+    // 4. the covariance (warp 0, lane 3i + b: row i, columns 3b..3b+2) and
+    // the bias Jacobians (warp 1), serial over the valid slots,
+    // warp-synchronous
+    if (warp == 0) {
+      const float* ivar = hdr + PH_IVAR;
+      for (int v = 0; v < nv; ++v) {
+        const float dt = s_dt[v_slot[v]];
+        const float* ai = v_a[v][ci];
+        float tr[3];  // (A cov)[ci][3 cb + c]
+        for (int c = 0; c < 3; ++c) {
+          const float r0 = __shfl_sync(kFull, cov[c], cb);
+          const float r1 = __shfl_sync(kFull, cov[c], 3 + cb);
+          const float r2 = __shfl_sync(kFull, cov[c], 6 + cb);
+          const float rb = __shfl_sync(kFull, cov[c], lane >= 9 ? lane - 9 : lane);
+          float s = 0.f;
+          s += ai[0] * r0;
+          s += ai[1] * r1;
+          s += ai[2] * r2;
+          s += ai[3] * rb;
+          s += ai[4] * cov[c];
+          tr[c] = s;
+        }
+        float t0[3], tb[3];  // (A cov)[ci][0..2], (A cov)[ci][3 cb - 3 + c]
+        for (int c = 0; c < 3; ++c) {
+          t0[c] = __shfl_sync(kFull, tr[c], 3 * ci);
+          tb[c] = __shfl_sync(kFull, tr[c], lane >= 1 ? lane - 1 : lane);
+        }
+        for (int c = 0; c < 3; ++c) {  // (A cov) A^T, row j of A by its blocks
+          const int j = 3 * cb + c;
+          const float* aj = v_a[v][j];
+          float s = 0.f;
+          s += t0[0] * aj[0];
+          s += t0[1] * aj[1];
+          s += t0[2] * aj[2];
+          s += tb[c] * aj[3];
+          s += tr[c] * aj[4];
+          float cn = s + v_q[v][9 * ci + j];
+          if (j >= 6 && ci == j) cn += ivar[j - 6] * dt;
+          cov[c] = cn;
+        }
+      }
+    } else if (warp == 1 && lane < 18) {
+      const int e = lane % 9;
+      for (int v = 0; v < nv; ++v) {
+        const float dt = s_dt[v_slot[v]];
+        const float m = lane < 9 ? v_m[v][e] : v_dr[v][e];
+        const float np = jp + jv * dt - 0.5f * m * dt * dt;
+        jv = jv - m * dt;
+        jp = np;
+      }
+    }
+    __syncthreads();
+    clk.mark(C_SERIAL);
+  }
+
+  if (tid == 0) {
+    for (int e = 0; e < 9; ++e) out[PS_DR + e] = dr[e];
+    for (int c = 0; c < 3; ++c) {
+      out[PS_DV + c] = dv[c];
+      out[PS_DP + c] = dp[c];
+    }
+    out[PS_DT] = dt_sum;
+  }
+  if (warp == 0 && lane < 27)
+    for (int c = 0; c < 3; ++c) out[PS_COV + 9 * ci + 3 * cb + c] = cov[c];
+  if (warp == 1 && lane < 3)
+    for (int i = 0; i < 3; ++i) out[PS_DR_DBG + 3 * i + lane] = drdbg_col[i];
+  if (warp == 1 && lane < 18) {
+    const int e = lane % 9;
+    out[(lane < 9 ? PS_DV_DBG : PS_DV_DBA) + e] = jv;
+    out[(lane < 9 ? PS_DP_DBG : PS_DP_DBA) + e] = jp;
+  }
+  clk.mark(C_OUTPUT);
+  clk.write(out + PS_SIZE);
 }
 
 __global__ void __launch_bounds__(kEskfThreads)

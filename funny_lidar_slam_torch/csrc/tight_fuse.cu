@@ -1,7 +1,7 @@
 // The per-frame 30-dof tight-fusion solve, one thread block per call:
-// the factor assembly, the Levenberg-Marquardt loop, a fresh posterior
-// assembly at the optimum, the Schur marginalization of the old state and
-// the projection of the new prior onto the PSD cone.
+// the factor assembly, the Levenberg-Marquardt loop, the Schur
+// marginalization of the old state at the optimum and the projection of
+// the new prior onto the PSD cone.
 //
 // Replaces the `lax.while_loop` LM and its tail in
 // funny_lidar_slam_tpu/fusion/tight.py (`fuse`); the plain version is
@@ -19,7 +19,13 @@
 //     a strict `cost_try < cost` accept, lambda halved (floor 1e-6) or
 //     multiplied by 8 (ceiling 1e2), exit on (accept & |dx| < 1e-6) |
 //     (reject & lambda >= 1e2) or after `iterations`; the exit is a branch
-//     on values in shared memory, uniform over the block, with no host read;
+//     on values in shared memory, the same on every thread, with no host
+//     read. The LU scales each pivot column by the pivot's reciprocal, as
+//     LAPACK's getf2 does, and the back substitution multiplies by the same
+//     reciprocals where LAPACK's getrs divides (a last-bit difference);
+//   * the posterior H at the optimum: the plain version assembles it anew;
+//     the kernel keeps the assembly of the accepted state, which is the
+//     same arithmetic on the same state and so the same H;
 //   * `marginalize(H, 0, 14)[15:, 15:]`: the 15x15 old-state block Jacobi
 //     scaled (rsqrt(max(diag, 1e-24))) and pseudo-inverted with |eigenvalues|
 //     below 1e-6 dropped (for a symmetric block this equals the SVD
@@ -29,18 +35,47 @@
 //     JAX version takes (their SVD is accurate enough without it; this
 //     float32 Jacobi solve is not, see the kernel body);
 //   * symmetrize, eigendecompose, V max(w, 0) V^T.
-// Both eigenproblems use one cyclic (round-robin) Jacobi solver in shared
-// memory: seven disjoint rotations a round, 15 rounds a sweep, a relative
-// off-diagonal test, at most kSweeps sweeps. The count of sweeps that
-// rotated in each solve goes to the output: kSweeps means it stopped
-// unconverged.
+// Both eigenproblems use one cyclic (round-robin) Jacobi solver: seven
+// disjoint rotations a round, round r pairing (r + k, r - k) mod 15 for
+// k = 1..7, 15 rounds a sweep, a relative off-diagonal test, at most kSweeps
+// sweeps. The count of sweeps that rotated in each solve goes to the
+// output: kSweeps means it stopped unconverged.
 //
 // Bound: a few hundred thousand operations a call on ~2.7 KB of input and
 // output, so neither bytes nor operations bound it on this card; the chain
-// of dependent steps does (30 pivot steps a solve, 15 Jacobi rounds a
-// sweep, a barrier each). The design keeps every matrix in shared memory
-// and runs the whole solve in one launch, where the plain version makes
-// hundreds of launches an iteration and a host read after each.
+// of dependent steps does. A call with 12 LM iterations and the usual 6 + 5
+// rotating sweeps runs, one after another: 12 x (30 pivot steps, 30
+// back-substitution steps, one assembly of three stages) and 13 sweeps x 15
+// Jacobi rounds. The design keeps that chain off block barriers and cuts
+// each link:
+//   * the LM solve runs in warp 0 alone, lane i holding row i of the
+//     augmented [Hs + lambda I | -b d] in registers (the pivot and column
+//     loops unrolled so every register index is a constant). A pivot step
+//     is a warp max of the column (`__reduce_max_sync` on the bits of
+//     |m_ik|, the lowest lane of the largest value), a ballot, the
+//     pivot's reciprocal (taken beside the ballot, so no division is on the
+//     chain) and the pivot row broadcast by shuffles; rows are not swapped,
+//     each lane remembers the step at which it was the pivot, which leaves
+//     every row's arithmetic as with swaps. The back substitution and the
+//     trial state (both right-perturbed rotations, one entry a lane) follow
+//     in the same warp: no block barrier inside a solve;
+//   * an assembly is three parallel stages, a barrier after each: the
+//     factors' residuals and state-dependent Jacobian blocks (one thread a
+//     factor, the preintegration factor split over two warps); lam J and
+//     lam e, one item a thread (the blocks that do not depend on the state
+//     are written once, at entry); G = J^T [lam J | lam e], a warp a column
+//     block of J so that the row blocks it skips as structural zeros are
+//     the same on every lane. H = 0.5 (G + G^T) is taken where it is read;
+//   * each eigensolve runs in warp 0 alone, lane i holding half a row of A
+//     and of V in registers (jacobi_warp): a round is one exchange between
+//     a row's halves (column rotations), one between the pair's rows (row
+//     rotations) and a renumbering that keeps the pairs on fixed lanes. No
+//     barrier at all inside a solve.
+// Every sum keeps the order of the dense products it replaces, so skipping
+// a structural zero leaves its rounding unchanged.
+// A build with -DFLS_STAGE_CLOCKS (stage_clock.cuh) writes the cycles of
+// each stage (C_* below) after the output; tools/profile_torch_loops.py
+// --stages reads them.
 //
 // Layouts (float32, packed by ops/recurrences.py):
 //   input:  last r[9] v[3] p[3] bg[3] ba[3] info[225] | pre d_r[9] d_v[3]
@@ -54,6 +89,7 @@
 #include <cuda_runtime.h>
 
 #include "so3.cuh"
+#include "stage_clock.cuh"
 
 namespace {
 
@@ -76,39 +112,46 @@ enum {
 constexpr int kThreads = 256;
 constexpr int kRows = 36;   // stacked residual rows of the six factors
 constexpr int kDim = 30;
-constexpr int kLd = 31;     // the augmented [Hs + lambda I | rhs]
+constexpr int kLdH = 31;    // H's leading dimension (odd: row loads hit distinct banks)
+constexpr int kLdL = 31;    // [lam J | lam e]
 constexpr int kN = 15;      // eigenproblems
 constexpr int kE = 16;      // their leading dimension
 constexpr int kSweeps = 12;
 constexpr float kJacobiTol = 2.4e-7f;  // two float32 ulps of sqrt(|a_pp a_qq|)
-__constant__ int kFactorRow[7] = {0, 15, 18, 21, 30, 33, 36};
+constexpr unsigned kFull = 0xffffffffu;
+// Row blocks (3 rows each) of the stacked Jacobian: 0-4 prior, 5 lidar
+// rotation, 6 lidar position, 7-9 preintegration, 10 gyro walk, 11 accel
+// walk. For each of the 10 column blocks, the row blocks whose Jacobian
+// block is not structurally zero, 12 bits each: column blocks 0-4 in kColRows0,
+// 5-9 in kColRows1.
+constexpr unsigned long long kColRows0 =
+    0x381ull | (0x302ull << 12) | (0x204ull << 24) | (0x788ull << 36) | (0xB10ull << 48);
+constexpr unsigned long long kColRows1 =
+    0x0A0ull | (0x100ull << 12) | (0x240ull << 24) | (0x400ull << 36) | (0x800ull << 48);
 
-// one Jacobi rotation of the pair (p, q) and the 2x2 block it zeroes
-struct Rot {
-  int p, q;
-  float c, s, t, app, aqq, apq;
-};
+__device__ inline unsigned col_rows(int col) {
+  const int cb = col / 3;
+  return static_cast<unsigned>(((cb < 5 ? kColRows0 : kColRows1) >> (12 * (cb % 5))) & 0xfffu);
+}
 
 struct Smem {
   float in[I_SIZE];
-  float g[3], lr[9], lp[3];
+  float g[3];
   float lam9[81];
+  float aug[9 * 18];
   float st[2][S_SIZE];
   float jac[kRows * kDim];
   float err[kRows];
-  float lj[kRows * kDim];
-  float le[kRows];
-  float h[2][kDim * kDim];
+  float lj[kRows * kLdL];  // lam J, and lam e in column kDim
+  float g2[2][kDim * kLdH];  // G = J^T (lam J) of each state slot; H = 0.5 (G + G^T)
+  float hs[kDim * kLdH];     // the tail's H
   float b[2][kDim];
   float cost[2];
-  float m[kDim * kLd];
-  float dinv[kDim];
-  float dx[kDim];
-  float ea[kE * kE], ev[kE * kE];
-  Rot rot[8];
-  float w[kN], x[kN * kN], pinv[kN * kN];
-  float lm_lambda;
-  int accept, done, tiny, flag;
+  float dx[32];
+  int tiny[2];
+  float dm[kN];
+  float ev[kE * kE];
+  float w[kN], x[kN * kN], pinv[kN * kN], ea[kN * kN];
 };
 
 __device__ inline void put3(float* jac, int row, int col, const float* blk,
@@ -117,18 +160,14 @@ __device__ inline void put3(float* jac, int row, int col, const float* blk,
     for (int j = 0; j < 3; ++j) jac[(row + i) * kDim + col + j] = scale * blk[3 * i + j];
 }
 
-// the preintegration factor: rows 21..29 of jac and err
-__device__ void preint_factor(Smem& sm, const float* s) {
+// the preintegration factor's rotation residual and its state-dependent
+// Jacobian blocks (rows 21..23): the longest chain of an assembly
+__device__ void preint_rotation(Smem& sm, const float* s) {
   const float* pre = sm.in + I_PRE;
   const float* ri = s + S_RI;
   const float* rj = s + S_RJ;
-  const float dt = pre[P_DT];
-  const float* g = sm.g;
-  float dbg[3], dba[3];
-  for (int c = 0; c < 3; ++c) {
-    dbg[c] = s[S_BGI + c] - pre[P_BG + c];
-    dba[c] = s[S_BAI + c] - pre[P_BA + c];
-  }
+  float dbg[3];
+  for (int c = 0; c < 3; ++c) dbg[c] = s[S_BGI + c] - pre[P_BG + c];
   float t1[3], ex[9], cdr[9], m1[9], m2[9], er[3];
   so3::mv(pre + P_DR_DBG, dbg, t1);
   so3::exp(t1, ex);
@@ -139,8 +178,34 @@ __device__ void preint_factor(Smem& sm, const float* s) {
                       + cdr[6 + i] * ri[3 * j + 2];
   so3::mul(m1, rj, m2);
   so3::log(m2, er);
-  float dvw[3], dpw[3], a[3], bb[3], u1[3], u2[3], u3[3], u4[3];
+  for (int c = 0; c < 3; ++c) sm.err[21 + c] = er[c];
+  float jri[9], nj[9], t2[9], blk[9];
+  so3::jr_inv(er, jri);
+  for (int k = 0; k < 9; ++k) nj[k] = -jri[k];
+  so3::mul_nt(nj, rj, t2);
+  so3::mul(t2, ri, blk);
+  put3(sm.jac, 21, 0, blk);
+  put3(sm.jac, 21, 15, jri);
+  float eer[9], t3[9], jrt[9], t4[9], t5[9];
+  so3::exp(er, eer);
+  so3::mul_nt(nj, eer, t3);
+  so3::jr(t1, jrt);
+  so3::mul(t3, jrt, t4);
+  so3::mul(t4, pre + P_DR_DBG, t5);
+  put3(sm.jac, 21, 9, t5);
+}
+
+// the preintegration factor's velocity and position residuals and their
+// state-dependent Jacobian blocks (rows 24..29)
+__device__ void preint_velocity_position(Smem& sm, const float* s) {
+  const float* pre = sm.in + I_PRE;
+  const float* ri = s + S_RI;
+  const float dt = pre[P_DT];
+  const float* g = sm.g;
+  float dbg[3], dba[3], dvw[3], dpw[3], a[3], bb[3], u1[3], u2[3], u3[3], u4[3];
   for (int c = 0; c < 3; ++c) {
+    dbg[c] = s[S_BGI + c] - pre[P_BG + c];
+    dba[c] = s[S_BAI + c] - pre[P_BA + c];
     dvw[c] = s[S_VJ + c] - s[S_VI + c] - g[c] * dt;
     dpw[c] = s[S_PJ + c] - s[S_PI + c] - s[S_VI + c] * dt - 0.5f * g[c] * dt * dt;
   }
@@ -150,315 +215,395 @@ __device__ void preint_factor(Smem& sm, const float* s) {
   so3::mv(pre + P_DV_DBA, dba, u2);
   so3::mv(pre + P_DP_DBG, dbg, u3);
   so3::mv(pre + P_DP_DBA, dba, u4);
-  float* err = sm.err + 21;
   for (int c = 0; c < 3; ++c) {
-    err[c] = er[c];
-    err[3 + c] = a[c] - (pre[P_DV + c] + u1[c] + u2[c]);
-    err[6 + c] = bb[c] - (pre[P_DP + c] + u3[c] + u4[c]);
+    sm.err[24 + c] = a[c] - (pre[P_DV + c] + u1[c] + u2[c]);
+    sm.err[27 + c] = bb[c] - (pre[P_DP + c] + u3[c] + u4[c]);
   }
-  float jri[9], nj[9], t2[9], blk[9], rit[9], ha[9], hb[9];
-  so3::jr_inv(er, jri);
-  for (int k = 0; k < 9; ++k) {
-    nj[k] = -jri[k];
-    rit[k] = ri[3 * (k % 3) + k / 3];
-  }
-  so3::mul_nt(nj, rj, t2);
-  so3::mul(t2, ri, blk);
+  float rit[9], ha[9], hb[9];
+  for (int k = 0; k < 9; ++k) rit[k] = ri[3 * (k % 3) + k / 3];
   so3::hat(a, ha);
   so3::hat(bb, hb);
   float* jac = sm.jac;
-  put3(jac, 21, 0, blk);
   put3(jac, 24, 0, ha);
   put3(jac, 27, 0, hb);
   put3(jac, 24, 3, rit, -1.f);
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) jac[(27 + i) * kDim + 3 + j] = -rit[3 * i + j] * dt;
   put3(jac, 27, 6, rit, -1.f);
-  float eer[9], t3[9], jrt[9], t4[9], t5[9];
-  so3::exp(er, eer);
-  so3::mul_nt(nj, eer, t3);
-  so3::jr(t1, jrt);
-  so3::mul(t3, jrt, t4);
-  so3::mul(t4, pre + P_DR_DBG, t5);
-  put3(jac, 21, 9, t5);
-  put3(jac, 24, 9, pre + P_DV_DBG, -1.f);
-  put3(jac, 27, 9, pre + P_DP_DBG, -1.f);
-  put3(jac, 24, 12, pre + P_DV_DBA, -1.f);
-  put3(jac, 27, 12, pre + P_DP_DBA, -1.f);
-  put3(jac, 21, 15, jri);
   put3(jac, 24, 18, rit);
   put3(jac, 27, 21, rit);
 }
 
-// residuals and the state-dependent Jacobian blocks of factor f (one thread)
-__device__ void factor(Smem& sm, int f, const float* s) {
-  float* err = sm.err;
-  if (f == 0) {  // prior on the last state: measure (-) estimate
-    float m[9], e[3], j[9];
-    so3::mul_tn(sm.in + I_LR, s + S_RI, m);
-    so3::log(m, e);
-    so3::jr_inv(e, j);
-    for (int c = 0; c < 3; ++c) {
-      err[c] = e[c];
-      err[3 + c] = sm.in[I_LV + c] - s[S_VI + c];
-      err[6 + c] = sm.in[I_LP + c] - s[S_PI + c];
-      err[9 + c] = sm.in[I_LBG + c] - s[S_BGI + c];
-      err[12 + c] = sm.in[I_LBA + c] - s[S_BAI + c];
-    }
-    put3(sm.jac, 0, 0, j);
-  } else if (f == 1) {  // lidar rotation on R_j
-    float m[9], e[3], j[9];
-    so3::mul_tn(sm.lr, s + S_RJ, m);
-    so3::log(m, e);
-    so3::jr_inv(e, j);
-    for (int c = 0; c < 3; ++c) err[15 + c] = e[c];
-    put3(sm.jac, 15, 15, j);
-  } else if (f == 2) {  // lidar position on P_j
-    for (int c = 0; c < 3; ++c) err[18 + c] = sm.lp[c] - s[S_PJ + c];
-  } else if (f == 3) {
-    preint_factor(sm, s);
-  } else if (f == 4) {  // gyro bias random walk
-    for (int c = 0; c < 3; ++c) err[30 + c] = s[S_BGJ + c] - s[S_BGI + c];
-  } else {  // accel bias random walk
-    for (int c = 0; c < 3; ++c) err[33 + c] = s[S_BAJ + c] - s[S_BAI + c];
-  }
+// a rotation factor: measure (-) estimate on rotation `r` against `meas`
+// (row-major, leading dimension `ld`); residual rows and Jacobian block at
+// (row, col)
+__device__ void rotation_factor(Smem& sm, const float* meas, int ld, const float* r,
+                                int row, int col) {
+  float mt[9], m[9], e[3], j[9];
+  for (int a = 0; a < 3; ++a)
+    for (int c = 0; c < 3; ++c) mt[3 * a + c] = meas[ld * a + c];
+  so3::mul_tn(mt, r, m);
+  so3::log(m, e);
+  so3::jr_inv(e, j);
+  for (int c = 0; c < 3; ++c) sm.err[row + c] = e[c];
+  put3(sm.jac, row, col, j);
 }
 
-// the Jacobian blocks that do not depend on the state
-__device__ void constant_blocks(float* jac) {
-  for (int k = 0; k < 12; ++k) jac[(3 + k) * kDim + 3 + k] = -1.f;  // prior V P bg ba
-  for (int c = 0; c < 3; ++c) {
-    jac[(18 + c) * kDim + 21 + c] = -1.f;  // lidar position
-    jac[(30 + c) * kDim + 9 + c] = -1.f;   // gyro bias walk
-    jac[(30 + c) * kDim + 24 + c] = 1.f;
-    jac[(33 + c) * kDim + 12 + c] = -1.f;  // accel bias walk
-    jac[(33 + c) * kDim + 27 + c] = 1.f;
-  }
+__device__ inline float inv_var_of_row(int r, const float iv[4]) {
+  return r < 18 ? iv[0] : r < 21 ? iv[1] : r < 33 ? iv[2] : iv[3];
 }
 
-// H (symmetrized), b and the cost of state s into slot `out`
-__device__ void assemble(Smem& sm, const float* s, int out, const float inv_var[4]) {
+// rows 3 cb .. 3 cb + 2 of G = J^T [lam J | lam e] at column j: over the
+// factors in order, each factor's sum over its rows (ascending), taking
+// only the row blocks whose Jacobian block in column block cb is not a
+// structural zero (`rows`, the same on every lane of the warp)
+__device__ inline void g_rows(const float* jac, const float* lj, int cb, int j, unsigned rows,
+                              float out[3]) {
+  const int lo[7] = {0, 5, 6, 7, 10, 11, 12};  // each factor's row blocks
+  float h[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int f = 0; f < 6; ++f) {
+    float a[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int rb = lo[f]; rb < lo[f + 1]; ++rb)
+      if ((rows >> rb) & 1u)
+#pragma unroll
+        for (int rr = 0; rr < 3; ++rr) {
+          const int r = 3 * rb + rr;
+          const float y = lj[r * kLdL + j];
+#pragma unroll
+          for (int ii = 0; ii < 3; ++ii) a[ii] += jac[r * kDim + 3 * cb + ii] * y;
+        }
+#pragma unroll
+    for (int ii = 0; ii < 3; ++ii) h[ii] += a[ii];
+  }
+#pragma unroll
+  for (int ii = 0; ii < 3; ++ii) out[ii] = h[ii];
+}
+
+// H_ij of a slot's G = J^T (lam J): the symmetrized 0.5 (G_ij + G_ji)
+__device__ inline float h_at(const float* g, int i, int j) {
+  return 0.5f * (g[i * kLdH + j] + g[j * kLdH + i]);
+}
+
+// stage clocks of a profiling build (stage_clock.cuh)
+enum {
+  C_SETUP, C_FACTORS, C_LAM_J, C_H, C_ELIMINATE, C_SUBSTITUTE, C_TRIAL, C_SOLVE_WAIT,
+  C_JACOBI_MARG, C_PRODUCTS, C_JACOBI_PSD, C_OUTPUT
+};
+
+// H (symmetrized), b and the cost of state slot `k` into slot `k`: three
+// stages, a block barrier after each
+__device__ void assemble(Smem& sm, int k, const float iv[4], StageClock& clk) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  if (lane == 0 && warp < 6) factor(sm, warp, s);
+  const float* s = sm.st[k];
+  // 1. residuals and the state-dependent Jacobian blocks, one thread a part
+  if (lane == 0) {
+    if (warp == 0) {  // prior on the last state: measure (-) estimate
+      rotation_factor(sm, sm.in + I_LR, 3, s + S_RI, 0, 0);
+      for (int c = 0; c < 3; ++c) {
+        sm.err[3 + c] = sm.in[I_LV + c] - s[S_VI + c];
+        sm.err[6 + c] = sm.in[I_LP + c] - s[S_PI + c];
+        sm.err[9 + c] = sm.in[I_LBG + c] - s[S_BGI + c];
+        sm.err[12 + c] = sm.in[I_LBA + c] - s[S_BAI + c];
+      }
+    } else if (warp == 1) {  // lidar rotation on R_j
+      rotation_factor(sm, sm.in + I_POSE, 4, s + S_RJ, 15, 15);
+    } else if (warp == 2) {  // lidar position, bias random walks
+      for (int c = 0; c < 3; ++c) {
+        sm.err[18 + c] = sm.in[I_POSE + 4 * c + 3] - s[S_PJ + c];
+        sm.err[30 + c] = s[S_BGJ + c] - s[S_BGI + c];
+        sm.err[33 + c] = s[S_BAJ + c] - s[S_BAI + c];
+      }
+    } else if (warp == 3) {
+      preint_rotation(sm, s);
+    } else if (warp == 4) {
+      preint_velocity_position(sm, s);
+    }
+  }
   __syncthreads();
+  clk.mark(C_FACTORS);
 
-  // lam J and lam e, factor by factor
-  for (int e = tid; e < kRows * (kDim + 1); e += blockDim.x) {
-    const int r = e / (kDim + 1), c = e % (kDim + 1);
-    const float* col = (c < kDim) ? sm.jac + c : sm.err;
-    const int stride = (c < kDim) ? kDim : 1;
-    float v;
+  // 2. lam e (36 rows), the preintegration rows of lam J (9 x 24, two
+  // columns a thread), the prior's rows on R_i (15 x 3, a row a thread) and
+  // the lidar rotation's (3 x 3, likewise): one item a thread; the other
+  // blocks of lam J do not depend on the state
+  const float* info = sm.in + I_INFO;
+  if (tid < 36) {  // lam e, in column kDim
+    const int r = tid;
+    float v = 0.f;
     if (r < 15) {
-      v = 0.f;
-      for (int m = 0; m < 15; ++m) v += sm.in[I_INFO + 15 * r + m] * col[m * stride];
+      for (int m = 0; m < 15; ++m) v += info[15 * r + m] * sm.err[m];
     } else if (r >= 21 && r < 30) {
-      v = 0.f;
-      for (int m = 0; m < 9; ++m) v += sm.lam9[9 * (r - 21) + m] * col[(21 + m) * stride];
+      for (int m = 0; m < 9; ++m) v += sm.lam9[9 * (r - 21) + m] * sm.err[21 + m];
     } else {
-      const float iv = inv_var[r < 18 ? 0 : r < 21 ? 1 : r < 33 ? 2 : 3];
-      v = iv * col[r * stride];
+      v = inv_var_of_row(r, iv) * sm.err[r];
     }
-    if (c < kDim) sm.lj[r * kDim + c] = v;
-    else sm.le[r] = v;
+    sm.lj[r * kLdL + kDim] = v;
+  } else if (tid < 36 + 15) {
+    const int r = tid - 36;
+    for (int c = 0; c < 3; ++c) {
+      float v = 0.f;
+      for (int m = 0; m < 3; ++m) v += info[15 * r + m] * sm.jac[m * kDim + c];
+      sm.lj[r * kLdL + c] = v;
+    }
+  } else if (tid < 36 + 15 + 3) {
+    const int r = 15 + tid - 51;
+    for (int c = 15; c < 18; ++c) sm.lj[r * kLdL + c] = iv[0] * sm.jac[r * kDim + c];
+  } else if (tid < 36 + 15 + 3 + 108) {
+    const int e = tid - 54, r = e / 12, c = 2 * (e % 12);
+    float v0 = 0.f, v1 = 0.f;
+    for (int m = 0; m < 9; ++m) {
+      const float l = sm.lam9[9 * r + m];
+      v0 += l * sm.jac[(21 + m) * kDim + c];
+      v1 += l * sm.jac[(21 + m) * kDim + c + 1];
+    }
+    sm.lj[(21 + r) * kLdL + c] = v0;
+    sm.lj[(21 + r) * kLdL + c + 1] = v1;
   }
   __syncthreads();
+  clk.mark(C_LAM_J);
 
-  // H = sum over factors of J^T (lam J), b, cost; 0.5 (H + H^T)
-  float* h = sm.h[out];
-  for (int e = tid; e < kDim * (kDim + 1) / 2 + kDim + 1; e += blockDim.x) {
-    if (e < kDim * (kDim + 1) / 2) {
-      int i = 0, rem = e;
-      while (rem >= kDim - i) rem -= kDim - i++;
-      const int j = i + rem;
-      float hij = 0.f, hji = 0.f;
-      for (int f = 0; f < 6; ++f) {
-        float a = 0.f, c = 0.f;
-        for (int r = kFactorRow[f]; r < kFactorRow[f + 1]; ++r) {
-          a += sm.jac[r * kDim + i] * sm.lj[r * kDim + j];
-          c += sm.jac[r * kDim + j] * sm.lj[r * kDim + i];
-        }
-        hij += a;
-        hji += c;
-      }
-      const float sym = 0.5f * (hij + hji);
-      h[i * kDim + j] = sym;
-      h[j * kDim + i] = sym;
-    } else if (e < kDim * (kDim + 1) / 2 + kDim) {
-      const int i = e - kDim * (kDim + 1) / 2;
-      float bi = 0.f;
-      for (int f = 0; f < 6; ++f) {
-        float a = 0.f;
-        for (int r = kFactorRow[f]; r < kFactorRow[f + 1]; ++r)
-          a += sm.jac[r * kDim + i] * sm.le[r];
-        bi += a;
-      }
-      sm.b[out][i] = bi;
-    } else {
-      float cost = 0.f;
-      for (int f = 0; f < 6; ++f) {
-        float a = 0.f;
-        for (int r = kFactorRow[f]; r < kFactorRow[f + 1]; ++r) a += sm.err[r] * sm.le[r];
-        cost += a;
-      }
-      sm.cost[out] = cost;
+  // 3. G = sum over factors of J^T (lam J) and b = J^T (lam e), a warp a
+  // column block of J (three rows of G; its structural zeros the same on
+  // every lane), lane j column j of [G | b]; the cost. H = 0.5 (G + G^T) is
+  // taken where it is read (`h_at`).
+  float* g = sm.g2[k];
+  for (int cb = warp; cb < kDim / 3; cb += kThreads / 32) {
+    if (lane > kDim) break;
+    float rows3[3];
+    g_rows(sm.jac, sm.lj, cb, lane, col_rows(3 * cb), rows3);
+#pragma unroll
+    for (int ii = 0; ii < 3; ++ii) {
+      if (lane < kDim) g[(3 * cb + ii) * kLdH + lane] = rows3[ii];
+      else sm.b[k][3 * cb + ii] = rows3[ii];
     }
   }
+  if (tid == kThreads - 1) {
+    float cost = 0.f;
+    const int lo[7] = {0, 15, 18, 21, 30, 33, 36};
+#pragma unroll
+    for (int f = 0; f < 6; ++f) {
+      float a = 0.f;
+      for (int r = lo[f]; r < lo[f + 1]; ++r) a += sm.err[r] * sm.lj[r * kLdL + kDim];
+      cost += a;
+    }
+    sm.cost[k] = cost;
+  }
   __syncthreads();
+  clk.mark(C_H);
 }
 
-// (Hs + lambda I) y = -b d by LU with partial pivoting; dx = d y; sm.tiny
-__device__ void lm_solve(Smem& sm, const float* h, const float* b, float lam) {
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  for (int i = tid; i < kDim; i += blockDim.x)
-    sm.dinv[i] = rsqrtf(fmaxf(h[i * kDim + i], 1e-12f));
-  __syncthreads();
-  float* m = sm.m;
-  for (int e = tid; e < kDim * kLd; e += blockDim.x) {
-    const int i = e / kLd, j = e % kLd;
-    m[e] = (j < kDim) ? h[i * kDim + j] * sm.dinv[i] * sm.dinv[j] + (i == j ? lam : 0.f)
-                      : -(b[i] * sm.dinv[i]);
+// Warp 0: (Hs + lambda I) y = -b d by LU with partial pivoting, dx = d y,
+// |dx| < 1e-6 into sm.tiny[parity], and the trial state s (+) dx into slot
+// `out` (right perturbation of the rotations, sums elsewhere).
+__device__ void lm_step(Smem& sm, int cur, int out, float lam, int parity, StageClock& clk) {
+  const int lane = threadIdx.x % 32;
+  const int row = lane < kDim ? lane : kDim - 1;  // lanes 30, 31 mirror row 29
+  const float* g = sm.g2[cur];
+  const float d = rsqrtf(fmaxf(h_at(g, row, row), 1e-12f));
+  float m[kDim + 1];
+#pragma unroll
+  for (int j = 0; j < kDim; ++j) {
+    const float dj = __shfl_sync(kFull, d, j);
+    m[j] = h_at(g, row, j) * d * dj + (row == j ? lam : 0.f);
   }
-  __syncthreads();
+  m[kDim] = -(sm.b[cur][row] * d);
+
+  // elimination: the pivot of column k is the lowest lane of largest |m_k|
+  // among the rows not yet pivots; no row moves
+  bool cand = lane < kDim;
+  int step = 99;  // the column this lane's row is the pivot of
+  int piv[kDim];     // the pivot row (lane) of each column
+  float rk[kDim];    // the reciprocal of each pivot
+#pragma unroll
   for (int k = 0; k < kDim; ++k) {
-    if (warp == 0) {  // the pivot: the first row of largest |m_ik|, i >= k
-      float v = (lane >= k && lane < kDim) ? fabsf(m[lane * kLd + k]) : -1.f;
-      int idx = lane;
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, v, off);
-        const int oi = __shfl_down_sync(0xffffffffu, idx, off);
-        if (ov > v || (ov == v && oi < idx)) {
-          v = ov;
-          idx = oi;
-        }
+    const float v = m[k];
+    const unsigned key = cand ? __float_as_uint(fabsf(v)) + 1u : 0u;
+    const unsigned neg = __ballot_sync(kFull, __float_as_uint(v) >> 31);
+    const unsigned top = __reduce_max_sync(kFull, key);
+    const float rabs = 1.f / __uint_as_float(top - 1u);  // 1 / |m_pk|, beside the ballot
+    const int p = __ffs(__ballot_sync(kFull, key == top)) - 1;
+    piv[k] = p;
+    if (lane == p) {
+      cand = false;
+      step = k;
+    }
+    rk[k] = ((neg >> p) & 1u) ? -rabs : rabs;  // 1 / m_pk
+    const float f = cand ? v * rk[k] : 0.f;      // rows already pivots subtract 0 exactly
+#pragma unroll
+    for (int j = 0; j <= kDim; ++j) {
+      if (j > k) {
+        const float pj = __shfl_sync(kFull, m[j], p);
+        m[j] -= f * pj;
       }
-      const int piv = __shfl_sync(0xffffffffu, idx, 0);
-      if (piv != k && lane < kLd) {
-        const float t = m[k * kLd + lane];
-        m[k * kLd + lane] = m[piv * kLd + lane];
-        m[piv * kLd + lane] = t;
-      }
     }
-    __syncthreads();
-    const int w = kLd - k - 1;
-    for (int e = tid; e < (kDim - k - 1) * w; e += blockDim.x) {
-      const int i = k + 1 + e / w, j = k + 1 + e % w;
-      m[i * kLd + j] -= (m[i * kLd + k] / m[k * kLd + k]) * m[k * kLd + j];
-    }
-    __syncthreads();
   }
-  if (warp == 0) {  // back substitution, row i in lane i
-    float y = (lane < kDim) ? m[lane * kLd + kDim] : 0.f;
-    for (int k = kDim - 1; k >= 0; --k) {
-      const float yk = __shfl_sync(0xffffffffu, y, k) / m[k * kLd + k];
-      if (lane == k) y = yk;
-      else if (lane < k) y -= m[lane * kLd + k] * yk;
-    }
-    const float dx = (lane < kDim) ? sm.dinv[lane] * y : 0.f;
-    if (lane < kDim) sm.dx[lane] = dx;
-    float sq = dx * dx;
-    for (int off = 16; off > 0; off >>= 1) sq += __shfl_down_sync(0xffffffffu, sq, off);
-    if (lane == 0) sm.tiny = sqrtf(sq) < 1e-6f;
+  clk.mark(C_ELIMINATE);
+
+  // back substitution: unknown k sits in the lane of pivot k
+  float y = m[kDim];
+#pragma unroll
+  for (int k = kDim - 1; k >= 0; --k) {
+    const int p = piv[k];
+    const float yk = __shfl_sync(kFull, y, p) * rk[k];
+    if (step == k) y = yk;
+    else if (step < k) y -= m[k] * yk;
   }
-  __syncthreads();
+  const float ds = __shfl_sync(kFull, d, step & 31);
+  if (step < kDim) sm.dx[step] = ds * y;
+  __syncwarp();
+  const float dxl = lane < kDim ? sm.dx[lane] : 0.f;
+  float sq = dxl * dxl;
+  for (int off = 16; off > 0; off >>= 1) sq += __shfl_down_sync(kFull, sq, off);
+  if (lane == 0) sm.tiny[parity] = sqrtf(sq) < 1e-6f;
+  clk.mark(C_SUBSTITUTE);
+
+  // the trial state
+  const float* s = sm.st[cur];
+  float* so = sm.st[out];
+  if (lane < 24) {  // V, P, bg, ba of both states
+    const int off = lane < 12 ? S_VI + lane : S_VJ + lane - 12;
+    const int di = lane < 12 ? 3 + lane : 18 + lane - 12;
+    so[off] = s[off] + sm.dx[di];
+  }
+  if (lane < 18) {  // R_i Exp(dx[0:3]) and R_j Exp(dx[15:18]), one entry a lane
+    const int base = lane < 9 ? S_RI : S_RJ, e = lane % 9, i = e / 3, j = e % 3;
+    float ex[9];
+    so3::exp(sm.dx + (lane < 9 ? 0 : 15), ex);
+    so[base + e] = s[base + 3 * i] * ex[j] + s[base + 3 * i + 1] * ex[3 + j]
+                   + s[base + 3 * i + 2] * ex[6 + j];
+  }
+  clk.mark(C_TRIAL);
 }
 
-// s_out = s (+) dx: right perturbation of the rotations, sums elsewhere
-__device__ void apply_dx(Smem& sm, const float* s, float* s_out) {
-  const int tid = threadIdx.x;
-  if (tid == 0 || tid == 32) {
-    const int off = tid == 0 ? S_RI : S_RJ, d = tid == 0 ? 0 : 15;
-    float e[9];
-    so3::exp(sm.dx + d, e);
-    so3::mul(s + off, e, s_out + off);
-  } else if (tid >= 64 && tid < 88) {
-    const int k = tid - 64;
-    const int off = k < 12 ? S_VI + k : S_VJ + k - 12;
-    const int d = k < 12 ? 3 + k : 18 + k - 12;
-    s_out[off] = s[off] + sm.dx[d];
-  }
-  __syncthreads();
+// a[idx] of an 8-entry register array by a select tree (no local memory)
+__device__ inline float pick8(const float a[8], int idx) {
+  float b4[4], b2[2];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) b4[k] = (idx & 1) ? a[2 * k + 1] : a[2 * k];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) b2[k] = (idx & 2) ? b4[2 * k + 1] : b4[2 * k];
+  return (idx & 4) ? b2[1] : b2[0];
 }
 
-// round r, slot k of the round-robin schedule of 15 indices (16 with a
-// dummy 15): seven disjoint pairs a round, every pair once in 15 rounds
-__device__ inline void rr_pair(int r, int k, int* p, int* q) {
-  if (k == 0) {
-    *p = r;
-    *q = kN;
-  } else {
-    *p = (r + k) % kN;
-    *q = (r - k + kN) % kN;
-  }
-}
+// The column a half-row register holds: lane L keeps row L % 16, columns
+// 0..7 in x[0..7] for L < 16 and columns 15..8 in x[0..7] for L >= 16.
+__device__ inline int half_col(int lane, int m) { return lane < 16 ? m : kE - 1 - m; }
 
-// cyclic Jacobi eigensolver of the symmetric 15x15 `a` (leading dimension
-// kE): on return diag(a) holds the eigenvalues and the columns of v the
-// eigenvectors. Returns the sweeps that rotated (the same on every
-// thread); kSweeps means the last sweep still rotated, i.e. no convergence.
-__device__ int jacobi15(Smem& sm, float* a, float* v) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < kE * kE; e += blockDim.x) v[e] = (e / kE == e % kE) ? 1.f : 0.f;
-  __syncthreads();
+// Warp 0: cyclic Jacobi eigensolver of a symmetric 15x15 matrix A held in
+// half rows (half_col; row and column 15 are a zero dummy). On return x
+// holds the rotated A (its diagonal the eigenvalues: A_rr sits in
+// x[pair_of(r)] of lane r for r <= 7 and of lane r + 16 for r >= 8) and y
+// the eigenvectors, V in the same half-row layout. Returns the sweeps that
+// rotated (the same on every lane); kSweeps means the last sweep still
+// rotated, i.e. no convergence.
+//
+// Round r rotates the pairs (r + k, r - k) mod 15, k = 1..7 (index 15 is a
+// dummy that pairs with r). Index x is stored at (x - r) mod 15 during
+// round r (row for rows, column for columns), so the pairs are always
+// (k, 15 - k), k = 1..7: row k plays p, row 15 - k plays q, and the two
+// halves of a row hold the two columns of every pair in the same register
+// (column k in x[k] of the low half, 15 - k in x[k] of the high half). A
+// column rotation is one exchange between a row's halves, a row rotation
+// one exchange between the pair's rows, half by half. After each round the
+// storage moves one index down; after 15 rounds it is back.
+__device__ inline int pair_of(int row) { return row <= 7 ? row : kN - row; }
+
+__device__ int jacobi_warp(float x[8], float y[8]) {
+  const int lane = threadIdx.x % 32, r = lane % 16, hf = lane / 16;
+  const int kk = pair_of(r);           // my pair (row 0 and the dummy 15: pair 0)
+  const bool is_p = r >= 1 && r <= 7;  // row p of pair kk (else row q = 15 - kk)
+  const bool live = r >= 1 && r < kN;
+  const int partner = (kN - r) + 16 * hf;                 // the pair's other row, same half
+  const int from = (r < kN ? (r + 1) % kN : r) + 16 * hf;  // the frame move's source row
+#pragma unroll
+  for (int m = 0; m < 8; ++m) y[m] = (half_col(lane, m) == r) ? 1.f : 0.f;
   int sweep = 0;
   for (; sweep < kSweeps; ++sweep) {
-    if (tid == 0) sm.flag = 0;
-    __syncthreads();
-    for (int r = 0; r < kN; ++r) {
-      if (tid < 8) {  // the rotation of pair `tid`; p < 0 marks no rotation
-        int p, q;
-        rr_pair(r, tid, &p, &q);
-        Rot rt = {-1, q, 1.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (q < kN) {
-          const float app = a[p * kE + p], aqq = a[q * kE + q], apq = a[p * kE + q];
-          if (apq != 0.f && fabsf(apq) > kJacobiTol * sqrtf(fabsf(app)) * sqrtf(fabsf(aqq))) {
-            const float tau = (aqq - app) / (2.f * apq);
-            const float t = fabsf(tau) > 1e18f
-                                ? 0.5f / tau
-                                : copysignf(1.f, tau) / (fabsf(tau) + sqrtf(1.f + tau * tau));
-            const float c = 1.f / sqrtf(1.f + t * t);
-            rt = {p, q, c, t * c, t, app, aqq, apq};
-            sm.flag = 1;
-          }
+    bool rotated = false;
+    for (int round = 0; round < kN; ++round) {
+      // x[kk]: A_pp in the low half of row p, A_pq in its high half, A_qq in
+      // the high half of row q
+      const float vk = pick8(x, kk);
+      const float app = __shfl_sync(kFull, vk, kk);
+      const float apq = __shfl_sync(kFull, vk, kk + 16);
+      const float aqq = __shfl_sync(kFull, vk, (kN - kk) + 16);
+      bool rot = false;
+      float c = 1.f, s = 0.f, t = 0.f;
+      if (live && apq != 0.f
+          && fabsf(apq) > kJacobiTol * sqrtf(fabsf(app)) * sqrtf(fabsf(aqq))) {
+        const float tau = (aqq - app) / (2.f * apq);
+        t = fabsf(tau) > 1e18f ? 0.5f / tau
+                               : copysignf(1.f, tau) / (fabsf(tau) + sqrtf(1.f + tau * tau));
+        c = 1.f / sqrtf(1.f + t * t);
+        s = t * c;
+        rot = true;
+      }
+      rotated |= rot;
+      if (__any_sync(kFull, rot)) {
+        // A <- A J and V <- V J: column p = k (low half) and q = 15 - k
+        // (high half) of every row, x[k] on both sides
+        const float sgn = hf ? 1.f : -1.f;
+#pragma unroll
+        for (int k = 1; k <= 7; ++k) {
+          const float ck = __shfl_sync(kFull, c, k), sk = sgn * __shfl_sync(kFull, s, k);
+          const float xo = __shfl_xor_sync(kFull, x[k], 16);
+          const float yo = __shfl_xor_sync(kFull, y[k], 16);
+          x[k] = ck * x[k] + sk * xo;  // low: c x_p - s x_q; high: s x_p + c x_q
+          y[k] = ck * y[k] + sk * yo;
         }
-        sm.rot[tid] = rt;
-      }
-      __syncthreads();
-      // a <- a J and v <- v J
-      for (int e = tid; e < 2 * kN * 8; e += blockDim.x) {
-        const int k = e % 8, i = (e / 8) % kN;
-        const Rot rt = sm.rot[k];
-        if (rt.p < 0) continue;
-        float* mtx = e < kN * 8 ? a : v;
-        const float x = mtx[i * kE + rt.p], y = mtx[i * kE + rt.q];
-        mtx[i * kE + rt.p] = rt.c * x - rt.s * y;
-        mtx[i * kE + rt.q] = rt.s * x + rt.c * y;
-      }
-      __syncthreads();
-      // a <- J^T a; the rotated 2x2 block gets its exact diagonal and zeros
-      for (int e = tid; e < kN * 8; e += blockDim.x) {
-        const int k = e % 8, j = e / 8;
-        const Rot rt = sm.rot[k];
-        if (rt.p < 0) continue;
-        const int p = rt.p, q = rt.q;
-        if (j == p) {
-          a[p * kE + p] = rt.app - rt.t * rt.apq;
-          a[q * kE + p] = 0.f;
-        } else if (j == q) {
-          a[q * kE + q] = rt.aqq + rt.t * rt.apq;
-          a[p * kE + q] = 0.f;
-        } else {
-          const float x = a[p * kE + j], y = a[q * kE + j];
-          a[p * kE + j] = rt.c * x - rt.s * y;
-          a[q * kE + j] = rt.s * x + rt.c * y;
+        // A <- J^T A: rows p and q mix; the rotated 2x2 block gets its
+        // exact diagonal and zeros (both in x[kk])
+        const float sr = is_p ? -s : s;
+        const float dnew = is_p ? app - t * apq : aqq + t * apq;
+        const float fix = (is_p == (hf == 0)) ? dnew : 0.f;
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const float other = __shfl_sync(kFull, x[m], partner);
+          float nv = c * x[m] + sr * other;
+          if (rot && m == kk) nv = fix;
+          x[m] = nv;
         }
       }
-      __syncthreads();
+      // the next round's frame: index x moves from x - r to x - r - 1
+      const float x0 = __shfl_xor_sync(kFull, x[0], 16), x7 = __shfl_xor_sync(kFull, x[7], 16);
+      const float y0 = __shfl_xor_sync(kFull, y[0], 16), y7 = __shfl_xor_sync(kFull, y[7], 16);
+      float nx[8], ny[8];
+      nx[0] = hf ? x[0] : x[1];
+      ny[0] = hf ? y[0] : y[1];
+      nx[1] = hf ? x0 : x[2];
+      ny[1] = hf ? y0 : y[2];
+#pragma unroll
+      for (int m = 2; m < 7; ++m) {
+        nx[m] = hf ? x[m - 1] : x[m + 1];
+        ny[m] = hf ? y[m - 1] : y[m + 1];
+      }
+      nx[7] = hf ? x[6] : x7;
+      ny[7] = hf ? y[6] : y7;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        x[m] = __shfl_sync(kFull, nx[m], from);
+        y[m] = ny[m];
+      }
     }
-    const int rotated = sm.flag;
-    __syncthreads();
-    if (!rotated) break;
+    if (!__any_sync(kFull, rotated)) break;
   }
   return sweep;
+}
+
+// Warp 0: the eigenvalues (diagonal of the rotated x) into sm.w and the
+// eigenvectors (y) into sm.ev, from jacobi_warp's half rows
+__device__ void store_eigen(Smem& sm, const float x[8], const float y[8]) {
+  const int lane = threadIdx.x % 32, r = lane % 16;
+  if (r >= kN) return;
+  const float d = pick8(x, pair_of(r));
+  if ((lane < 16) == (r <= 7)) sm.w[r] = d;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int col = half_col(lane, m);
+    if (col < kN) sm.ev[r * kE + col] = y[m];
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -466,33 +611,17 @@ tight_fuse_kernel(const float* __restrict__ in, float* __restrict__ out, float g
                   float gz, int iterations, float var_rot, float var_pos, float var_gyro_rw,
                   float var_acc_rw) {
   __shared__ Smem sm;
+  StageClock clk;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float inv_var[4] = {1.f / var_rot, 1.f / var_pos, 1.f / var_gyro_rw,
-                            1.f / var_acc_rw};
+  const float iv[4] = {1.f / var_rot, 1.f / var_pos, 1.f / var_gyro_rw, 1.f / var_acc_rw};
 
   for (int i = tid; i < I_SIZE; i += blockDim.x) sm.in[i] = in[i];
   for (int i = tid; i < kRows * kDim; i += blockDim.x) sm.jac[i] = 0.f;
+  for (int i = tid; i < kRows * kLdL; i += blockDim.x) sm.lj[i] = 0.f;
   __syncthreads();
-  if (tid == 0) {
-    sm.g[0] = gx; sm.g[1] = gy; sm.g[2] = gz;
-    for (int i = 0; i < 3; ++i) {
-      for (int j = 0; j < 3; ++j) sm.lr[3 * i + j] = sm.in[I_POSE + 4 * i + j];
-      sm.lp[i] = sm.in[I_POSE + 4 * i + 3];
-    }
-    constant_blocks(sm.jac);
-  }
-  // the starting state: the last state, the predicted R V P, the last biases
-  for (int i = tid; i < S_SIZE; i += blockDim.x) {
-    float v;
-    if (i < S_RJ) v = sm.in[I_LR + i];
-    else if (i < S_VJ) v = sm.in[I_PR + i - S_RJ];
-    else if (i < S_PJ) v = sm.in[I_PV + i - S_VJ];
-    else if (i < S_BGJ) v = sm.in[I_PP + i - S_PJ];
-    else v = sm.in[I_LBG + i - S_BGJ];  // bg_j, ba_j <- last bg, ba
-    sm.st[0][i] = v;
-  }
+
   if (warp == 1) {  // lam9 = inv(pre.cov + 1e-16 I) by Gauss-Jordan
-    float* aug = sm.m;  // [9, 18]
+    float* aug = sm.aug;  // [9, 18]
     const float* cov = sm.in + I_PRE + P_COV;
     for (int e = lane; e < 9 * 18; e += 32) {
       const int i = e / 18, j = e % 18;
@@ -527,52 +656,104 @@ tight_fuse_kernel(const float* __restrict__ in, float* __restrict__ out, float g
       __syncwarp();
     }
     for (int e = lane; e < 81; e += 32) sm.lam9[e] = aug[18 * (e / 9) + 9 + e % 9];
+  } else if (warp == 0) {
+    // the starting state: the last state, the predicted R V P, the last biases
+    for (int i = lane; i < S_SIZE; i += 32) {
+      float v;
+      if (i < S_RJ) v = sm.in[I_LR + i];
+      else if (i < S_VJ) v = sm.in[I_PR + i - S_RJ];
+      else if (i < S_PJ) v = sm.in[I_PV + i - S_VJ];
+      else if (i < S_BGJ) v = sm.in[I_PP + i - S_PJ];
+      else v = sm.in[I_LBG + i - S_BGJ];  // bg_j, ba_j <- last bg, ba
+      sm.st[0][i] = v;
+    }
+    if (lane == 0) {
+      sm.g[0] = gx;
+      sm.g[1] = gy;
+      sm.g[2] = gz;
+    }
+  } else if (warp == 2) {  // the Jacobian blocks that do not depend on the state
+    float* jac = sm.jac;
+    const float* pre = sm.in + I_PRE;
+    if (lane < 12) jac[(3 + lane) * kDim + 3 + lane] = -1.f;  // prior V P bg ba
+    if (lane < 3) {
+      const int c = lane;
+      jac[(18 + c) * kDim + 21 + c] = -1.f;  // lidar position
+      jac[(30 + c) * kDim + 9 + c] = -1.f;   // gyro bias walk
+      jac[(30 + c) * kDim + 24 + c] = 1.f;
+      jac[(33 + c) * kDim + 12 + c] = -1.f;  // accel bias walk
+      jac[(33 + c) * kDim + 27 + c] = 1.f;
+    }
+    if (lane == 0) {  // the preintegration's bias blocks
+      put3(jac, 24, 9, pre + P_DV_DBG, -1.f);
+      put3(jac, 27, 9, pre + P_DP_DBG, -1.f);
+      put3(jac, 24, 12, pre + P_DV_DBA, -1.f);
+      put3(jac, 27, 12, pre + P_DP_DBA, -1.f);
+    }
+  } else if (warp == 3) {  // lam J of those blocks: -info, -1/var, +1/var
+    const float* info = sm.in + I_INFO;
+    for (int e = lane; e < 15 * 12; e += 32) {
+      const int r = e / 12, c = 3 + e % 12;
+      sm.lj[r * kLdL + c] = -info[15 * r + c];
+    }
+    if (lane < 3) {
+      const int c = lane;
+      sm.lj[(18 + c) * kLdL + 21 + c] = -iv[1];
+      sm.lj[(30 + c) * kLdL + 9 + c] = -iv[2];
+      sm.lj[(30 + c) * kLdL + 24 + c] = iv[2];
+      sm.lj[(33 + c) * kLdL + 12 + c] = -iv[3];
+      sm.lj[(33 + c) * kLdL + 27 + c] = iv[3];
+    }
   }
   __syncthreads();
+  clk.mark(C_SETUP);
 
   int cur = 0;
-  assemble(sm, sm.st[cur], cur, inv_var);
+  assemble(sm, cur, iv, clk);
   float lam = 1e-4f;
   int it = 0;
   while (it < iterations) {
-    lm_solve(sm, sm.h[cur], sm.b[cur], lam);
-    apply_dx(sm, sm.st[cur], sm.st[1 - cur]);
-    assemble(sm, sm.st[1 - cur], 1 - cur, inv_var);
-    if (tid == 0) {
-      const bool accept = sm.cost[1 - cur] < sm.cost[cur];
-      const bool stuck = !accept && lam >= 1e2f;
-      sm.accept = accept;
-      sm.done = (accept && sm.tiny) || stuck;
-      sm.lm_lambda = accept ? fmaxf(lam * 0.5f, 1e-6f) : fminf(lam * 8.f, 1e2f);
-    }
+    if (warp == 0) lm_step(sm, cur, 1 - cur, lam, it & 1, clk);
     __syncthreads();
-    const bool accept = sm.accept, done = sm.done;
-    lam = sm.lm_lambda;
-    __syncthreads();
+    clk.mark(C_SOLVE_WAIT);
+    assemble(sm, 1 - cur, iv, clk);
+    const bool accept = sm.cost[1 - cur] < sm.cost[cur];
+    const bool stuck = !accept && lam >= 1e2f;
+    const bool done = (accept && sm.tiny[it & 1]) || stuck;
+    lam = accept ? fmaxf(lam * 0.5f, 1e-6f) : fminf(lam * 8.f, 1e2f);
     if (accept) cur = 1 - cur;
     ++it;
     if (done) break;
   }
 
-  // the posterior at the optimum: one fresh assembly
+  // the posterior at the optimum: the accepted state's assembly
   const float* s = sm.st[cur];
-  assemble(sm, s, 1 - cur, inv_var);
-  const float* h = sm.h[1 - cur];
+  const float* h = sm.hs;
+  for (int e = tid; e < kDim * kDim; e += blockDim.x) {
+    const int i = e / kDim, j = e % kDim;
+    sm.hs[i * kLdH + j] = h_at(sm.g2[cur], i, j);
+  }
+  __syncthreads();
 
   // marginalize the old state: Jacobi-scaled pseudo-inverse, Schur complement
-  if (tid < kN) sm.dinv[tid] = rsqrtf(fmaxf(h[tid * kDim + tid], 1e-24f));
-  __syncthreads();
-  for (int e = tid; e < kE * kE; e += blockDim.x) {
-    const int i = e / kE, j = e % kE, lo = min(i, j), hi = max(i, j);
-    sm.ea[e] = (i < kN && j < kN) ? h[lo * kDim + hi] * sm.dinv[lo] * sm.dinv[hi] : 0.f;
+  int sweeps_marg = 0;
+  if (warp == 0) {
+    if (lane < kN) sm.dm[lane] = rsqrtf(fmaxf(h[lane * kLdH + lane], 1e-24f));
+    __syncwarp();
+    const int r = lane % 16;
+    float a[8], v[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int col = half_col(lane, m), lo = min(r, col), hi = max(r, col);
+      a[m] = (r < kN && col < kN) ? h[lo * kLdH + hi] * sm.dm[lo] * sm.dm[hi] : 0.f;
+    }
+    sweeps_marg = jacobi_warp(a, v);
+    store_eigen(sm, a, v);
+    __syncwarp();
+    if (lane < kN) sm.w[lane] = fabsf(sm.w[lane]) > 1e-6f ? 1.f / sm.w[lane] : 0.f;
   }
   __syncthreads();
-  const int sweeps_marg = jacobi15(sm, sm.ea, sm.ev);
-  if (tid < kN) {
-    const float w = sm.ea[tid * kE + tid];
-    sm.w[tid] = fabsf(w) > 1e-6f ? 1.f / w : 0.f;
-  }
-  __syncthreads();
+  clk.mark(C_JACOBI_MARG);
   for (int e = tid; e < kN * kN; e += blockDim.x) {
     const int i = e / kN, j = e % kN;
     float v = 0.f;
@@ -590,7 +771,7 @@ tight_fuse_kernel(const float* __restrict__ in, float* __restrict__ out, float g
     float v = 0.f;
     for (int m = 0; m < kN; ++m) {
       const int lo = min(i, m), hi = max(i, m);
-      v += h[lo * kDim + hi] * sm.dinv[lo] * sm.dinv[hi] * sm.pinv[m * kN + j];
+      v += h[lo * kLdH + hi] * sm.dm[lo] * sm.dm[hi] * sm.pinv[m * kN + j];
     }
     sm.x[e] = v;
   }
@@ -604,33 +785,48 @@ tight_fuse_kernel(const float* __restrict__ in, float* __restrict__ out, float g
   __syncthreads();
   for (int e = tid; e < kN * kN; e += blockDim.x) {
     const int i = e / kN, j = e % kN;
-    sm.pinv[e] = sm.ea[e] * sm.dinv[i] * sm.dinv[j];
+    sm.pinv[e] = sm.ea[e] * sm.dm[i] * sm.dm[j];
   }
   __syncthreads();
   for (int e = tid; e < kN * kN; e += blockDim.x) {  // h_km pinv
     const int i = e / kN, j = e % kN;
     float v = 0.f;
-    for (int m = 0; m < kN; ++m) v += h[(kN + i) * kDim + m] * sm.pinv[m * kN + j];
+    for (int m = 0; m < kN; ++m) v += h[(kN + i) * kLdH + m] * sm.pinv[m * kN + j];
     sm.x[e] = v;
   }
   __syncthreads();
   for (int e = tid; e < kN * kN; e += blockDim.x) {  // h_kk - h_km pinv h_mk
     const int i = e / kN, j = e % kN;
     float v = 0.f;
-    for (int m = 0; m < kN; ++m) v += sm.x[i * kN + m] * h[m * kDim + kN + j];
-    sm.pinv[e] = h[(kN + i) * kDim + kN + j] - v;
+    for (int m = 0; m < kN; ++m) v += sm.x[i * kN + m] * h[m * kLdH + kN + j];
+    sm.pinv[e] = h[(kN + i) * kLdH + kN + j] - v;
   }
   __syncthreads();
-  for (int e = tid; e < kE * kE; e += blockDim.x) {
-    const int i = e / kE, j = e % kE;
-    sm.ea[e] = (i < kN && j < kN) ? 0.5f * (sm.pinv[i * kN + j] + sm.pinv[j * kN + i]) : 0.f;
-  }
-  __syncthreads();
+  clk.mark(C_PRODUCTS);
 
   // project onto the PSD cone: V max(w, 0) V^T
-  const int sweeps_psd = jacobi15(sm, sm.ea, sm.ev);
-  if (tid < kN) sm.w[tid] = fmaxf(sm.ea[tid * kE + tid], 0.f);
+  int sweeps_psd = 0;
+  if (warp == 0) {
+    const int r = lane % 16;
+    float a[8], v[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const int col = half_col(lane, m);
+      a[m] = (r < kN && col < kN) ? 0.5f * (sm.pinv[r * kN + col] + sm.pinv[col * kN + r])
+                                  : 0.f;
+    }
+    sweeps_psd = jacobi_warp(a, v);
+    store_eigen(sm, a, v);
+    __syncwarp();
+    if (lane < kN) sm.w[lane] = fmaxf(sm.w[lane], 0.f);
+    if (lane == 0) {
+      out[O_ITERS] = (float)it;
+      out[O_SWEEPS] = (float)sweeps_marg;
+      out[O_SWEEPS + 1] = (float)sweeps_psd;
+    }
+  }
   __syncthreads();
+  clk.mark(C_JACOBI_PSD);
   for (int e = tid; e < kN * kN; e += blockDim.x) {
     const int i = e / kN, j = e % kN;
     float v = 0.f;
@@ -646,11 +842,8 @@ tight_fuse_kernel(const float* __restrict__ in, float* __restrict__ out, float g
     else if (i < 6) out[O_BG + i - 3] = s[S_BGJ + i - 3];
     else out[O_BA + i - 6] = s[S_BAJ + i - 6];
   }
-  if (tid == 0) {
-    out[O_ITERS] = (float)it;
-    out[O_SWEEPS] = (float)sweeps_marg;
-    out[O_SWEEPS + 1] = (float)sweeps_psd;
-  }
+  clk.mark(C_OUTPUT);
+  clk.write(out + O_SWEEPS + 2);
 }
 
 }  // namespace

@@ -83,6 +83,73 @@ def test_preintegrate_plain_matches_jax(slots):
     assert abs(float(pt.dt) - 0.005 * (slots - 6)) < 1e-5  # the masked slots add nothing
 
 
+def edge_segment(case):
+    """(segment, the valid slots) of an edge case of the preintegration
+    kernel: every sample masked, one valid slot, slots of dt <= 0 (a
+    repeated and a decreasing stamp) between valid ones, 64 slots all
+    valid."""
+    slots = 64 if case == "all_valid_64" else 16
+    seg = segment(slots, seed=200 + slots)
+    seg["t"] = (5.0 + np.arange(slots) * 0.005).astype(np.float32)
+    seg["mask"] = np.ones(slots, bool)
+    if case == "all_masked":
+        seg["mask"][:] = False
+        return seg, 0
+    if case == "one_valid_slot":
+        seg["mask"][:] = False
+        seg["mask"][5:7] = True
+        return seg, 1
+    if case == "nonpositive_dt":
+        seg["t"][6] = seg["t"][5]  # dt = 0 in slot 5
+        seg["t"][9] = seg["t"][8] - np.float32(0.002)  # dt < 0 in slot 8
+        return seg, slots - 3
+    return seg, slots - 1
+
+
+def assert_preint_close(pt, pj):
+    for f in jpre.PreintState._fields:
+        a, b = getattr(pt, f).numpy(), np.asarray(getattr(pj, f))
+        tol = 1e-4 * np.abs(b).max() if f == "cov" else 1e-5
+        np.testing.assert_allclose(a, b, atol=tol, rtol=0, err_msg=f)
+
+
+@pytest.mark.parametrize("case", ["all_masked", "one_valid_slot", "nonpositive_dt",
+                                  "all_valid_64"])
+def test_preintegrate_plain_matches_jax_at_the_edges(case):
+    """The cases the kernel's slot staging must get right: no valid slot
+    leaves the zero state exactly; the masked and dt <= 0 slots add nothing."""
+    seg, valid = edge_segment(case)
+    params_j = jpre.PreintParams.from_std(0.01, 0.1, 1e-8)
+    params_t = pi.PreintParams.from_std(0.01, 0.1, 1e-8)
+    pj = jpre.preintegrate(jseg(seg), params_j, jnp.asarray(BG), jnp.asarray(BA))
+    pt = pi.preintegrate_plain(tseg(seg), params_t, torch.as_tensor(BG), torch.as_tensor(BA))
+    assert_preint_close(pt, pj)
+    t = seg["t"]
+    ok = seg["mask"][1:] & seg["mask"][:-1] & (t[1:] > t[:-1])
+    assert int(ok.sum()) == valid
+    np.testing.assert_allclose(float(pt.dt), float((t[1:] - t[:-1])[ok].sum()), atol=1e-6)
+    if valid == 0:
+        zero = pi.PreintState.zero(torch.as_tensor(BG), torch.as_tensor(BA))
+        assert_equal_trees(pt, zero)
+
+
+def test_preintegrate_plain_matches_jax_chained():
+    """has_init: a second segment integrated on the state of a first, as
+    one segment of both."""
+    first, _ = edge_segment("all_valid")
+    second, _ = edge_segment("all_valid")
+    second["t"] = (first["t"][-1] + 0.005 * (1 + np.arange(16))).astype(np.float32)
+    params_j = jpre.PreintParams.from_std(0.01, 0.1, 1e-8)
+    params_t = pi.PreintParams.from_std(0.01, 0.1, 1e-8)
+    bg, ba = torch.as_tensor(BG), torch.as_tensor(BA)
+    init_j = jpre.preintegrate(jseg(first), params_j, jnp.asarray(BG), jnp.asarray(BA))
+    init_t = pi.preintegrate_plain(tseg(first), params_t, bg, ba)
+    pj = jpre.preintegrate(jseg(second), params_j, jnp.asarray(BG), jnp.asarray(BA), init_j)
+    pt = pi.preintegrate_plain(tseg(second), params_t, bg, ba, init_t)
+    assert_preint_close(pt, pj)
+    np.testing.assert_allclose(float(pt.dt), 0.005 * 30, atol=1e-5)
+
+
 @pytest.mark.parametrize("slots", [16, 64])
 def test_eskf_predict_plain_matches_jax(slots):
     seg = segment(slots, seed=100 + slots)
@@ -163,6 +230,22 @@ def test_fuse_plain_matches_jax(fuse_calls, iterations):
         nav_t, trials = fuse_plain_trials(args)
         assert 1 <= len(trials) <= iterations
         assert_fuse_close(nav_t, jax_fuse(args))
+
+
+@pytest.mark.parametrize("iterations", [0, 1])
+def test_fuse_plain_matches_jax_at_few_iterations(fuse_calls, iterations):
+    """0 LM iterations: the posterior, marginalization and projection at the
+    starting state alone (the kernel's tail); 1: one solve and trial."""
+    for k in (2, len(fuse_calls) - 1):
+        args = fuse_calls[k]
+        args = args[:5] + (args[5]._replace(iterations=iterations),)
+        nav_t, trials = fuse_plain_trials(args)
+        assert len(trials) == iterations
+        assert_fuse_close(nav_t, jax_fuse(args))
+        if iterations == 0:  # the current state is the prediction, biases the last
+            last, _, _, pred = args[:4]
+            assert_equal_trees((nav_t.r, nav_t.v, nav_t.p, nav_t.bg, nav_t.ba),
+                               (pred.r, pred.v, pred.p, last.bg, last.ba))
 
 
 def lm_decisions(args) -> tuple:

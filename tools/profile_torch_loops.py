@@ -1,0 +1,279 @@
+"""Time the step's two loop kernels, `tight_fuse` (csrc/tight_fuse.cu) and
+`preintegrate` (csrc/imu_scan.cu), on captured and synthetic inputs, for
+this checkout's kernels and, with `--parent DIR`, a parent checkout's
+kernels, in turns on one card.
+
+    python3 tools/profile_torch_loops.py [--parent DIR] [--stages] [--out FILE]
+
+Captures the arguments of every `preintegrate` and `tight.fuse` call of
+two runs of the port on the card: chip_smoke.py's phase-4 grid config
+(IcpOptimized + TightCouplingOptimization, 16,384 points a scan, 16 IMU
+slots, 12 LM iterations) over the 10 s simulator run (seed 7), and the
+M2DGR preset (configs/mapping/config_M2DGR.yaml: 57,600 points, 64 slots,
+20 LM iterations) over a 6 s run. On the last call of each it times:
+
+  * `tight_fuse` at the grid call with `iterations` 0 (set-up, the
+    posterior, the marginalization and the PSD projection alone), 1 and
+    12, and at the M2DGR call with 20;
+  * `preintegrate` at the grid call (16 slots), the M2DGR call (64) and a
+    64-slot segment with every slot valid (chip_smoke.loop_edge_cases).
+
+Each case is timed two ways, each the median device ms of one call over
+50 calls queued behind a device sleep (chip_smoke.time_ms): the wrapper
+(`ops/recurrences.py`: packing, output allocation and the launch) and the
+bare launch on a buffer packed beforehand. With `--parent`, the parent's
+`imu_scan.cu` and `tight_fuse.cu` (same C entry points and layouts) are
+built beside this checkout's and the two libraries alternate in turns
+(parent, change, change, parent) on the same inputs; each case also
+reports the largest difference between the two outputs. Every case is
+held against the plain version too. With `--stages`, this checkout's two
+sources are also built with -DFLS_STAGE_CLOCKS (csrc/stage_clock.cuh) and
+each case is run once more on that build, which writes the SM cycles its
+thread 0 spent in each stage after the output (`stage_cycles`, beside
+nvidia-smi's SM clocks). Prints ptxas's registers, spills and shared
+memory of each build, and one JSON line last (also written to FILE). Needs
+CUDA; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+M2DGR = os.path.join("configs", "mapping", "config_M2DGR.yaml")
+LIBS = ("imu_scan", "tight_fuse")
+# the stage clocks of csrc/imu_scan.cu's and csrc/tight_fuse.cu's C_* enums
+STAGES = {"preintegrate": ("init", "slots", "prefix", "blocks", "serial", "output"),
+          "tight_fuse": ("setup", "factors", "lam_j", "h", "eliminate", "substitute",
+                         "trial", "solve_wait", "jacobi_marg", "products", "jacobi_psd",
+                         "output")}
+CLOCKS = 16  # kStageClocks of csrc/stage_clock.cuh
+
+
+def log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+def capture_calls(torch, system_config, ds, device="cuda") -> dict:
+    """{"preintegrate": [args], "tight_fuse": [args]} of every call the
+    frontend step makes in one `run_dataset`, cloned on their device."""
+    from funny_lidar_slam_torch.pipeline import frontend as fe
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem
+
+    import chip_smoke
+
+    calls = {"preintegrate": [], "tight_fuse": []}
+    saved = {name: getattr(fe, name) for name in calls}
+
+    def wrap(name):
+        def fn(*args):
+            calls[name].append(chip_smoke.clone_tree(args))
+            return saved[name](*args)
+        return fn
+
+    for name in calls:
+        setattr(fe, name, wrap(name))
+    try:
+        SlamSystem(system_config, device=device).run_dataset(ds)
+    finally:
+        for name, fn in saved.items():
+            setattr(fe, name, fn)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return calls
+
+
+def build_variant(root: str, tag: str, defines=()) -> dict:
+    """nvcc of the two sources of the checkout at `root` with this
+    checkout's flags (and `defines`) into build/kernels/<tag>/, one process
+    each, all started together: {name: (library path, nvcc output)}."""
+    from funny_lidar_slam_torch.ops import cuda_build
+
+    out_dir = cuda_build.BUILD_DIR / tag
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in LIBS:
+        src = os.path.join(root, "funny_lidar_slam_torch", "csrc", f"{name}.cu")
+        lib = out_dir / f"lib{name}.so"
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *defines, "-o", str(lib), src]
+        procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (lib, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {tag} {name}.cu:\n{text}")
+        built[name] = (str(lib), text)
+    return built
+
+
+def load(name: str, path: str) -> ctypes.CDLL:
+    from funny_lidar_slam_torch.ops import cuda_build
+
+    lib = ctypes.CDLL(path)
+    for fn, (argtypes, restype) in cuda_build.SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def bare_launch(torch, kind, args, extra_out=0):
+    """A function that launches the kernel of the library loaded now on a
+    buffer packed here once (no packing, no allocation a call), and its
+    output buffer (`extra_out` floats longer than the layout's)."""
+    from funny_lidar_slam_torch.ops import cuda_build, recurrences as rec
+
+    if kind == "preintegrate":
+        buf, slots, has_init = rec.pack_preintegrate(*args)
+        out = torch.zeros(rec._size(rec.PREINT_STATE) + extra_out, dtype=torch.float32,
+                          device=buf.device)
+        extra = (slots, has_init)
+        lib, fn = "imu_scan", "preintegrate_launch"
+    else:
+        last, pre, pose, pred, g, cfg = args
+        buf = rec.pack_tight(last, pre, pose, pred)
+        out = torch.zeros(rec._size(rec.TIGHT_OUT) + extra_out, dtype=torch.float32,
+                          device=buf.device)
+        extra = (*rec._host3("tight_fuse", g), int(cfg.iterations),
+                 float(cfg.lidar_rotation_std) ** 2, float(cfg.lidar_position_std) ** 2,
+                 float(cfg.gyro_rw_std) ** 2, float(cfg.acc_rw_std) ** 2)
+        lib, fn = "tight_fuse", "tight_fuse_launch"
+    launch = getattr(cuda_build.library(lib), fn)
+    stream = torch.cuda.current_stream(buf.device).cuda_stream
+
+    def run():
+        err = launch(buf.data_ptr(), out.data_ptr(), *extra, stream)
+        assert err == 0, f"{fn}: CUDA error {err}"
+    return run, out
+
+
+def flat_output(torch, kind, args):
+    from funny_lidar_slam_torch.ops import recurrences as rec
+
+    out = rec.preintegrate(*args) if kind == "preintegrate" else rec.tight_fuse(*args)
+    return torch.cat([o.reshape(-1).float() for o in out])
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=None,
+                    help="a parent checkout whose imu_scan.cu and tight_fuse.cu to time beside")
+    ap.add_argument("--stages", action="store_true",
+                    help="also run a build with per-stage cycle counters")
+    ap.add_argument("--out", default=None, help="also write the JSON line here")
+    args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    import torch
+
+    import bench_torch as bench
+    import chip_smoke as cs
+    from funny_lidar_slam_torch.config import load_config
+    from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
+    from funny_lidar_slam_torch.ops import cuda_build
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_loops: CUDA is not available")
+    card = bench.card_line()
+    log(f"[loops] {torch.cuda.get_device_name(0)} | {card}")
+    t0 = time.perf_counter()
+    logs = cuda_build.build_all(LIBS)
+    versions = {"change": {name: cuda_build.library(name) for name in LIBS}}
+    ptxas = {"change": {name: cs.ptxas_report(text) for name, text in logs.items()}}
+    if args.parent:
+        built = build_variant(os.path.abspath(args.parent), "parent")
+        versions["parent"] = {name: load(name, path) for name, (path, _) in built.items()}
+        ptxas["parent"] = {name: cs.ptxas_report(text) for name, (_, text) in built.items()}
+    staged = None
+    if args.stages:
+        built = build_variant(ROOT, "stages", ["-DFLS_STAGE_CLOCKS"])
+        staged = {name: load(name, path) for name, (path, _) in built.items()}
+        ptxas["stages"] = {name: cs.ptxas_report(text) for name, (_, text) in built.items()}
+    log(f"[loops] built in {time.perf_counter() - t0:.1f} s; ptxas {json.dumps(ptxas)}")
+
+    t0 = time.perf_counter()
+    grid = capture_calls(torch, bench.headline_config(16384, "TightCouplingOptimization"),
+                         simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7)))
+    m2dgr = capture_calls(torch, load_config(os.path.join(ROOT, M2DGR)).system,
+                          simulate(SimConfig(duration=6.0, points_per_scan=57600, seed=7)))
+    log(f"[loops] captured {len(grid['tight_fuse'])} grid and {len(m2dgr['tight_fuse'])} "
+        f"M2DGR fuse calls in {time.perf_counter() - t0:.1f} s")
+    fuse_grid, fuse_m2dgr = grid["tight_fuse"][-1], m2dgr["tight_fuse"][-1]
+    edge = dict(cs.loop_edge_cases(torch, grid["preintegrate"][-1], fuse_grid))
+    cases = {
+        "tight_fuse_grid_it0": ("tight_fuse", cs.with_iterations(fuse_grid, 0)),
+        "tight_fuse_grid_it1": ("tight_fuse", cs.with_iterations(fuse_grid, 1)),
+        "tight_fuse_grid_it12": ("tight_fuse", cs.with_iterations(fuse_grid, 12)),
+        "tight_fuse_m2dgr_it20": ("tight_fuse", cs.with_iterations(fuse_m2dgr, 20)),
+        "preintegrate_grid_16": ("preintegrate", grid["preintegrate"][-1]),
+        "preintegrate_m2dgr_64": ("preintegrate", m2dgr["preintegrate"][-1]),
+        "preintegrate_all_valid_64": edge["preintegrate_all_valid_64"],
+    }
+    order = ["parent", "change", "change", "parent"] if args.parent else ["change", "change"]
+    result = {"device": torch.cuda.get_device_name(0), "card": card, "ptxas": ptxas,
+              "cases": {}}
+    for name, (kind, cargs) in cases.items():
+        row = {"kind": kind}
+        outs = {}
+        for v, libs in versions.items():
+            cuda_build._loaded.update(libs)
+            outs[v] = flat_output(torch, kind, cargs)
+            errs = cs.loop_compare(torch, kind, cargs)
+            row[f"{v}_vs_plain"] = {k: errs[k] for k in errs if k not in ("ok", "close")}
+        if "parent" in outs:
+            d = (outs["change"] - outs["parent"]).abs()
+            row["change_vs_parent_max"] = float(d.max())
+            row["change_vs_parent_equal"] = bool(torch.equal(outs["change"], outs["parent"]))
+        if kind == "tight_fuse":
+            from funny_lidar_slam_torch.ops import recurrences as rec
+
+            o = rec._size(rec.TIGHT_OUT) - 3
+            row["lm_iterations"] = {v: float(x[o]) for v, x in outs.items()}
+            row["sweeps"] = {v: x[o + 1:].tolist() for v, x in outs.items()}
+        else:
+            row["slots"] = int(cargs[0].t.shape[0])
+            row["valid_slots"] = cs.valid_slots(cargs[0])
+        wrapper, bare = {}, {}
+        for v in order:
+            cuda_build._loaded.update(versions[v])
+            fn = cs.loop_entry(kind)[0]
+            wrapper.setdefault(v, []).append(cs.time_ms(torch, lambda: fn(*cargs), 50))
+            bare.setdefault(v, []).append(cs.time_ms(torch, bare_launch(torch, kind, cargs)[0],
+                                                     50))
+        row["wrapper_ms"], row["bare_ms"] = wrapper, bare
+        if staged:
+            cuda_build._loaded.update(staged)
+            run, out = bare_launch(torch, kind, cargs, CLOCKS)
+            run()
+            run()
+            torch.cuda.synchronize()
+            cycles = out[-CLOCKS:].tolist()
+            row["stage_cycles"] = {**dict(zip(STAGES[kind], cycles)), "total": sum(cycles)}
+        row["wrapper_ms_median"] = {v: float(np.median(t)) for v, t in wrapper.items()}
+        row["bare_ms_median"] = {v: float(np.median(t)) for v, t in bare.items()}
+        log(f"[loops] {name}: {json.dumps(row)}")
+        result["cases"][name] = row
+    cuda_build._loaded.update(versions["change"])
+    floor = [cs.time_ms(torch, lambda: torch.cuda._sleep(0), 50) for _ in range(2)]
+    result["empty_launch_ms"] = floor
+    result["sm_clocks_mhz"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    line = json.dumps(result)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return result
+
+
+if __name__ == "__main__":
+    main()
