@@ -141,6 +141,17 @@ Phases, each of which raises (non-zero exit) on failure:
      match; the launch under set_sync_debug_mode("error"); timed at the
      headline shape (N 16,384, M 16) beside its plain version and one empty
      launch, with its bound and its ptxas registers and shared memory;
+  21. the LOAM GN loops: plane_gn_rounds and loam_gn_rounds (csrc/gn_loop.cu
+     loam_gn_kernel, the same while_loop over the point-to-plane and the
+     LoamFull line + plane candidate sets) against their plain versions on
+     every call captured in untimed runs beside phases 7-9, 12a-c and 15a,
+     with phase 20's gates (where the two float32 runs part, the pose held
+     to the plain version with float64 sums, the kernel's one deviation);
+     synthetic edge cases (a starved set, every lane invalid, tied lanes,
+     max_iters 2, M 12, no corner rows); the any-M kernels bit-equal on
+     misaligned planes; both under set_sync_debug_mode("error"); no ptxas
+     spills in any GN kernel; each timed at IVOX's and LoamFull's first
+     round beside its plain version and one empty launch, with its bound;
 and prints the per-kernel JSON line, the card line and the result line.
 Every path (3b, 4-18) runs with the kernel launch counts zeroed just
 before it and read just after it (phase 18 inside the bench's process,
@@ -148,10 +159,11 @@ which counts fused_select only); every path that steps the frontend checks
 the device-loop kernels' launches against its steps: one preintegrate and
 one tight_fuse a step under TightCouplingOptimization, one eskf_predict a
 step under TightCouplingKF, none under LooseCoupling (the Turing CLI
-preset); and icp_gn_rounds once a gather round of the GN driver on the
-ICP paths (phase 4 gates its host reads a scan, one a round, equal to its
-gathers a scan), never on the others. Imports nothing of JAX and nothing
-of the JAX package.
+preset); and each GN kernel once a gather round of its driver on the
+paths of its matcher (icp_gn_rounds: ICP; plane_gn_rounds: IVOX, KdTree;
+loam_gn_rounds: LoamFull), never on the others, nor on NDT (the mapping
+phases gate the GN host reads a scan, one a round, equal to the gathers
+a scan). Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -352,15 +364,19 @@ def phase_device(torch):
 
 
 def kernel_name(symbol: str) -> str:
-    """The last name of a mangled kernel symbol, with an int template
-    argument: `_ZN..19fused_select_kernelILi16EEEv..` -> `fused_select_kernel<16>`."""
+    """The last name of a mangled kernel symbol, with its int and bool
+    template arguments: `_ZN..19fused_select_kernelILi16EEEv..` ->
+    `fused_select_kernel<16>`, `..14loam_gn_kernelILb1ELi16EEEv..` ->
+    `loam_gn_kernel<true, 16>`."""
     rest, names = re.sub(r"^_ZN?", "", symbol), []
     while m := re.match(r"(\d+)", rest):
         size = int(m.group(1))
         names.append(rest[m.end():m.end() + size])
         rest = rest[m.end() + size:]
-    arg = re.match(r"ILi(-?\d+)E", rest)
-    return (names[-1] if names else symbol) + (f"<{arg.group(1)}>" if arg else "")
+    args = re.match(r"I((?:L[bi]-?\d+E)+)E", rest)
+    vals = [("true" if v == "1" else "false") if k == "b" else v
+            for k, v in re.findall(r"L([bi])(-?\d+)E", args.group(1))] if args else []
+    return (names[-1] if names else symbol) + (f"<{', '.join(vals)}>" if vals else "")
 
 
 def ptxas_report(text: str) -> dict:
@@ -971,7 +987,8 @@ def phase_loam_select(torch, ds):
 def phase_loam_mapping(torch, ds, mode):
     """One LOAM-family path end to end (phases 7-9): the bench's config of
     `mode` under the mapping gates, and the keyframes' feature clouds."""
-    slam, res = mapping_run(torch, ds, mode, lambda: bench_system(mode))
+    slam, res = mapping_run(torch, ds, mode, lambda: bench_system(mode),
+                            gn_capture=mode)  # an untimed run first: phase 21's inputs
     kfs = slam.keyframes.frames
     with_feat = sum(1 for kf in kfs if kf.planar is not None and len(kf.planar) > 0)
     # the init frame is keyframe 0 and carries no features
@@ -1016,27 +1033,49 @@ def zero_counts():
     select.fused_select.launches = 0
     for fn in recurrences.KERNELS + gn_loop.KERNELS:
         fn.launches = 0
-    gn.run_gn_icp_cand.rounds = 0
+    for driver in gn.ROUND_DRIVERS.values():
+        driver.rounds = 0
 
 
 # path -> launches of the device-loop kernels in it (read just after it)
 LOOP_LAUNCHES: dict = {}
-# path -> icp_gn_rounds launches in it (read just after it)
+# path -> GN kernel launches in it, all three kernels (read just after it)
 GN_LAUNCHES: dict = {}
+# path -> {GN kernel: launches}
+GN_LAUNCHES_BY_KERNEL: dict = {}
 
 
-def gn_launches(tag, icp: bool) -> int:
-    """The GN kernel's launches of the path just run, recorded and checked:
-    one a gather round of the ICP driver (> 0 on a path whose matcher is
-    IcpMatcher), none on any other path."""
+def gn_kernel_of(matcher):
+    """The name of the GN rounds kernel a matcher's driver launches, or
+    None (NdtMatcher: run_gn_corr)."""
+    from funny_lidar_slam_torch.registration import matchers
+
+    for cls, name in ((matchers.IcpMatcher, "icp_gn_rounds"),
+                      (matchers.PointToPlaneMatcher, "plane_gn_rounds"),
+                      (matchers.LoamFullMatcher, "loam_gn_rounds")):
+        if isinstance(matcher, cls):
+            return name
+    return None
+
+
+def gn_launches(tag, kernel) -> int:
+    """The GN kernels' launches of the path just run, recorded and checked:
+    each kernel once a gather round of its driver (one host read each), > 0
+    for the path's own kernel (`kernel`, None on the NDT paths), none for
+    the others. Returns the path's launches."""
     from funny_lidar_slam_torch.ops import gn_loop
     from funny_lidar_slam_torch.registration import gn
 
-    n, rounds = gn_loop.icp_gn_rounds.launches, gn.run_gn_icp_cand.rounds
-    assert n == rounds, f"[{tag}] icp_gn_rounds launched {n} times in {rounds} rounds"
-    assert (n > 0) == icp, f"[{tag}] icp_gn_rounds launched {n} times (ICP path: {icp})"
-    GN_LAUNCHES[tag] = n
-    return n
+    counts = {}
+    for fn in gn_loop.KERNELS:
+        n, rounds = fn.launches, gn.ROUND_DRIVERS[fn.__name__].rounds
+        assert n == rounds, f"[{tag}] {fn.__name__} launched {n} times in {rounds} rounds"
+        assert (n > 0) == (fn.__name__ == kernel), \
+            f"[{tag}] {fn.__name__} launched {n} times (the path's GN kernel: {kernel})"
+        counts[fn.__name__] = n
+    GN_LAUNCHES_BY_KERNEL[tag] = counts
+    GN_LAUNCHES[tag] = sum(counts.values())
+    return GN_LAUNCHES[tag]
 
 
 def loop_launches(tag, stats, frontend) -> dict:
@@ -1044,10 +1083,9 @@ def loop_launches(tag, stats, frontend) -> dict:
     checked against its steps (`stats` rows without "init"): one
     preintegrate and one tight_fuse a step under TightCouplingOptimization,
     one eskf_predict a step under TightCouplingKF, none under
-    LooseCoupling; and the GN kernel's (`gn_launches`)."""
+    LooseCoupling; and the GN kernels' (`gn_launches`)."""
     from funny_lidar_slam_torch.ops import recurrences
     from funny_lidar_slam_torch.pipeline import frontend as fe
-    from funny_lidar_slam_torch.registration import matchers
 
     fusion = frontend.cfg.fusion_method
     counts = {fn.__name__: fn.launches for fn in recurrences.KERNELS}
@@ -1058,7 +1096,7 @@ def loop_launches(tag, stats, frontend) -> dict:
     assert counts == expect, f"[{tag}] device-loop launches {counts}, expected {expect}"
     assert steps > 0, f"[{tag}] no step"
     LOOP_LAUNCHES[tag] = counts
-    gn_launches(tag, isinstance(frontend.matcher, matchers.IcpMatcher))
+    gn_launches(tag, gn_kernel_of(frontend.matcher))
     return counts
 
 
@@ -1081,12 +1119,20 @@ LOOP_CAPTURE_LAUNCHES: dict = {}
 # max_corr_dist_sq), and the launches while capturing
 GN_CAPTURES: dict = {}
 GN_CAPTURE_LAUNCHES: dict = {}
+# the same keys, and "IVOX" / "KdTree" / "LoamFull" (phases 7-9),
+# "localization <mode>" (12a-c) -> [(kernel, args)] of the LOAM drivers'
+# plane_gn_rounds / loam_gn_rounds calls, and {kernel: launches while
+# capturing}
+LOAM_CAPTURES: dict = {}
+LOAM_CAPTURE_LAUNCHES: dict = {}
+LOAM_GN_KERNELS = ("plane_gn_rounds", "loam_gn_rounds")
 
 
 class LoopCapture:
     """While active, records the arguments (cloned) of every preintegrate,
     eskf.predict and tight fuse call of the frontend step under `key`
-    (with `loops`), and of every icp_gn_rounds call of the GN driver, and
+    (with `loops`), of every icp_gn_rounds call of the ICP driver, and of
+    every plane_gn_rounds / loam_gn_rounds call of the LOAM drivers, and
     the kernels' launches meanwhile. The clones cost time a step, so a
     capture runs outside every timed or counted run."""
 
@@ -1094,6 +1140,7 @@ class LoopCapture:
         self.key = key
         self.calls = LOOP_CAPTURES.setdefault(key, []) if loops else None
         self.gn_calls = GN_CAPTURES.setdefault(key, [])
+        self.loam_calls = LOAM_CAPTURES.setdefault(key, [])
 
     def __enter__(self):
         from funny_lidar_slam_torch.fusion import eskf
@@ -1103,6 +1150,7 @@ class LoopCapture:
 
         self.start = {fn.__name__: fn.launches for fn in recurrences.KERNELS}
         self.gn_start = gn_loop.icp_gn_rounds.launches
+        self.loam_start = {k: getattr(gn_loop, k).launches for k in LOAM_GN_KERNELS}
 
         self.saved = [(fe, "preintegrate", "preintegrate"), (eskf, "predict", "eskf_predict"),
                       (fe, "tight_fuse", "tight_fuse")] if self.calls is not None else []
@@ -1120,6 +1168,15 @@ class LoopCapture:
 
         self.saved.append((gn, "icp_gn_rounds", "icp_gn_rounds", rounds))
         gn.icp_gn_rounds = gn_wrapper
+        for kind in LOAM_GN_KERNELS:
+            fn = getattr(gn, kind)
+
+            def loam_wrapper(*args, kind=kind, fn=fn):
+                self.loam_calls.append((kind, clone_tree(args)))
+                return fn(*args)
+
+            self.saved.append((gn, kind, kind, fn))
+            setattr(gn, kind, loam_wrapper)
         return self
 
     def __exit__(self, *exc):
@@ -1134,20 +1191,26 @@ class LoopCapture:
                 counts[name] = counts.get(name, 0) + fn.launches - self.start[name]
         GN_CAPTURE_LAUNCHES[self.key] = (GN_CAPTURE_LAUNCHES.get(self.key, 0)
                                          + gn_loop.icp_gn_rounds.launches - self.gn_start)
+        counts = LOAM_CAPTURE_LAUNCHES.setdefault(self.key, {})
+        for k in LOAM_GN_KERNELS:
+            counts[k] = counts.get(k, 0) + getattr(gn_loop, k).launches - self.loam_start[k]
 
 
-def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=None):
+def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=None,
+                gn_capture=None):
     """Warm-up over a few scans, then the counted run of `make()` with the
     mapping gates: >= 40 tracked scans, finite poses, ATE < 0.10 m,
     fused_select launched (or, with `expect_select=False`, not), the
     device-loop kernels launched once a step as the fusion method asks;
     with `capture`, the warm-up runs every scan and keeps its device-loop
-    inputs under that key, so the counted run stays the bare main path."""
+    and GN inputs under that key (with `gn_capture`, its GN inputs only),
+    so the counted run stays the bare main path."""
     from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
     from funny_lidar_slam_torch.ops import select
+    from funny_lidar_slam_torch.registration import gn
 
-    if capture:  # kernel load and allocator, and the inputs phase 19 replays
-        with LoopCapture(capture):
+    if capture or gn_capture:  # kernel load and allocator, and phase 19-21's inputs
+        with LoopCapture(capture or gn_capture, loops=bool(capture)):
             make().run_dataset(ds)
         torch.cuda.synchronize()
     elif warm_scans:  # kernel load and allocator, then the run
@@ -1161,6 +1224,7 @@ def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=
     wall = time.perf_counter() - t
     launches = select.fused_select.launches
     loop_counts = loop_launches(tag, slam.stats, slam.frontend)
+    reads = sum(d.rounds for d in gn.ROUND_DRIVERS.values())  # one host read a round
 
     est, gt = gt_pairs(ds, out)
     n_tracked = len(out["poses"])
@@ -1177,10 +1241,10 @@ def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=
            "fused_select_launches": launches, "launches_per_scan": launches / steps,
            "loop_launches": loop_counts, "keyframes": out["n_keyframes"],
            "gn_kernel_launches": GN_LAUNCHES[tag]}
-    if GN_LAUNCHES[tag]:  # the ICP driver: one host read a gather round
-        res["gn_host_reads_per_scan"] = GN_LAUNCHES[tag] / steps
-        assert GN_LAUNCHES[tag] == sum(gathers), \
-            f"[{tag}] {GN_LAUNCHES[tag]} GN host reads for {sum(gathers)} gathers"
+    if GN_LAUNCHES[tag]:  # a round driver: one host read a gather round
+        res["gn_host_reads_per_scan"] = reads / steps
+        assert reads == GN_LAUNCHES[tag] == sum(gathers), \
+            f"[{tag}] {reads} GN host reads, {GN_LAUNCHES[tag]} launches for {sum(gathers)} gathers"
     return slam, res
 
 
@@ -1301,8 +1365,8 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
 
     tag = "localization" if mode == "IcpOptimized" else f"localization {mode}"
     world = make_world(seed=7)
-    if mode == "IcpOptimized":  # an untimed run first: phase 20's GN inputs
-        with LoopCapture("localization", loops=False):
+    if mode != "IncrementalNDT":  # an untimed run first: phase 20's / 21's GN inputs
+        with LoopCapture(tag, loops=False):
             cap = Localizer(bench.localization_config(16384, mode))
             cap.set_global_map(world)
             cap.run_dataset(ds, ds.scans[0].gt_pose)
@@ -2144,6 +2208,8 @@ def phase_unpacked_step(torch, ds):
     LOOP_LAUNCHES["frontend_step_unpacked"] = loop_counts["unpacked"]
     assert gn_counts["packed"] == gn_counts["unpacked"], f"[unpacked-step] {gn_counts}"
     GN_LAUNCHES["frontend_step_unpacked"] = gn_counts["unpacked"]
+    GN_LAUNCHES_BY_KERNEL["frontend_step_unpacked"] = {
+        "icp_gn_rounds": gn_counts["unpacked"], "plane_gn_rounds": 0, "loam_gn_rounds": 0}
 
     def feed(kind, cases=cases):
         for state, args, buf in cases:
@@ -2225,7 +2291,7 @@ def phase_profile_frontend(torch):
     assert loop_counts["preintegrate"] > 0 and loop_counts["tight_fuse"] > 0, \
         f"[profile-frontend] {loop_counts}"
     LOOP_LAUNCHES["profile_frontend"] = loop_counts
-    gn_launches("profile-frontend", True)
+    gn_launches("profile-frontend", "icp_gn_rounds")
     ms = report["ms"]
     assert set(tool.CALLS) | {"full_step", "live_frame_wall"} <= set(ms), sorted(ms)
     assert all(np.isfinite(v) and v > 0 for v in ms.values()), ms
@@ -2613,19 +2679,33 @@ GN_SOURCE = ("funny_lidar_slam_torch/csrc/gn_loop.cu", "funny_lidar_slam_tpu/reg
 GN_SAME_SHARE = 0.95  # calls with the plain version's status, iterations and gathers
 
 
-def gn_cost(args, iterations) -> tuple:
-    """(bytes, operations) of one call: each input read once (px, py, pz
-    [N, M] f32, valid [N, M] u8, src [N, 3] f32, the carry and radius) and
-    the carry written once; ~9 operations a lane (d2, the compare) and ~80 a
-    valid row (J, J^T J, J^T r, |r|) an iteration. The kernel itself reads
-    the candidates once an iteration: `reread_bytes`."""
+# each GN kernel's candidate sets in its arguments (after the carry)
+GN_SETS = {"icp_gn_rounds": 1, "plane_gn_rounds": 1, "loam_gn_rounds": 2}
+
+
+def gn_cost(args, iterations, kind="icp_gn_rounds") -> tuple:
+    """(bytes, operations, bytes read by the kernel) of one call: each input
+    read once (px, py, pz [N, M] f32, valid [N, M] u8, src [N, 3] f32 of
+    each set, the carry and radius) and the carry written once. Operations
+    an iteration: ICP ~9 a lane (d2, the compare) and ~80 a row (J, J^T J,
+    J^T r, |r|); LOAM ~10 a lane (d2, the five-slot insertion) and, on each
+    row with five valid lanes, ~250 for a plane row (A^T A, the adjugate,
+    five residuals, J J^T) or ~500 for a line row (the covariance, the
+    closed-form eigenvalues, 12 power steps, J J^T). The kernel itself
+    reads the candidates once an iteration: the third number."""
     from funny_lidar_slam_torch.ops import gn_loop
 
-    cand = args[1]
-    n, m = cand.px.shape
-    once = n * m * 13 + n * 12
+    sets = args[1:1 + GN_SETS[kind]]
+    once = sum(c.px.shape[0] * c.px.shape[1] * 13 + c.px.shape[0] * 12 for c in sets)
     nbytes = once + 4 * (2 * gn_loop.CARRY_SIZE + 1)
-    return nbytes, iterations * (n * m * 9 + n * 80), iterations * once
+    if kind == "icp_gn_rounds":
+        n, m = sets[0].px.shape
+        ops = n * m * 9 + n * 80
+    else:
+        row_ops = (250,) if kind == "plane_gn_rounds" else (500, 250)  # corner set first
+        ops = sum(c.px.numel() * 10 + int((c.valid.sum(1) >= 5).sum()) * k
+                  for c, k in zip(sets, row_ops))
+    return nbytes, iterations * ops, iterations * once
 
 
 GN_POSE_TOL = (1e-4, 1e-5)  # m, rad (chord)
@@ -2638,19 +2718,21 @@ def pose_diff(a, b) -> tuple:
     return float((a.double() - b.double())[:3, 3].abs().max()), float(chord_angle(a, b))
 
 
-def gn_compare(torch, args) -> dict:
-    """The kernel against its plain version on one captured call, each
-    from its own copy of the carry. The pose is held to the plain
+def gn_compare(torch, args, kind="icp_gn_rounds") -> dict:
+    """A GN kernel (`kind`) against its plain version on one captured call,
+    each from its own copy of the carry. The pose is held to the plain
     version's; where the two part by more than GN_POSE_TOL, it is held to a
     float64 run of the plain version on the same call instead (`dp64`,
     `da64`): the float32 normal equations (condition ~1e3) leave the plain
     version itself up to ~1e-4 m from the float64 pose."""
     from funny_lidar_slam_torch.ops import gn_loop
 
-    carry, cand, radius = args[:3]
+    kernel, plain = getattr(gn_loop, kind), getattr(gn_loop, f"{kind}_plain")
+    k = GN_SETS[kind]
+    carry, sets, radius, rest = args[0], args[1:1 + k], args[1 + k], args[2 + k:]
     ck, cp = carry.clone(), carry.clone()
-    gn_loop.icp_gn_rounds(ck, *args[1:])
-    gn_loop.icp_gn_rounds_plain(cp, *args[1:])
+    kernel(ck, *args[1:])
+    plain(cp, *args[1:])
     o = gn_loop.OFFSET
     ik, ip = ck[o["it"]:].tolist(), cp[o["it"]:].tolist()
     vk, vp = gn_loop.result_views(ck), gn_loop.result_views(cp)
@@ -2667,31 +2749,71 @@ def gn_compare(torch, args) -> dict:
     pose_ok = out["dp"] < GN_POSE_TOL[0] and out["da"] < GN_POSE_TOL[1]
     if not pose_ok:  # the float64 reference of the same call
         c64 = carry.clone()
-        cand64 = cand._replace(px=cand.px.double(), py=cand.py.double(), pz=cand.pz.double(),
-                               src=cand.src.double())
-        gn_loop.icp_gn_rounds_plain(c64, cand64, radius.double(), *args[3:])
+        if kind == "icp_gn_rounds":
+            sets64 = [c._replace(px=c.px.double(), py=c.py.double(), pz=c.pz.double(),
+                                 src=c.src.double()) for c in sets]
+            plain(c64, *sets64, radius.double(), *rest)
+        else:  # float32 fits, float64 sums: an all-float64 run decides other gates
+            with float64_sums():
+                plain(c64, *args[1:])
         v64 = gn_loop.result_views(c64)
         out["dp64"], out["da64"] = pose_diff(vk.t_mat, v64.t_mat)
         out["plain_dp64"], out["plain_da64"] = pose_diff(vp.t_mat, v64.t_mat)
         pose_ok = out["dp64"] < GN_POSE_TOL[0] and out["da64"] < GN_POSE_TOL[1]
+        if kind != "icp_gn_rounds":  # the counts and the residual sum held there too
+            out["nv_rel"] = (abs(int(vk.num_valid) - int(v64.num_valid))
+                             / max(int(v64.num_valid), 1))
+            out["res_rel"] = (abs(float(vk.total_res) - float(v64.total_res))
+                              / max(abs(float(v64.total_res)), 1e-30))
     out["close"] = pose_ok and out["nv_rel"] <= 0.01 and out["res_rel"] < 1e-3
     return out
 
 
-def gn_timing(torch, args, label) -> dict:
-    """The kernel timed on one captured call beside its plain version and
-    one empty launch, in turns, each call from its own copy of the carry,
-    with the call's bound."""
+class float64_sums:
+    """While active, the plain versions' scalar-row reductions
+    (`residuals._reduce_scalar`: the point-to-plane and point-to-line rows'
+    H, g and residual sum) sum float32 products in float64 and round the
+    sums to float32, as the LOAM kernel does; the rows stay float32. The
+    reference for a LOAM call where the two float32 runs part: its plane
+    fits decide their gates in float32 as the kernel's do."""
+
+    def __enter__(self):
+        import torch
+
+        from funny_lidar_slam_torch.registration import residuals
+
+        self.saved = residuals._reduce_scalar
+
+        def reduce64(j, r, valid):  # float32 products, float64 sums
+            jw = j * valid.to(j.dtype)[:, None]
+            return residuals.HG(
+                (jw[:, :, None] * j[:, None, :]).double().sum(0).float(),
+                (-(jw * r[:, None]).double().sum(0)).float(), valid.sum(dtype=torch.int32),
+                (torch.abs(r) * valid.to(r.dtype)).double().sum().float())
+
+        residuals._reduce_scalar = reduce64
+        return self
+
+    def __exit__(self, *exc):
+        from funny_lidar_slam_torch.registration import residuals
+
+        residuals._reduce_scalar = self.saved
+
+
+def gn_timing(torch, args, label, kind="icp_gn_rounds") -> dict:
+    """A GN kernel (`kind`) timed on one captured call beside its plain
+    version and one empty launch, in turns, each call from its own copy of
+    the carry, with the call's bound."""
     from funny_lidar_slam_torch.ops import gn_loop
 
     pools = {k: args[0].repeat(512, 1) for k in ("kernel", "plain")}
     used = {"kernel": 0, "plain": 0}
+    fns = {"kernel": getattr(gn_loop, kind), "plain": getattr(gn_loop, f"{kind}_plain")}
 
-    def call(kind):
-        carry = pools[kind][used[kind]]
-        used[kind] += 1
-        fn = gn_loop.icp_gn_rounds if kind == "kernel" else gn_loop.icp_gn_rounds_plain
-        return fn(carry, *args[1:])
+    def call(which):
+        carry = pools[which][used[which]]
+        used[which] += 1
+        return fns[which](carry, *args[1:])
 
     turns = in_turns(lambda f: time_ms(torch, f[0], f[1]),
                      {"kernel": (lambda: call("kernel"), 50), "plain": (lambda: call("plain"), 3),
@@ -2699,9 +2821,10 @@ def gn_timing(torch, args, label) -> dict:
                      ["kernel", "plain", "floor", "floor", "plain", "kernel"])
     assert max(used.values()) <= 512, used
     ms = {c: float(np.median(v)) for c, v in turns.items()}
-    n, m = args[1].px.shape
-    its = gn_compare(torch, args)["iterations"]
-    nbytes, ops, reread = gn_cost(args, its)
+    n = [c.px.shape[0] for c in args[1:1 + GN_SETS[kind]]]
+    n, m = (n[0] if len(n) == 1 else n), args[1].px.shape[1]
+    its = gn_compare(torch, args, kind)["iterations"]
+    nbytes, ops, reread = gn_cost(args, its, kind)
     bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
     out = {"ms": ms["kernel"], "plain_ms": ms["plain"], "floor_ms": ms["floor"],
            "bound_ms": max(bound_bytes, bound_ops),
@@ -2709,7 +2832,7 @@ def gn_timing(torch, args, label) -> dict:
            "bound_ms_reading_each_iteration": reread / HBM_BYTES_PER_S * 1e3,
            "n": n, "m": m, "iterations": its, "bytes": nbytes, "ops": ops, "turns": turns,
            "vs_plain": versus(turns["kernel"], turns["plain"])}
-    log(f"[gn-loop] icp_gn_rounds at the {label} shape (N {n}, M {m}, {its} iterations): "
+    log(f"[gn-loop] {kind} at the {label} shape (N {n}, M {m}, {its} iterations): "
         f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.2f} ms, empty launch "
         f"{out['floor_ms']:.5f} ms, bound {out['bound_ms']:.6f} ms ({out['bound_by']}; the "
         f"candidates read once an iteration: {out['bound_ms_reading_each_iteration']:.6f} "
@@ -2804,15 +2927,207 @@ def phase_gn_loop(torch, report) -> dict:
     close = [r for r in rows_all if r["same"]]
     held64 = [r for r in rows_all if "dp64" in r]
     return {"name": "icp_gn_rounds", "route": "cuda", "source": GN_SOURCE[0],
-            "replaces": GN_SOURCE[1], "launches": sum(GN_LAUNCHES.values()),
+            "replaces": GN_SOURCE[1],
+            "launches": sum(v["icp_gn_rounds"] for v in GN_LAUNCHES_BY_KERNEL.values()),
             "max_abs_err": max(r["dp"] for r in close),
             "max_rot_err_rad": max(r["da"] for r in close),
             "held_to_float64": len(held64),
             "max_abs_err_vs_float64_where_held": max((r["dp64"] for r in held64), default=None),
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")},
             "library_ms": None, "shapes": {"headline": head, "most_iterations": most},
-            "launches_by_path": {p: v for p, v in GN_LAUNCHES.items() if v},
+            "launches_by_path": {p: v["icp_gn_rounds"] for p, v in GN_LAUNCHES_BY_KERNEL.items()
+                                 if v["icp_gn_rounds"]},
             "calls_compared": len(rows_all), "by_path": by_key, "resources": resources}
+
+
+# --------------------------------- phase 21: the LOAM matchers' GN loop kernels
+LOAM_GN_PATHS = {  # capture key -> the GN kernel its matcher's driver launches
+    **{m: "loam_gn_rounds" if m.startswith("LoamFull") else "plane_gn_rounds"
+       for m in bench.LOAM_MODES},
+    **{f"localization {m}": "loam_gn_rounds" if m.startswith("LoamFull")
+       else "plane_gn_rounds" for m in bench.LOAM_MODES},
+    "m2dgr": "plane_gn_rounds"}
+
+
+def first_rounds(calls, kind):
+    """The captured calls of `kind` that start a match (the carry's it 0)."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    return [a for k, a in calls if k == kind and int(a[0][gn_loop.OFFSET["it"]]) == 0]
+
+
+def loam_edge_cases(torch, plane_args, loam_args) -> list:
+    """[(name, kind, args)] on a captured first round of each kernel: a
+    starved set (min_valid above its rows), every lane invalid, every row's
+    first two lanes an exact duplicate (tied d2), a corner set of N 0 beside
+    the full planar set, max_iters 2; and the any-M kernels (<false, 0>,
+    <true, 0>) at M = 12."""
+    def with_cfg(args, kind, **kw):
+        i = 1 + GN_SETS[kind] + 1
+        return (*args[:i], args[i]._replace(**kw), *args[i + 1:])
+
+    def with_sets(args, kind, fn):
+        k = GN_SETS[kind]
+        return (args[0], *(fn(c) for c in args[1:1 + k]), *args[1 + k:])
+
+    def dead(c):
+        return c._replace(valid=torch.zeros_like(c.valid))
+
+    def tied(c):
+        out = {f: getattr(c, f).clone() for f in ("px", "py", "pz", "valid")}
+        for t in out.values():
+            t[:, 1] = t[:, 0]
+        return c._replace(**out)
+
+    def lanes12(c):
+        return c._replace(**{f: getattr(c, f)[:, :12].contiguous()
+                             for f in ("px", "py", "pz", "valid")})
+
+    cases = []
+    for kind, args in (("plane_gn_rounds", plane_args), ("loam_gn_rounds", loam_args)):
+        rows = sum(c.px.shape[0] for c in args[1:1 + GN_SETS[kind]])
+        cases += [(f"{kind} starved", kind, with_cfg(args, kind, min_valid=rows + 1)),
+                  (f"{kind} every lane invalid", kind, with_sets(args, kind, dead)),
+                  (f"{kind} tied lanes", kind, with_sets(args, kind, tied)),
+                  (f"{kind} max_iters 2", kind, with_cfg(args, kind, max_iters=2)),
+                  (f"{kind} M 12", kind, with_sets(args, kind, lanes12))]
+    corner = loam_args[1]
+    empty = corner._replace(**{f: getattr(corner, f)[:0].contiguous() for f in corner._fields})
+    cases.append(("loam_gn_rounds no corner rows", "loam_gn_rounds",
+                  (loam_args[0], empty, *loam_args[2:])))
+    return cases
+
+
+def phase_loam_gn(torch, report) -> list:
+    """Phase 21: plane_gn_rounds and loam_gn_rounds (csrc/gn_loop.cu
+    `loam_gn_kernel<false|true, 16|0>`, the JAX `run_gn_corr` while_loop
+    over the point-to-plane and LoamFull candidate sets, one launch a
+    gather round) against their plain versions on every call captured in
+    untimed runs beside phases 7-9 (mapping), 12a-c (localization) and 15a
+    (the M2DGR preset), with phase 20's gates: the same status, iterations
+    and gathers on >= 95 % of a path's calls, and there the pose within
+    1e-4 m and 1e-5 rad of the plain version's, or, where the two float32
+    runs part by more, of the plain version with float64 sums
+    (`float64_sums`: the kernel's one deviation, its fits still float32),
+    num_valid within 1 %, total_res within 1e-3 relative; every call's pose
+    finite and within 0.05 m; the launches while capturing equal to the
+    calls captured. Then the synthetic edge cases (`loam_edge_cases`), the
+    LoamFull kernel with no corner rows bit-equal to the plane kernel, the
+    any-M kernels bit-equal to the M = 16 ones on misaligned planes, each
+    wrapper under set_sync_debug_mode("error"), no ptxas spills in any GN
+    kernel, and each kernel timed beside its plain version and one empty
+    launch at the bench's planar shape (PointToPlane_IVOX's first round) and
+    LoamFull's (corner + planar), and at the captured call with the most
+    iterations. Returns the two JSON entries."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    t_phase = time.perf_counter()
+    resources = {k: v for k, v in report.get("gn_loop", {}).items()
+                 if k.startswith(("icp_gn_kernel", "loam_gn_kernel"))}
+    assert len(resources) == 6, f"[loam-gn] ptxas report {sorted(resources)}"
+    for name, res in resources.items():
+        assert res["registers"] and res["spill_stores"] == 0 and res["spill_loads"] == 0, \
+            f"[loam-gn] {name} spills: {res}"
+    saved = {k: getattr(gn_loop, k).launches for k in LOAM_GN_KERNELS}  # comparisons do not count
+    by_kernel = {k: {} for k in LOAM_GN_KERNELS}
+    rows_all = {k: [] for k in LOAM_GN_KERNELS}
+    replayed = {k: [] for k in LOAM_GN_KERNELS}
+    for key, kernel in LOAM_GN_PATHS.items():
+        calls = LOAM_CAPTURES.get(key, [])
+        launched = {k: v for k, v in LOAM_CAPTURE_LAUNCHES.get(key, {}).items() if v}
+        assert launched == {kernel: len(calls)} and calls, \
+            f"[loam-gn] {key}: {len(calls)} calls captured, launched {launched}"
+        assert all(k == kernel for k, _ in calls), f"[loam-gn] {key}: another kernel ran"
+        rows = [gn_compare(torch, args, kernel) for _, args in calls]
+        rows_all[kernel] += rows
+        replayed[kernel] += [(key, args, r["iterations"]) for (_, args), r in zip(calls, rows)]
+        same = sum(r["same"] for r in rows) / len(rows)
+        bad = [i for i, r in enumerate(rows) if (r["same"] and not r["close"])
+               or not r["finite"] or r["dp"] > 0.05]
+        matches = sum(r["first"] for r in rows)
+        summary = {"kernel": kernel, "calls": len(rows), "matches": matches, "same_share": same,
+                   "held_to_float64": sum("dp64" in r for r in rows),
+                   "iterations_per_match": sum(r["iterations"] for r in rows) / max(matches, 1),
+                   "rounds_per_match": len(rows) / max(matches, 1),
+                   **{f: [float(np.quantile([r[f] for r in rows], q)) for q in (0.5, 0.95, 1)]
+                      for f in ("dp", "da", "nv_rel", "res_rel")},
+                   "differing": [{k: r[k] for k in ("status", "it", "gathers", "dp", "da")}
+                                 for r in rows if not r["same"]][:5]}
+        by_kernel[kernel][key] = summary
+        log(f"[loam-gn] {key}: " + json.dumps(summary))
+        assert not bad, f"[loam-gn] {key}: calls {bad} out of tolerance: " \
+            f"{[rows[i] for i in bad[:3]]}"
+        assert same >= GN_SAME_SHARE, f"[loam-gn] {key}: {same:.3f} of calls agree"
+
+    ivox = LOAM_CAPTURES[bench.LOAM_MODES[0]]
+    full = LOAM_CAPTURES["LoamFull_KdTree"]
+    plane_args = first_rounds(ivox, "plane_gn_rounds")[-1]
+    loam_args = first_rounds(full, "loam_gn_rounds")[-1]
+    edge = {}
+    for name, kind, args in loam_edge_cases(torch, plane_args, loam_args):
+        r = gn_compare(torch, args, kind)
+        edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel",
+                                        "res_rel", "same", "close")}
+        assert r["same"] and r["close"] and r["finite"], f"[loam-gn] edge case {name}: {r}"
+    # no corner rows: the LoamFull kernel gives the plane kernel's carry bit for bit
+    _, kind, args = loam_edge_cases(torch, plane_args, loam_args)[-1]
+    ca, cb = args[0].clone(), args[0].clone()
+    gn_loop.loam_gn_rounds(ca, *args[1:])
+    gn_loop.plane_gn_rounds(cb, *args[2:5], *args[6:])  # no line_ratio
+    assert torch.equal(ca, cb), "[loam-gn] no corner rows: the two kernels differ"
+    # the any-M kernels on misaligned planes: bit-equal to the M = 16 ones
+    for kind, args in (("plane_gn_rounds", plane_args), ("loam_gn_rounds", loam_args)):
+        k, fn = GN_SETS[kind], getattr(gn_loop, kind)
+        sets = []
+        for c in args[1:1 + k]:
+            px = torch.empty(c.px.numel() + 1, dtype=c.px.dtype, device=c.px.device)
+            sets.append(c._replace(px=px[1:].view(c.px.shape).copy_(c.px)))
+        c16, c0 = args[0].clone(), args[0].clone()
+        fn(c16, *args[1:])
+        fn(c0, *sets, *args[1 + k:])
+        assert torch.equal(c16, c0), f"[loam-gn] {kind}: the any-M kernel differs"
+    log(f"[loam-gn] {len(edge)} edge cases within tolerance, no corner rows bit-equal to the "
+        f"plane kernel, the any-M kernels bit-equal on misaligned planes: {json.dumps(edge)}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gn_loop.plane_gn_rounds(plane_args[0].clone(), *plane_args[1:])
+        gn_loop.loam_gn_rounds(loam_args[0].clone(), *loam_args[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[loam-gn] plane_gn_rounds and loam_gn_rounds ran under set_sync_debug_mode('error')")
+
+    entries = []
+    for kind, args, label in (("plane_gn_rounds", plane_args, "PointToPlane_IVOX first round"),
+                              ("loam_gn_rounds", loam_args, "LoamFull_KdTree first round")):
+        head = gn_timing(torch, args, label, kind)
+        key, most_args, _ = max(replayed[kind], key=lambda r: r[2])
+        most = gn_timing(torch, most_args, f"most iterations ({key})", kind)
+        res = {k: v for k, v in resources.items()
+               if k.startswith(f"loam_gn_kernel<{'true' if kind == 'loam_gn_rounds' else 'false'}")}
+        log(f"[loam-gn] {kind} ptxas {res}")
+        close = [r for r in rows_all[kind] if r["same"]]
+        held64 = [r for r in rows_all[kind] if "dp64" in r]
+        by_path = {p: v[kind] for p, v in GN_LAUNCHES_BY_KERNEL.items() if v.get(kind)}
+        entries.append({
+            "name": kind, "route": "cuda", "source": GN_SOURCE[0], "replaces": GN_SOURCE[1],
+            "launches": sum(by_path.values()),
+            "max_abs_err": max(r["dp"] for r in close),
+            "max_rot_err_rad": max(r["da"] for r in close),
+            "held_to_float64": len(held64),
+            "max_abs_err_vs_float64_where_held": max((r["dp64"] for r in held64),
+                                                     default=None),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")},
+            "library_ms": None, "shapes": {"first_round": head, "most_iterations": most},
+            "launches_by_path": by_path, "calls_compared": len(rows_all[kind]),
+            "by_path": by_kernel[kind],
+            "edge_cases": {n: e for n, e in edge.items() if n.startswith(kind)},
+            "resources": res})
+    for k, n in saved.items():
+        getattr(gn_loop, k).launches = n
+    log(f"[loam-gn] phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 def main() -> int:
@@ -2862,6 +3177,7 @@ def main() -> int:
     by_path["bench_headline"], paths["bench_headline"] = phase_bench(torch)
     loop_entries = phase_device_loops(torch, report)
     gn_entry = phase_gn_loop(torch, report)
+    loam_gn_entries = phase_loam_gn(torch, report)
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
                "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
                "verify_ms_median", "verify_ms_max", "optimize_ms",
@@ -2890,7 +3206,8 @@ def main() -> int:
                  unpacked_step_brute_force_rows=step_sel["brute_force_rows"],
                  paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
-    print(json.dumps({"kernels": [entry] + probe_entries + loop_entries + [gn_entry]}))
+    print(json.dumps({"kernels": [entry] + probe_entries + loop_entries + [gn_entry]
+                      + loam_gn_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,56 +1,99 @@
-// The ICP Gauss-Newton loop over cached candidates, one thread block a call:
+// The Gauss-Newton loops over cached candidates, one thread block a call:
 //
-//   icp_gn_kernel  the body of the JAX `lax.while_loop` of
-//                  funny_lidar_slam_tpu/registration/gn.py:232 (body
-//                  :156-212) with hg_fn = point_to_point_hg_cand
-//                  (funny_lidar_slam_tpu/registration/residuals.py:226),
-//                  from a carry held on the device until the loop ends or
-//                  the next iteration would need a fresh gather. Plain
-//                  version ops/gn_loop.py::icp_gn_rounds_plain.
+//   icp_gn_kernel    the body of the JAX `lax.while_loop` of
+//                    funny_lidar_slam_tpu/registration/gn.py:232 (body
+//                    :156-212) with hg_fn = point_to_point_hg_cand
+//                    (funny_lidar_slam_tpu/registration/residuals.py:226)
+//                    and the ICP update. Plain version
+//                    ops/gn_loop.py::icp_gn_rounds_plain.
+//   loam_gn_kernel   the same body with the LOAM update over
+//                    point_to_plane_hg_cand rows (residuals.py:237-251) of
+//                    one set (<false>: PointToPlaneMatcher, plain version
+//                    plane_gn_rounds_plain), or point_to_line_hg_cand rows
+//                    (:253-270) of a corner set plus plane rows of a planar
+//                    set, summed, the planar count as num_valid (<true>:
+//                    LoamFullMatcher, matchers.py:628-637; plain version
+//                    loam_gn_rounds_plain).
 //
-// A call is handed the candidate set gathered at the carry's pose. Each
+// Each runs from a carry held on the device until the loop ends or the
+// next iteration would need a fresh gather.
+//
+// A call is handed the candidate set(s) gathered at the carry's pose. Each
 // iteration: test the loop bound (gathers < max_iters, it < max_total, not
 // done; else status S_DONE) and the trust region (moved = |dt| + theta r >
 // skip_dist, theta = |R Rg^T - I|_F / sqrt 2); if the iteration refreshes
 // ((want & moved) | it == 0) and the call's gather is spent, status
-// S_NEED_GATHER. Otherwise transform every source row, pick the nearest
-// valid candidate among its M (a strict < over the lanes in order: argmin's
-// first minimum), gate it at d2 <= max_corr_dist_sq, and sum over the rows
-// H = sum J^T J and g = -sum J^T r with J = [I | -R hat(s)], r = R s + t - q,
-// the count of valid rows and sum |r|; then solve6_damped (scale =
-// max(trace H / 6, 1), Cholesky of H + 1e-6 scale I in f32, NaN where it
-// fails), the ICP update (t += dt, R := R Exp(dr)), and the carry update of
-// the JAX body. The host reads the status word once a call.
+// S_NEED_GATHER. Otherwise linearize every row at the current pose and sum
+// the normal equations, solve6_damped (scale = max(trace H / 6, 1),
+// Cholesky of H + 1e-6 scale I in f32, NaN where it fails), update the
+// pose, and update the carry as the JAX body does. The host reads the
+// status word once a call.
 //
-// Bound: an iteration reads px, py, pz [N, M] f32, valid [N, M] u8 and src
-// [N, 3] f32: N M 13 + N 12 bytes, 3.6 MB at N = 16,384, M = 16, or 1.1 us
-// at 3.35 TB/s; the operations (~9 a lane, ~80 a row) are a fraction of
-// that at 67 TFLOP/s f32. Counting each input once, as a call's least
-// time, the bound is one such read (the set fits in the 50 MB L2), 1.1 us
-// a call whatever its iterations. This design sits far above it: one
-// block on one SM streams the set once an iteration, and one thread solves
-// the 6x6 system between two barriers. It keeps the loop on the device (no
-// launch and no host read an iteration), which is what the step lacked; a
-// cooperative multi-block reduction, or wgmma and TMA, is later work.
+// The rows. ICP: the nearest valid candidate among the row's M (a strict <
+// over the lanes in order: argmin's first minimum), gated at d2 <=
+// max_corr_dist_sq, J = [I | -R hat(s)], r = R s + t - q. LOAM: the 5
+// nearest valid candidates, ascending (ties to the lower lane, as
+// lax.top_k), all within max_search_dist_sq; then
+//   plane (fit_plane_5nn, :336-358): A^T A + 1e-9 I inverted by the
+//     adjugate (lin3.inv3) in f32, x = (A^T A)^-1 A^T (-1), each
+//     |a_k.x + 1| / |x| <= plane_thresh, n = x / |x|, d = (p - a_0).n, the
+//     near reject |s| < 81 d^2; r = |d|, J = [Rs x v | v], v = sign(d) n;
+//   line (point_to_line_corr, :438-471): the centroid c and covariance / 5
+//     of the 5, its eigenvalues in closed form (lin3.sym3_eigvalsh: arccos
+//     and cos), the gate lambda_max > ratio lambda_mid, the direction n by
+//     exactly 12 shifted power iterations from (1, 1, 1)/sqrt 3 (lin3.
+//     sym3_principal_eigvec, no early exit: the same unconverged vector
+//     where the start is nearly orthogonal to it); u = (p - c) x n / |.|,
+//     r = |(p - c) x n| > 1e-9, J = [Rs x v | v], v = n x u.
+// The fits' small sums (A^T A, A^T 1, (A^T A)^-1 A^T 1, the residuals, |x|,
+// d, the centroid and the covariance) are taken in float64 from the exact
+// float32 products and rounded once to float32, as residuals.py's
+// `_einsum_small` / `_sum_small` / `_dot` take them on the card: far from
+// the origin A^T A's determinant cancels and the plane gates follow the
+// last bits, which cuBLAS's summation order would otherwise decide. The
+// rest of both fits (the adjugate, the eigenvalues, the power steps) stays
+// float32, each product and sum rounded in the plain version's order (no
+// fused multiply-add where PyTorch runs separate elementwise ops).
 //
-// Design: each of the 512 threads strides over the rows and keeps its 23
-// partial sums in registers (g_t[3], g_r[3], H_tr[9], the 6 unique entries
-// of H_rr, the count, sum |r|; H_tt is count I). Where M = 16 and the
-// planes are 16-byte aligned (icp_gn_kernel<16>, every gather of the port)
-// a row's lanes come as thirteen 16-byte loads issued together, so a
-// thread waits on memory once a row, not once a lane (icp_gn_kernel<0>
-// takes any M). The partials are reduced in a fixed order, warp shuffles
+// Bound: an iteration reads, for each set, px, py, pz [N, M] f32, valid
+// [N, M] u8 and src [N, 3] f32: N M 13 + N 12 bytes, 3.6 MB at N = 16,384,
+// M = 16, or 1.1 us at 3.35 TB/s; the operations (~9 a lane, ~80 an ICP
+// row, a few hundred a plane or line row) are a fraction of that at 67
+// TFLOP/s f32. Counting each input once, as a call's least time, the bound
+// is one such read (the sets fit in the 50 MB L2), whatever the call's
+// iterations. This design sits far above it: one block on one SM streams
+// the sets once an iteration, and one thread solves the 6x6 system between
+// two barriers. It keeps the loop on the device (no launch and no host
+// read an iteration), which is what the step lacked; a cooperative
+// multi-block reduction, or wgmma and TMA, is later work.
+//
+// Design: each thread strides over the rows (icp: 512 threads; loam: 256,
+// so that a row's sixteen lanes, its five neighbours, its fit and the 29
+// partial sums fit the 255 registers a thread may hold) and keeps its
+// partial sums in registers (icp: g_t[3], g_r[3], H_tr[9], the 6 unique
+// entries of H_rr, the count, sum |r|, H_tt being count I; loam: the 21
+// unique entries of H, g[6], the planar count, sum |r|). Where M = 16 and
+// the planes are 16-byte aligned (<16>, every gather of the port) a row's
+// lanes come as thirteen 16-byte loads issued together, so a thread waits
+// on memory once a row, not once a lane (<0> takes any M). LoamFull's two
+// sets are one strided range of rows (the corner rows first), reduced once
+// an iteration. The partials are reduced in a fixed order, warp shuffles
 // then the warps' rows of shared memory in warp order, with no atomics, so
 // two runs agree bit for bit. Thread 0 keeps the carry in shared memory,
-// tests the bound, solves, updates and sets the flags between barriers.
+// tests the bound, solves, updates and sets the flags between barriers
+// (loam_gn_kernel: begin_iteration / end_iteration; icp_gn_kernel keeps
+// the same steps written out in its body: at its 128-register ceiling,
+// routing it through those helpers made ptxas spill 56 bytes and cost it
+// 0.7 % on the card, with the same carries bit for bit).
 //
-// The sums are float64, the kernel's one departure from the reference's
+// The sums are float64, the kernels' one departure from the reference's
 // float32: these normal equations have a condition near 1e3 (the rotation
 // block ~ N |s|^2 against the translation block's N), and at convergence g
 // is a sum of terms that cancel, so float32 sums in any order move the pose
 // by up to ~1e-4 m (two float32 implementations part by that much on the
 // card). Float64 sums fix g, and so the pose GN settles at, to ~1e-6 m of a
-// float64 run; each row's terms, the distances and the Cholesky stay f32.
+// float64 run; each row's terms, the distances, the fits and the Cholesky
+// stay f32.
 //
 // Carry (int32 words, float fields as their bits; ops/gn_loop.py CARRY):
 //   t_mat[16] t_gather[16] last_rot last_pos total_res (f32) | it gathers
@@ -70,17 +113,47 @@ enum {
   C_CONVERGED = 40, C_NUM_VALID = 41, C_STATUS = 42, C_SIZE = 43
 };
 enum { S_NEED_GATHER = 1, S_DONE = 2 };
-// the per-thread sums: -g's two halves before the sign, H's t-r block, the
-// upper triangle of its r-r block, the valid rows and sum |r|
+// the update conventions: ICP dx = [t, r], P += dt, R := R Exp(dr); LOAM
+// dx = [r, t], R := Exp(dr) R, P += dt
+enum { U_ICP = 0, U_LOAM = 1 };
+// the ICP per-thread sums: -g's two halves before the sign, H's t-r block,
+// the upper triangle of its r-r block, the valid rows and sum |r|
 enum { A_GT = 0, A_GR = 3, A_HTR = 6, A_HRR = 15, A_COUNT = 21, A_RES = 22, A_SIZE = 23 };
+// the LOAM per-thread sums: the upper triangle of H = sum J J^T (row by
+// row), sum J r (-g), the planar rows and sum |r|
+enum { L_H = 0, L_G = 21, L_COUNT = 27, L_RES = 28, L_SIZE = 29 };
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 512;  // icp_gn_kernel
 constexpr int kWarps = kThreads / 32;
+constexpr int kLoamThreads = 256;  // loam_gn_kernel
+constexpr int kLoamWarps = kLoamThreads / 32;
 constexpr float kDamping = 1e-6f;  // lin3.solve6_damped
+
+// the loop's own settings (GNConfig)
+struct Loop {
+  int max_iters, max_total, corr_every, min_valid, use_stall;
+  float rot_eps, pos_eps, stall_eps, skip_dist;
+};
 
 struct Params {
   int n, m, max_iters, max_total, corr_every, min_valid, use_stall;
   float rot_eps, pos_eps, stall_eps, skip_dist, max_d2;
+};
+
+// one candidate set: px, py, pz, valid [n, m], src [n, 3]
+struct Set {
+  const float* px;
+  const float* py;
+  const float* pz;
+  const unsigned char* valid;
+  const float* src;
+  int n;
+};
+
+struct LoamParams {
+  int m;
+  Loop loop;
+  float max_d2, plane_thresh, line_ratio;
 };
 
 // (dx^2 + dy^2) + dz^2 with every product and sum rounded, as the plain
@@ -92,6 +165,25 @@ __device__ inline float dist2(float dx, float dy, float dz) {
 
 __device__ inline float lane4(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// the rows' 16 lanes of px, py, pz and valid at `base` as thirteen 16-byte
+// loads, all issued before any is used
+__device__ inline void load16(const float* __restrict__ px, const float* __restrict__ py,
+                              const float* __restrict__ pz,
+                              const unsigned char* __restrict__ valid, size_t base, float4* x,
+                              float4* y, float4* z, unsigned* words) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[k] = __ldg(reinterpret_cast<const float4*>(px + base) + k);
+    y[k] = __ldg(reinterpret_cast<const float4*>(py + base) + k);
+    z[k] = __ldg(reinterpret_cast<const float4*>(pz + base) + k);
+  }
+  const uint4 vb = __ldg(reinterpret_cast<const uint4*>(valid + base));
+  words[0] = vb.x;
+  words[1] = vb.y;
+  words[2] = vb.z;
+  words[3] = vb.w;
 }
 
 // the nearest valid candidate of the row at `base` to the point q, over the
@@ -147,6 +239,26 @@ __device__ inline void nearest(const float* __restrict__ px, const float* __rest
   c[0] = bx;
   c[1] = by;
   c[2] = bz;
+}
+
+// a fixed-order block sum of every thread's acc[kSums] into sums[kSums]:
+// warp shuffles, then the warps' rows of `part` in warp order
+template <int kSums, int kNumWarps>
+__device__ __forceinline__ void block_sum(const double* acc, double (*part)[kSums], double* sums) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) {
+    double v = acc[k];
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) part[warp][k] = v;
+  }
+  __syncthreads();
+  if (tid < kSums) {
+    double v = 0.0;
+    for (int w = 0; w < kNumWarps; ++w) v += part[w][tid];
+    sums[tid] = v;
+  }
+  __syncthreads();
 }
 
 // the rows' sums at pose (rot, t): each thread's strided rows, then the
@@ -209,6 +321,294 @@ __device__ void linearize(const float* __restrict__ px, const float* __restrict_
   __syncthreads();
 }
 
+// ------------------------------------------------------------ LOAM rows
+
+// slot j of the five nearest: insert (cd, cx, cy, cz) before the first
+// entry it is strictly below and shift the rest down (ties stay in lane
+// order, as lax.top_k keeps them); every index static, so d and c stay in
+// registers
+__device__ __forceinline__ void insert5(float cd, float cx, float cy, float cz, float* d, float (*c)[3]) {
+  bool shift = false;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    shift = shift || cd < d[k];
+    if (shift) {
+      const float td = d[k], tx = c[k][0], ty = c[k][1], tz = c[k][2];
+      d[k] = cd;
+      c[k][0] = cx;
+      c[k][1] = cy;
+      c[k][2] = cz;
+      cd = td;
+      cx = tx;
+      cy = ty;
+      cz = tz;
+    }
+  }
+}
+
+// the 5 nearest valid candidates of the row at `base` to q, ascending:
+// squared distances d[5] (+inf past the valid lanes, as the plain
+// version's topk over +inf lanes) and points c[5][3] (0 there)
+template <int kM>
+__device__ __forceinline__ void nearest5(const float* __restrict__ px, const float* __restrict__ py,
+                                         const float* __restrict__ pz,
+                                         const unsigned char* __restrict__ valid, size_t base,
+                                         int m, const float* q, float* d, float (*c)[3]) {
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    d[k] = INFINITY;
+    c[k][0] = c[k][1] = c[k][2] = 0.f;
+  }
+  if constexpr (kM == 16) {
+    float4 x[4], y[4], z[4];
+    unsigned words[4];
+    load16(px, py, pz, valid, base, x, y, z, words);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      if (!((words[j >> 2] >> (8 * (j & 3))) & 0xffu)) continue;
+      const float cx = lane4(x[j >> 2], j & 3), cy = lane4(y[j >> 2], j & 3),
+                  cz = lane4(z[j >> 2], j & 3);
+      insert5(dist2(cx - q[0], cy - q[1], cz - q[2]), cx, cy, cz, d, c);
+    }
+  } else {
+    for (int j = 0; j < m; ++j) {
+      if (!__ldg(valid + base + j)) continue;
+      const float cx = __ldg(px + base + j), cy = __ldg(py + base + j), cz = __ldg(pz + base + j);
+      insert5(dist2(cx - q[0], cy - q[1], cz - q[2]), cx, cy, cz, d, c);
+    }
+  }
+}
+
+__device__ inline float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ inline float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ inline float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// sum over the five neighbours of c[k][i] c[k][j] in float64 (the float32
+// products are exact there), rounded once to float32: residuals.py
+// `_einsum_small` on the card, whose value no summation order changes
+__device__ inline float sum5_prod(const float (*c)[3], int i, int j) {
+  double v = 0.0;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) v = __fma_rn(static_cast<double>(c[k][i]), c[k][j], v);
+  return __double2float_rn(v);
+}
+
+// sum over the five neighbours of c[k][i], likewise rounded once
+__device__ inline float sum5(const float (*c)[3], int i) {
+  double v = 0.0;
+#pragma unroll
+  for (int k = 0; k < 5; ++k) v += c[k][i];
+  return __double2float_rn(v);
+}
+
+// a.b over three components, likewise rounded once (residuals.py `_dot`)
+__device__ inline float dot3(const float* a, const float* b) {
+  return __double2float_rn(__fma_rn(static_cast<double>(a[2]), b[2],
+                                    __fma_rn(static_cast<double>(a[1]), b[1],
+                                             static_cast<double>(a[0]) * b[0])));
+}
+
+__device__ inline void cross3(const float* a, const float* b, float* out) {
+  out[0] = sub(mul(a[1], b[2]), mul(a[2], b[1]));
+  out[1] = sub(mul(a[2], b[0]), mul(a[0], b[2]));
+  out[2] = sub(mul(a[0], b[1]), mul(a[1], b[0]));
+}
+
+// the point-to-plane row (_plane_gates + point_to_plane_hg_corr) on the
+// five nearest c (all within max_d2): true with v (J = [rp x v | v]) and
+// the residual r where every gate passes
+__device__ __forceinline__ bool plane_row(const float (*c)[3], const float* q, const float* s,
+                                 float thresh, float* v, float* r) {
+  // A^T A + 1e-9 I (symmetric) and A^T (-1)
+  float m[9], atb[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = i; j < 3; ++j) m[3 * i + j] = m[3 * j + i] = sum5_prod(c, i, j);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    m[4 * i] = add(m[4 * i], 1e-9f);
+    atb[i] = -sum5(c, i);
+  }
+  // lin3.inv3: the adjugate over the determinant, each op rounded in order
+  const float c00 = sub(mul(m[4], m[8]), mul(m[5], m[7]));
+  const float c01 = sub(mul(m[2], m[7]), mul(m[1], m[8]));
+  const float c02 = sub(mul(m[1], m[5]), mul(m[2], m[4]));
+  const float c10 = sub(mul(m[5], m[6]), mul(m[3], m[8]));
+  const float c11 = sub(mul(m[0], m[8]), mul(m[2], m[6]));
+  const float c12 = sub(mul(m[2], m[3]), mul(m[0], m[5]));
+  const float c20 = sub(mul(m[3], m[7]), mul(m[4], m[6]));
+  const float c21 = sub(mul(m[1], m[6]), mul(m[0], m[7]));
+  const float c22 = sub(mul(m[0], m[4]), mul(m[1], m[3]));
+  const float det = add(add(mul(m[0], c00), mul(m[1], c01)), mul(m[2], c02));
+  const float inv_det = __fdiv_rn(1.f, fabsf(det) < 1e-30f ? 1e-30f : det);
+  const float inv[9] = {mul(c00, inv_det), mul(c01, inv_det), mul(c02, inv_det),
+                        mul(c10, inv_det), mul(c11, inv_det), mul(c12, inv_det),
+                        mul(c20, inv_det), mul(c21, inv_det), mul(c22, inv_det)};
+  float x[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) x[i] = dot3(inv + 3 * i, atb);
+  const float safe = fmaxf(__fsqrt_rn(dot3(x, x)), 1e-12f);
+  bool ok = true;
+#pragma unroll
+  for (int k = 0; k < 5; ++k)
+    ok = ok && __fdiv_rn(fabsf(add(dot3(c[k], x), 1.f)), safe) <= thresh;
+  if (!ok) return false;
+  float n[3], e[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    n[i] = __fdiv_rn(x[i], safe);
+    e[i] = sub(q[i], c[0][i]);
+  }
+  const float d = dot3(e, n);
+  if (__fsqrt_rn(dot3(s, s)) < mul(mul(81.f, d), d)) return false;  // the near reject
+  const float sign = d > 0.f ? 1.f : -1.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) v[i] = mul(n[i], sign);
+  *r = fabsf(d);
+  return true;
+}
+
+// lin3.sym3_eigvalsh's largest two eigenvalues (lam_max, lam_mid) of the
+// symmetric a, each op in the plain version's order
+__device__ __forceinline__ void eig_top2(const float* a, float* lam_max, float* lam_mid) {
+  const float q = __fdiv_rn(add(add(a[0], a[4]), a[8]), 3.f);
+  float dm[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) dm[k] = k % 4 == 0 ? sub(a[k], q) : a[k];
+  float p2 = mul(dm[0], dm[0]);
+#pragma unroll
+  for (int k = 1; k < 9; ++k) p2 = add(p2, mul(dm[k], dm[k]));
+  if (p2 < 1e-30f) {
+    *lam_max = *lam_mid = q;
+    return;
+  }
+  const float p = __fsqrt_rn(fmaxf(__fdiv_rn(p2, 6.f), 0.f));
+  const float pc = fmaxf(p, 1e-30f);
+  float b[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) b[k] = __fdiv_rn(dm[k], pc);
+  const float det = add(sub(mul(b[0], sub(mul(b[4], b[8]), mul(b[5], b[7]))),
+                            mul(b[1], sub(mul(b[3], b[8]), mul(b[5], b[6])))),
+                        mul(b[2], sub(mul(b[3], b[7]), mul(b[4], b[6]))));
+  const float rr = fminf(fmaxf(__fdiv_rn(det, 2.f), -1.f), 1.f);
+  const float phi = __fdiv_rn(acosf(rr), 3.f);
+  const float l0 = add(q, mul(mul(2.f, p), cosf(phi)));
+  const float l2 = add(q, mul(mul(2.f, p), cosf(add(phi, 2.0943951023931953f))));
+  *lam_max = l0;
+  *lam_mid = sub(sub(mul(3.f, q), l0), l2);
+}
+
+// the point-to-line row (point_to_line_hg_cand) on the five nearest c (all
+// within max_d2): true with v (J = [rp x v | v]) and the residual r where
+// the line gate passes and r > 1e-9
+__device__ __forceinline__ bool line_row(const float (*c)[3], const float* q, float ratio, float* v,
+                                float* r) {
+  float ctr[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) ctr[i] = __fdiv_rn(sum5(c, i), 5.f);
+  float cen[5][3];
+#pragma unroll
+  for (int k = 0; k < 5; ++k)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) cen[k][i] = sub(c[k][i], ctr[i]);
+  float cov[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = i; j < 3; ++j) cov[3 * i + j] = cov[3 * j + i] = __fdiv_rn(sum5_prod(cen, i, j), 5.f);
+  float lam_max, lam_mid;
+  eig_top2(cov, &lam_max, &lam_mid);
+  if (!(lam_max > mul(ratio, lam_mid))) return false;
+  // sym3_principal_eigvec: the Gershgorin shift, 12 power steps
+  float shift = 0.f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    shift = fmaxf(shift, add(add(fabsf(cov[3 * i]), fabsf(cov[3 * i + 1])), fabsf(cov[3 * i + 2])));
+  float sm[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) sm[k] = k % 4 == 0 ? add(cov[k], shift) : cov[k];
+  float n[3] = {0.577350269f, 0.577350269f, 0.577350269f};
+#pragma unroll 1
+  for (int it = 0; it < 12; ++it) {
+    float w[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) w[i] = dot3(sm + 3 * i, n);
+    const float nrm = fmaxf(__fsqrt_rn(dot3(w, w)), 1e-30f);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) n[i] = __fdiv_rn(w[i], nrm);
+  }
+  float diff[3], cx[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) diff[i] = sub(q[i], ctr[i]);
+  cross3(diff, n, cx);
+  const float dist = __fsqrt_rn(dot3(cx, cx));
+  if (!(dist > 1e-9f)) return false;
+  float u[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) u[i] = __fdiv_rn(cx[i], fmaxf(dist, 1e-9f));
+  cross3(n, u, v);
+  *r = dist;
+  return true;
+}
+
+// one valid LOAM row into the sums: J = [rp x v | v], H += J J^T, -g += J r
+__device__ __forceinline__ void add_row(double* acc, const float* rp, const float* v, float r,
+                               bool planar) {
+  float jac[6];
+  cross3(rp, v, jac);
+  jac[3] = v[0];
+  jac[4] = v[1];
+  jac[5] = v[2];
+  int u = L_H;
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = i; j < 6; ++j) acc[u++] += jac[i] * jac[j];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) acc[L_G + i] += jac[i] * r;
+  acc[L_COUNT] += planar ? 1.0 : 0.0;
+  acc[L_RES] += r;
+}
+
+// the LOAM rows' sums at pose (rot, t): the corner set's line rows (with
+// kLines) then the planar set's plane rows, as one strided range, into
+// acc[L_SIZE]
+template <bool kLines, int kM>
+__device__ __forceinline__ void loam_rows(const Set& corner, const Set& planar, const LoamParams& p,
+                          const float* rot, const float* t, double* acc) {
+#pragma unroll
+  for (int k = 0; k < L_SIZE; ++k) acc[k] = 0.0;
+  const int nc = kLines ? corner.n : 0;
+  for (int r = threadIdx.x; r < nc + planar.n; r += kLoamThreads) {
+    // the row's set, field by field (a reference to either kernel
+    // parameter would put both on the stack)
+    const bool line = kLines && r < nc;
+    const int row = line ? r : r - nc;
+    const float* px = line ? corner.px : planar.px;
+    const float* py = line ? corner.py : planar.py;
+    const float* pz = line ? corner.pz : planar.pz;
+    const unsigned char* valid = line ? corner.valid : planar.valid;
+    const float* sp = (line ? corner.src : planar.src) + 3 * row;
+    const float src[3] = {__ldg(sp), __ldg(sp + 1), __ldg(sp + 2)};
+    float rp[3], q[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {  // R s: a multiply-add chain over k; then + t
+      rp[i] = fmaf(rot[3 * i + 2], src[2], fmaf(rot[3 * i + 1], src[1], __fmul_rn(rot[3 * i], src[0])));
+      q[i] = __fadd_rn(rp[i], t[i]);
+    }
+    float d[5], c[5][3];
+    nearest5<kM>(px, py, pz, valid, static_cast<size_t>(row) * p.m, p.m, q, d, c);
+    if (!(d[4] <= p.max_d2)) continue;  // fewer than five valid lanes, or gated
+    float v[3], res;
+    const bool ok = line ? line_row(c, q, p.line_ratio, v, &res)
+                         : plane_row(c, q, src, p.plane_thresh, v, &res);
+    if (ok) add_row(acc, rp, v, res, !line);
+  }
+}
+
+// ------------------------------------------------------- the loop skeleton
+
 // (H + damping scale I) x = g by Cholesky, as lin3.solve6_damped; false
 // where the factorization fails (a pivot not > 0)
 __device__ bool solve6(const float* h, const float* g, float* x) {
@@ -257,6 +657,90 @@ __device__ bool moved_beyond(const float* tm, const float* tg, float radius, flo
     }
   const float theta = sqrtf(fro) / sqrtf(2.f);
   return dt + theta * radius > dist;
+}
+
+// thread 0's state within a call
+struct Iter {
+  bool fresh;    // the call's gather, not yet used
+  bool refresh;  // this iteration takes it
+  bool moved;    // the pose left the trust region
+};
+
+// thread 0, before an iteration: the loop bound, the trust region and the
+// gather test of the JAX body. Returns 1 with the pose (R[9], t[3]) to
+// linearize at, or 0 with the status word set
+__device__ __forceinline__ int begin_iteration(int* ci, const Loop& p, float radius, Iter& s, float* pose) {
+  float* cf = reinterpret_cast<float*>(ci);
+  if (!(ci[C_GATHERS] < p.max_iters && ci[C_IT] < p.max_total && !ci[C_DONE])) {
+    ci[C_STATUS] = S_DONE;
+    return 0;
+  }
+  s.moved = p.skip_dist > 0.f ? moved_beyond(cf + C_T_MAT, cf + C_T_GATHER, radius, p.skip_dist)
+                              : true;
+  const bool want = ci[C_SINCE_GATHER] >= p.corr_every || ci[C_FORCE_GATHER];
+  s.refresh = (want && s.moved) || ci[C_IT] == 0;
+  if (s.refresh && !s.fresh) {
+    ci[C_STATUS] = S_NEED_GATHER;
+    return 0;
+  }
+  if (s.refresh) {
+    for (int k = 0; k < 16; ++k) cf[C_T_GATHER + k] = cf[C_T_MAT + k];
+    s.fresh = false;
+  }
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) pose[3 * i + j] = cf[C_T_MAT + 4 * i + j];
+    pose[9 + i] = cf[C_T_MAT + 4 * i + 3];
+  }
+  return 1;
+}
+
+// thread 0, after the sums (H, g, the valid count, the residual sum): the
+// solve, the update (kUpdate) and the carry's flags, as the JAX body sets
+// them
+template <int kUpdate>
+__device__ __forceinline__ void end_iteration(int* ci, const Loop& p, const float* h, const float* g, int nv,
+                              float total_res, const Iter& s) {
+  float* cf = reinterpret_cast<float*>(ci);
+  float x[6];
+  if (!solve6(h, g, x))
+    for (int k = 0; k < 6; ++k) x[k] = NAN;
+  const float* dr = kUpdate == U_ICP ? x + 3 : x;
+  const float* dt = kUpdate == U_ICP ? x : x + 3;
+  float rot[9], t[3], e[9], rn[9];
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) rot[3 * i + j] = cf[C_T_MAT + 4 * i + j];
+    t[i] = cf[C_T_MAT + 4 * i + 3];
+  }
+  so3::exp(dr, e);
+  if (kUpdate == U_ICP)
+    so3::mul(rot, e, rn);
+  else
+    so3::mul(e, rot, rn);
+  for (int i = 0; i < 3; ++i) {
+    for (int j = 0; j < 3; ++j) cf[C_T_MAT + 4 * i + j] = rn[3 * i + j];
+    cf[C_T_MAT + 4 * i + 3] = t[i] + dt[i];
+  }
+  const float rnorm = sqrtf(dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]);
+  const float pnorm = sqrtf(dt[0] * dt[0] + dt[1] * dt[1] + dt[2] * dt[2]);
+  const bool enough = nv >= p.min_valid;
+  const bool conv = rnorm < p.rot_eps && pnorm < p.pos_eps && enough;
+  const bool exact = s.refresh || !s.moved;
+  const bool stall = p.use_stall && exact
+                     && fabsf(rnorm - cf[C_LAST_ROT]) < p.stall_eps
+                     && fabsf(pnorm - cf[C_LAST_POS]) < p.stall_eps;
+  const bool settled = conv || stall;
+  ci[C_IT] += 1;
+  ci[C_GATHERS] += s.refresh ? 1 : 0;
+  ci[C_SINCE_GATHER] = s.refresh ? 1 : ci[C_SINCE_GATHER] + 1;
+  ci[C_FORCE_GATHER] = settled && !exact;
+  ci[C_DONE] = settled && exact;
+  ci[C_CONVERGED] = (conv || (stall && enough)) && exact;
+  if (exact) {
+    cf[C_LAST_ROT] = rnorm;
+    cf[C_LAST_POS] = pnorm;
+  }
+  ci[C_NUM_VALID] = nv;
+  cf[C_TOTAL_RES] = total_res;
 }
 
 template <int kM>
@@ -373,6 +857,76 @@ icp_gn_kernel(const float* __restrict__ px, const float* __restrict__ py,
     for (int k = 0; k < C_SIZE; ++k) carry[k] = ci[k];
 }
 
+template <bool kLines, int kM>
+__global__ void __launch_bounds__(kLoamThreads, 1)
+loam_gn_kernel(Set corner, Set planar, int* __restrict__ carry,
+               const float* __restrict__ radius_ptr, LoamParams p) {
+  __shared__ double part[kLoamWarps][L_SIZE];
+  __shared__ double sums[L_SIZE];
+  __shared__ int ci[C_SIZE];
+  __shared__ float pose[12];
+  __shared__ int go;
+  const int tid = threadIdx.x;
+  Iter s{true, false, true};
+  const float radius = p.loop.skip_dist > 0.f ? *radius_ptr : 0.f;
+
+  if (tid == 0)
+    for (int k = 0; k < C_SIZE; ++k) ci[k] = carry[k];
+
+  for (;;) {
+    if (tid == 0) go = begin_iteration(ci, p.loop, radius, s, pose);
+    __syncthreads();
+    if (!go) break;
+
+    float rot[9], t[3];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) rot[k] = pose[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) t[k] = pose[9 + k];
+    double acc[L_SIZE];
+    loam_rows<kLines, kM>(corner, planar, p, rot, t, acc);
+    block_sum<L_SIZE, kLoamWarps>(acc, part, sums);
+
+    if (tid == 0) {
+      float h[36], g[6];
+      int u = L_H;
+      for (int i = 0; i < 6; ++i)
+        for (int j = i; j < 6; ++j) h[6 * i + j] = h[6 * j + i] = static_cast<float>(sums[u++]);
+      for (int i = 0; i < 6; ++i) g[i] = static_cast<float>(-sums[L_G + i]);
+      end_iteration<U_LOAM>(ci, p.loop, h, g, static_cast<int>(sums[L_COUNT]),
+                            static_cast<float>(sums[L_RES]), s);
+    }
+  }
+  if (tid == 0)
+    for (int k = 0; k < C_SIZE; ++k) carry[k] = ci[k];
+}
+
+Loop make_loop(int max_iters, int max_total, int corr_every, int min_valid, int use_stall,
+               float rot_eps, float pos_eps, float stall_eps, float skip_dist) {
+  return Loop{max_iters, max_total, corr_every, min_valid, use_stall,
+              rot_eps, pos_eps, stall_eps, skip_dist};
+}
+
+bool aligned16(const Set& s) {
+  const auto bits = reinterpret_cast<uintptr_t>(s.px) | reinterpret_cast<uintptr_t>(s.py)
+                    | reinterpret_cast<uintptr_t>(s.pz) | reinterpret_cast<uintptr_t>(s.valid);
+  return (bits & 15) == 0;
+}
+
+int loam_launch(const Set& corner, const Set& planar, bool lines, int* carry,
+                const float* radius, const LoamParams& p, cudaStream_t st) {
+  const bool vec = p.m == 16 && aligned16(planar) && (!lines || aligned16(corner));
+  if (lines && vec)
+    loam_gn_kernel<true, 16><<<1, kLoamThreads, 0, st>>>(corner, planar, carry, radius, p);
+  else if (lines)
+    loam_gn_kernel<true, 0><<<1, kLoamThreads, 0, st>>>(corner, planar, carry, radius, p);
+  else if (vec)
+    loam_gn_kernel<false, 16><<<1, kLoamThreads, 0, st>>>(corner, planar, carry, radius, p);
+  else
+    loam_gn_kernel<false, 0><<<1, kLoamThreads, 0, st>>>(corner, planar, carry, radius, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int icp_gn_launch(const float* px, const float* py, const float* pz,
@@ -391,4 +945,33 @@ extern "C" int icp_gn_launch(const float* px, const float* py, const float* pz,
   else
     icp_gn_kernel<0><<<1, kThreads, 0, st>>>(px, py, pz, valid, src, carry, radius, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int plane_gn_launch(const float* px, const float* py, const float* pz,
+                               const unsigned char* valid, const float* src, int* carry,
+                               const float* radius, int n, int m, int max_iters, int max_total,
+                               int corr_every, int min_valid, int use_stall, float rot_eps,
+                               float pos_eps, float stall_eps, float skip_dist, float max_d2,
+                               float plane_thresh, void* stream) {
+  const LoamParams p{m, make_loop(max_iters, max_total, corr_every, min_valid, use_stall,
+                                  rot_eps, pos_eps, stall_eps, skip_dist),
+                     max_d2, plane_thresh, 0.f};
+  const Set planar{px, py, pz, valid, src, n};
+  return loam_launch(Set{nullptr, nullptr, nullptr, nullptr, nullptr, 0}, planar, false, carry,
+                     radius, p, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int loam_gn_launch(const float* cpx, const float* cpy, const float* cpz,
+                              const unsigned char* cvalid, const float* csrc, const float* ppx,
+                              const float* ppy, const float* ppz, const unsigned char* pvalid,
+                              const float* psrc, int* carry, const float* radius, int nc,
+                              int np, int m, int max_iters, int max_total, int corr_every,
+                              int min_valid, int use_stall, float rot_eps, float pos_eps,
+                              float stall_eps, float skip_dist, float max_d2,
+                              float plane_thresh, float line_ratio, void* stream) {
+  const LoamParams p{m, make_loop(max_iters, max_total, corr_every, min_valid, use_stall,
+                                  rot_eps, pos_eps, stall_eps, skip_dist),
+                     max_d2, plane_thresh, line_ratio};
+  return loam_launch(Set{cpx, cpy, cpz, cvalid, csrc, nc}, Set{ppx, ppy, ppz, pvalid, psrc, np},
+                     true, carry, radius, p, static_cast<cudaStream_t>(stream));
 }

@@ -46,6 +46,8 @@ SIGNATURES = {
     },
     "gn_loop": {
         "icp_gn_launch": ([_P] * 7 + [_I] * 7 + [_F] * 5 + [_P], _I),
+        "plane_gn_launch": ([_P] * 7 + [_I] * 7 + [_F] * 6 + [_P], _I),
+        "loam_gn_launch": ([_P] * 12 + [_I] * 8 + [_F] * 7 + [_P], _I),
     },
 }
 

@@ -1,18 +1,30 @@
-"""The ICP Gauss-Newton loop over cached candidates as a hand-written CUDA
-kernel (the counterpart of the JAX package's `lax.while_loop` in
-registration/gn.py::run_gn_corr, with `hg_fn = point_to_point_hg_cand`):
+"""The Gauss-Newton loops over cached candidates as hand-written CUDA
+kernels (the counterparts of the JAX package's `lax.while_loop` in
+registration/gn.py::run_gn_corr), one for each linearization a matcher
+iterates on its candidates:
 
-  * `icp_gn_rounds`       -> csrc/gn_loop.cu `icp_gn_launch`, one thread
-    block a call, for CUDA tensors; the plain version for CPU tensors;
-  * `icp_gn_rounds_plain` -> the same iterations in plain PyTorch, reading
-    its flags on the host.
+  * `icp_gn_rounds`   (IcpMatcher: `point_to_point_hg_cand`, the ICP update)
+    -> csrc/gn_loop.cu `icp_gn_launch`;
+  * `plane_gn_rounds` (PointToPlaneMatcher: `point_to_plane_hg_cand`, the
+    LOAM update) -> `plane_gn_launch`;
+  * `loam_gn_rounds`  (LoamFullMatcher: `point_to_line_hg_cand` on the
+    corner set plus `point_to_plane_hg_cand` on the planar set, summed, with
+    the planar count as `num_valid`; the LOAM update) -> `loam_gn_launch`;
 
-A call runs the loop body from the carry, on the candidate set the caller
-has just gathered at the carry's pose, until the loop ends (`DONE`) or the
-next iteration would need a fresh gather (`NEED_GATHER`); it writes the
-carry back in place, the status word included. The caller
-(registration/gn.py::run_gn_icp_cand) gathers, calls, and reads the status
+each one thread block a call for CUDA tensors, and its plain version
+(`*_plain`: the same iterations in plain PyTorch, reading its flags on the
+host) for CPU tensors.
+
+A call runs the loop body from the carry, on the candidate set(s) the
+caller has just gathered at the carry's pose, until the loop ends (`DONE`)
+or the next iteration would need a fresh gather (`NEED_GATHER`); it writes
+the carry back in place, the status word included. The caller
+(registration/gn.py's round drivers) gathers, calls, and reads the status
 word: one host read a gather round instead of one an iteration.
+
+Update conventions (the kernel's U_* enum; `GNConfig.update`):
+  UPDATE_ICP:  dx = [t, r]; P += dt; R := R Exp(dr)
+  UPDATE_LOAM: dx = [r, t]; R := Exp(dr) R; P += dt
 
 The carry is one int32 buffer; its float fields are read through a float32
 view of the same storage (`carry.view(torch.float32)`), and `result_views`
@@ -32,7 +44,13 @@ import numpy as np
 import torch
 
 from ..core.lie import so3_exp
-from ..registration.residuals import CandSet, point_to_point_hg_cand
+from ..registration.residuals import (
+    CandSet,
+    merge_hg,
+    point_to_line_hg_cand,
+    point_to_plane_hg_cand,
+    point_to_point_hg_cand,
+)
 from . import cuda_build
 from .lin3 import solve6_damped
 
@@ -47,10 +65,12 @@ OFFSET = {f: int(o) for (f, _, _), o in zip(CARRY, np.cumsum([0] + [n for _, n, 
 CARRY_SIZE = int(sum(n for _, n, _ in CARRY))
 # status words (the kernel's S_* enum); 0 until a call has run
 NEED_GATHER, DONE = 1, 2
+# update conventions (the kernel's U_* enum), by GNConfig.update
+UPDATE_ICP, UPDATE_LOAM = 0, 1
 BIG = 1e9  # last_rot / last_pos before the first exact iteration
 
 
-class IcpLoopResult(NamedTuple):
+class LoopResult(NamedTuple):
     """The loop's outputs, views of the carry (GNResult's fields)."""
 
     t_mat: torch.Tensor  # [4, 4] float32
@@ -75,10 +95,10 @@ def _word(carry: torch.Tensor, field: str) -> torch.Tensor:
     return carry[OFFSET[field]]
 
 
-def result_views(carry: torch.Tensor) -> IcpLoopResult:
+def result_views(carry: torch.Tensor) -> LoopResult:
     """The loop's outputs as views of the carry (no copy)."""
     f, o = carry.view(F32), OFFSET
-    return IcpLoopResult(
+    return LoopResult(
         t_mat=f[o["t_mat"]:o["t_mat"] + 16].view(4, 4),
         converged=carry.view(torch.uint8)[4 * o["converged"]].view(torch.bool),
         iters=_word(carry, "gathers"), num_valid=_word(carry, "num_valid"),
@@ -96,16 +116,31 @@ def trust_region_moved(t_mat, t_gather, radius, dist) -> torch.Tensor:
     return dt + theta * radius > dist
 
 
-def icp_gn_rounds_plain(carry: torch.Tensor, cand: CandSet, radius: torch.Tensor, cfg,
-                        max_corr_dist_sq: float) -> torch.Tensor:
-    """The JAX loop body (funny_lidar_slam_tpu/registration/gn.py:156-212,
-    ICP update, `point_to_point_hg_cand`) from `carry` on `cand`, gathered
-    at the carry's pose, until the loop bound fails (DONE) or an iteration
-    asks for a gather that has not been handed in (NEED_GATHER). Writes the
-    carry in place and returns its status word (a view). Reads its flags
-    on the host, one small copy an iteration. Computes in the candidates'
-    dtype: float32 on every path, float64 for a reference run."""
-    f, o, dtype = carry.view(F32), OFFSET, cand.px.dtype
+def _step(t_mat, dx, update):
+    """The update of one iteration: (the new pose, |rotation part of dx|,
+    |position part|)."""
+    t_new = t_mat.clone()
+    if update == UPDATE_ICP:
+        t_new[:3, 3] += dx[:3]
+        t_new[:3, :3] = t_mat[:3, :3] @ so3_exp(dx[3:])
+        rot, pos = dx[3:], dx[:3]
+    else:
+        t_new[:3, :3] = so3_exp(dx[:3]) @ t_mat[:3, :3]
+        t_new[:3, 3] += dx[3:]
+        rot, pos = dx[:3], dx[3:]
+    return t_new, torch.linalg.vector_norm(rot), torch.linalg.vector_norm(pos)
+
+
+def _rounds_plain(carry: torch.Tensor, hg_fn, radius: torch.Tensor, cfg, update: int,
+                  dtype) -> torch.Tensor:
+    """The JAX loop body (funny_lidar_slam_tpu/registration/gn.py:156-212)
+    with `hg_fn(T) -> HG` on the candidates gathered at the carry's pose,
+    from `carry` until the loop bound fails (DONE) or an iteration asks for a
+    gather that has not been handed in (NEED_GATHER). Writes the carry in
+    place and returns its status word (a view). Reads its flags on the
+    host, one small copy an iteration. Computes in `dtype` (the
+    candidates'): float32 on every path, float64 for a reference run."""
+    f, o = carry.view(F32), OFFSET
     it, gathers, since, force, done, converged, num_valid = carry[o["it"]:o["status"]].tolist()
     t_mat = f[o["t_mat"]:o["t_mat"] + 16].view(4, 4).to(dtype, copy=True)
     t_gather = f[o["t_gather"]:o["t_gather"] + 16].view(4, 4).to(dtype, copy=True)
@@ -127,12 +162,8 @@ def icp_gn_rounds_plain(carry: torch.Tensor, cand: CandSet, radius: torch.Tensor
             break
         if refresh:
             t_gather, fresh = t_mat, False
-        hg = point_to_point_hg_cand(t_mat, cand, max_corr_dist_sq)
-        dx = solve6_damped(hg.h, hg.g)
-        t_new = t_mat.clone()
-        t_new[:3, 3] += dx[:3]
-        t_new[:3, :3] = t_mat[:3, :3] @ so3_exp(dx[3:])
-        rn, pn = torch.linalg.vector_norm(dx[3:]), torch.linalg.vector_norm(dx[:3])
+        hg = hg_fn(t_mat)
+        t_new, rn, pn = _step(t_mat, solve6_damped(hg.h, hg.g), update)
         enough = hg.num_valid >= cfg.min_valid
         conv = (rn < cfg.rotation_eps) & (pn < cfg.position_eps) & enough
         exact = refresh or not moved
@@ -161,27 +192,94 @@ def icp_gn_rounds_plain(carry: torch.Tensor, cand: CandSet, radius: torch.Tensor
     return carry[o["status"]]
 
 
-def _checked_inputs(carry, cand: CandSet, radius) -> list:
+def icp_gn_rounds_plain(carry: torch.Tensor, cand: CandSet, radius: torch.Tensor, cfg,
+                        max_corr_dist_sq: float) -> torch.Tensor:
+    """`_rounds_plain` with the ICP update and `point_to_point_hg_cand`."""
+    return _rounds_plain(carry, lambda t: point_to_point_hg_cand(t, cand, max_corr_dist_sq),
+                         radius, cfg, UPDATE_ICP, cand.px.dtype)
+
+
+def plane_gn_rounds_plain(carry: torch.Tensor, cand: CandSet, radius: torch.Tensor, cfg,
+                          plane_thresh: float, max_search_dist_sq: float) -> torch.Tensor:
+    """`_rounds_plain` with the LOAM update and `point_to_plane_hg_cand`."""
+    return _rounds_plain(
+        carry, lambda t: point_to_plane_hg_cand(t, cand, plane_thresh, max_search_dist_sq),
+        radius, cfg, UPDATE_LOAM, cand.px.dtype)
+
+
+def loam_hg_cand(t_mat, cand_corner: CandSet, cand_planar: CandSet, line_ratio_thresh,
+                 plane_thresh, max_search_dist_sq):
+    """LoamFull's linearization: the line rows of the corner set and the
+    plane rows of the planar set summed into one H, g and residual sum,
+    with the planar count alone as `num_valid` (the reference's convergence
+    gate counts planar matches only)."""
+    hg_c = point_to_line_hg_cand(t_mat, cand_corner, line_ratio_thresh, max_search_dist_sq)
+    hg_p = point_to_plane_hg_cand(t_mat, cand_planar, plane_thresh, max_search_dist_sq)
+    return merge_hg(hg_c, hg_p)._replace(num_valid=hg_p.num_valid)
+
+
+def loam_gn_rounds_plain(carry: torch.Tensor, cand_corner: CandSet, cand_planar: CandSet,
+                         radius: torch.Tensor, cfg, line_ratio_thresh: float,
+                         plane_thresh: float, max_search_dist_sq: float) -> torch.Tensor:
+    """`_rounds_plain` with the LOAM update and `loam_hg_cand`."""
+    return _rounds_plain(
+        carry, lambda t: loam_hg_cand(t, cand_corner, cand_planar, line_ratio_thresh,
+                                      plane_thresh, max_search_dist_sq),
+        radius, cfg, UPDATE_LOAM, cand_planar.px.dtype)
+
+
+def _checked_inputs(carry, cand: CandSet, radius, *more: CandSet,
+                    name: str = "icp_gn_rounds") -> list:
     """The kernel's tensor arguments, checked: float32 (bool for `valid`,
-    an int32 [CARRY_SIZE] carry), contiguous, matching shapes, then all on
-    one CUDA device."""
-    tensors = {"px": cand.px, "py": cand.py, "pz": cand.pz, "valid": cand.valid,
-               "src": cand.src, "carry": carry, "radius": radius}
-    for name, t in tensors.items():
-        want = {"valid": torch.bool, "carry": I32}.get(name, F32)
+    an int32 [CARRY_SIZE] carry), contiguous, matching shapes (one M for
+    every set), then all on one CUDA device. In order: each set's px, py,
+    pz, valid and src, then the carry and the radius."""
+    sets = (cand, *more)
+    tensors = {}
+    for k, c in enumerate(sets):
+        tag = f"set {k} " if more else ""
+        tensors.update({f"{tag}{f}": getattr(c, f) for f in ("px", "py", "pz", "valid", "src")})
+    tensors.update(carry=carry, radius=radius)
+    for key, t in tensors.items():
+        field = key.split()[-1]
+        want = {"valid": torch.bool, "carry": I32}.get(field, F32)
         if t.dtype != want:
-            raise TypeError(f"icp_gn_rounds: the kernel takes {want} {name}, got {t.dtype}")
+            raise TypeError(f"{name}: the kernel takes {want} {key}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"icp_gn_rounds: {name} is not contiguous")
-    n, m = cand.px.shape
-    if not (cand.py.shape == cand.pz.shape == cand.valid.shape == (n, m)
-            and tuple(cand.src.shape) == (n, 3) and radius.numel() == 1
-            and carry.numel() == CARRY_SIZE):
-        raise ValueError("icp_gn_rounds: px, py, pz, valid [N, M], src [N, 3], radius [] "
-                         f"and a [{CARRY_SIZE}] carry (init_carry) expected")
+            raise ValueError(f"{name}: {key} is not contiguous")
+    m = cand.px.shape[1] if cand.px.dim() == 2 else -1
+    for c in sets:
+        n = c.px.shape[0]
+        if not (c.px.shape == c.py.shape == c.pz.shape == c.valid.shape == (n, m)
+                and tuple(c.src.shape) == (n, 3)):
+            raise ValueError(f"{name}: px, py, pz, valid [N, M] (one M for every set) and "
+                             "src [N, 3] expected")
+    if not (radius.numel() == 1 and carry.numel() == CARRY_SIZE):
+        raise ValueError(f"{name}: a radius [] and a [{CARRY_SIZE}] carry (init_carry) expected")
     if carry.device.type != "cuda" or any(t.device != carry.device for t in tensors.values()):
-        raise ValueError("icp_gn_rounds: the inputs must lie on one CUDA device")
+        raise ValueError(f"{name}: the inputs must lie on one CUDA device")
     return list(tensors.values())
+
+
+def _loop_args(cfg) -> tuple:
+    """The loop's scalars, in the C entry points' order: max_iters,
+    max_total, corr_every, min_valid, use_stall (ints), then rot_eps,
+    pos_eps, stall_eps, skip_dist (floats)."""
+    return (int(cfg.max_iters), int(cfg.max_iters) * max(int(cfg.corr_every), 1),
+            int(cfg.corr_every), int(cfg.min_valid), int(bool(cfg.use_stall_check)),
+            float(cfg.rotation_eps), float(cfg.position_eps), float(cfg.stall_eps),
+            float(cfg.skip_regather_dist))
+
+
+def _launched(fn, err: int, carry: torch.Tensor) -> torch.Tensor:
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    fn.launches += 1
+    return _word(carry, "status")
+
+
+def _stream(carry: torch.Tensor) -> int:
+    return torch.cuda.current_stream(carry.device).cuda_stream
 
 
 def icp_gn_rounds(carry: torch.Tensor, cand: CandSet, radius: torch.Tensor, cfg,
@@ -195,16 +293,48 @@ def icp_gn_rounds(carry: torch.Tensor, cand: CandSet, radius: torch.Tensor, cfg,
     args = _checked_inputs(carry, cand, radius)
     n, m = cand.px.shape
     err = cuda_build.library("gn_loop").icp_gn_launch(
-        *(t.data_ptr() for t in args), n, m, int(cfg.max_iters),
-        int(cfg.max_iters) * max(int(cfg.corr_every), 1), int(cfg.corr_every),
-        int(cfg.min_valid), int(bool(cfg.use_stall_check)), float(cfg.rotation_eps),
-        float(cfg.position_eps), float(cfg.stall_eps), float(cfg.skip_regather_dist),
-        float(max_corr_dist_sq), torch.cuda.current_stream(carry.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"icp_gn_rounds launch failed: CUDA error {err}")
-    icp_gn_rounds.launches += 1
-    return _word(carry, "status")
+        *(t.data_ptr() for t in args), n, m, *_loop_args(cfg), float(max_corr_dist_sq),
+        _stream(carry))
+    return _launched(icp_gn_rounds, err, carry)
+
+
+def plane_gn_rounds(carry: torch.Tensor, cand: CandSet, radius: torch.Tensor, cfg,
+                    plane_thresh: float, max_search_dist_sq: float) -> torch.Tensor:
+    """One gather round of the point-to-plane GN loop (PointToPlaneMatcher):
+    on CPU tensors the plain version; on CUDA tensors the kernel on the
+    current stream, raising as `icp_gn_rounds` does. Returns the carry's
+    status word (a view)."""
+    if carry.device.type == "cpu":
+        return plane_gn_rounds_plain(carry, cand, radius, cfg, plane_thresh,
+                                     max_search_dist_sq)
+    args = _checked_inputs(carry, cand, radius, name="plane_gn_rounds")
+    n, m = cand.px.shape
+    err = cuda_build.library("gn_loop").plane_gn_launch(
+        *(t.data_ptr() for t in args), n, m, *_loop_args(cfg), float(max_search_dist_sq),
+        float(plane_thresh), _stream(carry))
+    return _launched(plane_gn_rounds, err, carry)
+
+
+def loam_gn_rounds(carry: torch.Tensor, cand_corner: CandSet, cand_planar: CandSet,
+                   radius: torch.Tensor, cfg, line_ratio_thresh: float, plane_thresh: float,
+                   max_search_dist_sq: float) -> torch.Tensor:
+    """One gather round of LoamFull's GN loop (line rows of the corner set
+    plus plane rows of the planar set): on CPU tensors the plain version;
+    on CUDA tensors the kernel on the current stream, raising as
+    `icp_gn_rounds` does. Returns the carry's status word (a view)."""
+    if carry.device.type == "cpu":
+        return loam_gn_rounds_plain(carry, cand_corner, cand_planar, radius, cfg,
+                                    line_ratio_thresh, plane_thresh, max_search_dist_sq)
+    args = _checked_inputs(carry, cand_corner, radius, cand_planar, name="loam_gn_rounds")
+    (nc, m), np_ = cand_corner.px.shape, cand_planar.px.shape[0]
+    err = cuda_build.library("gn_loop").loam_gn_launch(
+        *(t.data_ptr() for t in args), nc, np_, m, *_loop_args(cfg),
+        float(max_search_dist_sq), float(plane_thresh), float(line_ratio_thresh),
+        _stream(carry))
+    return _launched(loam_gn_rounds, err, carry)
 
 
 icp_gn_rounds.launches = 0
-KERNELS = (icp_gn_rounds,)
+plane_gn_rounds.launches = 0
+loam_gn_rounds.launches = 0
+KERNELS = (icp_gn_rounds, plane_gn_rounds, loam_gn_rounds)

@@ -3,14 +3,18 @@ registration/gn.py).
 
 The JAX package keeps the whole loop on the device in one
 `lax.while_loop`. Here two routes run it:
-  * `run_gn_icp_cand` (IcpMatcher, the point-to-point linearization over
-    cached candidates) keeps the iterations on the device: between two
-    gathers they run in one launch of csrc/gn_loop.cu (ops/gn_loop.py), and
-    the host reads one status word a gather round;
-  * `run_gn_corr` (every other matcher) is the known deviation: its loop
-    runs on the host and reads its control flags (done, converged, the
-    trust-region test) back from the device once per iteration, one small
-    copy that waits for the iteration to finish.
+  * the round drivers over cached candidates keep the iterations on the
+    device: between two gathers they run in one launch of csrc/gn_loop.cu
+    (ops/gn_loop.py), and the host reads one status word a gather round.
+    `run_gn_icp_cand` serves IcpMatcher (point-to-point rows),
+    `run_gn_plane_cand` PointToPlaneMatcher (point-to-plane rows) and
+    `run_gn_loam_cand` LoamFullMatcher (point-to-line rows of the corner
+    set plus point-to-plane rows of the planar set);
+  * `run_gn_corr` serves NdtMatcher and, through `run_gn`, the loop
+    closure's verification (backend/loop_closure.py): its loop runs on the
+    host and reads its control flags (done, converged, the trust-region
+    test) back from the device once per iteration, one small copy that
+    waits for the iteration to finish.
 The semantics of both are those of the JAX loop: the trust-region re-gather
 skip, `force_gather`, the exact/stall rules, and `iters` counting gathers.
 
@@ -29,7 +33,12 @@ import torch
 from ..core.lie import so3_exp
 from ..ops import gn_loop
 # looked up here at call time, so that a run can wrap the driver's calls
-from ..ops.gn_loop import icp_gn_rounds, trust_region_moved
+from ..ops.gn_loop import (
+    icp_gn_rounds,
+    loam_gn_rounds,
+    plane_gn_rounds,
+    trust_region_moved,
+)
 from ..ops.lin3 import solve6_damped
 from .residuals import HG, CandSet
 
@@ -175,6 +184,34 @@ def _host_read(flags: torch.Tensor) -> list:
     return flags.tolist()
 
 
+def _run_rounds(driver, rounds, corr_fn, t0, cfg, regather_radius, gate_fn):
+    """The gather rounds of `driver`: gather at the carry's pose (on the
+    device, no read), run the iterations up to the next gather in one
+    `rounds(carry, cand, radius)` call, read the status word (and the
+    gate) in one copy, and stop on DONE."""
+    dev = t0.device
+    radius = (torch.full((), cfg.regather_radius, dtype=torch.float32, device=dev)
+              if regather_radius is None else regather_radius)
+    carry = gn_loop.init_carry(t0)
+    res = GNResult(*gn_loop.result_views(carry))
+    o = gn_loop.OFFSET["status"]
+    while True:
+        status = rounds(carry, corr_fn(res.t_mat), radius)
+        driver.rounds += 1
+        flags = (carry[o:o + 1] if gate_fn is None
+                 else torch.stack([status, gate_fn(res).to(torch.int32)]))
+        read = _host_read(flags)
+        if read[0] == gn_loop.DONE:
+            return res, (bool(read[1]) if gate_fn is not None else None)
+        if read[0] != gn_loop.NEED_GATHER:
+            raise RuntimeError(f"{driver.__name__}: status word {read[0]}")
+
+
+def _check_update(driver, cfg, update):
+    if cfg.update != update:
+        raise ValueError(f"{driver.__name__}: the {update.upper()} update, not {cfg.update!r}")
+
+
 def run_gn_icp_cand(
     corr_fn: Callable[[torch.Tensor], CandSet],
     t0: torch.Tensor,
@@ -193,25 +230,60 @@ def run_gn_icp_cand(
     and read in the same copy as the status word; returns (the result,
     views of the loop's carry; the gate of the last round as a host bool,
     or None)."""
-    if cfg.update != UPDATE_ICP:
-        raise ValueError(f"run_gn_icp_cand: the ICP update, not {cfg.update!r}")
-    dev = t0.device
-    radius = (torch.full((), cfg.regather_radius, dtype=torch.float32, device=dev)
-              if regather_radius is None else regather_radius)
-    carry = gn_loop.init_carry(t0)
-    res = GNResult(*gn_loop.result_views(carry))
-    o = gn_loop.OFFSET["status"]
-    while True:
-        cand = corr_fn(res.t_mat)
-        status = icp_gn_rounds(carry, cand, radius, cfg, max_corr_dist_sq)
-        run_gn_icp_cand.rounds += 1
-        flags = (carry[o:o + 1] if gate_fn is None
-                 else torch.stack([status, gate_fn(res).to(torch.int32)]))
-        read = _host_read(flags)
-        if read[0] == gn_loop.DONE:
-            return res, (bool(read[1]) if gate_fn is not None else None)
-        if read[0] != gn_loop.NEED_GATHER:
-            raise RuntimeError(f"run_gn_icp_cand: status word {read[0]}")
+    _check_update(run_gn_icp_cand, cfg, UPDATE_ICP)
+    return _run_rounds(
+        run_gn_icp_cand,
+        lambda carry, cand, radius: icp_gn_rounds(carry, cand, radius, cfg, max_corr_dist_sq),
+        corr_fn, t0, cfg, regather_radius, gate_fn)
 
 
-run_gn_icp_cand.rounds = 0  # gather rounds run, each one host read
+def run_gn_plane_cand(
+    corr_fn: Callable[[torch.Tensor], CandSet],
+    t0: torch.Tensor,
+    cfg: GNConfig,
+    plane_thresh: float,
+    max_search_dist_sq: float,
+    regather_radius=None,
+    gate_fn: Callable[[GNResult], torch.Tensor] | None = None,
+) -> tuple[GNResult, bool | None]:
+    """`run_gn_icp_cand`'s rounds with the LOAM update and
+    `point_to_plane_hg_cand` (`plane_gn_rounds`). Returns (the result,
+    views of the carry; the last round's gate as a host bool, or None)."""
+    _check_update(run_gn_plane_cand, cfg, UPDATE_LOAM)
+    return _run_rounds(
+        run_gn_plane_cand,
+        lambda carry, cand, radius: plane_gn_rounds(carry, cand, radius, cfg, plane_thresh,
+                                                    max_search_dist_sq),
+        corr_fn, t0, cfg, regather_radius, gate_fn)
+
+
+def run_gn_loam_cand(
+    corr_fn: Callable[[torch.Tensor], tuple[CandSet, CandSet]],
+    t0: torch.Tensor,
+    cfg: GNConfig,
+    line_ratio_thresh: float,
+    plane_thresh: float,
+    max_search_dist_sq: float,
+    regather_radius=None,
+    gate_fn: Callable[[GNResult], torch.Tensor] | None = None,
+) -> tuple[GNResult, bool | None]:
+    """`run_gn_icp_cand`'s rounds with the LOAM update on the (corner,
+    planar) candidate sets of `corr_fn(T)`: line rows of the corner set
+    plus plane rows of the planar set, the planar count as `num_valid`
+    (`loam_gn_rounds`). Returns (the result, views of the carry; the last
+    round's gate as a host bool, or None)."""
+    _check_update(run_gn_loam_cand, cfg, UPDATE_LOAM)
+    return _run_rounds(
+        run_gn_loam_cand,
+        lambda carry, cand, radius: loam_gn_rounds(carry, *cand, radius, cfg,
+                                                   line_ratio_thresh, plane_thresh,
+                                                   max_search_dist_sq),
+        corr_fn, t0, cfg, regather_radius, gate_fn)
+
+
+# gather rounds run by each driver, each one host read
+run_gn_icp_cand.rounds = 0
+run_gn_plane_cand.rounds = 0
+run_gn_loam_cand.rounds = 0
+ROUND_DRIVERS = {"icp_gn_rounds": run_gn_icp_cand, "plane_gn_rounds": run_gn_plane_cand,
+                 "loam_gn_rounds": run_gn_loam_cand}

@@ -41,16 +41,10 @@ from .gn import (
     GNResult,
     run_gn_corr,
     run_gn_icp_cand,
+    run_gn_loam_cand,
+    run_gn_plane_cand,
 )
-from .residuals import (
-    fitness_score,
-    gather_candidates,
-    merge_hg,
-    ndt_corr,
-    ndt_hg_corr,
-    point_to_line_hg_cand,
-    point_to_plane_hg_cand,
-)
+from .residuals import fitness_score, gather_candidates, ndt_corr, ndt_hg_corr
 
 
 def _source_radius(points, mask):
@@ -374,33 +368,30 @@ class PointToPlaneMatcher(_Matcher):
             return gather_candidates(t_mat, planar.points, planar.mask, m, self.inv,
                                      c.cand_k, c.stencil, c.num_probes, group_capacity=gc)
 
-        def hg_fn(t_mat, cand):
-            return point_to_plane_hg_cand(t_mat, cand, c.point_to_planar_thresh,
-                                          c.max_search_dist**2)
+        def gate_fn(r):  # read with the last status word
+            ok = r.num_valid >= c.min_valid_planar
+            if isinstance(s, P2PlaneWindowState):  # the map-insertion gate
+                return ok & need_add_cloud(r.t_mat, s.w.last_added, c.dist_thresh_add_cloud,
+                                           c.rot_thresh_add_cloud)
+            return ok  # ivox: every converged scan
 
-        res = run_gn_corr(corr_fn, hg_fn, t_init, self.gn_cfg,
-                          regather_radius=_source_radius(planar.points, planar.mask))
+        res, do_add = run_gn_plane_cand(
+            corr_fn, t_init, self.gn_cfg, c.point_to_planar_thresh, c.max_search_dist**2,
+            regather_radius=_source_radius(planar.points, planar.mask),
+            gate_fn=None if c.is_localization_mode else gate_fn)
         # convergence requires enough valid planar matches
-        ok = res.num_valid >= c.min_valid_planar
-        res = res._replace(converged=ok)
-        if c.is_localization_mode:
+        res = res._replace(converged=res.num_valid >= c.min_valid_planar)
+        if not do_add:  # localization mode reads no gate
             return s, res
-
         if isinstance(s, P2PlaneWindowState):
-            do_add = ok & need_add_cloud(res.t_mat, s.w.last_added, c.dist_thresh_add_cloud,
-                                         c.rot_thresh_add_cloud)
-            if bool(do_add):
-                s = P2PlaneWindowState(window_add(
-                    s.w, transform_cloud(res.t_mat, planar), res.t_mat, c.map_filter_size,
-                    self.inv, c.merged_capacity, c.num_probes,
-                    window_size=_window_size(self.cfg)))
-            return s, res
+            return P2PlaneWindowState(window_add(
+                s.w, transform_cloud(res.t_mat, planar), res.t_mat, c.map_filter_size,
+                self.inv, c.merged_capacity, c.num_probes,
+                window_size=_window_size(self.cfg))), res
         # ivox: insert every converged scan; two claim rounds (per-scan
         # frontier contention is small, and this matcher inserts every frame)
-        if bool(ok):
-            s = P2PlaneIvoxState(self._ivox_insert(s.m, transform_cloud(res.t_mat, planar),
-                                                   claim_rounds=2), res.t_mat)
-        return s, res
+        return P2PlaneIvoxState(self._ivox_insert(s.m, transform_cloud(res.t_mat, planar),
+                                                  claim_rounds=2), res.t_mat), res
 
     def add_first(self, s, planar: Cloud, t_mat):
         t_mat = self._as_pose(t_mat)
@@ -522,24 +513,20 @@ class LoamFullMatcher(_Matcher):
                     gather_candidates(t_mat, planar.points, planar.mask, s.planar.m, self.inv,
                                       c.cand_k, c.stencil, c.num_probes, group_capacity=gc))
 
-        def hg_fn(t_mat, cand):
-            cc, cp = cand
-            hg_c = point_to_line_hg_cand(t_mat, cc, c.line_ratio_thresh, thr2)
-            hg_p = point_to_plane_hg_cand(t_mat, cp, c.point_to_planar_thresh, thr2)
-            # the reference's convergence gate counts PLANAR matches only, so
-            # the merged normal equations carry the planar count
-            return merge_hg(hg_c, hg_p)._replace(num_valid=hg_p.num_valid)
+        def gate_fn(r):  # the map-insertion gate, read with the last status word
+            return (r.num_valid >= c.min_valid_planar) & need_add_cloud(
+                r.t_mat, s.planar.last_added, c.dist_thresh_add_cloud, c.rot_thresh_add_cloud)
 
         radius = torch.maximum(_source_radius(corner.points, corner.mask),
                                _source_radius(planar.points, planar.mask))
-        res = run_gn_corr(corr_fn, hg_fn, t_init, self.gn_cfg, regather_radius=radius)
-        ok = res.num_valid >= c.min_valid_planar
-        res = res._replace(converged=ok)
-        if c.is_localization_mode:
-            return s, res
-        do_add = ok & need_add_cloud(res.t_mat, s.planar.last_added, c.dist_thresh_add_cloud,
-                                     c.rot_thresh_add_cloud)
-        if bool(do_add):
+        # line rows of the corner set plus plane rows of the planar set; the
+        # reference's convergence gate counts PLANAR matches only, so the
+        # loop's num_valid is the planar count
+        res, do_add = run_gn_loam_cand(corr_fn, t_init, self.gn_cfg, c.line_ratio_thresh,
+                                       c.point_to_planar_thresh, thr2, regather_radius=radius,
+                                       gate_fn=None if c.is_localization_mode else gate_fn)
+        res = res._replace(converged=res.num_valid >= c.min_valid_planar)
+        if do_add:
             s = self._add(s, corner, planar, res.t_mat)
         return s, res
 

@@ -143,8 +143,9 @@ def _select_knn(t_mat: torch.Tensor, cand: CandSet, k: int):
     if k == 1:
         idx = torch.argmin(d2, dim=1, keepdim=True)
         kd2 = torch.gather(d2, 1, idx)
-    else:
-        kd2, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    else:  # ascending, ties to the lower lane (lax.top_k's order; topk's is unspecified)
+        kd2, idx = torch.sort(d2, dim=1, stable=True)
+        kd2, idx = kd2[:, :k], idx[:, :k]
     nbrs = torch.stack([_take_lanes(cand.px, idx), _take_lanes(cand.py, idx),
                         _take_lanes(cand.pz, idx)], dim=-1)
     return p_t, nbrs, kd2, torch.isfinite(kd2)
@@ -196,8 +197,38 @@ def point_to_point_hg(t_mat, src, src_mask, m, inv_voxel_size, max_corr_dist_sq,
     return point_to_point_hg_corr(t_mat, src, corr)
 
 
+def _einsum_small(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum(eq, a, b)` over a few products a term (the LOAM fits'
+    small sums). On a CUDA tensor each entry is summed in float64 from the
+    exact products and rounded once to the inputs' dtype: far from the
+    origin A^T A's determinant cancels and the plane gates follow the last
+    bits, cuBLAS's order for these tiny batched products is none a kernel
+    can repeat (on an H100 a probe matched no sequential order, and its
+    choice moved with the batch), and csrc/gn_loop.cu rounds the same sums once.
+    On the CPU the library's order, which the tests hold against the JAX
+    package."""
+    if a.is_cuda:
+        return torch.einsum(eq, a.double(), b.double()).to(a.dtype)
+    return torch.einsum(eq, a, b)
+
+
+def _sum_small(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """`torch.sum(x, dim)` over a few terms, rounded once on a CUDA tensor
+    (see `_einsum_small`)."""
+    return torch.sum(x.double(), dim=dim).to(x.dtype) if x.is_cuda else torch.sum(x, dim=dim)
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a.b over the last axis, rounded once on a CUDA tensor (see
+    `_einsum_small`)."""
+    if a.is_cuda:
+        return torch.sum(a.double() * b.double(), dim=-1).to(a.dtype)
     return torch.sum(a * b, dim=-1)
+
+
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    """|v| over the last axis: sqrt of `_dot(v, v)` on a CUDA tensor."""
+    return torch.sqrt(_dot(v, v)) if v.is_cuda else torch.linalg.vector_norm(v, dim=-1)
 
 
 def fit_plane_5nn(nbrs: torch.Tensor, ok: torch.Tensor, plane_thresh):
@@ -205,15 +236,17 @@ def fit_plane_5nn(nbrs: torch.Tensor, ok: torch.Tensor, plane_thresh):
     plane n.p = -1, as the reference parameterizes it). Returns (unit
     normal [N,3], the first neighbour [N,3], valid [N]); valid when all k
     neighbours are ok and each residual |a_i.x + 1|/|x| <= plane_thresh.
-    A^T A is inverted in world coordinates, in the input dtype."""
+    A^T A is inverted in world coordinates, in the input dtype; on a CUDA
+    tensor its entries and the small products after it are rounded once
+    (`_einsum_small`)."""
     eye = torch.eye(3, dtype=nbrs.dtype, device=nbrs.device)
     a = nbrs * ok.to(nbrs.dtype)[..., None]  # masked rows contribute zero
-    ata = torch.einsum("nka,nkb->nab", a, a)
-    atb = -torch.sum(a, dim=1)  # A^T (-1)
+    ata = _einsum_small("nka,nkb->nab", a, a)
+    atb = -_sum_small(a, 1)  # A^T (-1)
     # regularized: masked or degenerate systems must not produce NaN
-    coef = torch.einsum("nab,nb->na", inv3(ata + 1e-9 * eye), atb)
-    safe = torch.clamp(torch.linalg.vector_norm(coef, dim=-1), min=1e-12)
-    resid = torch.abs(torch.einsum("nka,na->nk", nbrs, coef) + 1.0) / safe[:, None]
+    coef = _einsum_small("nab,nb->na", inv3(ata + 1e-9 * eye), atb)
+    safe = torch.clamp(_norm(coef), min=1e-12)
+    resid = torch.abs(_einsum_small("nka,na->nk", nbrs, coef) + 1.0) / safe[:, None]
     fit_ok = torch.all(ok & (resid <= plane_thresh), dim=-1) & torch.all(ok, dim=-1)
     return coef / safe[:, None], nbrs[:, 0], fit_ok
 
@@ -230,7 +263,7 @@ def _plane_gates(p_t, src, nbrs, ok, plane_thresh) -> PlaneCorr:
     source point and d its transformed point's distance to the plane."""
     normal, q0, fit_ok = fit_plane_5nn(nbrs, ok, plane_thresh)
     d = _dot(p_t - q0, normal)
-    near_reject = torch.linalg.vector_norm(src, dim=-1) < 81.0 * d * d
+    near_reject = _norm(src) < 81.0 * d * d
     return PlaneCorr(normal=normal, q0=q0, valid=fit_ok & ~near_reject)
 
 
@@ -288,9 +321,9 @@ def _fit_line(nbrs: torch.Tensor, ok: torch.Tensor, line_ratio_thresh):
     lambda_2 > ratio * lambda_1)."""
     w = ok.to(nbrs.dtype)[..., None]
     cnt = torch.clamp(torch.sum(w, dim=1), min=1.0)
-    center = torch.sum(nbrs * w, dim=1) / cnt
+    center = _sum_small(nbrs * w, 1) / cnt
     centered = (nbrs - center[:, None, :]) * w
-    cov = torch.einsum("nka,nkb->nab", centered, centered) / 5.0
+    cov = _einsum_small("nka,nkb->nab", centered, centered) / 5.0
     lams = sym3_eigvalsh(cov)
     return center, sym3_principal_eigvec(cov), lams[:, 2] > line_ratio_thresh * lams[:, 1]
 

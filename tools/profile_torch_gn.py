@@ -1,22 +1,34 @@
-"""GN iterations, gathers and host reads a scan on chip_smoke.py's phase-4
-grid config, for the port in a given checkout.
+"""GN iterations, gathers, host reads, CUDA launches and the GN span a scan,
+on one of the bench's mapping configs, for the port in a given checkout.
 
     python3 tools/profile_torch_gn.py [--root DIR]
+        [--mode IcpOptimized|PointToPlane_IVOX|PointToPlane_KdTree|LoamFull_KdTree]
 
-Runs funny_lidar_slam_torch from DIR (default: this checkout) on the
-headline mapping config (IcpOptimized + TightCouplingOptimization, the
-dense grid (96, 96, 16), 16,384 points a scan) over the 10 s simulator run
-(seed 7): a warm-up run, a counted run, two timed runs and a traced run.
-The counted run reads, per scan, the GN iterations (the linearizations),
-the gathers and the GN's host reads: on a checkout whose IcpMatcher runs
-`gn.run_gn_icp_cand`, the kernel carry's iteration count around each
-`icp_gn_rounds` call and the driver's `_host_read` calls (the insert gate
-is in them); on an earlier one, the calls of `point_to_point_hg_cand`, one
-host read each (its insert gate reads once more a scan, not counted). The
-traced run puts CUDA events around the GN driver (ms a scan). Prints one
-JSON line. Needs CUDA; imports nothing of JAX. To compare a change with its
-parent on one card: `git archive <parent> | tar -x -C _archive/parent`, then
-run parent, change, change, parent in one call.
+Runs funny_lidar_slam_torch from DIR (default: this checkout) over the 10 s
+simulator run (seed 7), 16,384 points a scan, on the config of `--mode`:
+IcpOptimized (the default) is chip_smoke.py's phase-4 headline (dense grid
+(96, 96, 16), TightCouplingOptimization); the LOAM modes are the bench's
+configs of phases 7-9 (`bench_torch.mode_config`). A warm-up run, a counted
+run, two timed runs, a traced run and a profiled run:
+  * the counted run reads, per scan, the GN iterations (linearizations),
+    the gathers and the GN's host reads. On a checkout whose matcher runs
+    a round driver (`gn.run_gn_icp_cand` for ICP, `gn.run_gn_plane_cand` /
+    `gn.run_gn_loam_cand` for the LOAM modes): the kernel carry's iteration
+    count around each rounds call and the driver's `_host_read` calls (the
+    map-insertion gate is in them). On an earlier one, which runs the loop
+    on the host (`run_gn_corr`): the calls of the row linearization
+    (`point_to_point_hg_cand`, or `point_to_plane_hg_cand`, once an
+    iteration on every LOAM path), one host read each; its map-insertion
+    gate reads once more a mapping scan after the loop
+    (`post_loop_reads_per_scan`);
+  * the traced run puts CUDA events around the GN driver (ms a scan);
+  * the profiled run counts the CUDA kernel launches (the runtime's and
+    the driver's launch calls) a scan under torch.profiler, in all and
+    inside the GN driver (the host side of a `record_function` range
+    around it).
+Prints one JSON line. Needs CUDA; imports nothing of JAX. To compare a
+change with its parent on one card: `git archive <parent> | tar -x -C
+_archive/parent`, then run parent, change, change, parent in one call.
 """
 
 from __future__ import annotations
@@ -29,6 +41,9 @@ import time
 
 import numpy as np
 
+MODES = ("IcpOptimized", "PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+
 
 def _steady_fps(stats) -> float:
     trs = [s["tr"] for s in stats if not s.get("init")]
@@ -36,12 +51,20 @@ def _steady_fps(stats) -> float:
     return float(len(half) / half.sum()) if len(half) and half.sum() > 0 else 0.0
 
 
+def _patch(saved):
+    for mod, attr, fn in saved:
+        setattr(mod, attr, fn)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--mode", default="IcpOptimized", choices=MODES)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     import bench_torch as bench
     from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
@@ -51,22 +74,28 @@ def main(argv=None) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_gn: CUDA is not available")
     ds = simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7))
+    icp = args.mode == "IcpOptimized"
 
     def make():
-        return SlamSystem(bench.headline_config(16384, "TightCouplingOptimization"))
+        return SlamSystem(bench.headline_config(16384, "TightCouplingOptimization") if icp
+                          else bench.mode_config(args.mode, 16384))
 
     make().run_dataset(ds)
     torch.cuda.synchronize()
 
-    on_device = hasattr(gn, "run_gn_icp_cand")
+    driver_name = ("run_gn_icp_cand" if icp else "run_gn_loam_cand"
+                   if args.mode.startswith("LoamFull") else "run_gn_plane_cand")
+    on_device = hasattr(gn, driver_name)
     its, reads = [0], [0]
     if on_device:
         from funny_lidar_slam_torch.ops import gn_loop
 
+        rounds_name = {"run_gn_icp_cand": "icp_gn_rounds", "run_gn_plane_cand": "plane_gn_rounds",
+                       "run_gn_loam_cand": "loam_gn_rounds"}[driver_name]
         o = gn_loop.OFFSET["it"]
-        saved = [(gn, "icp_gn_rounds", gn.icp_gn_rounds), (gn, "_host_read", gn._host_read)]
+        saved = [(gn, rounds_name, getattr(gn, rounds_name)), (gn, "_host_read", gn._host_read)]
 
-        def rounds(carry, *a, fn=gn.icp_gn_rounds):
+        def rounds(carry, *a, fn=getattr(gn, rounds_name)):
             it0 = int(carry[o])
             status = fn(carry, *a)
             its[0] += int(carry[o]) - it0
@@ -76,23 +105,25 @@ def main(argv=None) -> dict:
             reads[0] += 1
             return fn(flags)
 
-        gn.icp_gn_rounds, gn._host_read = rounds, read
+        setattr(gn, rounds_name, rounds)
+        gn._host_read = read
     else:
-        saved = [(matchers, "point_to_point_hg_cand", matchers.point_to_point_hg_cand)]
+        driver_name = "run_gn_corr"
+        row = "point_to_point_hg_cand" if icp else "point_to_plane_hg_cand"
+        saved = [(matchers, row, getattr(matchers, row))]
 
-        def linearize(*a, fn=matchers.point_to_point_hg_cand):
+        def linearize(*a, fn=getattr(matchers, row)):
             its[0] += 1
             reads[0] += 1
             return fn(*a)
 
-        matchers.point_to_point_hg_cand = linearize
+        setattr(matchers, row, linearize)
     try:
         slam = make()
         slam.run_dataset(ds)
         torch.cuda.synchronize()
     finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+        _patch(saved)
     steps = [s for s in slam.stats if not s.get("init")]
 
     walls, fps = [], []
@@ -104,8 +135,7 @@ def main(argv=None) -> dict:
         walls.append(time.perf_counter() - t)
         fps.append(_steady_fps(timed.stats))
 
-    name = "run_gn_icp_cand" if on_device else "run_gn_corr"
-    driver, events = getattr(matchers, name), []
+    driver, events = getattr(matchers, driver_name), []
 
     def traced(*a, **kw):
         b, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -115,18 +145,43 @@ def main(argv=None) -> dict:
         events.append((b, e))
         return out
 
-    setattr(matchers, name, traced)
+    setattr(matchers, driver_name, traced)
     try:
         slam = make()
         slam.run_dataset(ds)
         torch.cuda.synchronize()
     finally:
-        setattr(matchers, name, driver)
+        setattr(matchers, driver_name, driver)
     n = sum(1 for s in slam.stats if not s.get("init"))
-    out = {"root": args.root, "gn_on_device": on_device, "steps": len(steps),
+
+    def ranged(*a, **kw):
+        with record_function("gn_driver"):
+            return driver(*a, **kw)
+
+    setattr(matchers, driver_name, ranged)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            slam_p = make()
+            slam_p.run_dataset(ds)
+            torch.cuda.synchronize()
+    finally:
+        setattr(matchers, driver_name, driver)
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = [(e.time_range.start, e.time_range.end) for e in evs if e.name == "gn_driver"]
+    starts = np.sort([e.time_range.start for e in evs if e.name in LAUNCH_CALLS])
+    inside = sum(int(np.searchsorted(starts, hi) - np.searchsorted(starts, lo))
+                 for lo, hi in spans)
+    n_p = sum(1 for s in slam_p.stats if not s.get("init"))
+
+    out = {"root": args.root, "mode": args.mode, "gn_on_device": on_device,
+           "driver": driver_name, "steps": len(steps),
            "gn_iterations_per_scan": its[0] / len(steps),
            "gathers_per_scan": sum(s["iters"] for s in steps) / len(steps),
-           "gn_host_reads_per_scan": reads[0] / len(steps), "wall_s": walls, "steady_fps": fps,
+           "gn_host_reads_per_scan": reads[0] / len(steps),
+           "post_loop_reads_per_scan": 0 if on_device else 1,
+           "cuda_launches_per_scan": len(starts) / n_p,
+           "gn_cuda_launches_per_scan": inside / n_p,
+           "wall_s": walls, "steady_fps": fps,
            "gn_span_ms_per_scan": sum(b.elapsed_time(e) for b, e in events) / n,
            "device": torch.cuda.get_device_name(0), "card": bench.card_line()}
     print(json.dumps(out))
