@@ -1,4 +1,5 @@
-// The Gauss-Newton loops over cached candidates, one thread block a call:
+// The Gauss-Newton loops over cached candidates, one thread block (ICP) or
+// one thread block cluster (LOAM) a call:
 //
 //   icp_gn_kernel    the body of the JAX `lax.while_loop` of
 //                    funny_lidar_slam_tpu/registration/gn.py:232 (body
@@ -61,11 +62,12 @@
 // row, a few hundred a plane or line row) are a fraction of that at 67
 // TFLOP/s f32. Counting each input once, as a call's least time, the bound
 // is one such read (the sets fit in the 50 MB L2), whatever the call's
-// iterations. This design sits far above it: one block on one SM streams
-// the sets once an iteration, and one thread solves the 6x6 system between
-// two barriers. It keeps the loop on the device (no launch and no host
-// read an iteration), which is what the step lacked; a cooperative
-// multi-block reduction, or wgmma and TMA, is later work.
+// iterations. Both kernels sit far above it: a row is a long dependent
+// chain (thirteen loads, the five-slot insertion, a plane or line fit with
+// correctly rounded divisions), so an iteration's time is the rows a
+// thread walks times that chain's latency, and one thread solves the 6x6
+// system between barriers. Both keep the loop on the device (no launch and
+// no host read an iteration), which is what the step lacked.
 //
 // Design: each thread strides over the rows (icp: 512 threads; loam: 256,
 // so that a row's sixteen lanes, its five neighbours, its fit and the 29
@@ -75,16 +77,41 @@
 // unique entries of H, g[6], the planar count, sum |r|). Where M = 16 and
 // the planes are 16-byte aligned (<16>, every gather of the port) a row's
 // lanes come as thirteen 16-byte loads issued together, so a thread waits
-// on memory once a row, not once a lane (<0> takes any M). LoamFull's two
-// sets are one strided range of rows (the corner rows first), reduced once
-// an iteration. The partials are reduced in a fixed order, warp shuffles
-// then the warps' rows of shared memory in warp order, with no atomics, so
-// two runs agree bit for bit. Thread 0 keeps the carry in shared memory,
-// tests the bound, solves, updates and sets the flags between barriers
-// (loam_gn_kernel: begin_iteration / end_iteration; icp_gn_kernel keeps
-// the same steps written out in its body: at its 128-register ceiling,
-// routing it through those helpers made ptxas spill 56 bytes and cost it
-// 0.7 % on the card, with the same carries bit for bit).
+// on memory once a row, not once a lane (<0> takes any M). The partials
+// are reduced in a fixed order, warp shuffles then the warps' rows of
+// shared memory in warp order, with no atomics, so two runs agree bit for
+// bit. Thread 0 keeps the carry in shared memory, tests the bound, solves,
+// updates and sets the flags between barriers (loam_gn_kernel:
+// begin_iteration / end_iteration; icp_gn_kernel keeps the same steps
+// written out in its body: at its 128-register ceiling, routing it through
+// those helpers made ptxas spill 56 bytes and cost it 0.7 % on the card,
+// with the same carries bit for bit).
+//
+// icp_gn_kernel is one block on one SM: its rows (a nearest lane and ~80
+// operations) are short, and the grid paths run about one iteration a
+// call. loam_gn_kernel spreads every iteration's rows over the R blocks of
+// one thread block cluster (R = 16, or 8 where no 16-block cluster fits;
+// `cluster_blocks`), so each thread walks ~4 rows an iteration at N =
+// 16,384 instead of ~64. LoamFull's two sets are one range of rows (the
+// corner rows first), dealt to the ranks in tiles of 256 rows, tile k to
+// rank k mod R, a row of a tile to each thread: the split depends only on
+// the total rows and R (so no corner rows gives the plane kernel's sums bit
+// for bit); the line rows, about three times a plane row's chain, fall on
+// R ranks at once, not on the first one or two; and a warp keeps
+// neighbouring rows, neighbours in the gathers' voxel order and alike in
+// their gates, so its threads diverge less than over rows dealt one by one
+// to the ranks (`rank_rows`). Each block reduces its partials into its own
+// shared memory, double-buffered by the iteration's parity; one cluster
+// barrier; then every rank reads all R ranks' partials
+// through distributed shared memory, sums them in rank order and runs the
+// iteration's end and the next one's begin itself. Every rank so holds the
+// same carry bit for bit and decides the loop alike (no second barrier, no
+// broadcast); the parity buffer lets a rank start the next iteration's
+// rows while another still reads this one's partials (a rank writes a
+// buffer again two iterations on, after a barrier that every reader of its
+// last contents has passed). A last cluster barrier keeps every block's
+// shared memory alive until the others have read it; rank 0 writes the
+// carry back.
 //
 // The sums are float64, the kernels' one departure from the reference's
 // float32: these normal equations have a condition near 1e3 (the rotation
@@ -99,11 +126,15 @@
 //   t_mat[16] t_gather[16] last_rot last_pos total_res (f32) | it gathers
 //   since_gather force_gather done converged num_valid status (int32)
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "so3.cuh"
+#include "stage_clock.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -122,11 +153,20 @@ enum { A_GT = 0, A_GR = 3, A_HTR = 6, A_HRR = 15, A_COUNT = 21, A_RES = 22, A_SI
 // the LOAM per-thread sums: the upper triangle of H = sum J J^T (row by
 // row), sum J r (-g), the planar rows and sum |r|
 enum { L_H = 0, L_G = 21, L_COUNT = 27, L_RES = 28, L_SIZE = 29 };
+// loam_gn_kernel's stage clocks in a profiling build (stage_clock.cuh):
+// rank 0's SM cycles, summed over the call's iterations, written as floats
+// after the carry (a buffer of C_SIZE + kStageClocks words): the start to
+// the first go; its block's rows and block sum (its slowest warp); the
+// wait at the cluster barrier (the slowest rank); the distributed shared
+// memory sum; thread 0's end and next begin of an iteration; the last
+// barrier
+enum { K_SETUP = 0, K_ROWS = 1, K_CLUSTER = 2, K_DSMEM = 3, K_SERIAL = 4, K_EXIT = 5 };
 
 constexpr int kThreads = 512;  // icp_gn_kernel
 constexpr int kWarps = kThreads / 32;
-constexpr int kLoamThreads = 256;  // loam_gn_kernel
+constexpr int kLoamThreads = 256;  // loam_gn_kernel, a block of the cluster
 constexpr int kLoamWarps = kLoamThreads / 32;
+constexpr int kClusterBlocks[2] = {16, 8};  // tried in order, once a device
 constexpr float kDamping = 1e-6f;  // lin3.solve6_damped
 
 // the loop's own settings (GNConfig)
@@ -242,7 +282,8 @@ __device__ inline void nearest(const float* __restrict__ px, const float* __rest
 }
 
 // a fixed-order block sum of every thread's acc[kSums] into sums[kSums]:
-// warp shuffles, then the warps' rows of `part` in warp order
+// warp shuffles, then the warps' rows of `part` in warp order. sums[k] is
+// written by thread k: the caller's next barrier publishes it
 template <int kSums, int kNumWarps>
 __device__ __forceinline__ void block_sum(const double* acc, double (*part)[kSums], double* sums) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -258,7 +299,6 @@ __device__ __forceinline__ void block_sum(const double* acc, double (*part)[kSum
     for (int w = 0; w < kNumWarps; ++w) v += part[w][tid];
     sums[tid] = v;
   }
-  __syncthreads();
 }
 
 // the rows' sums at pose (rot, t): each thread's strided rows, then the
@@ -571,16 +611,17 @@ __device__ __forceinline__ void add_row(double* acc, const float* rp, const floa
   acc[L_RES] += r;
 }
 
-// the LOAM rows' sums at pose (rot, t): the corner set's line rows (with
-// kLines) then the planar set's plane rows, as one strided range, into
-// acc[L_SIZE]
+// the LOAM rows' sums at pose (rot, t) into acc[L_SIZE]: of the corner
+// set's line rows (with kLines) then the planar set's plane rows, as one
+// range, the rows first, first + stride, ... below end
 template <bool kLines, int kM>
 __device__ __forceinline__ void loam_rows(const Set& corner, const Set& planar, const LoamParams& p,
-                          const float* rot, const float* t, double* acc) {
+                          const float* rot, const float* t, int first, int end, int stride,
+                          double* acc) {
 #pragma unroll
   for (int k = 0; k < L_SIZE; ++k) acc[k] = 0.0;
   const int nc = kLines ? corner.n : 0;
-  for (int r = threadIdx.x; r < nc + planar.n; r += kLoamThreads) {
+  for (int r = first; r < end; r += stride) {
     // the row's set, field by field (a reference to either kernel
     // parameter would put both on the stack)
     const bool line = kLines && r < nc;
@@ -857,36 +898,63 @@ icp_gn_kernel(const float* __restrict__ px, const float* __restrict__ py,
     for (int k = 0; k < C_SIZE; ++k) carry[k] = ci[k];
 }
 
+// the rows of one thread of a cluster rank: first, first + stride, ...
+// below the call's rows. Tiles of kLoamThreads rows, tile k to rank k mod
+// R, a row of a tile to each thread, so the split depends only on the rows
+// and R (loam_gn_rank_rows counts a rank's rows with it on the host)
+struct RankRows {
+  int first, stride;
+};
+
+__host__ __device__ inline RankRows rank_rows(int ranks, int rank, int thread) {
+  return {rank * kLoamThreads + thread, ranks * kLoamThreads};
+}
+
 template <bool kLines, int kM>
 __global__ void __launch_bounds__(kLoamThreads, 1)
 loam_gn_kernel(Set corner, Set planar, int* __restrict__ carry,
                const float* __restrict__ radius_ptr, LoamParams p) {
   __shared__ double part[kLoamWarps][L_SIZE];
-  __shared__ double sums[L_SIZE];
+  __shared__ double red[2][L_SIZE];  // this block's partials, by iteration parity
+  __shared__ double sums[L_SIZE];    // the cluster's, in rank order
   __shared__ int ci[C_SIZE];
   __shared__ float pose[12];
   __shared__ int go;
+  cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int rows = (kLines ? corner.n : 0) + planar.n;
+  const RankRows mine = rank_rows(ranks, rank, tid);
   Iter s{true, false, true};
+  StageClock clk;
   const float radius = p.loop.skip_dist > 0.f ? *radius_ptr : 0.f;
 
-  if (tid == 0)
+  if (tid == 0) {
     for (int k = 0; k < C_SIZE; ++k) ci[k] = carry[k];
-
-  for (;;) {
-    if (tid == 0) go = begin_iteration(ci, p.loop, radius, s, pose);
-    __syncthreads();
-    if (!go) break;
-
+    go = begin_iteration(ci, p.loop, radius, s, pose);
+  }
+  __syncthreads();
+  clk.mark(K_SETUP);
+  for (int parity = 0; go; parity ^= 1) {
     float rot[9], t[3];
 #pragma unroll
     for (int k = 0; k < 9; ++k) rot[k] = pose[k];
 #pragma unroll
     for (int k = 0; k < 3; ++k) t[k] = pose[9 + k];
     double acc[L_SIZE];
-    loam_rows<kLines, kM>(corner, planar, p, rot, t, acc);
-    block_sum<L_SIZE, kLoamWarps>(acc, part, sums);
-
+    loam_rows<kLines, kM>(corner, planar, p, rot, t, mine.first, rows, mine.stride, acc);
+    block_sum<L_SIZE, kLoamWarps>(acc, part, red[parity]);
+    clk.mark(K_ROWS);
+    cluster.sync();  // every rank's red[parity] written
+    clk.mark(K_CLUSTER);
+    if (tid < L_SIZE) {
+      double v = 0.0;
+      for (int r = 0; r < ranks; ++r) v += cluster.map_shared_rank(red[parity], r)[tid];
+      sums[tid] = v;
+    }
+    __syncthreads();
+    clk.mark(K_DSMEM);
     if (tid == 0) {
       float h[36], g[6];
       int u = L_H;
@@ -895,10 +963,16 @@ loam_gn_kernel(Set corner, Set planar, int* __restrict__ carry,
       for (int i = 0; i < 6; ++i) g[i] = static_cast<float>(-sums[L_G + i]);
       end_iteration<U_LOAM>(ci, p.loop, h, g, static_cast<int>(sums[L_COUNT]),
                             static_cast<float>(sums[L_RES]), s);
+      go = begin_iteration(ci, p.loop, radius, s, pose);
     }
+    __syncthreads();
+    clk.mark(K_SERIAL);
   }
-  if (tid == 0)
+  cluster.sync();  // no rank's red[] read any more
+  clk.mark(K_EXIT);
+  if (rank == 0 && tid == 0)
     for (int k = 0; k < C_SIZE; ++k) carry[k] = ci[k];
+  if (rank == 0) clk.write(reinterpret_cast<float*>(carry) + C_SIZE);
 }
 
 Loop make_loop(int max_iters, int max_total, int corr_every, int min_valid, int use_stall,
@@ -913,18 +987,75 @@ bool aligned16(const Set& s) {
   return (bits & 15) == 0;
 }
 
+// a launch of one cluster of `blocks` blocks of kLoamThreads threads
+cudaLaunchConfig_t cluster_config(int blocks, cudaStream_t st, cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = blocks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, 1, 1);
+  cfg.blockDim = dim3(kLoamThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+constexpr int kMaxDevices = 64;
+
+// the blocks of loam_gn_kernel<kLines, kM>'s cluster on the current device:
+// the first of kClusterBlocks of which the occupancy calculator fits one
+// cluster on the card (16 needs the non-portable cluster size), chosen on
+// the first call a device and kept. 0 with *err set on a CUDA error, or
+// with cudaErrorLaunchOutOfResources where not even 8 blocks fit
+template <bool kLines, int kM>
+int cluster_blocks(cudaError_t* err) {
+  static int chosen[kMaxDevices] = {};
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev < kMaxDevices && chosen[dev]) return chosen[dev];
+  *err = cudaFuncSetAttribute(loam_gn_kernel<kLines, kM>,
+                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (*err != cudaSuccess) return 0;
+  for (const int blocks : kClusterBlocks) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(blocks, nullptr, &attr);
+    int fit = 0;
+    if (cudaOccupancyMaxActiveClusters(&fit, loam_gn_kernel<kLines, kM>, &cfg) != cudaSuccess) {
+      cudaGetLastError();  // a size the card refuses: try the next
+      fit = 0;
+    }
+    if (fit >= 1) {
+      if (dev < kMaxDevices) chosen[dev] = blocks;
+      return blocks;
+    }
+  }
+  *err = cudaErrorLaunchOutOfResources;
+  return 0;
+}
+
+template <bool kLines, int kM>
+int launch_cluster(const Set& corner, const Set& planar, int* carry, const float* radius,
+                   const LoamParams& p, cudaStream_t st) {
+  cudaError_t err = cudaSuccess;
+  const int blocks = cluster_blocks<kLines, kM>(&err);
+  if (blocks == 0) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(blocks, st, &attr);
+  err = cudaLaunchKernelEx(&cfg, loam_gn_kernel<kLines, kM>, corner, planar, carry, radius, p);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
 int loam_launch(const Set& corner, const Set& planar, bool lines, int* carry,
                 const float* radius, const LoamParams& p, cudaStream_t st) {
   const bool vec = p.m == 16 && aligned16(planar) && (!lines || aligned16(corner));
-  if (lines && vec)
-    loam_gn_kernel<true, 16><<<1, kLoamThreads, 0, st>>>(corner, planar, carry, radius, p);
-  else if (lines)
-    loam_gn_kernel<true, 0><<<1, kLoamThreads, 0, st>>>(corner, planar, carry, radius, p);
-  else if (vec)
-    loam_gn_kernel<false, 16><<<1, kLoamThreads, 0, st>>>(corner, planar, carry, radius, p);
-  else
-    loam_gn_kernel<false, 0><<<1, kLoamThreads, 0, st>>>(corner, planar, carry, radius, p);
-  return static_cast<int>(cudaGetLastError());
+  if (lines && vec) return launch_cluster<true, 16>(corner, planar, carry, radius, p, st);
+  if (lines) return launch_cluster<true, 0>(corner, planar, carry, radius, p, st);
+  if (vec) return launch_cluster<false, 16>(corner, planar, carry, radius, p, st);
+  return launch_cluster<false, 0>(corner, planar, carry, radius, p, st);
 }
 
 }  // namespace
@@ -974,4 +1105,26 @@ extern "C" int loam_gn_launch(const float* cpx, const float* cpy, const float* c
                      max_d2, plane_thresh, line_ratio};
   return loam_launch(Set{cpx, cpy, cpz, cvalid, csrc, nc}, Set{ppx, ppy, ppz, pvalid, psrc, np},
                      true, carry, radius, p, static_cast<cudaStream_t>(stream));
+}
+
+// the blocks of the cluster that plane_gn_launch (lines 0) or loam_gn_launch
+// (lines 1) launches on the current device for M = 16 with aligned planes
+// (vec 1) or any M (vec 0); minus the CUDA error where none fits
+extern "C" int loam_gn_cluster_blocks(int lines, int vec) {
+  cudaError_t err = cudaSuccess;
+  const int blocks = lines ? (vec ? cluster_blocks<true, 16>(&err) : cluster_blocks<true, 0>(&err))
+                           : (vec ? cluster_blocks<false, 16>(&err) : cluster_blocks<false, 0>(&err));
+  return blocks ? blocks : -static_cast<int>(err);
+}
+
+// the rows that rank `rank` of a cluster of `ranks` blocks linearizes an
+// iteration of a call with `rows` rows (LoamFull: corner + planar), counted
+// with the kernel's own split
+extern "C" int loam_gn_rank_rows(int rows, int ranks, int rank) {
+  int n = 0;
+  for (int t = 0; t < kLoamThreads; ++t) {
+    const RankRows mine = rank_rows(ranks, rank, t);
+    for (int r = mine.first; r < rows; r += mine.stride) ++n;
+  }
+  return n;
 }

@@ -15,7 +15,9 @@ fourth digit between the packages (XLA accumulates A^T A with fused
 multiply-adds, PyTorch rounds each product, and the adjugate amplifies the
 last bit; see tests/test_torch_registration.py::
 test_fit_plane_5nn_matches_jax), and test_surface_hg_cand_matches_jax
-holds one linearization to 5e-4 for that reason; (b) as
+holds one linearization to 5e-4 for that reason (1e-3 at the cluster-split
+shape N 1,003, where one row's fit is ill-conditioned: see DRIVER_CASES);
+(b) as
 tests/test_torch_registration.py::test_loam_match_matches_jax holds one
 match: the pose within 1e-3 m and 1e-3 rad, the same `converged` and
 gathers, `num_valid` within 2 %, and the same map-insertion decision. The
@@ -133,7 +135,7 @@ class Rounds:
         return int(self.carries[-1][gn_loop.OFFSET["it"]])
 
 
-def assert_same_result(rt, rj, rounds, its_j):
+def assert_same_result(rt, rj, rounds, its_j, res_rel=5e-4):
     assert int(rt.iters) == int(rj.iters) == len(rounds.carries) == rounds.reads
     assert rounds.it() == its_j
     assert bool(rt.converged) == bool(rj.converged)
@@ -141,29 +143,55 @@ def assert_same_result(rt, rj, rounds, its_j):
     pj, pt = np.asarray(rj.t_mat, np.float64), rt.t_mat.numpy().astype(np.float64)
     assert np.abs(pt[:3, 3] - pj[:3, 3]).max() < 1e-4
     assert float(chord_angle(pt, pj)) < 1e-4
-    assert float(rt.total_res) == pytest.approx(float(rj.total_res), rel=5e-4)
+    assert float(rt.total_res) == pytest.approx(float(rj.total_res), rel=res_rel)
 
 
 # ------------------------------------------------- (a) the drivers against JAX
-@pytest.mark.parametrize("kind", ["plane", "loam"])
-@pytest.mark.parametrize("corr_every", [1, 8, 10])
-@pytest.mark.parametrize("skip", [0.0, 0.1])
-@pytest.mark.parametrize("max_iters", [2, 30])
-@pytest.mark.parametrize("stall", [True, False])
-def test_driver_matches_jax_run_gn_corr(kind, corr_every, skip, max_iters, stall, monkeypatch):
+# (kind, corr_every, skip, max_iters, stall, shape): shape None is scene()'s;
+# else (n_planar, n_corner, total_res's relative tolerance) at the row counts
+# where the CUDA kernel's split over the blocks of its cluster leaves blocks,
+# threads or the last 256-row tile short. At N 1,003 one of the 586 valid
+# rows (row 808) fits its plane on five neighbours whose A^T A has a
+# condition of 2.0e4, so its f32 adjugate is decided by rounding in both
+# packages: its residual is -8.54 mm in the JAX package, -16.63 mm in the
+# port and -13.18 mm in float64, which moves total_res by 5.7e-4 relative;
+# the counts and the pose are held as everywhere
+DRIVER_CASES = [
+    *((kind, corr_every, skip, max_iters, stall, None)
+      for stall in (True, False) for max_iters in (2, 30) for skip in (0.0, 0.1)
+      for corr_every in (1, 8, 10) for kind in ("plane", "loam")),
+    ("plane", 8, 0.1, 30, True, (100, 0, 5e-4)),    # fewer rows than one block
+    ("plane", 8, 0.1, 30, True, (1003, 0, 1e-3)),   # no multiple of 16 or of a tile
+    ("loam", 8, 0.1, 30, True, (100, 300, 5e-4)),   # more corner than planar rows
+    ("loam", 8, 0.1, 30, True, (40, 60, 5e-4)),     # both sets inside one tile
+]
+
+
+def driver_case_id(case):
+    kind, corr_every, skip, max_iters, stall, shape = case
+    if shape is None:
+        return f"{stall}-{max_iters}-{skip}-{corr_every}-{kind}"
+    return f"{kind}-N{shape[0]}-corner{shape[1]}"
+
+
+@pytest.mark.parametrize("kind,corr_every,skip,max_iters,stall,shape", DRIVER_CASES,
+                         ids=[driver_case_id(c) for c in DRIVER_CASES])
+def test_driver_matches_jax_run_gn_corr(kind, corr_every, skip, max_iters, stall, shape,
+                                        monkeypatch):
     """run_gn_plane_cand / run_gn_loam_cand on fixed candidate sets (every
     gather returns them) against the JAX loop: gathers, iterations,
     converged, num_valid (LoamFull: the planar count), pose and total_res;
     one round and one host read a gather."""
-    t0, planar, corner, radius = scene()
+    n_planar, n_corner, res_rel = shape or (400, 200, 5e-4)
+    t0, planar, corner, radius = scene(n_planar=n_planar, n_corner=n_corner)
     sets = (planar,) if kind == "plane" else (corner, planar)
     cfg_j, cfg_t = gn_cfgs(corr_every, skip, max_iters, stall)
     rj, its_j = run_jax(kind, sets, t0, radius, cfg_j)
     rounds = Rounds(monkeypatch)
     rt, gate = run_port(kind, sets, t0, radius, cfg_t)
     assert gate is None
-    assert_same_result(rt, rj, rounds, its_j)
-    assert int(rt.num_valid) > 50  # the gates keep most clean rows
+    assert_same_result(rt, rj, rounds, its_j, res_rel)
+    assert int(rt.num_valid) > min(50, n_planar // 3)  # the gates keep most clean rows
     if max_iters == 2 and corr_every == 1 and skip == 0.0:
         assert int(rt.iters) == 2  # the bound ends the loop
 
@@ -290,6 +318,10 @@ def test_update_enum_and_signatures_match_the_kernel_source():
     assert carry == {**{f.upper(): o for f, o in gn_loop.OFFSET.items()},
                      "SIZE": gn_loop.CARRY_SIZE}
     sigs = cuda_build.SIGNATURES["gn_loop"]
+    for name, n in {"loam_gn_cluster_blocks": 2, "loam_gn_rank_rows": 3}.items():  # ints only
+        params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1)
+        assert [q.split()[0] for q in params.split(",")] == ["int"] * n
+        assert len(sigs[name][0]) == n
     # pointers, ints, floats, the stream: the C entry points' parameter lists
     for name, counts in {"plane_gn_launch": (7, 7, 6), "loam_gn_launch": (12, 8, 7)}.items():
         params = re.search(rf'extern "C" int {name}\(([^)]*)\)', text).group(1)

@@ -1,9 +1,10 @@
 """Time the step's two loop kernels, `tight_fuse` (csrc/tight_fuse.cu) and
 `preintegrate` (csrc/imu_scan.cu), on captured and synthetic inputs, for
 this checkout's kernels and, with `--parent DIR`, a parent checkout's
-kernels, in turns on one card.
+kernels, in turns on one card; or, with `--gn`, the LOAM GN kernels.
 
     python3 tools/profile_torch_loops.py [--parent DIR] [--stages] [--out FILE]
+    python3 tools/profile_torch_loops.py --gn [--parent DIR] [--stages] [--out FILE]
 
 Captures the arguments of every `preintegrate` and `tight.fuse` call of
 two runs of the port on the card: chip_smoke.py's phase-4 grid config
@@ -33,6 +34,28 @@ thread 0 spent in each stage after the output (`stage_cycles`, beside
 nvidia-smi's SM clocks). Prints ptxas's registers, spills and shared
 memory of each build, and one JSON line last (also written to FILE). Needs
 CUDA; imports nothing of JAX.
+
+`--gn` times `plane_gn_rounds` and `loam_gn_rounds` (csrc/gn_loop.cu
+`loam_gn_kernel`) instead. It captures every call of the LOAM round
+drivers (chip_smoke.LoopCapture) in runs of the bench's PointToPlane_IVOX,
+PointToPlane_KdTree and LoamFull_KdTree mapping configs over the 10 s
+simulator run (16,384 points a scan) and of the M2DGR preset over a 6 s
+run (57,600 points). On each path it replays every call on each build
+(the status, iterations and gathers each gives, and the largest pose
+difference from the parent's) and times the path's last first round and
+its call with the most iterations: the median device ms of one wrapper
+call over 50, queued behind a device sleep, each from its own copy of the
+carry, in turns (parent, change, change, parent), with ms per iteration.
+It also replays chip_smoke.py's phase-21 edge cases (`loam_edge_cases`, on
+the captured IVOX and LoamFull first rounds) on each build: whether each
+gives the parent's carry bit for bit, and its pose difference from the
+parent's and from the plain version's. The parent's `gn_loop.cu` has the
+same C entry points. With `--stages`, this checkout's
+`gn_loop.cu` built with -DFLS_STAGE_CLOCKS runs each timed call once more
+and reports rank 0's SM cycles an iteration in each stage of
+`loam_gn_kernel` (its K_* enum: set-up, its block's rows and block sum,
+the wait at the cluster barrier, the distributed shared memory sum, the
+serial end and begin of an iteration, the last barrier).
 """
 
 from __future__ import annotations
@@ -91,8 +114,8 @@ def capture_calls(torch, system_config, ds, device="cuda") -> dict:
     return calls
 
 
-def build_variant(root: str, tag: str, defines=()) -> dict:
-    """nvcc of the two sources of the checkout at `root` with this
+def build_variant(root: str, tag: str, defines=(), names=LIBS) -> dict:
+    """nvcc of the sources `names` of the checkout at `root` with this
     checkout's flags (and `defines`) into build/kernels/<tag>/, one process
     each, all started together: {name: (library path, nvcc output)}."""
     from funny_lidar_slam_torch.ops import cuda_build
@@ -100,7 +123,7 @@ def build_variant(root: str, tag: str, defines=()) -> dict:
     out_dir = cuda_build.BUILD_DIR / tag
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in LIBS:
+    for name in names:
         src = os.path.join(root, "funny_lidar_slam_torch", "csrc", f"{name}.cu")
         lib = out_dir / f"lib{name}.so"
         cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *defines, "-o", str(lib), src]
@@ -120,6 +143,8 @@ def load(name: str, path: str) -> ctypes.CDLL:
 
     lib = ctypes.CDLL(path)
     for fn, (argtypes, restype) in cuda_build.SIGNATURES[name].items():
+        if not hasattr(lib, fn):  # an entry point a parent lacks
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
@@ -162,12 +187,189 @@ def flat_output(torch, kind, args):
     return torch.cat([o.reshape(-1).float() for o in out])
 
 
+GN_PATHS = ("PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree", "m2dgr")
+# the stage clocks of csrc/gn_loop.cu's K_* enum
+GN_STAGES = ("setup", "rows", "cluster_wait", "dsmem_sum", "serial", "exit")
+
+
+def gn_stage_cycles(torch, lib, kind, call) -> dict:
+    """One launch of `kind` from the C entry point of a -DFLS_STAGE_CLOCKS
+    build on a copy of the call's carry with room for the clocks after it:
+    {stage: rank 0's SM cycles an iteration}."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    carry = call[0]
+    big = torch.zeros(gn_loop.CARRY_SIZE + CLOCKS, dtype=torch.int32, device=carry.device)
+    big[:gn_loop.CARRY_SIZE] = carry
+    k = 1 if kind == "plane_gn_rounds" else 2
+    sets, radius, cfg = call[1:1 + k], call[1 + k], call[2 + k]
+    ptrs = [t.data_ptr() for t in gn_loop._checked_inputs(carry, sets[0], radius, *sets[1:],
+                                                           name=kind)]
+    ptrs[5 * k] = big.data_ptr()  # the carry, after each set's five tensors
+    stream = torch.cuda.current_stream(carry.device).cuda_stream
+    m = sets[0].px.shape[1]
+    if kind == "plane_gn_rounds":
+        _, _, _, _, plane_thresh, max_d2 = call
+        err = lib.plane_gn_launch(*ptrs, sets[0].px.shape[0], m, *gn_loop._loop_args(cfg),
+                                  float(max_d2), float(plane_thresh), stream)
+    else:
+        _, _, _, _, _, line_ratio, plane_thresh, max_d2 = call
+        err = lib.loam_gn_launch(*ptrs, sets[0].px.shape[0], sets[1].px.shape[0], m,
+                                 *gn_loop._loop_args(cfg), float(max_d2), float(plane_thresh),
+                                 float(line_ratio), stream)
+    assert err == 0, f"{kind}: CUDA error {err}"
+    torch.cuda.synchronize()
+    its = max(int(big[gn_loop.OFFSET["it"]]) - int(carry[gn_loop.OFFSET["it"]]), 1)
+    cycles = big[gn_loop.CARRY_SIZE:].view(torch.float32).tolist()
+    return {name: c / its for name, c in zip(GN_STAGES, cycles)}
+
+
+def capture_gn(torch, cs, bench) -> dict:
+    """{path: [(kernel, args)]} of every LOAM round-driver call in one run of
+    each of GN_PATHS (chip_smoke.LoopCapture), cloned on the card."""
+    from funny_lidar_slam_torch.config import load_config
+    from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem
+
+    ds = simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7))
+    runs = {mode: (lambda mode=mode: SlamSystem(bench.mode_config(mode, 16384)), ds)
+            for mode in GN_PATHS[:3]}
+    runs["m2dgr"] = (lambda: SlamSystem(load_config(os.path.join(ROOT, M2DGR)).system),
+                     simulate(SimConfig(duration=6.0, points_per_scan=57600, seed=7)))
+    for key, (make, data) in runs.items():
+        with cs.LoopCapture(key, loops=False):
+            make().run_dataset(data)
+        torch.cuda.synchronize()
+    return {key: cs.LOAM_CAPTURES[key] for key in runs}
+
+
+def gn_edge_cases(torch, cs, captured, versions) -> dict:
+    """chip_smoke.py's phase-21 edge cases on the captured IVOX and LoamFull
+    first rounds, replayed on each build: {case: {build: whether its carry
+    is the parent's bit for bit, its pose difference from the parent's and
+    from the plain version's}}."""
+    from funny_lidar_slam_torch.ops import cuda_build, gn_loop
+
+    plane_args = cs.first_rounds(captured["PointToPlane_IVOX"], "plane_gn_rounds")[-1]
+    loam_args = cs.first_rounds(captured["LoamFull_KdTree"], "loam_gn_rounds")[-1]
+    out = {}
+    for name, kind, args in cs.loam_edge_cases(torch, plane_args, loam_args):
+        plain = args[0].clone()
+        getattr(gn_loop, f"{kind}_plain")(plain, *args[1:])
+        carries = {}
+        for v, lib in versions.items():
+            cuda_build._loaded["gn_loop"] = lib
+            carries[v] = args[0].clone()
+            getattr(gn_loop, kind)(carries[v], *args[1:])
+        ref = carries.get("parent", carries["change"])
+        row = {}
+        for v, c in carries.items():
+            dp, da = cs.pose_diff(gn_loop.result_views(c).t_mat, gn_loop.result_views(ref).t_mat)
+            pp, pa = cs.pose_diff(gn_loop.result_views(c).t_mat, gn_loop.result_views(plain).t_mat)
+            row[v] = {"bit_equal_to_parent": bool(torch.equal(c, ref)), "dp_vs_parent": dp,
+                      "da_vs_parent": da, "dp_vs_plain": pp, "da_vs_plain": pa}
+        out[name] = row
+    log(f"[gn] edge cases: {json.dumps(out)}")
+    return out
+
+
+def gn_main(args, torch, cs, bench) -> dict:
+    """--gn: the LOAM GN kernels of the builds, in turns on captured calls."""
+    from funny_lidar_slam_torch.ops import cuda_build, gn_loop
+
+    t0 = time.perf_counter()
+    logs = cuda_build.build_all(["gn_loop"])
+    versions = {"change": cuda_build.library("gn_loop")}
+    ptxas = {"change": cs.ptxas_report(logs["gn_loop"])}
+    variants = []
+    if args.parent:
+        variants.append(("parent", os.path.abspath(args.parent), ()))
+    if args.stages:
+        variants.append(("stages", ROOT, ("-DFLS_STAGE_CLOCKS",)))
+    for tag, root, defines in variants:
+        (path, text), = build_variant(root, tag, defines, ("gn_loop",)).values()
+        versions[tag] = load("gn_loop", path)
+        ptxas[tag] = cs.ptxas_report(text)
+    staged = versions.pop("stages", None)
+    log(f"[gn] built in {time.perf_counter() - t0:.1f} s; ptxas {json.dumps(ptxas)}")
+    blocks = {k: gn_loop.cluster_blocks(lines=k == "loam_gn_rounds") for k in cs.LOAM_GN_KERNELS}
+    t0 = time.perf_counter()
+    captured = capture_gn(torch, cs, bench)
+    log(f"[gn] captured {({k: len(v) for k, v in captured.items()})} calls in "
+        f"{time.perf_counter() - t0:.1f} s")
+    order = ["parent", "change", "change", "parent"] if args.parent else ["change", "change"]
+    o = gn_loop.OFFSET
+    result = {"device": torch.cuda.get_device_name(0), "card": bench.card_line(),
+              "ptxas": ptxas, "cluster_blocks": blocks, "order": order, "paths": {}}
+
+    def replay(kind, call):
+        carry = call[0].clone()
+        getattr(gn_loop, kind)(carry, *call[1:])
+        return carry
+
+    for key, calls in captured.items():
+        kind = calls[0][0]
+        assert all(k == kind for k, _ in calls), f"[gn] {key}: two kernels"
+        calls = [a for _, a in calls]
+        outs = {}
+        for v, lib in versions.items():
+            cuda_build._loaded["gn_loop"] = lib
+            outs[v] = [replay(kind, a) for a in calls]
+        its = [int(c[o["it"]]) - int(a[0][o["it"]]) for c, a in zip(outs["change"], calls)]
+        row = {"kernel": kind, "calls": len(calls), "iterations": int(sum(its)), "versions": {}}
+        for v, carries in outs.items():
+            same = [c[o["it"]:].tolist() == p[o["it"]:].tolist()
+                    for c, p in zip(carries, outs.get("parent", outs["change"]))]
+            diffs = [cs.pose_diff(gn_loop.result_views(c).t_mat, gn_loop.result_views(p).t_mat)
+                     for c, p in zip(carries, outs.get("parent", outs["change"]))]
+            row["versions"][v] = {
+                "same_counters_as_parent": sum(same) / len(same),
+                "max_dp_vs_parent_m": max(d[0] for d in diffs),
+                "max_da_vs_parent_rad": max(d[1] for d in diffs)}
+        first = [i for i, a in enumerate(calls) if int(a[0][o["it"]]) == 0][-1]
+        most = max(range(len(calls)), key=lambda i: its[i])
+        row["shapes"] = {}
+        for label, i in (("first_round", first), ("most_iterations", most)):
+            call = calls[i]
+            ms = {}
+            for v in order:
+                cuda_build._loaded["gn_loop"] = versions[v]
+                pool, used = call[0].repeat(64, 1), [0]
+
+                def run(call=call, pool=pool, used=used):
+                    carry = pool[used[0]]
+                    used[0] += 1
+                    return getattr(gn_loop, kind)(carry, *call[1:])
+
+                ms.setdefault(v, []).append(cs.time_ms(torch, run, 50))
+            n = [c.px.shape[0] for c in call[1:1 + cs.GN_SETS[kind]]]
+            med = {v: float(np.median(t)) for v, t in ms.items()}
+            row["shapes"][label] = {
+                "rows": n, "iterations": its[i], "ms": ms, "ms_median": med,
+                "ms_per_iteration": {v: t / max(its[i], 1) for v, t in med.items()}}
+            if staged:
+                row["shapes"][label]["stage_cycles_per_iteration"] = gn_stage_cycles(
+                    torch, staged, kind, call)
+        log(f"[gn] {key}: {json.dumps(row)}")
+        result["paths"][key] = row
+    result["edge_cases"] = gn_edge_cases(torch, cs, captured, versions)
+    cuda_build._loaded["gn_loop"] = versions["change"]
+    result["empty_launch_ms"] = [cs.time_ms(torch, lambda: torch.cuda._sleep(0), 50)
+                                 for _ in range(2)]
+    result["sm_clocks_mhz"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    return result
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
                     help="a parent checkout whose imu_scan.cu and tight_fuse.cu to time beside")
     ap.add_argument("--stages", action="store_true",
-                    help="also run a build with per-stage cycle counters")
+                    help="also run a build with per-stage cycle counters (either mode)")
+    ap.add_argument("--gn", action="store_true",
+                    help="time the LOAM GN kernels (csrc/gn_loop.cu) instead")
     ap.add_argument("--out", default=None, help="also write the JSON line here")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
@@ -183,6 +385,10 @@ def main(argv=None) -> dict:
         raise SystemExit("profile_torch_loops: CUDA is not available")
     card = bench.card_line()
     log(f"[loops] {torch.cuda.get_device_name(0)} | {card}")
+    if args.gn:
+        result = gn_main(args, torch, cs, bench)
+        write(result, args.out)
+        return result
     t0 = time.perf_counter()
     logs = cuda_build.build_all(LIBS)
     versions = {"change": {name: cuda_build.library(name) for name in LIBS}}
@@ -266,13 +472,18 @@ def main(argv=None) -> dict:
     result["sm_clocks_mhz"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip()
+    write(result, args.out)
+    return result
+
+
+def write(result: dict, out=None):
+    """The result as one JSON line on stdout (and in `out`)."""
     line = json.dumps(result)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             f.write(line + "\n")
     print(line)
-    return result
 
 
 if __name__ == "__main__":
