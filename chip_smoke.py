@@ -121,16 +121,17 @@ Phases, each of which raises (non-zero exit) on failure:
      rad and 1e-2 of the largest information entry on every call, within
      1e-4 m and 1e-5 rad with the plain version's LM iteration count on at
      least 95 %, the distributions printed), and on the synthetic edge
-     cases of `loop_edge_cases` (preintegrate with every sample masked, one
-     valid slot, slots of dt <= 0 between valid ones, a chained second
-     segment, 64 slots all valid; tight_fuse at 0 and 1 LM iterations);
-     no ptxas spills in preintegrate_kernel or tight_fuse_kernel; the three
-     entry points on device inputs under
-     torch.cuda.set_sync_debug_mode("error"); each kernel timed in turns
-     beside its plain version and one empty launch at the bench's shape
-     (16 slots, 12 LM iterations) and M2DGR's (64 slots, 20), tight_fuse
-     also at the bench's call with 0 and 1 LM iterations, with its bound
-     and its ptxas registers, stack frame and shared memory;
+     cases of `loop_edge_cases` (preintegrate and eskf_predict each with
+     every sample masked, one valid slot, slots of dt <= 0 between valid
+     ones, a chained second segment, 64 slots all valid; tight_fuse at 0
+     and 1 LM iterations); no ptxas spills in preintegrate_kernel,
+     eskf_predict_kernel or tight_fuse_kernel; the three entry points on
+     device inputs under torch.cuda.set_sync_debug_mode("error"); each
+     kernel timed in turns beside its plain version and one empty launch
+     at the bench's shape (16 slots, 12 LM iterations) and M2DGR's (64
+     slots, 20; eskf_predict at 64 slots all valid), tight_fuse also at the
+     bench's call with 0 and 1 LM iterations, with its bound and its ptxas
+     registers, stack frame and shared memory;
   20. the ICP GN loop: icp_gn_rounds (csrc/gn_loop.cu, the JAX
      `run_gn_corr` while_loop over cached candidates, one launch a gather
      round) against its plain version on every call captured in untimed
@@ -138,9 +139,15 @@ Phases, each of which raises (non-zero exit) on failure:
      (Turing mapping): the same status, iterations and gathers on >= 95 %
      of a path's calls, and there the pose within 1e-4 m and 1e-5 rad,
      num_valid within 1 %, total_res within 1e-3 relative; GN iterations a
-     match; the launch under set_sync_debug_mode("error"); timed at the
-     headline shape (N 16,384, M 16) beside its plain version and one empty
-     launch, with its bound and its ptxas registers and shared memory;
+     match; one thread block cluster of R >= 8 blocks (R and the rows per
+     rank printed), two launches on every captured first round bit-equal,
+     no ptxas spills; synthetic edge cases (a starved set, every lane
+     invalid, N 100, N 5,003, M 12, max_iters 2; collinear sources held to
+     status and counts); the any-M kernel bit-equal on misaligned planes;
+     the launch under set_sync_debug_mode("error"); timed at the headline
+     shape (N 16,384, M 16) and the captured call with the most iterations
+     beside its plain version and one empty launch, with its bound and its
+     ptxas registers and shared memory;
   21. the LOAM GN loops: plane_gn_rounds and loam_gn_rounds (csrc/gn_loop.cu
      loam_gn_kernel, the same while_loop over the point-to-plane and the
      LoamFull line + plane candidate sets) against their plain versions on
@@ -2357,14 +2364,15 @@ LOOP_SYMBOLS = {"preintegrate": ("imu_scan", "preintegrate_kernel"),
                 "eskf_predict": ("imu_scan", "eskf_predict_kernel"),
                 "tight_fuse": ("tight_fuse", "tight_fuse_kernel")}
 # the shapes timed: the bench's (phase 4 grid and phase 11 KF, 16 slots,
-# 12 LM iterations) and M2DGR's (64 slots, 20 iterations)
-LOOP_TIMED = {"preintegrate": ("grid", "m2dgr"), "eskf_predict": ("kf",),
+# 12 LM iterations) and M2DGR's (64 slots, 20 iterations); eskf_predict also
+# on the 64-slot segment of `loop_edge_cases` with every slot valid
+LOOP_TIMED = {"preintegrate": ("grid", "m2dgr"), "eskf_predict": ("kf", "all_valid_64"),
               "tight_fuse": ("grid", "m2dgr")}
 # besides: tight_fuse at the grid call with the LM iteration budget cut to
 # 0 (set-up, posterior, marginalization and projection alone) and to 1
 LOOP_TIMED_ITERATIONS = (0, 1)
 # the loop kernels that keep their chains in registers: ptxas may report no spills
-LOOP_NO_SPILLS = ("preintegrate", "tight_fuse")
+LOOP_NO_SPILLS = ("preintegrate", "eskf_predict", "tight_fuse")
 
 
 def valid_slots(seg) -> int:
@@ -2405,19 +2413,22 @@ def with_iterations(fuse_args, n):
     return fuse_args[:5] + (fuse_args[5]._replace(iterations=n),)
 
 
-def loop_edge_cases(torch, pre_args, fuse_args) -> list:
-    """[(name, (kind, args))]: the synthetic edge cases of the two loop
-    kernels, with the noise, biases and fusion inputs of the captured calls
-    `pre_args` (preintegrate) and `fuse_args` (tight fuse), on their
-    device: `preintegrate` over 16 slots with every sample masked, with one
+def loop_edge_cases(torch, pre_args, fuse_args, eskf_args) -> list:
+    """[(name, (kind, args))]: the synthetic edge cases of the loop
+    kernels, with the noise, biases, fusion inputs and ESKF state of the
+    captured calls `pre_args` (preintegrate), `fuse_args` (tight fuse) and
+    `eskf_args` (eskf.predict), on their device: `preintegrate` and
+    `eskf_predict` each over 16 slots with every sample masked, with one
     valid slot, with slots of dt <= 0 (a repeated and a decreasing stamp)
     between valid ones, a second segment chained on the state of a first
-    (has_init; the plain version's state, the same for both), and 64 slots
-    all valid; `tight_fuse` at 0 LM iterations (set-up and the tail alone)
-    and at 1."""
+    (preintegrate's has_init; the plain version's state, the same for
+    both), and 64 slots all valid; `tight_fuse` at 0 LM iterations (set-up
+    and the tail alone) and at 1."""
+    from funny_lidar_slam_torch.fusion import eskf
     from funny_lidar_slam_torch.imu import preintegration as pi
 
     _, params, bg, ba = pre_args[:4]
+    state, _, eparams, gravity = eskf_args
     dev, n = bg.device, 16
     one = np.zeros(n, bool)
     one[5:7] = True
@@ -2428,17 +2439,20 @@ def loop_edge_cases(torch, pre_args, fuse_args) -> list:
     second = synthetic_segment(torch, dev, n, 42, t=(5.0 + (n + np.arange(n)) * 0.005
                                                      ).astype(np.float32))
     init = pi.preintegrate_plain(first, params, bg, ba)
+    segments = {"all_masked": synthetic_segment(torch, dev, n, 43, mask=np.zeros(n, bool)),
+                "one_valid_slot": synthetic_segment(torch, dev, n, 44, mask=one),
+                "nonpositive_dt": synthetic_segment(torch, dev, n, 45, t=t_bad),
+                "chained": second,
+                "all_valid_64": synthetic_segment(torch, dev, 64, 46)}
 
-    def pre(seg, *extra):
-        return "preintegrate", (seg, params, bg, ba, *extra)
-
-    return [
-        ("preintegrate_all_masked", pre(synthetic_segment(torch, dev, n, 43,
-                                                          mask=np.zeros(n, bool)))),
-        ("preintegrate_one_valid_slot", pre(synthetic_segment(torch, dev, n, 44, mask=one))),
-        ("preintegrate_nonpositive_dt", pre(synthetic_segment(torch, dev, n, 45, t=t_bad))),
-        ("preintegrate_chained", pre(second, init)),
-        ("preintegrate_all_valid_64", pre(synthetic_segment(torch, dev, 64, 46))),
+    cases = []
+    for name, seg in segments.items():
+        extra = (init,) if name == "chained" else ()
+        cases.append((f"preintegrate_{name}", ("preintegrate", (seg, params, bg, ba, *extra))))
+    for name, seg in segments.items():
+        s = eskf.predict_plain(state, first, eparams, gravity) if name == "chained" else state
+        cases.append((f"eskf_predict_{name}", ("eskf_predict", (s, seg, eparams, gravity))))
+    return cases + [
         ("tight_fuse_it0", ("tight_fuse", with_iterations(fuse_args, 0))),
         ("tight_fuse_it1", ("tight_fuse", with_iterations(fuse_args, 1))),
     ]
@@ -2469,12 +2483,26 @@ def tight_ops(iterations) -> int:
     return 2 * 9 ** 3 + (iterations + 2) * assembly + iterations * solve + tail
 
 
+# the operations of one ESKF slot that moves the state, by F's blocks
+# (csrc/imu_scan.cu, part 4; a 3x3 product is 27 multiplies and 18 adds):
+# F cov, then (F cov) F^T, each a block row (column) of five at a time:
+# block 0 rs^T X and -dt X (45 + 18), block 1 A X + X + B X (2 x 45 + 18),
+# block 2 dt X + X (18), blocks 3-4 copies; + Q dt (12 multiplies, 12 adds)
+MM3 = 45
+ESKF_COV_OPS = 2 * 5 * ((MM3 + 18) + (2 * MM3 + 18) + 18) + 24
+# F's blocks: hat(acc) dt (6), -r hat(acc) dt (45), -r dt (9); the mean:
+# r acc + g (18), r rs (45), v and p (24); the slot's inputs: midpoints
+# less the biases (18), w dt (3), dt (1), Exp (~40)
+ESKF_SLOT_OPS = ESKF_COV_OPS + (6 + MM3 + 9) + (18 + MM3 + 24) + (18 + 3 + 1 + 40)
+
+
 def loop_cost(kind, args, iterations) -> tuple:
     """(bytes, operations) the call needs: its packed inputs read once and
     its outputs written once; the operations of the slots that move the
     state (preintegrate: A cov A^T, B Sigma B^T and the 3x3 updates, ~4,900
-    a slot; ESKF: F cov F^T, ~13,600 a slot) or of the reference's LM
-    iterations and tail (`tight_ops`)."""
+    a slot; ESKF: F cov F^T by F's nonzero blocks and the mean,
+    ESKF_SLOT_OPS) or of the reference's LM iterations and tail
+    (`tight_ops`)."""
     from funny_lidar_slam_torch.ops import recurrences as rec
 
     if kind == "preintegrate":
@@ -2483,7 +2511,7 @@ def loop_cost(kind, args, iterations) -> tuple:
         return (15 + 8 * s + rec._size(rec.PREINT_STATE)) * 4, valid_slots(seg) * 4_900
     if kind == "eskf_predict":
         s = args[1].t.shape[0]
-        return (258 + 8 * s + rec._size(rec.ESKF_OUT)) * 4, valid_slots(args[1]) * 13_600
+        return (258 + 8 * s + rec._size(rec.ESKF_OUT)) * 4, valid_slots(args[1]) * ESKF_SLOT_OPS
     return (425 + rec._size(rec.TIGHT_OUT)) * 4, tight_ops(iterations)
 
 
@@ -2575,8 +2603,10 @@ def phase_device_loops(torch, report) -> list:
     saved = {fn.__name__: fn.launches for fn in rec.KERNELS}  # comparisons do not count
     pre_args = next(a for k, a in LOOP_CAPTURES["grid"] if k == "preintegrate")
     fuse_args = next(a for k, a in LOOP_CAPTURES["grid"] if k == "tight_fuse")
-    edge = {}
-    for name, (kind, args) in loop_edge_cases(torch, pre_args, fuse_args):
+    kf_args = next(a for k, a in LOOP_CAPTURES["kf"] if k == "eskf_predict")
+    edge, edge_args = {}, {}
+    for name, (kind, args) in loop_edge_cases(torch, pre_args, fuse_args, kf_args):
+        edge_args[name] = args
         edge[name] = loop_compare(torch, kind, args)
         assert edge[name]["ok"], f"[device-loops] edge case {name}: {edge[name]}"
     log(f"[device-loops] {len(edge)} edge cases within tolerance: {json.dumps(edge)}")
@@ -2610,7 +2640,6 @@ def phase_device_loops(torch, report) -> list:
                 f"median / p95 / max {json.dumps(summary)}")
 
     # the three entry points on device inputs may not wait for the device
-    kf_args = next(a for k, a in LOOP_CAPTURES["kf"] if k == "eskf_predict")
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2628,7 +2657,8 @@ def phase_device_loops(torch, report) -> list:
     for kind, keys in LOOP_TIMED.items():
         kernel, plain = loop_entry(kind)
         shapes = {}
-        timed = [(key, [a for k, a in LOOP_CAPTURES[key] if k == kind][-1]) for key in keys]
+        timed = [(key, edge_args[f"{kind}_{key}"] if key == "all_valid_64"
+                  else [a for k, a in LOOP_CAPTURES[key] if k == kind][-1]) for key in keys]
         if kind == "tight_fuse":
             timed += [(f"{keys[0]}_it{n}", with_iterations(timed[0][1], n))
                       for n in LOOP_TIMED_ITERATIONS]
@@ -2728,7 +2758,10 @@ def gn_compare(torch, args, kind="icp_gn_rounds") -> dict:
     version's; where the two part by more than GN_POSE_TOL, it is held to a
     float64 run of the plain version on the same call instead (`dp64`,
     `da64`): the float32 normal equations (condition ~1e3) leave the plain
-    version itself up to ~1e-4 m from the float64 pose."""
+    version itself up to ~1e-4 m from the float64 pose. For the LOAM kernels
+    that run (float64 sums, `float64_sums`) also holds num_valid and the
+    residual sum, and its status, iterations and gathers count as the plain
+    version's (`same`) where the float32 run's differ."""
     from funny_lidar_slam_torch.ops import gn_loop
 
     kernel, plain = getattr(gn_loop, kind), getattr(gn_loop, f"{kind}_plain")
@@ -2749,7 +2782,8 @@ def gn_compare(torch, args, kind="icp_gn_rounds") -> dict:
         res_rel=abs(float(vk.total_res) - float(vp.total_res))
         / max(abs(float(vp.total_res)), 1e-30),
         iterations=ik[0] - int(carry[o["it"]]), first=int(carry[o["it"]]) == 0,
-        finite=bool(torch.isfinite(vk.t_mat).all()), carry_k=ik, carry_p=ip)
+        finite=bool(torch.isfinite(vk.t_mat).all()), carry_k=ik, carry_p=ip,
+        t_k=vk.t_mat, t_p=vp.t_mat)
     pose_ok = out["dp"] < GN_POSE_TOL[0] and out["da"] < GN_POSE_TOL[1]
     if not pose_ok:  # the float64 reference of the same call
         c64 = carry.clone()
@@ -2769,6 +2803,12 @@ def gn_compare(torch, args, kind="icp_gn_rounds") -> dict:
                              / max(int(v64.num_valid), 1))
             out["res_rel"] = (abs(float(vk.total_res) - float(v64.total_res))
                               / max(abs(float(v64.total_res)), 1e-30))
+            # and the loop's counters: a threshold (the stall test) that the
+            # float32 sums cross some iterations before the float64 ones
+            # (a starved set's slow drift) ends the two plain runs apart
+            out["counters64"] = [c64[o[f]].item() for f in names]
+            out["same"] = out["same"] or all(ck[o[f]].item() == c64[o[f]].item()
+                                             for f in names)
     out["close"] = pose_ok and out["nv_rel"] <= 0.01 and out["res_rel"] < 1e-3
     return out
 
@@ -2844,25 +2884,123 @@ def gn_timing(torch, args, label, kind="icp_gn_rounds") -> dict:
     return out
 
 
+# ------------------------------------------- the GN kernels' edge cases
+def gn_with_cfg(args, kind, **kw):
+    """A GN call's arguments with its GNConfig's fields `kw` replaced."""
+    i = 1 + GN_SETS[kind] + 1
+    return (*args[:i], args[i]._replace(**kw), *args[i + 1:])
+
+
+def gn_with_sets(args, kind, fn):
+    """A GN call's arguments with `fn` applied to each candidate set."""
+    k = GN_SETS[kind]
+    return (args[0], *(fn(c) for c in args[1:1 + k]), *args[1 + k:])
+
+
+def gn_dead(torch, c):
+    """The set with every lane invalid."""
+    return c._replace(valid=torch.zeros_like(c.valid))
+
+
+def gn_lanes12(c):
+    """The set's first 12 lanes (the any-M kernels)."""
+    return c._replace(**{f: getattr(c, f)[:, :12].contiguous()
+                         for f in ("px", "py", "pz", "valid")})
+
+
+def gn_rows(torch, c, n, among=None):
+    """n rows spread evenly over the set (or over the rows `among` marks)."""
+    pool = (torch.arange(c.px.shape[0], device=c.px.device) if among is None
+            else torch.nonzero(among).flatten())
+    idx = pool[torch.linspace(0, len(pool) - 1, n, device=c.px.device).round().long()]
+    return c._replace(**{f: getattr(c, f).index_select(0, idx) for f in c._fields})
+
+
+# the ICP edge case whose H is rank-deficient (every source point on one
+# line: the rotation about it is unobservable), held as LOAM_RANK_DEFICIENT
+# and to where its pose places the line (`line_points_diff`)
+ICP_RANK_DEFICIENT = "icp_gn_rounds collinear sources"
+
+
+def line_points_diff(src, t_a, t_b) -> float:
+    """The largest distance between the source points placed by pose t_a
+    and by t_b: ICP_RANK_DEFICIENT's observable part of their difference
+    (a rotation about the line moves none of its points)."""
+    placed = [src @ t[:3, :3].T + t[:3, 3] for t in (t_a, t_b)]
+    return float((placed[0] - placed[1]).norm(dim=1).max())
+
+
+def icp_edge_cases(torch, args) -> list:
+    """[(name, args)] on a captured ICP first round (the headline call): a
+    starved set (min_valid above its rows), every lane invalid, N 100 and N
+    5,003 rows spread over the set (below one 256-row tile, and no multiple
+    of a tile or of R), M 12 (the any-M kernel), max_iters 2, and
+    ICP_RANK_DEFICIENT: 600 source points on a line through the set's
+    first point, each with one valid lane 1 cm off its world point at the
+    carry's pose."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    kind, cand = "icp_gn_rounds", args[1]
+    n = cand.px.shape[0]
+    line = gn_rows(torch, cand, 600)
+    t_mat = gn_loop.result_views(args[0]).t_mat
+    steps = torch.linspace(-8.0, 8.0, 600, device=cand.src.device)[:, None]
+    src = (line.src[:1] + steps * torch.tensor([0.8, 0.6, 0.0], device=cand.src.device)).contiguous()
+    world = src @ t_mat[:3, :3].T + t_mat[:3, 3] + 0.01
+    lane0 = torch.zeros_like(line.valid)
+    lane0[:, 0] = True
+    collinear = line._replace(
+        src=src, valid=lane0,
+        **{f: torch.where(lane0, world[:, k:k + 1], getattr(line, f)).contiguous()
+           for k, f in enumerate(("px", "py", "pz"))})
+    return [(f"{kind} starved", gn_with_cfg(args, kind, min_valid=n + 1)),
+            (f"{kind} every lane invalid", gn_with_sets(args, kind, lambda c: gn_dead(torch, c))),
+            (f"{kind} N 100", (args[0], gn_rows(torch, cand, 100), *args[2:])),
+            (f"{kind} N 5003", (args[0], gn_rows(torch, cand, 5003), *args[2:])),
+            (f"{kind} M 12", gn_with_sets(args, kind, gn_lanes12)),
+            (f"{kind} max_iters 2", gn_with_cfg(args, kind, max_iters=2)),
+            (ICP_RANK_DEFICIENT, (args[0], collinear, *args[2:]))]
+
+
 def phase_gn_loop(torch, report) -> dict:
-    """Phase 20: icp_gn_rounds (csrc/gn_loop.cu) against its plain version
-    on every call captured from untimed runs of phase 4 (grid), phase 11
-    (KF), phase 6 (ICP localization) and 15b (the Turing CLI); gates: the
-    same status, iterations and gathers on >= 95 % of a path's calls, and on
+    """Phase 20: icp_gn_rounds (csrc/gn_loop.cu `icp_gn_kernel<16|0>`, one
+    thread block cluster of R blocks a call) against its plain version on
+    every call captured from untimed runs of phase 4 (grid), phase 11 (KF),
+    phase 6 (ICP localization) and 15b (the Turing CLI); gates: the same
+    status, iterations and gathers on >= 95 % of a path's calls, and on
     those the pose within 1e-4 m and 1e-5 rad (chord) of the plain version's
     or, where the two float32 poses part by more, of a float64 run of the
-    plain version (`gn_compare`), num_valid within 1 % and total_res within
+    plain version (`gn_compare`), num_valid within 1 %, total_res within
     1e-3 relative; every call's pose finite and within 0.05 m; the launches
-    while capturing equal to the calls captured. Then, on the headline call
-    (a grid match's first round, N = 16,384, M = 16): the launch under
+    while capturing equal to the calls captured; every captured first round
+    launched twice with the same carry bit for bit (`bit_equal_replays`).
+    R is printed (>= 8 for both variants) with the rows a rank (the
+    launcher's own split, `gn_loop.rank_rows`); ptxas may report no spills
+    in either variant. Then, on the headline call (a grid match's first
+    round, N = 16,384, M = 16): the launch under
     set_sync_debug_mode("error"); the any-M kernel bit-equal to the M = 16
-    one on misaligned planes and within the gates at M = 12; the kernel
+    one on misaligned planes; the edge cases of `icp_edge_cases` (the
+    starved set, every lane invalid, N 100, N 5,003, M 12, max_iters 2) with
+    the same gates, and ICP_RANK_DEFICIENT held to status, iterations,
+    gathers and num_valid with a finite pose within 0.05 m that places the
+    line's points within 1e-4 m of the plain version's; the kernel
     timed beside its plain version and one empty launch, with its bound,
     there and on the captured call with the most iterations. Returns the
     JSON entry."""
     from funny_lidar_slam_torch.ops import gn_loop
 
     t_phase = time.perf_counter()
+    kind = "icp_gn_rounds"
+    resources = {k: v for k, v in report.get("gn_loop", {}).items()
+                 if k.startswith("icp_gn_kernel")}
+    assert sorted(resources) == ["icp_gn_kernel<0>", "icp_gn_kernel<16>"], \
+        f"[gn-loop] ptxas report {sorted(resources)}"
+    for name, res in resources.items():
+        assert res["registers"] and res["spill_stores"] == 0 and res["spill_loads"] == 0, \
+            f"[gn-loop] {name} spills: {res}"
+    blocks = gn_loop.cluster_blocks(kind)
+    assert blocks >= 8 and gn_loop.cluster_blocks(kind, vec=False) >= 8, blocks
+    log(f"[gn-loop] icp_gn_kernel launches one cluster of R = {blocks} blocks; ptxas {resources}")
     saved = gn_loop.icp_gn_rounds.launches  # comparisons do not count
     by_key, rows_all, replayed = {}, [], []
     for key, calls in GN_CAPTURES.items():
@@ -2887,6 +3025,9 @@ def phase_gn_loop(torch, report) -> dict:
                       for f in ("dp", "da", "nv_rel", "res_rel")},
                    "differing": [{k: r[k] for k in ("status", "it", "gathers", "dp", "da")}
                                  for r in rows if not r["same"]][:5]}
+        # two launches on every first round: the same carry bit for bit
+        summary["first_rounds_bit_equal"] = bit_equal_replays(
+            torch, kind, [a for a, r in zip(calls, rows) if r["first"]])
         by_key[key] = summary
         log(f"[gn-loop] {key}: " + json.dumps(summary))
         assert not bad, f"[gn-loop] {key}: calls {bad} out of tolerance: " \
@@ -2905,8 +3046,7 @@ def phase_gn_loop(torch, report) -> dict:
     torch.cuda.synchronize()
     log("[gn-loop] icp_gn_rounds ran under set_sync_debug_mode('error')")
     # the any-M kernel (icp_gn_kernel<0>): the headline call with px 4 bytes
-    # off its 16-byte alignment (the same arithmetic: bit-equal carries), and
-    # with the first 12 lanes (M = 12) against the plain version
+    # off its 16-byte alignment (the same arithmetic: bit-equal carries)
     carry, cand = args[0], args[1]
     px = torch.empty(cand.px.numel() + 1, dtype=cand.px.dtype, device=cand.px.device)
     px = px[1:].view(cand.px.shape).copy_(cand.px)
@@ -2914,34 +3054,48 @@ def phase_gn_loop(torch, report) -> dict:
     gn_loop.icp_gn_rounds(c16, *args[1:])
     gn_loop.icp_gn_rounds(c0, cand._replace(px=px), *args[2:])
     assert torch.equal(c16, c0), "[gn-loop] the any-M kernel differs on misaligned planes"
-    lanes = cand._replace(**{f: getattr(cand, f)[:, :12].contiguous()
-                             for f in ("px", "py", "pz", "valid")})
-    r12 = gn_compare(torch, (carry, lanes, *args[2:]))
-    assert r12["same"] and r12["close"], f"[gn-loop] M = 12: {r12}"
-    log(f"[gn-loop] icp_gn_kernel<0>: bit-equal to <16> on misaligned planes; at M = 12 "
-        f"within tolerance of the plain version ({ {k: r12[k] for k in ('it', 'dp', 'da')} })")
+    edge = {}
+    for name, eargs in icp_edge_cases(torch, args):
+        r = gn_compare(torch, eargs)
+        edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel",
+                                        "res_rel", "same", "close", "dp64", "da64") if k in r}
+        edge[name]["rows"] = eargs[1].px.shape[0]
+        held = r["close"]
+        if name == ICP_RANK_DEFICIENT:  # the line's points stay put along H's null space
+            edge[name]["dx_line"] = line_points_diff(eargs[1].src, r["t_k"], r["t_p"])
+            held = (r["nv_rel"] <= 0.01 and r["dp"] <= 0.05
+                    and edge[name]["dx_line"] < GN_POSE_TOL[0])
+        assert r["same"] and held and r["finite"], f"[gn-loop] edge case {name}: {r}"
+    log(f"[gn-loop] icp_gn_kernel<0> bit-equal to <16> on misaligned planes; {len(edge)} edge "
+        f"cases within tolerance: {json.dumps(edge)}")
+    n_rows = cand.px.shape[0]
+    split = gn_loop.rank_rows(n_rows, blocks)
+    assert sum(split) == n_rows, f"[gn-loop] the ranks take {split} of {n_rows} rows"
+    log(f"[gn-loop] {n_rows} rows over R = {blocks} ranks: {split}")
     head = gn_timing(torch, args, "headline")
     # and the captured call that ran the most iterations
     key, args, _ = max(replayed, key=lambda r: r[2])
     most = gn_timing(torch, args, f"most iterations ({key})")
-    resources = report.get("gn_loop", {})  # icp_gn_kernel<16> (M = 16) and <0> (any M)
-    log(f"[gn-loop] ptxas {resources}")
+    for shape in (head, most):
+        shape["ms_per_iteration"] = shape["ms"] / max(shape["iterations"], 1)
     gn_loop.icp_gn_rounds.launches = saved
     log(f"[gn-loop] phase 20 took {time.perf_counter() - t_phase:.1f} s")
     close = [r for r in rows_all if r["same"]]
     held64 = [r for r in rows_all if "dp64" in r]
-    return {"name": "icp_gn_rounds", "route": "cuda", "source": GN_SOURCE[0],
+    return {"name": kind, "route": "cuda", "source": GN_SOURCE[0],
             "replaces": GN_SOURCE[1],
-            "launches": sum(v["icp_gn_rounds"] for v in GN_LAUNCHES_BY_KERNEL.values()),
+            "launches": sum(v[kind] for v in GN_LAUNCHES_BY_KERNEL.values()),
             "max_abs_err": max(r["dp"] for r in close),
             "max_rot_err_rad": max(r["da"] for r in close),
             "held_to_float64": len(held64),
             "max_abs_err_vs_float64_where_held": max((r["dp64"] for r in held64), default=None),
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")},
             "library_ms": None, "shapes": {"headline": head, "most_iterations": most},
-            "launches_by_path": {p: v["icp_gn_rounds"] for p, v in GN_LAUNCHES_BY_KERNEL.items()
-                                 if v["icp_gn_rounds"]},
-            "calls_compared": len(rows_all), "by_path": by_key, "resources": resources}
+            "launches_by_path": {p: v[kind] for p, v in GN_LAUNCHES_BY_KERNEL.items() if v[kind]},
+            "calls_compared": len(rows_all), "by_path": by_key, "edge_cases": edge,
+            "cluster_blocks": blocks,
+            "rows_per_rank": {"rows": n_rows, "max": max(split), "min": min(split)},
+            "resources": resources}
 
 
 # --------------------------------- phase 21: the LOAM matchers' GN loop kernels
@@ -2973,16 +3127,13 @@ def loam_edge_cases(torch, plane_args, loam_args) -> list:
     first two lanes an exact duplicate (tied d2), a corner set of N 0 beside
     the full planar set, max_iters 2; and the any-M kernels (<false, 0>,
     <true, 0>) at M = 12."""
-    def with_cfg(args, kind, **kw):
-        i = 1 + GN_SETS[kind] + 1
-        return (*args[:i], args[i]._replace(**kw), *args[i + 1:])
-
-    def with_sets(args, kind, fn):
-        k = GN_SETS[kind]
-        return (args[0], *(fn(c) for c in args[1:1 + k]), *args[1 + k:])
+    with_cfg, with_sets, lanes12 = gn_with_cfg, gn_with_sets, gn_lanes12
 
     def dead(c):
-        return c._replace(valid=torch.zeros_like(c.valid))
+        return gn_dead(torch, c)
+
+    def rows(c, n, among=None):
+        return gn_rows(torch, c, n, among)
 
     def tied(c):
         out = {f: getattr(c, f).clone() for f in ("px", "py", "pz", "valid")}
@@ -2990,22 +3141,12 @@ def loam_edge_cases(torch, plane_args, loam_args) -> list:
             t[:, 1] = t[:, 0]
         return c._replace(**out)
 
-    def lanes12(c):
-        return c._replace(**{f: getattr(c, f)[:, :12].contiguous()
-                             for f in ("px", "py", "pz", "valid")})
-
     def fitted(args, c, thresh, max_d2):  # the rows whose plane fit passes at the carry's pose
         from funny_lidar_slam_torch.ops import gn_loop
         from funny_lidar_slam_torch.registration import residuals
 
         _, nbrs, d2, ok = residuals._select_knn(gn_loop.result_views(args[0]).t_mat, c, 5)
         return residuals.fit_plane_5nn(nbrs, ok & (d2 <= max_d2), thresh)[2]
-
-    def rows(c, n, among=None):  # n rows spread evenly over the set (or over `among`)
-        pool = (torch.arange(c.px.shape[0], device=c.px.device) if among is None
-                else torch.nonzero(among).flatten())
-        idx = pool[torch.linspace(0, len(pool) - 1, n, device=c.px.device).round().long()]
-        return c._replace(**{f: getattr(c, f).index_select(0, idx) for f in c._fields})
 
     cases = []
     for kind, args in (("plane_gn_rounds", plane_args), ("loam_gn_rounds", loam_args)):
@@ -3050,7 +3191,7 @@ def bit_equal_replays(torch, kind, calls) -> int:
         a, b = args[0].clone(), args[0].clone()
         fn(a, *args[1:])
         fn(b, *args[1:])
-        assert torch.equal(a, b), f"[loam-gn] {kind}: two launches differ: {a.tolist()} {b.tolist()}"
+        assert torch.equal(a, b), f"[gn] {kind}: two launches differ: {a.tolist()} {b.tolist()}"
     return len(calls)
 
 
@@ -3065,7 +3206,9 @@ def phase_loam_gn(torch, report) -> list:
     1e-4 m and 1e-5 rad of the plain version's, or, where the two float32
     runs part by more, of the plain version with float64 sums
     (`float64_sums`: the kernel's one deviation, its fits still float32),
-    num_valid within 1 %, total_res within 1e-3 relative; every call's pose
+    which then also decides num_valid (within 1 %), total_res (within 1e-3
+    relative) and, where the float32 run's differ, the status, iterations
+    and gathers (`gn_compare`); every call's pose
     finite and within 0.05 m; the launches while capturing equal to the
     calls captured. Each kernel launches one thread block cluster of R
     blocks (printed; R >= 8 for every variant; the rows per rank from the
@@ -3085,10 +3228,9 @@ def phase_loam_gn(torch, report) -> list:
     from funny_lidar_slam_torch.ops import gn_loop
 
     t_phase = time.perf_counter()
-    blocks = {kind: gn_loop.cluster_blocks(lines=kind == "loam_gn_rounds")
-              for kind in LOAM_GN_KERNELS}
+    blocks = {kind: gn_loop.cluster_blocks(kind) for kind in LOAM_GN_KERNELS}
     for kind, r in blocks.items():  # the any-M kernel's cluster too
-        assert r >= 8 and gn_loop.cluster_blocks(lines=kind == "loam_gn_rounds", vec=False) >= 8
+        assert r >= 8 and gn_loop.cluster_blocks(kind, vec=False) >= 8
     log(f"[loam-gn] loam_gn_kernel launches one cluster of R blocks: R = "
         f"{blocks['plane_gn_rounds']} (plane), {blocks['loam_gn_rounds']} (LoamFull)")
     resources = {k: v for k, v in report.get("gn_loop", {}).items()

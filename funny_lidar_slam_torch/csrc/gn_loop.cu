@@ -1,5 +1,5 @@
-// The Gauss-Newton loops over cached candidates, one thread block (ICP) or
-// one thread block cluster (LOAM) a call:
+// The Gauss-Newton loops over cached candidates, one thread block cluster a
+// call:
 //
 //   icp_gn_kernel    the body of the JAX `lax.while_loop` of
 //                    funny_lidar_slam_tpu/registration/gn.py:232 (body
@@ -69,44 +69,40 @@
 // system between barriers. Both keep the loop on the device (no launch and
 // no host read an iteration), which is what the step lacked.
 //
-// Design: each thread strides over the rows (icp: 512 threads; loam: 256,
-// so that a row's sixteen lanes, its five neighbours, its fit and the 29
-// partial sums fit the 255 registers a thread may hold) and keeps its
-// partial sums in registers (icp: g_t[3], g_r[3], H_tr[9], the 6 unique
-// entries of H_rr, the count, sum |r|, H_tt being count I; loam: the 21
-// unique entries of H, g[6], the planar count, sum |r|). Where M = 16 and
-// the planes are 16-byte aligned (<16>, every gather of the port) a row's
-// lanes come as thirteen 16-byte loads issued together, so a thread waits
-// on memory once a row, not once a lane (<0> takes any M). The partials
-// are reduced in a fixed order, warp shuffles then the warps' rows of
-// shared memory in warp order, with no atomics, so two runs agree bit for
-// bit. Thread 0 keeps the carry in shared memory, tests the bound, solves,
-// updates and sets the flags between barriers (loam_gn_kernel:
-// begin_iteration / end_iteration; icp_gn_kernel keeps the same steps
-// written out in its body: at its 128-register ceiling, routing it through
-// those helpers made ptxas spill 56 bytes and cost it 0.7 % on the card,
-// with the same carries bit for bit).
+// Design: both kernels are one loop skeleton (`cluster_loop`) over their
+// own rows. Every iteration's rows are spread over the R blocks of 256
+// threads of one thread block cluster (R = 16, or 8 where no 16-block
+// cluster fits; `cluster_blocks`), so each thread walks ~4 rows an
+// iteration at N = 16,384. Each thread keeps its partial sums in registers
+// (icp: g_t[3], g_r[3], H_tr[9], the 6 unique entries of H_rr, the count,
+// sum |r|, H_tt being count I; loam: the 21 unique entries of H, g[6], the
+// planar count, sum |r|; 256 threads, so that a LOAM row's sixteen lanes,
+// its five neighbours, its fit and the 29 partial sums fit the 255
+// registers a thread may hold). Where M = 16 and the planes are 16-byte
+// aligned (<16>, every gather of the port) a row's lanes come as thirteen
+// 16-byte loads issued together, so a thread waits on memory once a row,
+// not once a lane (<0> takes any M). The rows are dealt to the ranks in
+// tiles of 256 rows, tile k to rank k mod R, a row of a tile to each
+// thread; LoamFull's two sets are one range of rows (the corner rows
+// first). The split depends only on the total rows and R (so no corner
+// rows gives the plane kernel's sums bit for bit); the line rows, about
+// three times a plane row's chain, fall on R ranks at once, not on the
+// first one or two; and a warp keeps neighbouring rows, neighbours in the
+// gathers' voxel order and alike in their gates, so its threads diverge
+// less than over rows dealt one by one to the ranks (`rank_rows`). Below
+// 256 rows every row falls on rank 0's first tile.
 //
-// icp_gn_kernel is one block on one SM: its rows (a nearest lane and ~80
-// operations) are short, and the grid paths run about one iteration a
-// call. loam_gn_kernel spreads every iteration's rows over the R blocks of
-// one thread block cluster (R = 16, or 8 where no 16-block cluster fits;
-// `cluster_blocks`), so each thread walks ~4 rows an iteration at N =
-// 16,384 instead of ~64. LoamFull's two sets are one range of rows (the
-// corner rows first), dealt to the ranks in tiles of 256 rows, tile k to
-// rank k mod R, a row of a tile to each thread: the split depends only on
-// the total rows and R (so no corner rows gives the plane kernel's sums bit
-// for bit); the line rows, about three times a plane row's chain, fall on
-// R ranks at once, not on the first one or two; and a warp keeps
-// neighbouring rows, neighbours in the gathers' voxel order and alike in
-// their gates, so its threads diverge less than over rows dealt one by one
-// to the ranks (`rank_rows`). Each block reduces its partials into its own
-// shared memory, double-buffered by the iteration's parity; one cluster
-// barrier; then every rank reads all R ranks' partials
-// through distributed shared memory, sums them in rank order and runs the
-// iteration's end and the next one's begin itself. Every rank so holds the
-// same carry bit for bit and decides the loop alike (no second barrier, no
-// broadcast); the parity buffer lets a rank start the next iteration's
+// The partials are reduced in a fixed order, with no atomics, so two runs
+// agree bit for bit: warp shuffles, then the warps' rows of shared memory
+// in warp order into the block's own shared memory, double-buffered by
+// the iteration's parity; one cluster barrier; then every rank reads all R
+// ranks' partials through distributed shared memory, sums them in rank
+// order and runs the iteration's end (the solve, the update, the flags:
+// `end_iteration`) and the next one's begin (the bound, the trust region,
+// the gather test: `begin_iteration`) on one thread itself. Every rank so
+// holds the same carry bit for bit and decides the loop alike (no second
+// barrier, no broadcast; a rank that skipped the cluster barrier would
+// hang the card); the parity buffer lets a rank start the next iteration's
 // rows while another still reads this one's partials (a rank writes a
 // buffer again two iterations on, after a barrier that every reader of its
 // last contents has passed). A last cluster barrier keeps every block's
@@ -147,25 +143,28 @@ enum { S_NEED_GATHER = 1, S_DONE = 2 };
 // the update conventions: ICP dx = [t, r], P += dt, R := R Exp(dr); LOAM
 // dx = [r, t], R := Exp(dr) R, P += dt
 enum { U_ICP = 0, U_LOAM = 1 };
+// the wrappers whose cluster gn_cluster_blocks reports: icp_gn_launch,
+// plane_gn_launch, loam_gn_launch
+enum { G_ICP = 0, G_PLANE = 1, G_LOAM = 2 };
 // the ICP per-thread sums: -g's two halves before the sign, H's t-r block,
 // the upper triangle of its r-r block, the valid rows and sum |r|
 enum { A_GT = 0, A_GR = 3, A_HTR = 6, A_HRR = 15, A_COUNT = 21, A_RES = 22, A_SIZE = 23 };
 // the LOAM per-thread sums: the upper triangle of H = sum J J^T (row by
 // row), sum J r (-g), the planar rows and sum |r|
 enum { L_H = 0, L_G = 21, L_COUNT = 27, L_RES = 28, L_SIZE = 29 };
-// loam_gn_kernel's stage clocks in a profiling build (stage_clock.cuh):
+// the stage clocks of either kernel in a profiling build (stage_clock.cuh):
 // rank 0's SM cycles, summed over the call's iterations, written as floats
 // after the carry (a buffer of C_SIZE + kStageClocks words): the start to
-// the first go; its block's rows and block sum (its slowest warp); the
+// the first go; thread 0's rows; its block's sum (to its slowest warp); the
 // wait at the cluster barrier (the slowest rank); the distributed shared
 // memory sum; thread 0's end and next begin of an iteration; the last
 // barrier
-enum { K_SETUP = 0, K_ROWS = 1, K_CLUSTER = 2, K_DSMEM = 3, K_SERIAL = 4, K_EXIT = 5 };
+enum {
+  K_SETUP = 0, K_ROWS = 1, K_BLOCK = 2, K_CLUSTER = 3, K_DSMEM = 4, K_SERIAL = 5, K_EXIT = 6
+};
 
-constexpr int kThreads = 512;  // icp_gn_kernel
+constexpr int kThreads = 256;  // a block of the cluster, and a tile of rows
 constexpr int kWarps = kThreads / 32;
-constexpr int kLoamThreads = 256;  // loam_gn_kernel, a block of the cluster
-constexpr int kLoamWarps = kLoamThreads / 32;
 constexpr int kClusterBlocks[2] = {16, 8};  // tried in order, once a device
 constexpr float kDamping = 1e-6f;  // lin3.solve6_damped
 
@@ -175,9 +174,10 @@ struct Loop {
   float rot_eps, pos_eps, stall_eps, skip_dist;
 };
 
-struct Params {
-  int n, m, max_iters, max_total, corr_every, min_valid, use_stall;
-  float rot_eps, pos_eps, stall_eps, skip_dist, max_d2;
+struct IcpParams {
+  int m;
+  Loop loop;
+  float max_d2;
 };
 
 // one candidate set: px, py, pz, valid [n, m], src [n, 3]
@@ -301,25 +301,23 @@ __device__ __forceinline__ void block_sum(const double* acc, double (*part)[kSum
   }
 }
 
-// the rows' sums at pose (rot, t): each thread's strided rows, then the
-// warps, then the block; out on every thread's return: sums[A_SIZE]
+// the ICP rows' sums at pose (rot, t) into acc[A_SIZE]: the rows first,
+// first + stride, ... below end of the set cs
 template <int kM>
-__device__ void linearize(const float* __restrict__ px, const float* __restrict__ py,
-                          const float* __restrict__ pz, const unsigned char* __restrict__ valid,
-                          const float* __restrict__ src, const Params& p, const float* rot,
-                          const float* t, double (*part)[A_SIZE], double* sums) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  double acc[A_SIZE];
+__device__ __forceinline__ void icp_rows(const Set& cs, const IcpParams& p, const float* rot,
+                                         const float* t, int first, int end, int stride,
+                                         double* acc) {
 #pragma unroll
   for (int k = 0; k < A_SIZE; ++k) acc[k] = 0.0;
-  for (int r = tid; r < p.n; r += kThreads) {
-    const float s0 = __ldg(src + 3 * r), s1 = __ldg(src + 3 * r + 1), s2 = __ldg(src + 3 * r + 2);
+  for (int r = first; r < end; r += stride) {
+    const float s0 = __ldg(cs.src + 3 * r), s1 = __ldg(cs.src + 3 * r + 1),
+                s2 = __ldg(cs.src + 3 * r + 2);
     float q[3], cand[3], best;
 #pragma unroll
     for (int i = 0; i < 3; ++i)  // s R^T + t: a multiply-add chain over k, then + t
       q[i] = __fadd_rn(fmaf(rot[3 * i + 2], s2, fmaf(rot[3 * i + 1], s1, __fmul_rn(rot[3 * i], s0))),
                        t[i]);
-    nearest<kM>(px, py, pz, valid, static_cast<size_t>(r) * p.m, p.m, q, &best, cand);
+    nearest<kM>(cs.px, cs.py, cs.pz, cs.valid, static_cast<size_t>(r) * p.m, p.m, q, &best, cand);
     if (!(best < INFINITY && best <= p.max_d2)) continue;  // no valid lane, or gated
     const float e[3] = {q[0] - cand[0], q[1] - cand[1], q[2] - cand[2]};
     // a = -R hat(s), row-major
@@ -346,19 +344,31 @@ __device__ void linearize(const float* __restrict__ px, const float* __restrict_
     acc[A_COUNT] += 1.0;
     acc[A_RES] += sqrtf(e[0] * e[0] + e[1] * e[1] + e[2] * e[2]);
   }
-#pragma unroll
-  for (int k = 0; k < A_SIZE; ++k) {
-    double v = acc[k];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) part[warp][k] = v;
+}
+
+// the ICP normal equations from the cluster's sums: H (count I in its t-t
+// block), g, the valid rows and the residual sum
+__device__ __forceinline__ void icp_system(const double* sums, float* h, float* g, int* nv,
+                                           float* res) {
+  const float cnt = static_cast<float>(sums[A_COUNT]);
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      h[6 * i + j] = i == j ? cnt : 0.f;
+      h[6 * i + 3 + j] = static_cast<float>(sums[A_HTR + 3 * i + j]);
+      h[6 * (3 + j) + i] = h[6 * i + 3 + j];
+    }
+  int u = A_HRR;
+  for (int i = 0; i < 3; ++i)
+    for (int j = i; j < 3; ++j) {
+      h[6 * (3 + i) + 3 + j] = static_cast<float>(sums[u++]);
+      h[6 * (3 + j) + 3 + i] = h[6 * (3 + i) + 3 + j];
+    }
+  for (int i = 0; i < 3; ++i) {
+    g[i] = static_cast<float>(-sums[A_GT + i]);
+    g[3 + i] = static_cast<float>(-sums[A_GR + i]);
   }
-  __syncthreads();
-  if (tid < A_SIZE) {
-    double v = 0.0;
-    for (int w = 0; w < kWarps; ++w) v += part[w][tid];
-    sums[tid] = v;
-  }
-  __syncthreads();
+  *nv = static_cast<int>(cnt);
+  *res = static_cast<float>(sums[A_RES]);
 }
 
 // ------------------------------------------------------------ LOAM rows
@@ -648,6 +658,18 @@ __device__ __forceinline__ void loam_rows(const Set& corner, const Set& planar, 
   }
 }
 
+// the LOAM normal equations from the cluster's sums: H, g, the planar rows
+// and the residual sum
+__device__ __forceinline__ void loam_system(const double* sums, float* h, float* g, int* nv,
+                                            float* res) {
+  int u = L_H;
+  for (int i = 0; i < 6; ++i)
+    for (int j = i; j < 6; ++j) h[6 * i + j] = h[6 * j + i] = static_cast<float>(sums[u++]);
+  for (int i = 0; i < 6; ++i) g[i] = static_cast<float>(-sums[L_G + i]);
+  *nv = static_cast<int>(sums[L_COUNT]);
+  *res = static_cast<float>(sums[L_RES]);
+}
+
 // ------------------------------------------------------- the loop skeleton
 
 // (H + damping scale I) x = g by Cholesky, as lin3.solve6_damped; false
@@ -784,186 +806,81 @@ __device__ __forceinline__ void end_iteration(int* ci, const Loop& p, const floa
   cf[C_TOTAL_RES] = total_res;
 }
 
-template <int kM>
-__global__ void __launch_bounds__(kThreads)
-icp_gn_kernel(const float* __restrict__ px, const float* __restrict__ py,
-              const float* __restrict__ pz, const unsigned char* __restrict__ valid,
-              const float* __restrict__ src, int* __restrict__ carry,
-              const float* __restrict__ radius_ptr, Params p) {
-  __shared__ double part[kWarps][A_SIZE];
-  __shared__ double sums[A_SIZE];
-  __shared__ int ci[C_SIZE];        // the carry (thread 0's)
-  __shared__ float pose[12];        // R[9] t[3] of the iteration
-  __shared__ int go;
-  float* cf = reinterpret_cast<float*>(ci);
-  const int tid = threadIdx.x;
-  // thread 0's iteration state
-  bool fresh = true, refresh = false, moved = true;
-  const float radius = p.skip_dist > 0.f ? *radius_ptr : 0.f;
-
-  if (tid == 0)
-    for (int k = 0; k < C_SIZE; ++k) ci[k] = carry[k];
-
-  for (;;) {
-    if (tid == 0) {
-      int run = 0;
-      if (!(ci[C_GATHERS] < p.max_iters && ci[C_IT] < p.max_total && !ci[C_DONE])) {
-        ci[C_STATUS] = S_DONE;
-      } else {
-        moved = p.skip_dist > 0.f ? moved_beyond(cf + C_T_MAT, cf + C_T_GATHER, radius,
-                                                  p.skip_dist)
-                                  : true;
-        const bool want = ci[C_SINCE_GATHER] >= p.corr_every || ci[C_FORCE_GATHER];
-        refresh = (want && moved) || ci[C_IT] == 0;
-        if (refresh && !fresh) {
-          ci[C_STATUS] = S_NEED_GATHER;
-        } else {
-          if (refresh) {
-            for (int k = 0; k < 16; ++k) cf[C_T_GATHER + k] = cf[C_T_MAT + k];
-            fresh = false;
-          }
-          for (int i = 0; i < 3; ++i) {
-            for (int j = 0; j < 3; ++j) pose[3 * i + j] = cf[C_T_MAT + 4 * i + j];
-            pose[9 + i] = cf[C_T_MAT + 4 * i + 3];
-          }
-          run = 1;
-        }
-      }
-      go = run;
-    }
-    __syncthreads();
-    if (!go) break;
-
-    float rot[9], t[3];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) rot[k] = pose[k];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) t[k] = pose[9 + k];
-    linearize<kM>(px, py, pz, valid, src, p, rot, t, part, sums);
-
-    if (tid == 0) {
-      float h[36], g[6], x[6];
-      const float cnt = static_cast<float>(sums[A_COUNT]);
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) {
-          h[6 * i + j] = i == j ? cnt : 0.f;
-          h[6 * i + 3 + j] = static_cast<float>(sums[A_HTR + 3 * i + j]);
-          h[6 * (3 + j) + i] = h[6 * i + 3 + j];
-        }
-      int u = A_HRR;
-      for (int i = 0; i < 3; ++i)
-        for (int j = i; j < 3; ++j) {
-          h[6 * (3 + i) + 3 + j] = static_cast<float>(sums[u++]);
-          h[6 * (3 + j) + 3 + i] = h[6 * (3 + i) + 3 + j];
-        }
-      for (int i = 0; i < 3; ++i) {
-        g[i] = static_cast<float>(-sums[A_GT + i]);
-        g[3 + i] = static_cast<float>(-sums[A_GR + i]);
-      }
-      if (!solve6(h, g, x))
-        for (int k = 0; k < 6; ++k) x[k] = NAN;
-      // the ICP update: t += dt, R := R Exp(dr)
-      float e[9], rn[9];
-      so3::exp(x + 3, e);
-      so3::mul(rot, e, rn);
-      for (int i = 0; i < 3; ++i) {
-        for (int j = 0; j < 3; ++j) cf[C_T_MAT + 4 * i + j] = rn[3 * i + j];
-        cf[C_T_MAT + 4 * i + 3] = t[i] + x[i];
-      }
-      const float rnorm = sqrtf(x[3] * x[3] + x[4] * x[4] + x[5] * x[5]);
-      const float pnorm = sqrtf(x[0] * x[0] + x[1] * x[1] + x[2] * x[2]);
-      const int nv = static_cast<int>(cnt);
-      const bool enough = nv >= p.min_valid;
-      const bool conv = rnorm < p.rot_eps && pnorm < p.pos_eps && enough;
-      const bool exact = refresh || !moved;
-      const bool stall = p.use_stall && exact
-                         && fabsf(rnorm - cf[C_LAST_ROT]) < p.stall_eps
-                         && fabsf(pnorm - cf[C_LAST_POS]) < p.stall_eps;
-      const bool settled = conv || stall;
-      ci[C_IT] += 1;
-      ci[C_GATHERS] += refresh ? 1 : 0;
-      ci[C_SINCE_GATHER] = refresh ? 1 : ci[C_SINCE_GATHER] + 1;
-      ci[C_FORCE_GATHER] = settled && !exact;
-      ci[C_DONE] = settled && exact;
-      ci[C_CONVERGED] = (conv || (stall && enough)) && exact;
-      if (exact) {
-        cf[C_LAST_ROT] = rnorm;
-        cf[C_LAST_POS] = pnorm;
-      }
-      ci[C_NUM_VALID] = nv;
-      cf[C_TOTAL_RES] = static_cast<float>(sums[A_RES]);
-    }
-  }
-  if (tid == 0)
-    for (int k = 0; k < C_SIZE; ++k) carry[k] = ci[k];
-}
-
 // the rows of one thread of a cluster rank: first, first + stride, ...
-// below the call's rows. Tiles of kLoamThreads rows, tile k to rank k mod
-// R, a row of a tile to each thread, so the split depends only on the rows
-// and R (loam_gn_rank_rows counts a rank's rows with it on the host)
+// below the call's rows. Tiles of kThreads rows, tile k to rank k mod R, a
+// row of a tile to each thread, so the split depends only on the rows and R
+// (gn_rank_rows counts a rank's rows with it on the host)
 struct RankRows {
   int first, stride;
 };
 
 __host__ __device__ inline RankRows rank_rows(int ranks, int rank, int thread) {
-  return {rank * kLoamThreads + thread, ranks * kLoamThreads};
+  return {rank * kThreads + thread, ranks * kThreads};
 }
 
-template <bool kLines, int kM>
-__global__ void __launch_bounds__(kLoamThreads, 1)
-loam_gn_kernel(Set corner, Set planar, int* __restrict__ carry,
-               const float* __restrict__ radius_ptr, LoamParams p) {
-  __shared__ double part[kLoamWarps][L_SIZE];
-  __shared__ double red[2][L_SIZE];  // this block's partials, by iteration parity
-  __shared__ double sums[L_SIZE];    // the cluster's, in rank order
-  __shared__ int ci[C_SIZE];
-  __shared__ float pose[12];
-  __shared__ int go;
+// a GN kernel's shared memory, kSums partial sums
+template <int kSums>
+struct GnShared {
+  double part[kWarps][kSums];  // the warps' partials
+  double red[2][kSums];        // this block's partials, by iteration parity
+  double sums[kSums];          // the cluster's, in rank order
+  int ci[C_SIZE];              // the carry (thread 0's)
+  float pose[12];              // R[9] t[3] of the iteration
+  int go;
+};
+
+// The loop of either kernel over its cluster (the design above), from the
+// carry until it ends or needs a gather. linearize(rot, t, first, end,
+// stride, acc) sums a thread's rows at the pose into acc[kSums];
+// system(sums, h, g, &nv, &res) turns the cluster's sums into the 6x6
+// system, the valid count and the residual sum; kUpdate is the update
+// convention.
+template <int kSums, int kUpdate, class Rows, class System>
+__device__ __forceinline__ void cluster_loop(GnShared<kSums>& sh, int* __restrict__ carry,
+                                             const float* __restrict__ radius_ptr,
+                                             const Loop& loop, int rows, Rows linearize,
+                                             System system) {
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const int rank = static_cast<int>(cluster.block_rank());
   const int ranks = static_cast<int>(cluster.num_blocks());
-  const int rows = (kLines ? corner.n : 0) + planar.n;
   const RankRows mine = rank_rows(ranks, rank, tid);
   Iter s{true, false, true};
   StageClock clk;
-  const float radius = p.loop.skip_dist > 0.f ? *radius_ptr : 0.f;
+  const float radius = loop.skip_dist > 0.f ? *radius_ptr : 0.f;
 
   if (tid == 0) {
-    for (int k = 0; k < C_SIZE; ++k) ci[k] = carry[k];
-    go = begin_iteration(ci, p.loop, radius, s, pose);
+    for (int k = 0; k < C_SIZE; ++k) sh.ci[k] = carry[k];
+    sh.go = begin_iteration(sh.ci, loop, radius, s, sh.pose);
   }
   __syncthreads();
   clk.mark(K_SETUP);
-  for (int parity = 0; go; parity ^= 1) {
+  for (int parity = 0; sh.go; parity ^= 1) {
     float rot[9], t[3];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) rot[k] = pose[k];
+    for (int k = 0; k < 9; ++k) rot[k] = sh.pose[k];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) t[k] = pose[9 + k];
-    double acc[L_SIZE];
-    loam_rows<kLines, kM>(corner, planar, p, rot, t, mine.first, rows, mine.stride, acc);
-    block_sum<L_SIZE, kLoamWarps>(acc, part, red[parity]);
+    for (int k = 0; k < 3; ++k) t[k] = sh.pose[9 + k];
+    double acc[kSums];
+    linearize(rot, t, mine.first, rows, mine.stride, acc);
     clk.mark(K_ROWS);
+    block_sum<kSums, kWarps>(acc, sh.part, sh.red[parity]);
+    clk.mark(K_BLOCK);
     cluster.sync();  // every rank's red[parity] written
     clk.mark(K_CLUSTER);
-    if (tid < L_SIZE) {
+    if (tid < kSums) {
       double v = 0.0;
-      for (int r = 0; r < ranks; ++r) v += cluster.map_shared_rank(red[parity], r)[tid];
-      sums[tid] = v;
+      for (int r = 0; r < ranks; ++r) v += cluster.map_shared_rank(sh.red[parity], r)[tid];
+      sh.sums[tid] = v;
     }
     __syncthreads();
     clk.mark(K_DSMEM);
     if (tid == 0) {
-      float h[36], g[6];
-      int u = L_H;
-      for (int i = 0; i < 6; ++i)
-        for (int j = i; j < 6; ++j) h[6 * i + j] = h[6 * j + i] = static_cast<float>(sums[u++]);
-      for (int i = 0; i < 6; ++i) g[i] = static_cast<float>(-sums[L_G + i]);
-      end_iteration<U_LOAM>(ci, p.loop, h, g, static_cast<int>(sums[L_COUNT]),
-                            static_cast<float>(sums[L_RES]), s);
-      go = begin_iteration(ci, p.loop, radius, s, pose);
+      float h[36], g[6], res;
+      int nv;
+      system(sh.sums, h, g, &nv, &res);
+      end_iteration<kUpdate>(sh.ci, loop, h, g, nv, res, s);
+      sh.go = begin_iteration(sh.ci, loop, radius, s, sh.pose);
     }
     __syncthreads();
     clk.mark(K_SERIAL);
@@ -971,8 +888,38 @@ loam_gn_kernel(Set corner, Set planar, int* __restrict__ carry,
   cluster.sync();  // no rank's red[] read any more
   clk.mark(K_EXIT);
   if (rank == 0 && tid == 0)
-    for (int k = 0; k < C_SIZE; ++k) carry[k] = ci[k];
+    for (int k = 0; k < C_SIZE; ++k) carry[k] = sh.ci[k];
   if (rank == 0) clk.write(reinterpret_cast<float*>(carry) + C_SIZE);
+}
+
+template <int kM>
+__global__ void __launch_bounds__(kThreads, 1)
+icp_gn_kernel(Set cs, int* __restrict__ carry, const float* __restrict__ radius_ptr,
+              IcpParams p) {
+  __shared__ GnShared<A_SIZE> sh;
+  cluster_loop<A_SIZE, U_ICP>(
+      sh, carry, radius_ptr, p.loop, cs.n,
+      [&](const float* rot, const float* t, int first, int end, int stride, double* acc) {
+        icp_rows<kM>(cs, p, rot, t, first, end, stride, acc);
+      },
+      [](const double* sums, float* h, float* g, int* nv, float* res) {
+        icp_system(sums, h, g, nv, res);
+      });
+}
+
+template <bool kLines, int kM>
+__global__ void __launch_bounds__(kThreads, 1)
+loam_gn_kernel(Set corner, Set planar, int* __restrict__ carry,
+               const float* __restrict__ radius_ptr, LoamParams p) {
+  __shared__ GnShared<L_SIZE> sh;
+  cluster_loop<L_SIZE, U_LOAM>(
+      sh, carry, radius_ptr, p.loop, (kLines ? corner.n : 0) + planar.n,
+      [&](const float* rot, const float* t, int first, int end, int stride, double* acc) {
+        loam_rows<kLines, kM>(corner, planar, p, rot, t, first, end, stride, acc);
+      },
+      [](const double* sums, float* h, float* g, int* nv, float* res) {
+        loam_system(sums, h, g, nv, res);
+      });
 }
 
 Loop make_loop(int max_iters, int max_total, int corr_every, int min_valid, int use_stall,
@@ -987,7 +934,7 @@ bool aligned16(const Set& s) {
   return (bits & 15) == 0;
 }
 
-// a launch of one cluster of `blocks` blocks of kLoamThreads threads
+// a launch of one cluster of `blocks` blocks of kThreads threads
 cudaLaunchConfig_t cluster_config(int blocks, cudaStream_t st, cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = blocks;
@@ -995,7 +942,7 @@ cudaLaunchConfig_t cluster_config(int blocks, cudaStream_t st, cudaLaunchAttribu
   attr->val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks, 1, 1);
-  cfg.blockDim = dim3(kLoamThreads, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = st;
   cfg.attrs = attr;
@@ -1005,26 +952,24 @@ cudaLaunchConfig_t cluster_config(int blocks, cudaStream_t st, cudaLaunchAttribu
 
 constexpr int kMaxDevices = 64;
 
-// the blocks of loam_gn_kernel<kLines, kM>'s cluster on the current device:
-// the first of kClusterBlocks of which the occupancy calculator fits one
-// cluster on the card (16 needs the non-portable cluster size), chosen on
-// the first call a device and kept. 0 with *err set on a CUDA error, or
+// the blocks of `kernel`'s cluster on the current device: the first of
+// kClusterBlocks of which the occupancy calculator fits one cluster on the
+// card (16 needs the non-portable cluster size), chosen on the first call a
+// device and kept in chosen[device]. 0 with *err set on a CUDA error, or
 // with cudaErrorLaunchOutOfResources where not even 8 blocks fit
-template <bool kLines, int kM>
-int cluster_blocks(cudaError_t* err) {
-  static int chosen[kMaxDevices] = {};
+template <class Kernel>
+int cluster_blocks(Kernel* kernel, int* chosen, cudaError_t* err) {
   int dev = 0;
   *err = cudaGetDevice(&dev);
   if (*err != cudaSuccess) return 0;
   if (dev < kMaxDevices && chosen[dev]) return chosen[dev];
-  *err = cudaFuncSetAttribute(loam_gn_kernel<kLines, kM>,
-                              cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  *err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (*err != cudaSuccess) return 0;
   for (const int blocks : kClusterBlocks) {
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(blocks, nullptr, &attr);
     int fit = 0;
-    if (cudaOccupancyMaxActiveClusters(&fit, loam_gn_kernel<kLines, kM>, &cfg) != cudaSuccess) {
+    if (cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg) != cudaSuccess) {
       cudaGetLastError();  // a size the card refuses: try the next
       fit = 0;
     }
@@ -1037,25 +982,54 @@ int cluster_blocks(cudaError_t* err) {
   return 0;
 }
 
+// each kernel variant's cluster, by device
+template <int kM>
+int icp_blocks(cudaError_t* err) {
+  static int chosen[kMaxDevices] = {};
+  return cluster_blocks(icp_gn_kernel<kM>, chosen, err);
+}
+
 template <bool kLines, int kM>
-int launch_cluster(const Set& corner, const Set& planar, int* carry, const float* radius,
-                   const LoamParams& p, cudaStream_t st) {
-  cudaError_t err = cudaSuccess;
-  const int blocks = cluster_blocks<kLines, kM>(&err);
+int loam_blocks(cudaError_t* err) {
+  static int chosen[kMaxDevices] = {};
+  return cluster_blocks(loam_gn_kernel<kLines, kM>, chosen, err);
+}
+
+// one cluster of `blocks` blocks of `kernel` on `args`, or `err` (the
+// cluster's choice failed) where blocks is 0
+template <class Kernel, class... Args>
+int launch_cluster(Kernel* kernel, int blocks, cudaError_t err, cudaStream_t st, Args... args) {
   if (blocks == 0) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(blocks, st, &attr);
-  err = cudaLaunchKernelEx(&cfg, loam_gn_kernel<kLines, kM>, corner, planar, carry, radius, p);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <int kM>
+int icp_launch(const Set& cs, int* carry, const float* radius, const IcpParams& p,
+               cudaStream_t st) {
+  cudaError_t err = cudaSuccess;
+  const int blocks = icp_blocks<kM>(&err);
+  return launch_cluster(icp_gn_kernel<kM>, blocks, err, st, cs, carry, radius, p);
+}
+
+template <bool kLines, int kM>
+int loam_launch(const Set& corner, const Set& planar, int* carry, const float* radius,
+                const LoamParams& p, cudaStream_t st) {
+  cudaError_t err = cudaSuccess;
+  const int blocks = loam_blocks<kLines, kM>(&err);
+  return launch_cluster(loam_gn_kernel<kLines, kM>, blocks, err, st, corner, planar, carry,
+                        radius, p);
 }
 
 int loam_launch(const Set& corner, const Set& planar, bool lines, int* carry,
                 const float* radius, const LoamParams& p, cudaStream_t st) {
   const bool vec = p.m == 16 && aligned16(planar) && (!lines || aligned16(corner));
-  if (lines && vec) return launch_cluster<true, 16>(corner, planar, carry, radius, p, st);
-  if (lines) return launch_cluster<true, 0>(corner, planar, carry, radius, p, st);
-  if (vec) return launch_cluster<false, 16>(corner, planar, carry, radius, p, st);
-  return launch_cluster<false, 0>(corner, planar, carry, radius, p, st);
+  if (lines && vec) return loam_launch<true, 16>(corner, planar, carry, radius, p, st);
+  if (lines) return loam_launch<true, 0>(corner, planar, carry, radius, p, st);
+  if (vec) return loam_launch<false, 16>(corner, planar, carry, radius, p, st);
+  return loam_launch<false, 0>(corner, planar, carry, radius, p, st);
 }
 
 }  // namespace
@@ -1066,16 +1040,13 @@ extern "C" int icp_gn_launch(const float* px, const float* py, const float* pz,
                              int corr_every, int min_valid, int use_stall, float rot_eps,
                              float pos_eps, float stall_eps, float skip_dist, float max_d2,
                              void* stream) {
-  const Params p{n, m, max_iters, max_total, corr_every, min_valid, use_stall,
-                 rot_eps, pos_eps, stall_eps, skip_dist, max_d2};
-  const auto bits = reinterpret_cast<uintptr_t>(px) | reinterpret_cast<uintptr_t>(py)
-                    | reinterpret_cast<uintptr_t>(pz) | reinterpret_cast<uintptr_t>(valid);
+  const IcpParams p{m, make_loop(max_iters, max_total, corr_every, min_valid, use_stall,
+                                 rot_eps, pos_eps, stall_eps, skip_dist),
+                    max_d2};
+  const Set cs{px, py, pz, valid, src, n};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m == 16 && (bits & 15) == 0)  // 16-byte rows: the vector loads
-    icp_gn_kernel<16><<<1, kThreads, 0, st>>>(px, py, pz, valid, src, carry, radius, p);
-  else
-    icp_gn_kernel<0><<<1, kThreads, 0, st>>>(px, py, pz, valid, src, carry, radius, p);
-  return static_cast<int>(cudaGetLastError());
+  if (m == 16 && aligned16(cs)) return icp_launch<16>(cs, carry, radius, p, st);
+  return icp_launch<0>(cs, carry, radius, p, st);
 }
 
 extern "C" int plane_gn_launch(const float* px, const float* py, const float* pz,
@@ -1107,22 +1078,24 @@ extern "C" int loam_gn_launch(const float* cpx, const float* cpy, const float* c
                      true, carry, radius, p, static_cast<cudaStream_t>(stream));
 }
 
-// the blocks of the cluster that plane_gn_launch (lines 0) or loam_gn_launch
-// (lines 1) launches on the current device for M = 16 with aligned planes
-// (vec 1) or any M (vec 0); minus the CUDA error where none fits
-extern "C" int loam_gn_cluster_blocks(int lines, int vec) {
-  cudaError_t err = cudaSuccess;
-  const int blocks = lines ? (vec ? cluster_blocks<true, 16>(&err) : cluster_blocks<true, 0>(&err))
-                           : (vec ? cluster_blocks<false, 16>(&err) : cluster_blocks<false, 0>(&err));
+// the blocks of the cluster that the launcher of `kind` (G_*) launches on
+// the current device for M = 16 with aligned planes (vec 1) or any M
+// (vec 0); minus the CUDA error where none fits or `kind` is unknown
+extern "C" int gn_cluster_blocks(int kind, int vec) {
+  cudaError_t err = cudaErrorInvalidValue;
+  int blocks = 0;
+  if (kind == G_ICP) blocks = vec ? icp_blocks<16>(&err) : icp_blocks<0>(&err);
+  if (kind == G_PLANE) blocks = vec ? loam_blocks<false, 16>(&err) : loam_blocks<false, 0>(&err);
+  if (kind == G_LOAM) blocks = vec ? loam_blocks<true, 16>(&err) : loam_blocks<true, 0>(&err);
   return blocks ? blocks : -static_cast<int>(err);
 }
 
 // the rows that rank `rank` of a cluster of `ranks` blocks linearizes an
-// iteration of a call with `rows` rows (LoamFull: corner + planar), counted
-// with the kernel's own split
-extern "C" int loam_gn_rank_rows(int rows, int ranks, int rank) {
+// iteration of a call with `rows` rows (ICP: the set's; LoamFull: corner +
+// planar), counted with the kernels' own split
+extern "C" int gn_rank_rows(int rows, int ranks, int rank) {
   int n = 0;
-  for (int t = 0; t < kLoamThreads; ++t) {
+  for (int t = 0; t < kThreads; ++t) {
     const RankRows mine = rank_rows(ranks, rank, t);
     for (int r = mine.first; r < rows; r += mine.stride) ++n;
   }

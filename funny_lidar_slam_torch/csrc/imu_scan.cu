@@ -45,10 +45,32 @@
 // with -DFLS_STAGE_CLOCKS (stage_clock.cuh) writes the cycles of each part
 // (C_* below) after the output.
 //
-// eskf_predict_kernel keeps the whole carried state in shared memory: one
-// thread takes the slot's scalar 3x3 work, then every thread takes entries
-// of the small dense products, with block barriers between; an invalid slot
-// is skipped by the whole block (every thread reads the validity itself).
+// eskf_predict_kernel takes the same treatment. Of a slot's update only r
+// (with v and p beside it) and the covariance are carried; validity, dt,
+// the midpoint accel less its bias, r_step = Exp(w dt), hat(acc) dt and Q's
+// diagonal (its variances times dt) are per slot. So per chunk of kChunk
+// slots, four parts and a block barrier between parts (none a slot):
+//   1. one thread a slot, all at once: validity, dt, acc, r_step, hat(acc)
+//      dt;
+//   2. the valid slots as two ballots; then serial in one thread, the next
+//      slot's inputs loaded while the current one is taken: r (27 FMAs a
+//      slot), v and p; each valid slot's r before its update goes to shared
+//      memory;
+//   3. one thread a (valid slot, row): F's blocks at that r, -r hat(acc) dt
+//      and -r dt, beside r_step;
+//   4. serial over the valid slots: cov <- F cov F^T + Q dt in one warp, lane
+//      5 bi + bj holding the 3x3 block (bi, bj) of the 15x15 matrix in
+//      registers; the two block products (F cov, then its F^T) read the
+//      blocks they need from other lanes by shuffles, so no barrier at all.
+// The products skip F's structural zeros and ones as preintegrate_kernel's
+// do (the same one form on every lane, the zero blocks as zero factors),
+// each sum an explicit fmaf chain in the dense product's order. Where a
+// compiler contracts the dense product's multiply-adds otherwise, an entry
+// may round apart from it: the result agrees with the dense product and the
+// plain version within float32 rounding, not bit for bit (PERF.md §6 has the
+// gap measured on the card). An invalid slot is
+// left out of every chain, which is exact: the plain version's torch.where
+// leaves the state untouched there. The stage clocks as preintegrate's.
 //
 // Layouts (float32, packed by ops/recurrences.py):
 //   preintegrate input:  bg[3] ba[3] gyro_var[3] acc_var[3] integ_var[3] |
@@ -81,7 +103,7 @@ enum {
 enum { EO_R = 0, EO_V = 9, EO_P = 12, EO_COV = 15, EO_SIZE = 240 };
 
 constexpr int kPreintThreads = 256;
-constexpr int kEskfThreads = 256;
+constexpr int kEskfThreads = 192;  // 3 x kChunk: part 3's (valid slot, row)
 constexpr int kChunk = 64;  // slots staged at a time
 constexpr unsigned kFull = 0xffffffffu;
 // stage clocks of a profiling build (stage_clock.cuh)
@@ -398,101 +420,244 @@ preintegrate_kernel(const float* __restrict__ in, float* __restrict__ out, int s
   clk.write(out + PS_SIZE);
 }
 
+// one valid slot of eskf_predict_kernel's chunk as the covariance warp reads
+// it: r_step, F's blocks -r hat(acc) dt and -r dt at the slot's r, and dt
+struct __align__(16) EskfSlot {
+  float rs[9], a[9], b[9], dt;
+};
+
 __global__ void __launch_bounds__(kEskfThreads)
 eskf_predict_kernel(const float* __restrict__ in, float* __restrict__ out, int slots,
                     float gx, float gy, float gz) {
-  __shared__ float r[9], v[3], p[3], cov[225];
-  __shared__ float f[225], tm[225], nrvp[15];
-  __shared__ float rs[9], fra[9], qd[15];
-  const int tid = threadIdx.x;
+  // part 1, by slot of the chunk
+  __shared__ float s_dt[kChunk], s_rs[kChunk][9], s_ah[kChunk][9], s_acc[kChunk][3];
+  __shared__ int s_valid[kChunk];
+  // parts 2-3, by valid slot of the chunk, in order: the slot, r before it,
+  // and what the covariance warp reads
+  __shared__ int v_slot[kChunk];
+  __shared__ float v_r[kChunk][9];
+  __shared__ EskfSlot v_f[kChunk];
+  StageClock clk;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const float* t = in + EI_SIZE;
   const float* gyro = t + slots;
   const float* accel = gyro + 3 * slots;
   const float* mask = accel + 3 * slots;
+  // warp 0 lane 5 bi + bj (bi, bj < 5): the 3x3 block (bi, bj) of cov, its
+  // entry (a, b) in c[3 a + b]; lanes 25-31 shadow block (4, 4)
+  const int bi = lane < 25 ? lane / 5 : 4, bj = lane < 25 ? lane % 5 : 4;
+  // the lanes whose blocks a lane's products read: step 1 (F cov) reads
+  // column block bj's row blocks 3 (bi 0), 0 and 4 (bi 1) or 1 (bi 2);
+  // step 2 ((F cov) F^T) row block bi's column blocks 3 (bj 0), 0 and 4
+  // (bj 1) or 1 (bj 2); a lane that needs none reads its own
+  const int x1 = bi == 0 ? 15 + bj : bi == 1 ? bj : bi == 2 ? 5 + bj : lane;
+  const int y1 = bi == 1 ? 20 + bj : lane;
+  const int x2 = bj == 0 ? 5 * bi + 3 : bj == 1 ? 5 * bi : bj == 2 ? 5 * bi + 1 : lane;
+  const int y2 = bj == 1 ? 5 * bi + 4 : lane;
+  // Q's diagonal over dt in the diagonal blocks: gyro, accel, 0, the two
+  // random walks
+  const int var = bi == 0 ? EI_GVAR : bi == 1 ? EI_AVAR : bi == 3 ? EI_GRW : EI_ARW;
+  float qv[3];
+  for (int a = 0; a < 3; ++a) qv[a] = bi == bj && bi != 2 ? in[var + a] : 0.f;
 
-  for (int i = tid; i < 240; i += blockDim.x) {
-    if (i < 9) r[i] = in[EI_R + i];
-    else if (i < 12) v[i - 9] = in[EI_V + i - 9];
-    else if (i < 15) p[i - 12] = in[EI_P + i - 12];
-    else cov[i - 15] = in[EI_COV + i - 15];
+  // the carried state, each part in the registers of the lanes that chain it
+  float r[9], v[3], p[3];  // warp 0 lane 0
+  float c[9];              // warp 0: block (bi, bj) of cov
+  for (int k = 0; k < 9; ++k) r[k] = in[EI_R + k];
+  for (int k = 0; k < 3; ++k) {
+    v[k] = in[EI_V + k];
+    p[k] = in[EI_P + k];
   }
-  __syncthreads();
+  for (int a = 0; a < 3; ++a)
+    for (int b = 0; b < 3; ++b) c[3 * a + b] = in[EI_COV + 15 * (3 * bi + a) + 3 * bj + b];
+  clk.mark(C_INIT);
 
-  for (int k = 0; k + 1 < slots; ++k) {
-    float dt;
-    if (!slot_valid(t, mask, k, &dt)) continue;  // uniform over the block
+  for (int c0 = 0; c0 + 1 < slots; c0 += kChunk) {
+    const int n = min(kChunk, slots - 1 - c0);
+    // 1. the per-slot values, one thread a slot: validity, dt, the midpoint
+    // accel less its bias, r_step = Exp((midpoint gyro - bg) dt), hat(acc) dt
+    if (tid < kChunk) {
+      const int sl = tid, k = c0 + sl;
+      float dt = 0.f;
+      const bool ok = sl < n && slot_valid(t, mask, k, &dt);
+      s_valid[sl] = ok;
+      s_dt[sl] = dt;
+      if (ok) {
+        float w[3], acc[3], phi[3], ah[9];
+        for (int e = 0; e < 3; ++e) {
+          w[e] = 0.5f * (gyro[3 * k + e] + gyro[3 * k + 3 + e]) - in[EI_BG + e];
+          acc[e] = 0.5f * (accel[3 * k + e] + accel[3 * k + 3 + e]) - in[EI_BA + e];
+          phi[e] = w[e] * dt;
+          s_acc[sl][e] = acc[e];
+        }
+        so3::exp(phi, s_rs[sl]);
+        so3::hat(acc, ah);
+        for (int e = 0; e < 9; ++e) s_ah[sl][e] = ah[e] * dt;
+      }
+    }
+    __syncthreads();
+    clk.mark(C_SLOTS);
+    const SlotMasks valid = {__ballot_sync(kFull, s_valid[lane]),
+                             __ballot_sync(kFull, s_valid[32 + lane])};
+    const int nv = valid.count();
+
+    // 2. the mean's chain over the valid slots (warp 0 lane 0), the next
+    // slot's inputs loaded while the current one is taken; r before each
+    // slot to shared memory
+    if (warp == 0) {
+      if (s_valid[lane]) v_slot[__popc(valid.lo & ((1u << lane) - 1))] = lane;
+      if (s_valid[32 + lane])
+        v_slot[__popc(valid.lo) + __popc(valid.hi & ((1u << lane) - 1))] = 32 + lane;
+    }
     if (tid == 0) {
       const float g[3] = {gx, gy, gz};
-      float w[3], acc[3], phi[3], ah[9], aw[3];
-      for (int c = 0; c < 3; ++c) {
-        w[c] = 0.5f * (gyro[3 * k + c] + gyro[3 * k + 3 + c]) - in[EI_BG + c];
-        acc[c] = 0.5f * (accel[3 * k + c] + accel[3 * k + 3 + c]) - in[EI_BA + c];
-        phi[c] = w[c] * dt;
+      SlotMasks left = valid;
+      int k = left.pop();
+      float rs[9], acc[3], dt = 0.f;
+      if (k >= 0) {
+        for (int e = 0; e < 9; ++e) rs[e] = s_rs[k][e];
+        for (int e = 0; e < 3; ++e) acc[e] = s_acc[k][e];
+        dt = s_dt[k];
       }
-      so3::exp(phi, rs);
-      so3::hat(acc, ah);
-      for (int e = 0; e < 9; ++e) ah[e] = ah[e] * dt;
-      for (int i = 0; i < 3; ++i)  // -r @ (acc_hat dt)
-        for (int j = 0; j < 3; ++j)
-          fra[3 * i + j] = -r[3 * i] * ah[j] - r[3 * i + 1] * ah[3 + j]
-                           - r[3 * i + 2] * ah[6 + j];
-      so3::mv(r, acc, aw);
-      for (int c = 0; c < 3; ++c) aw[c] = aw[c] + g[c];
-      so3::mul(r, rs, nrvp);
-      for (int c = 0; c < 3; ++c) {
-        nrvp[9 + c] = v[c] + aw[c] * dt;
-        nrvp[12 + c] = p[c] + v[c] * dt + 0.5f * aw[c] * dt * dt;
+      for (int u = 0; u < nv; ++u) {
+        const int kn = left.pop();
+        float rs_n[9], acc_n[3], dt_n = 0.f;
+        if (kn >= 0) {
+          for (int e = 0; e < 9; ++e) rs_n[e] = s_rs[kn][e];
+          for (int e = 0; e < 3; ++e) acc_n[e] = s_acc[kn][e];
+          dt_n = s_dt[kn];
+        }
+        float aw[3], nr[9];
+        for (int e = 0; e < 9; ++e) v_r[u][e] = r[e];
+        so3::mv(r, acc, aw);
+        for (int e = 0; e < 3; ++e) aw[e] = aw[e] + g[e];
+        so3::mul(r, rs, nr);
+        for (int e = 0; e < 3; ++e) {
+          const float pn = p[e] + v[e] * dt + 0.5f * aw[e] * dt * dt;
+          v[e] = v[e] + aw[e] * dt;
+          p[e] = pn;
+        }
+        for (int e = 0; e < 9; ++e) {
+          r[e] = nr[e];
+          rs[e] = rs_n[e];
+        }
+        for (int e = 0; e < 3; ++e) acc[e] = acc_n[e];
+        dt = dt_n;
       }
-      for (int c = 0; c < 3; ++c) {
-        qd[c] = in[EI_GVAR + c] * dt;
-        qd[3 + c] = in[EI_AVAR + c] * dt;
-        qd[6 + c] = 0.f;
-        qd[9 + c] = in[EI_GRW + c] * dt;
-        qd[12 + c] = in[EI_ARW + c] * dt;
+    }
+    __syncthreads();
+    clk.mark(C_PREFIX);
+
+    // 3. one thread a (valid slot, row i < 3): row i of -r hat(acc) dt and of
+    // -r dt at the slot's r, and of r_step
+    if (tid < 3 * nv) {
+      const int u = tid / 3, i = tid % 3, k = v_slot[u];
+      const float dt = s_dt[k];
+      const float* rr = v_r[u];
+      const float* ah = s_ah[k];
+      EskfSlot& f = v_f[u];
+      for (int j = 0; j < 3; ++j) {
+        f.a[3 * i + j] = -rr[3 * i] * ah[j] - rr[3 * i + 1] * ah[3 + j] - rr[3 * i + 2] * ah[6 + j];
+        f.b[3 * i + j] = -rr[3 * i + j] * dt;
+        f.rs[3 * i + j] = s_rs[k][3 * i + j];
+      }
+      if (i == 0) f.dt = dt;
+    }
+    __syncthreads();
+    clk.mark(C_BLOCKS);
+
+    // 4. the covariance, serial over the valid slots in warp 0 (lane: block
+    // (bi, bj)), the next slot's F loaded while the current one is taken;
+    // blocks move between lanes by shuffles, so no barrier. F by blocks:
+    //   [ rs^T  0     0   -dt I  0    ]
+    //   [ A     I     0    0     B    ]   A = -r hat(acc) dt, B = -r dt
+    //   [ 0     dt I  I    0     0    ]
+    //   [ 0     0     0    I     0    ]
+    //   [ 0     0     0    0     I    ]
+    // Every lane takes one form, a sum in the dense product's order over the
+    // blocks (the 3x3 product, the unit or dt block, the second unit block,
+    // the B product) with the blocks that are zero for its row (step 1) or
+    // column (step 2) given a zero factor: a term 0 x adds nothing, so each
+    // entry is the dense in-order product F cov F^T + Q dt's sum, within the
+    // rounding of its fused multiply-adds
+    if (warp == 0) {
+      EskfSlot f = nv > 0 ? v_f[0] : EskfSlot{};
+      for (int u = 0; u < nv; ++u) {
+        const EskfSlot fn = u + 1 < nv ? v_f[u + 1] : f;
+        float x[9], y[9], tc[9];
+        // step 1: tc = (F cov)[bi][bj]
+#pragma unroll
+        for (int e = 0; e < 9; ++e) {
+          x[e] = __shfl_sync(kFull, c[e], x1);
+          y[e] = __shfl_sync(kFull, c[e], y1);
+        }
+        {
+          const float alpha = bi == 0 ? -f.dt : bi == 1 ? 1.f : bi == 2 ? f.dt : 0.f;
+          const float beta = bi >= 2 ? 1.f : 0.f;
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int b = 0; b < 3; ++b) {
+              float s = 0.f;
+#pragma unroll
+              for (int m = 0; m < 3; ++m) {
+                const float pf = bi == 0 ? f.rs[3 * m + a] : bi == 1 ? f.a[3 * a + m] : 0.f;
+                s = fmaf(pf, bi == 0 ? c[3 * m + b] : x[3 * m + b], s);
+              }
+              s = fmaf(alpha, bi == 1 ? c[3 * a + b] : x[3 * a + b], s);
+              s = fmaf(beta, c[3 * a + b], s);
+#pragma unroll
+              for (int m = 0; m < 3; ++m)
+                s = fmaf(bi == 1 ? f.b[3 * a + m] : 0.f, y[3 * m + b], s);
+              tc[3 * a + b] = s;
+            }
+        }
+        // step 2: c = (tc F^T)[bi][bj] + Q dt
+#pragma unroll
+        for (int e = 0; e < 9; ++e) {
+          x[e] = __shfl_sync(kFull, tc[e], x2);
+          y[e] = __shfl_sync(kFull, tc[e], y2);
+        }
+        {
+          const float alpha = bj == 0 ? -f.dt : bj == 1 ? 1.f : bj == 2 ? f.dt : 0.f;
+          const float beta = bj >= 2 ? 1.f : 0.f;
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+#pragma unroll
+            for (int b = 0; b < 3; ++b) {
+              float s = 0.f;
+#pragma unroll
+              for (int m = 0; m < 3; ++m) {
+                const float pf = bj == 0 ? f.rs[3 * m + b] : bj == 1 ? f.a[3 * b + m] : 0.f;
+                s = fmaf(bj == 0 ? tc[3 * a + m] : x[3 * a + m], pf, s);
+              }
+              s = fmaf(bj == 1 ? tc[3 * a + b] : x[3 * a + b], alpha, s);
+              s = fmaf(tc[3 * a + b], beta, s);
+#pragma unroll
+              for (int m = 0; m < 3; ++m)
+                s = fmaf(y[3 * a + m], bj == 1 ? f.b[3 * b + m] : 0.f, s);
+              c[3 * a + b] = __fadd_rn(s, a == b ? __fmul_rn(qv[a], f.dt) : 0.f);
+            }
+        }
+        f = fn;
       }
     }
     __syncthreads();
-
-    // the error-state transition F [15,15]
-    for (int e = tid; e < 225; e += blockDim.x) {
-      const int i = e / 15, j = e % 15;
-      float x = (i == j) ? 1.f : 0.f;
-      if (i < 3 && j < 3) x = rs[3 * j + i];
-      else if (i < 3 && j >= 9 && j < 12) x = (j - 9 == i) ? -dt : 0.f;
-      else if (i >= 3 && i < 6 && j < 3) x = fra[3 * (i - 3) + j];
-      else if (i >= 3 && i < 6 && j >= 12) x = -r[3 * (i - 3) + (j - 12)] * dt;
-      else if (i >= 6 && i < 9 && j >= 3 && j < 6) x = (j - 3 == i - 6) ? dt : 0.f;
-      f[e] = x;
-    }
-    __syncthreads();
-
-    // F cov; the new mean replaces the old one
-    for (int e = tid; e < 225; e += blockDim.x) {
-      const int i = e / 15, j = e % 15;
-      float s = 0.f;
-      for (int m = 0; m < 15; ++m) s += f[15 * i + m] * cov[15 * m + j];
-      tm[e] = s;
-    }
-    if (tid < 9) r[tid] = nrvp[tid];
-    else if (tid < 12) v[tid - 9] = nrvp[tid];
-    else if (tid < 15) p[tid - 12] = nrvp[tid];
-    __syncthreads();
-
-    // cov <- F cov F^T + Q dt
-    for (int e = tid; e < 225; e += blockDim.x) {
-      const int i = e / 15, j = e % 15;
-      float s = 0.f;
-      for (int m = 0; m < 15; ++m) s += tm[15 * i + m] * f[15 * j + m];
-      cov[e] = s + (i == j ? qd[i] : 0.f);
-    }
-    __syncthreads();
+    clk.mark(C_SERIAL);
   }
-  for (int i = tid; i < EO_SIZE; i += blockDim.x) {
-    if (i < 9) out[EO_R + i] = r[i];
-    else if (i < 12) out[EO_V + i - 9] = v[i - 9];
-    else if (i < 15) out[EO_P + i - 12] = p[i - 12];
-    else out[EO_COV + i - 15] = cov[i - 15];
+
+  if (tid == 0) {
+    for (int k = 0; k < 9; ++k) out[EO_R + k] = r[k];
+    for (int k = 0; k < 3; ++k) {
+      out[EO_V + k] = v[k];
+      out[EO_P + k] = p[k];
+    }
   }
+  if (warp == 0 && lane < 25)
+    for (int a = 0; a < 3; ++a)
+      for (int b = 0; b < 3; ++b) out[EO_COV + 15 * (3 * bi + a) + 3 * bj + b] = c[3 * a + b];
+  clk.mark(C_OUTPUT);
+  clk.write(out + EO_SIZE);
 }
 
 }  // namespace

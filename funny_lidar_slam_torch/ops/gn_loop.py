@@ -11,9 +11,8 @@ iterates on its candidates:
     corner set plus `point_to_plane_hg_cand` on the planar set, summed, with
     the planar count as `num_valid`; the LOAM update) -> `loam_gn_launch`;
 
-each one launch a call for CUDA tensors (`icp_gn_rounds` one thread
-block; the LOAM two one thread block cluster, `cluster_blocks`), and its
-plain version (`*_plain`: the same iterations in plain PyTorch, reading its
+each one launch a call for CUDA tensors (one thread block cluster,
+`cluster_blocks`), and its plain version (`*_plain`: the same iterations in plain PyTorch, reading its
 flags on the host) for CPU tensors.
 
 A call runs the loop body from the carry, on the candidate set(s) the
@@ -68,6 +67,8 @@ CARRY_SIZE = int(sum(n for _, n, _ in CARRY))
 NEED_GATHER, DONE = 1, 2
 # update conventions (the kernel's U_* enum), by GNConfig.update
 UPDATE_ICP, UPDATE_LOAM = 0, 1
+# csrc/gn_loop.cu's G_* enum: the wrapper whose cluster `cluster_blocks` asks for
+CLUSTER_KIND = {"icp_gn_rounds": 0, "plane_gn_rounds": 1, "loam_gn_rounds": 2}
 BIG = 1e9  # last_rot / last_pos before the first exact iteration
 
 
@@ -335,24 +336,25 @@ def loam_gn_rounds(carry: torch.Tensor, cand_corner: CandSet, cand_planar: CandS
     return _launched(loam_gn_rounds, err, carry)
 
 
-def cluster_blocks(lines: bool = False, vec: bool = True) -> int:
-    """The blocks of the thread block cluster that `plane_gn_rounds` (or,
-    with `lines`, `loam_gn_rounds`) launches on the current CUDA device: 16,
-    or 8 where no 16-block cluster fits, chosen once a device by the
-    launcher; `vec`: M = 16 with 16-byte aligned planes (every gather of the
-    port), else the any-M kernel. Raises where not even 8 blocks fit."""
-    blocks = cuda_build.library("gn_loop").loam_gn_cluster_blocks(int(lines), int(vec))
+def cluster_blocks(kernel: str, vec: bool = True) -> int:
+    """The blocks of the thread block cluster that the wrapper named
+    `kernel` (a key of `CLUSTER_KIND`) launches on the current CUDA device:
+    16, or 8 where no 16-block cluster fits, chosen once a device by the
+    launcher; `vec`: M = 16 with 16-byte aligned planes (every gather of
+    the port), else the any-M kernel. Raises where not even 8 blocks fit."""
+    blocks = cuda_build.library("gn_loop").gn_cluster_blocks(CLUSTER_KIND[kernel], int(vec))
     if blocks <= 0:
-        raise RuntimeError(f"loam_gn_kernel: no cluster fits on the card: CUDA error {-blocks}")
+        raise RuntimeError(f"{kernel}: no cluster fits on the card: CUDA error {-blocks}")
     return blocks
 
 
 def rank_rows(rows: int, ranks: int) -> list[int]:
     """The rows each rank of a cluster of `ranks` blocks linearizes an
-    iteration of a call with `rows` rows (LoamFull: corner + planar), as
-    the kernel's own split (csrc/gn_loop.cu `rank_rows`) deals them."""
+    iteration of a call with `rows` rows (ICP: the set's; LoamFull: corner
+    + planar), as the kernels' own split (csrc/gn_loop.cu `rank_rows`)
+    deals them."""
     lib = cuda_build.library("gn_loop")
-    return [lib.loam_gn_rank_rows(rows, ranks, r) for r in range(ranks)]
+    return [lib.gn_rank_rows(rows, ranks, r) for r in range(ranks)]
 
 
 icp_gn_rounds.launches = 0

@@ -161,6 +161,24 @@ def test_eskf_predict_plain_matches_jax(slots):
     assert_eskf_close(out_t, out_j, 1e-5, 1e-4)
 
 
+@pytest.mark.parametrize("case", ["all_masked", "one_valid_slot", "nonpositive_dt",
+                                  "all_valid_64"])
+def test_eskf_predict_plain_matches_jax_at_the_edges(case):
+    """The kernel's edge cases, on preintegrate's segments: no valid slot
+    leaves the state exactly; the masked and dt <= 0 slots move nothing."""
+    seg, valid = edge_segment(case)
+    js, ts = eskf_states(seed=300 + valid)
+    out_j = jeskf.predict(js, jseg(seg), jeskf.EskfParams.from_std(0.01, 0.1, 1e-4, 1e-4),
+                          GRAVITY)
+    out_t = eskf.predict_plain(ts, tseg(seg), eskf.EskfParams.from_std(0.01, 0.1, 1e-4, 1e-4),
+                               GRAVITY)
+    assert_eskf_close(out_t, out_j, 1e-5, 1e-4)
+    if valid == 0:
+        for a, b in ((out_t.nav.r, ts.nav.r), (out_t.nav.v, ts.nav.v), (out_t.nav.p, ts.nav.p),
+                     (out_t.cov, ts.cov)):
+            assert torch.equal(a, b)
+
+
 @pytest.fixture(scope="module")
 def fuse_calls():
     """The arguments of every `fuse` call of a short TightCouplingOptimization

@@ -131,22 +131,30 @@ def assert_same_result(rt, rj, rounds, its_j):
 
 
 # ------------------------------------------------- (a) the driver against JAX
-@pytest.mark.parametrize("corr_every", [1, 10])
-@pytest.mark.parametrize("skip", [0.0, 0.2])
-@pytest.mark.parametrize("max_iters", [2, 30])
-@pytest.mark.parametrize("stall", [True, False])
-def test_driver_matches_jax_run_gn_corr(corr_every, skip, max_iters, stall, monkeypatch):
+# corr_every, skip, max_iters and the stall test on the default scene; then
+# the shapes where the kernel's cluster split and its any-M path matter:
+# fewer rows than one 256-row tile (all on the first rank), a row count
+# that is a multiple neither of 16 nor of a tile, and M = 12
+DRIVER_CASES = [pytest.param(c, s, i, st, 3, 600, 16, id=f"{st}-{i}-{s}-{c}")
+                for st in (True, False) for i in (2, 30) for s in (0.0, 0.2) for c in (1, 10)]
+DRIVER_CASES += [pytest.param(10, 0.2, 30, True, 8, n, m, id=name)
+                 for name, n, m in (("n100", 100, 16), ("n1003", 1003, 16), ("m12", 600, 12))]
+
+
+@pytest.mark.parametrize("corr_every, skip, max_iters, stall, seed, n, m", DRIVER_CASES)
+def test_driver_matches_jax_run_gn_corr(corr_every, skip, max_iters, stall, seed, n, m,
+                                        monkeypatch):
     """run_gn_icp_cand on a fixed candidate set (every gather returns it)
     against the JAX loop: gathers, iterations, converged, num_valid, pose
     and total_res; one round and one host read a gather."""
-    cs, t0, radius = cand_scene(seed=3)
+    cs, t0, radius = cand_scene(seed=seed, n=n, m=m)
     cfg_j, cfg_t = gn_cfgs(corr_every, skip, max_iters, stall)
     rj, its_j = run_jax(cs, t0, radius, cfg_j)
     rounds = Rounds(monkeypatch)
     cand = convert.cand_set(cs)
     rt, gate = gn.run_gn_icp_cand(lambda t: cand, torch.as_tensor(t0), cfg_t, MAX_D2,
                                   regather_radius=torch.tensor(radius))
-    assert gate is None
+    assert gate is None and cand.px.shape == (n, m)
     assert_same_result(rt, rj, rounds, its_j)
     if max_iters == 2 and corr_every == 1 and skip == 0.0:
         assert int(rt.iters) == 2 and not bool(rt.converged)  # the bound ends the loop

@@ -1,23 +1,27 @@
-"""Time the step's two loop kernels, `tight_fuse` (csrc/tight_fuse.cu) and
-`preintegrate` (csrc/imu_scan.cu), on captured and synthetic inputs, for
-this checkout's kernels and, with `--parent DIR`, a parent checkout's
-kernels, in turns on one card; or, with `--gn`, the LOAM GN kernels.
+"""Time the step's loop kernels, `tight_fuse` (csrc/tight_fuse.cu),
+`preintegrate` and `eskf_predict` (csrc/imu_scan.cu), on captured and
+synthetic inputs, for this checkout's kernels and, with `--parent DIR`, a
+parent checkout's kernels, in turns on one card; or, with `--gn`, the GN
+kernels.
 
     python3 tools/profile_torch_loops.py [--parent DIR] [--stages] [--out FILE]
     python3 tools/profile_torch_loops.py --gn [--parent DIR] [--stages] [--out FILE]
 
-Captures the arguments of every `preintegrate` and `tight.fuse` call of
-two runs of the port on the card: chip_smoke.py's phase-4 grid config
-(IcpOptimized + TightCouplingOptimization, 16,384 points a scan, 16 IMU
-slots, 12 LM iterations) over the 10 s simulator run (seed 7), and the
-M2DGR preset (configs/mapping/config_M2DGR.yaml: 57,600 points, 64 slots,
-20 LM iterations) over a 6 s run. On the last call of each it times:
+Captures the arguments of every `preintegrate`, `eskf.predict` and
+`tight.fuse` call of three runs of the port on the card: chip_smoke.py's
+phase-4 grid config (IcpOptimized + TightCouplingOptimization, 16,384
+points a scan, 16 IMU slots, 12 LM iterations) and phase 11's (the same
+with TightCouplingKF) over the 10 s simulator run (seed 7), and the M2DGR
+preset (configs/mapping/config_M2DGR.yaml: 57,600 points, 64 slots, 20 LM
+iterations) over a 6 s run. On the last call of each it times:
 
   * `tight_fuse` at the grid call with `iterations` 0 (set-up, the
     posterior, the marginalization and the PSD projection alone), 1 and
     12, and at the M2DGR call with 20;
   * `preintegrate` at the grid call (16 slots), the M2DGR call (64) and a
-    64-slot segment with every slot valid (chip_smoke.loop_edge_cases).
+    64-slot segment with every slot valid (chip_smoke.loop_edge_cases);
+  * `eskf_predict` at the KF call (16 slots) and a 64-slot segment with
+    every slot valid.
 
 Each case is timed two ways, each the median device ms of one call over
 50 calls queued behind a device sleep (chip_smoke.time_ms): the wrapper
@@ -26,36 +30,39 @@ bare launch on a buffer packed beforehand. With `--parent`, the parent's
 `imu_scan.cu` and `tight_fuse.cu` (same C entry points and layouts) are
 built beside this checkout's and the two libraries alternate in turns
 (parent, change, change, parent) on the same inputs; each case also
-reports the largest difference between the two outputs. Every case is
-held against the plain version too. With `--stages`, this checkout's two
-sources are also built with -DFLS_STAGE_CLOCKS (csrc/stage_clock.cuh) and
-each case is run once more on that build, which writes the SM cycles its
-thread 0 spent in each stage after the output (`stage_cycles`, beside
-nvidia-smi's SM clocks). Prints ptxas's registers, spills and shared
-memory of each build, and one JSON line last (also written to FILE). Needs
-CUDA; imports nothing of JAX.
+reports the largest difference between the two outputs and whether they
+are equal. Every case is held against the plain version too. With
+`--stages`, this checkout's two sources are also built with
+-DFLS_STAGE_CLOCKS (csrc/stage_clock.cuh) and each case is run once more
+on that build, which writes the SM cycles its thread 0 spent in each stage
+after the output (`stage_cycles`, beside nvidia-smi's SM clocks). Prints
+ptxas's registers, spills and shared memory of each build, and one JSON
+line last (also written to FILE). Needs CUDA; imports nothing of JAX.
 
-`--gn` times `plane_gn_rounds` and `loam_gn_rounds` (csrc/gn_loop.cu
-`loam_gn_kernel`) instead. It captures every call of the LOAM round
-drivers (chip_smoke.LoopCapture) in runs of the bench's PointToPlane_IVOX,
-PointToPlane_KdTree and LoamFull_KdTree mapping configs over the 10 s
-simulator run (16,384 points a scan) and of the M2DGR preset over a 6 s
-run (57,600 points). On each path it replays every call on each build
-(the status, iterations and gathers each gives, and the largest pose
-difference from the parent's) and times the path's last first round and
-its call with the most iterations: the median device ms of one wrapper
-call over 50, queued behind a device sleep, each from its own copy of the
-carry, in turns (parent, change, change, parent), with ms per iteration.
-It also replays chip_smoke.py's phase-21 edge cases (`loam_edge_cases`, on
-the captured IVOX and LoamFull first rounds) on each build: whether each
-gives the parent's carry bit for bit, and its pose difference from the
-parent's and from the plain version's. The parent's `gn_loop.cu` has the
-same C entry points. With `--stages`, this checkout's
-`gn_loop.cu` built with -DFLS_STAGE_CLOCKS runs each timed call once more
-and reports rank 0's SM cycles an iteration in each stage of
-`loam_gn_kernel` (its K_* enum: set-up, its block's rows and block sum,
-the wait at the cluster barrier, the distributed shared memory sum, the
-serial end and begin of an iteration, the last barrier).
+`--gn` times the GN kernels of csrc/gn_loop.cu instead: `icp_gn_rounds`
+(`icp_gn_kernel`), `plane_gn_rounds` and `loam_gn_rounds`
+(`loam_gn_kernel`). It captures every call of the round drivers
+(chip_smoke.LoopCapture) in runs of the grid headline config and the
+bench's PointToPlane_IVOX, PointToPlane_KdTree and LoamFull_KdTree mapping
+configs over the 10 s simulator run (16,384 points a scan), of the Turing
+ICP preset (configs/mapping/config_turing_icp.yaml) over the same run at
+28,800 points and of the M2DGR preset over a 6 s run (57,600 points). On
+each path it replays every call on each build (the status, iterations and
+gathers each gives, and the largest pose difference from the parent's)
+and times the path's last first round and its call with the most
+iterations: the median device ms of one wrapper call over 50, queued
+behind a device sleep, each from its own copy of the carry, in turns
+(parent, change, change, parent), with ms per iteration. It also replays
+chip_smoke.py's phase-20 and phase-21 edge cases (`icp_edge_cases` on the
+grid's first round, `loam_edge_cases` on the captured IVOX and LoamFull
+first rounds) on each build: whether each gives the parent's carry bit for
+bit, and its pose difference from the parent's and from the plain
+version's. The parent's `gn_loop.cu` has the same C entry points. With
+`--stages`, this checkout's `gn_loop.cu` built with -DFLS_STAGE_CLOCKS runs
+each timed call once more and reports rank 0's SM cycles an iteration in
+each stage of the kernel (the K_* enum: set-up, thread 0's rows, its
+block's sum, the wait at the cluster barrier, the distributed shared memory
+sum, the serial end and begin of an iteration, the last barrier).
 """
 
 from __future__ import annotations
@@ -72,9 +79,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M2DGR = os.path.join("configs", "mapping", "config_M2DGR.yaml")
+TURING = os.path.join("configs", "mapping", "config_turing_icp.yaml")
 LIBS = ("imu_scan", "tight_fuse")
 # the stage clocks of csrc/imu_scan.cu's and csrc/tight_fuse.cu's C_* enums
 STAGES = {"preintegrate": ("init", "slots", "prefix", "blocks", "serial", "output"),
+          "eskf_predict": ("init", "slots", "prefix", "blocks", "serial", "output"),
           "tight_fuse": ("setup", "factors", "lam_j", "h", "eliminate", "substitute",
                          "trial", "solve_wait", "jacobi_marg", "products", "jacobi_psd",
                          "output")}
@@ -86,15 +95,19 @@ def log(*a):
 
 
 def capture_calls(torch, system_config, ds, device="cuda") -> dict:
-    """{"preintegrate": [args], "tight_fuse": [args]} of every call the
-    frontend step makes in one `run_dataset`, cloned on their device."""
+    """{"preintegrate": [args], "eskf_predict": [args], "tight_fuse": [args]}
+    of every call the frontend step makes in one `run_dataset`, cloned on
+    their device."""
+    from funny_lidar_slam_torch.fusion import eskf
     from funny_lidar_slam_torch.pipeline import frontend as fe
     from funny_lidar_slam_torch.pipeline.system import SlamSystem
 
     import chip_smoke
 
-    calls = {"preintegrate": [], "tight_fuse": []}
-    saved = {name: getattr(fe, name) for name in calls}
+    hooks = {"preintegrate": (fe, "preintegrate"), "eskf_predict": (eskf, "predict"),
+             "tight_fuse": (fe, "tight_fuse")}
+    calls = {name: [] for name in hooks}
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in hooks.items()}
 
     def wrap(name):
         def fn(*args):
@@ -102,13 +115,13 @@ def capture_calls(torch, system_config, ds, device="cuda") -> dict:
             return saved[name](*args)
         return fn
 
-    for name in calls:
-        setattr(fe, name, wrap(name))
+    for name, (mod, attr) in hooks.items():
+        setattr(mod, attr, wrap(name))
     try:
         SlamSystem(system_config, device=device).run_dataset(ds)
     finally:
-        for name, fn in saved.items():
-            setattr(fe, name, fn)
+        for name, (mod, attr) in hooks.items():
+            setattr(mod, attr, saved[name])
     if device != "cpu":
         torch.cuda.synchronize()
     return calls
@@ -158,19 +171,22 @@ def bare_launch(torch, kind, args, extra_out=0):
 
     if kind == "preintegrate":
         buf, slots, has_init = rec.pack_preintegrate(*args)
-        out = torch.zeros(rec._size(rec.PREINT_STATE) + extra_out, dtype=torch.float32,
-                          device=buf.device)
-        extra = (slots, has_init)
+        layout, extra = rec.PREINT_STATE, (slots, has_init)
         lib, fn = "imu_scan", "preintegrate_launch"
+    elif kind == "eskf_predict":
+        state, seg, params, g = args
+        buf = rec.pack_eskf(state.nav, state.cov, seg, params)
+        layout, extra = rec.ESKF_OUT, (int(seg.t.shape[0]), *rec._host3("eskf_predict", g))
+        lib, fn = "imu_scan", "eskf_predict_launch"
     else:
         last, pre, pose, pred, g, cfg = args
         buf = rec.pack_tight(last, pre, pose, pred)
-        out = torch.zeros(rec._size(rec.TIGHT_OUT) + extra_out, dtype=torch.float32,
-                          device=buf.device)
+        layout = rec.TIGHT_OUT
         extra = (*rec._host3("tight_fuse", g), int(cfg.iterations),
                  float(cfg.lidar_rotation_std) ** 2, float(cfg.lidar_position_std) ** 2,
                  float(cfg.gyro_rw_std) ** 2, float(cfg.acc_rw_std) ** 2)
         lib, fn = "tight_fuse", "tight_fuse_launch"
+    out = torch.zeros(rec._size(layout) + extra_out, dtype=torch.float32, device=buf.device)
     launch = getattr(cuda_build.library(lib), fn)
     stream = torch.cuda.current_stream(buf.device).cuda_stream
 
@@ -181,15 +197,21 @@ def bare_launch(torch, kind, args, extra_out=0):
 
 
 def flat_output(torch, kind, args):
+    from funny_lidar_slam_torch.fusion import eskf
     from funny_lidar_slam_torch.ops import recurrences as rec
 
-    out = rec.preintegrate(*args) if kind == "preintegrate" else rec.tight_fuse(*args)
+    if kind == "eskf_predict":
+        out = eskf.predict(*args)
+        out = (out.nav.r, out.nav.v, out.nav.p, out.cov)
+    else:
+        out = rec.preintegrate(*args) if kind == "preintegrate" else rec.tight_fuse(*args)
     return torch.cat([o.reshape(-1).float() for o in out])
 
 
-GN_PATHS = ("PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree", "m2dgr")
+GN_PATHS = ("grid", "PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree", "turing",
+            "m2dgr")
 # the stage clocks of csrc/gn_loop.cu's K_* enum
-GN_STAGES = ("setup", "rows", "cluster_wait", "dsmem_sum", "serial", "exit")
+GN_STAGES = ("setup", "rows", "block_sum", "cluster_wait", "dsmem_sum", "serial", "exit")
 
 
 def gn_stage_cycles(torch, lib, kind, call) -> dict:
@@ -201,14 +223,18 @@ def gn_stage_cycles(torch, lib, kind, call) -> dict:
     carry = call[0]
     big = torch.zeros(gn_loop.CARRY_SIZE + CLOCKS, dtype=torch.int32, device=carry.device)
     big[:gn_loop.CARRY_SIZE] = carry
-    k = 1 if kind == "plane_gn_rounds" else 2
+    k = 2 if kind == "loam_gn_rounds" else 1
     sets, radius, cfg = call[1:1 + k], call[1 + k], call[2 + k]
     ptrs = [t.data_ptr() for t in gn_loop._checked_inputs(carry, sets[0], radius, *sets[1:],
                                                            name=kind)]
     ptrs[5 * k] = big.data_ptr()  # the carry, after each set's five tensors
     stream = torch.cuda.current_stream(carry.device).cuda_stream
     m = sets[0].px.shape[1]
-    if kind == "plane_gn_rounds":
+    if kind == "icp_gn_rounds":
+        _, _, _, _, max_d2 = call
+        err = lib.icp_gn_launch(*ptrs, sets[0].px.shape[0], m, *gn_loop._loop_args(cfg),
+                                float(max_d2), stream)
+    elif kind == "plane_gn_rounds":
         _, _, _, _, plane_thresh, max_d2 = call
         err = lib.plane_gn_launch(*ptrs, sets[0].px.shape[0], m, *gn_loop._loop_args(cfg),
                                   float(max_d2), float(plane_thresh), stream)
@@ -225,35 +251,42 @@ def gn_stage_cycles(torch, lib, kind, call) -> dict:
 
 
 def capture_gn(torch, cs, bench) -> dict:
-    """{path: [(kernel, args)]} of every LOAM round-driver call in one run of
+    """{path: [(kernel, args)]} of every GN round-driver call in one run of
     each of GN_PATHS (chip_smoke.LoopCapture), cloned on the card."""
     from funny_lidar_slam_torch.config import load_config
     from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
     from funny_lidar_slam_torch.pipeline.system import SlamSystem
 
     ds = simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7))
-    runs = {mode: (lambda mode=mode: SlamSystem(bench.mode_config(mode, 16384)), ds)
-            for mode in GN_PATHS[:3]}
+    runs = {"grid": (cs.grid_system, ds)}
+    runs.update({mode: (lambda mode=mode: SlamSystem(bench.mode_config(mode, 16384)), ds)
+                 for mode in GN_PATHS[1:4]})
+    runs["turing"] = (lambda: SlamSystem(load_config(os.path.join(ROOT, TURING)).system),
+                      simulate(SimConfig(duration=10.0, points_per_scan=28800, seed=7)))
     runs["m2dgr"] = (lambda: SlamSystem(load_config(os.path.join(ROOT, M2DGR)).system),
                      simulate(SimConfig(duration=6.0, points_per_scan=57600, seed=7)))
     for key, (make, data) in runs.items():
         with cs.LoopCapture(key, loops=False):
             make().run_dataset(data)
         torch.cuda.synchronize()
-    return {key: cs.LOAM_CAPTURES[key] for key in runs}
+    return {key: [("icp_gn_rounds", a) for a in cs.GN_CAPTURES[key]] + cs.LOAM_CAPTURES[key]
+            for key in runs}
 
 
 def gn_edge_cases(torch, cs, captured, versions) -> dict:
-    """chip_smoke.py's phase-21 edge cases on the captured IVOX and LoamFull
-    first rounds, replayed on each build: {case: {build: whether its carry
-    is the parent's bit for bit, its pose difference from the parent's and
-    from the plain version's}}."""
+    """chip_smoke.py's phase-20 and phase-21 edge cases on the captured
+    grid, IVOX and LoamFull first rounds, replayed on each build: {case:
+    {build: whether its carry is the parent's bit for bit, its pose
+    difference from the parent's and from the plain version's}}."""
     from funny_lidar_slam_torch.ops import cuda_build, gn_loop
 
+    icp_args = cs.first_rounds(captured["grid"], "icp_gn_rounds")[-1]
     plane_args = cs.first_rounds(captured["PointToPlane_IVOX"], "plane_gn_rounds")[-1]
     loam_args = cs.first_rounds(captured["LoamFull_KdTree"], "loam_gn_rounds")[-1]
+    cases = [(name, "icp_gn_rounds", args) for name, args in cs.icp_edge_cases(torch, icp_args)]
+    cases += cs.loam_edge_cases(torch, plane_args, loam_args)
     out = {}
-    for name, kind, args in cs.loam_edge_cases(torch, plane_args, loam_args):
+    for name, kind, args in cases:
         plain = args[0].clone()
         getattr(gn_loop, f"{kind}_plain")(plain, *args[1:])
         carries = {}
@@ -267,14 +300,16 @@ def gn_edge_cases(torch, cs, captured, versions) -> dict:
             dp, da = cs.pose_diff(gn_loop.result_views(c).t_mat, gn_loop.result_views(ref).t_mat)
             pp, pa = cs.pose_diff(gn_loop.result_views(c).t_mat, gn_loop.result_views(plain).t_mat)
             row[v] = {"bit_equal_to_parent": bool(torch.equal(c, ref)), "dp_vs_parent": dp,
-                      "da_vs_parent": da, "dp_vs_plain": pp, "da_vs_plain": pa}
+                      "da_vs_parent": da, "dp_vs_plain": pp, "da_vs_plain": pa,
+                      "same_counters_as_parent": c[gn_loop.OFFSET["it"]:].tolist()
+                      == ref[gn_loop.OFFSET["it"]:].tolist()}
         out[name] = row
     log(f"[gn] edge cases: {json.dumps(out)}")
     return out
 
 
 def gn_main(args, torch, cs, bench) -> dict:
-    """--gn: the LOAM GN kernels of the builds, in turns on captured calls."""
+    """--gn: the GN kernels of the builds, in turns on captured calls."""
     from funny_lidar_slam_torch.ops import cuda_build, gn_loop
 
     t0 = time.perf_counter()
@@ -292,7 +327,7 @@ def gn_main(args, torch, cs, bench) -> dict:
         ptxas[tag] = cs.ptxas_report(text)
     staged = versions.pop("stages", None)
     log(f"[gn] built in {time.perf_counter() - t0:.1f} s; ptxas {json.dumps(ptxas)}")
-    blocks = {k: gn_loop.cluster_blocks(lines=k == "loam_gn_rounds") for k in cs.LOAM_GN_KERNELS}
+    blocks = {k: gn_loop.cluster_blocks(k) for k in ("icp_gn_rounds", *cs.LOAM_GN_KERNELS)}
     t0 = time.perf_counter()
     captured = capture_gn(torch, cs, bench)
     log(f"[gn] captured {({k: len(v) for k, v in captured.items()})} calls in "
@@ -365,11 +400,11 @@ def gn_main(args, torch, cs, bench) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", default=None,
-                    help="a parent checkout whose imu_scan.cu and tight_fuse.cu to time beside")
+                    help="a parent checkout whose kernel sources to time beside")
     ap.add_argument("--stages", action="store_true",
                     help="also run a build with per-stage cycle counters (either mode)")
     ap.add_argument("--gn", action="store_true",
-                    help="time the LOAM GN kernels (csrc/gn_loop.cu) instead")
+                    help="time the GN kernels (csrc/gn_loop.cu) instead")
     ap.add_argument("--out", default=None, help="also write the JSON line here")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
@@ -407,12 +442,16 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     grid = capture_calls(torch, bench.headline_config(16384, "TightCouplingOptimization"),
                          simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7)))
+    kf = capture_calls(torch, bench.headline_config(16384, "TightCouplingKF"),
+                       simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7)))
     m2dgr = capture_calls(torch, load_config(os.path.join(ROOT, M2DGR)).system,
                           simulate(SimConfig(duration=6.0, points_per_scan=57600, seed=7)))
     log(f"[loops] captured {len(grid['tight_fuse'])} grid and {len(m2dgr['tight_fuse'])} "
-        f"M2DGR fuse calls in {time.perf_counter() - t0:.1f} s")
+        f"M2DGR fuse calls and {len(kf['eskf_predict'])} KF predict calls in "
+        f"{time.perf_counter() - t0:.1f} s")
     fuse_grid, fuse_m2dgr = grid["tight_fuse"][-1], m2dgr["tight_fuse"][-1]
-    edge = dict(cs.loop_edge_cases(torch, grid["preintegrate"][-1], fuse_grid))
+    edge = dict(cs.loop_edge_cases(torch, grid["preintegrate"][-1], fuse_grid,
+                                   kf["eskf_predict"][-1]))
     cases = {
         "tight_fuse_grid_it0": ("tight_fuse", cs.with_iterations(fuse_grid, 0)),
         "tight_fuse_grid_it1": ("tight_fuse", cs.with_iterations(fuse_grid, 1)),
@@ -421,6 +460,8 @@ def main(argv=None) -> dict:
         "preintegrate_grid_16": ("preintegrate", grid["preintegrate"][-1]),
         "preintegrate_m2dgr_64": ("preintegrate", m2dgr["preintegrate"][-1]),
         "preintegrate_all_valid_64": edge["preintegrate_all_valid_64"],
+        "eskf_predict_kf_16": ("eskf_predict", kf["eskf_predict"][-1]),
+        "eskf_predict_all_valid_64": edge["eskf_predict_all_valid_64"],
     }
     order = ["parent", "change", "change", "parent"] if args.parent else ["change", "change"]
     result = {"device": torch.cuda.get_device_name(0), "card": card, "ptxas": ptxas,
@@ -444,8 +485,9 @@ def main(argv=None) -> dict:
             row["lm_iterations"] = {v: float(x[o]) for v, x in outs.items()}
             row["sweeps"] = {v: x[o + 1:].tolist() for v, x in outs.items()}
         else:
-            row["slots"] = int(cargs[0].t.shape[0])
-            row["valid_slots"] = cs.valid_slots(cargs[0])
+            seg = cargs[0] if kind == "preintegrate" else cargs[1]
+            row["slots"] = int(seg.t.shape[0])
+            row["valid_slots"] = cs.valid_slots(seg)
         wrapper, bare = {}, {}
         for v in order:
             cuda_build._loaded.update(versions[v])
