@@ -56,8 +56,9 @@ Phases, each of which raises (non-zero exit) on failure:
      TightCouplingOptimization);
   10. IncrementalNDT mapping end to end on the bench's NDT config (2 m
      voxel Gaussians, tight coupling): it launches no fused_select (its
-     stencil lookup is plain PyTorch, as the JAX package's is plain XLA),
-     and the phase checks that it launched none;
+     stencil lookup runs inside ndt_gn_rounds, the NDT GN loop kernel), and
+     the phase checks that it launched none; one ndt_gn_rounds launch and
+     one GN host read a match;
   11. TightCouplingKF mapping on phase 4's grid config (ESKF predict, no
      preintegration, ESKF pose update), then a traced second run with
      phase 4's spans beside the KF's (deskew, ESKF predict, GN, ESKF
@@ -71,7 +72,9 @@ Phases, each of which raises (non-zero exit) on failure:
      device cascade) and of every pose-graph optimize; then fused_select at
      the first verification's refine (K=5) and fitness (K=1) inputs against
      its plain version and brute force, timed in turns, and that cascade
-     replayed stage by stage and under torch.profiler;
+     replayed stage by stage (one ndt_gn_rounds launch and one host read
+     an NDT stage, one read an iteration of the refine) and under
+     torch.profiler;
   14. kill and resume: phase 4's grid config with a keyframe store, half
      the run scan by scan, SlamSystem.resume, the rest; then save_map of
      phase 13's system, read back with its tiles;
@@ -163,6 +166,20 @@ Phases, each of which raises (non-zero exit) on failure:
      bit-equal on misaligned planes; both under set_sync_debug_mode("error"); no ptxas
      spills in any GN kernel; each timed at IVOX's and LoamFull's first
      round beside its plain version and one empty launch, with its bound;
+  22. the NDT GN loop: ndt_gn_rounds (csrc/gn_loop.cu ndt_gn_kernel, the
+     JAX while_loop with ndt_corr + ndt_hg_corr as its body: the stencil
+     lookup in the NDT map's hash table and the Mahalanobis rows inside
+     every iteration, the whole loop one launch) against its plain version
+     on every call captured in untimed runs beside phases 10 and 12d and in
+     a replay of phase 13's first cascade, with phase 20's gates (where the
+     two float32 runs part, the pose held to the plain version with float64
+     sums, `float64_sums`); one thread block cluster of R >= 8 blocks (R and
+     the rows a rank printed), every captured call launched twice
+     bit-equal, no ptxas spills; edge cases (N 100, N 5,003, every row
+     masked, non-finite info, num_probes 8 and 16, max_iters 2); the
+     launch under set_sync_debug_mode("error"); timed at the bench shape
+     and at each of the cascade's four stages beside its plain version and
+     one empty launch, with its bound from the bytes and the operations;
 and prints the per-kernel JSON line, the card line and the result line.
 Every path (3b, 4-18) runs with the kernel launch counts zeroed just
 before it and read just after it (phase 18 inside the bench's process,
@@ -172,9 +189,11 @@ one tight_fuse a step under TightCouplingOptimization, one eskf_predict a
 step under TightCouplingKF, none under LooseCoupling (the Turing CLI
 preset); and each GN kernel once a gather round of its driver on the
 paths of its matcher (icp_gn_rounds: ICP; plane_gn_rounds: IVOX, KdTree;
-loam_gn_rounds: LoamFull), never on the others, nor on NDT (the mapping
-phases gate the GN host reads a scan, one a round, equal to the gathers
-a scan). Imports nothing of JAX and nothing of the JAX package.
+loam_gn_rounds: LoamFull), never on the others, and ndt_gn_rounds once an
+NDT match and once an NDT stage of every loop-closure verification, on
+any path (the mapping phases gate the GN host reads a scan, one a round,
+equal to the gathers a scan, and on NDT to the matches). Imports nothing
+of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -1028,7 +1047,7 @@ def bench_system(mode, cap=16384):
 
 def check_launches(tag, launches, expect_select):
     """fused_select launched on a path that gathers through it, and never on
-    one that does not (NDT's stencil lookup is plain PyTorch)."""
+    one that does not (NDT's stencil lookup runs inside ndt_gn_rounds)."""
     if expect_select:
         assert launches > 0, f"[{tag}] the path did not launch fused_select"
     else:
@@ -1046,24 +1065,52 @@ def zero_counts():
         fn.launches = 0
     for driver in gn.ROUND_DRIVERS.values():
         driver.rounds = 0
+    for k in NDT_CALLERS:
+        NDT_CALLERS[k] = 0
+
+
+# the NDT GN loop's callers since zero_counts: NdtMatcher.match calls and
+# the NDT stages of the loop closure's cascades (each cascade's resolutions)
+NDT_CALLERS = {"matches": 0, "cascade_stages": 0}
+
+
+def count_ndt_callers():
+    """Wraps NdtMatcher.match and loop_closure._verify_cascade once for the
+    run, each call counted in NDT_CALLERS: ndt_gn_rounds must launch once a
+    match and once a cascade stage (`gn_launches`)."""
+    from funny_lidar_slam_torch.backend import loop_closure
+    from funny_lidar_slam_torch.registration import matchers
+
+    match, cascade = matchers.NdtMatcher.match, loop_closure._verify_cascade
+
+    def counted_match(self, *a, **kw):
+        NDT_CALLERS["matches"] += 1
+        return match(self, *a, **kw)
+
+    def counted_cascade(cfg, *a, **kw):
+        NDT_CALLERS["cascade_stages"] += len(cfg.ndt_resolutions)
+        return cascade(cfg, *a, **kw)
+
+    matchers.NdtMatcher.match = counted_match
+    loop_closure._verify_cascade = counted_cascade
 
 
 # path -> launches of the device-loop kernels in it (read just after it)
 LOOP_LAUNCHES: dict = {}
-# path -> GN kernel launches in it, all three kernels (read just after it)
+# path -> GN kernel launches in it, all four kernels (read just after it)
 GN_LAUNCHES: dict = {}
 # path -> {GN kernel: launches}
 GN_LAUNCHES_BY_KERNEL: dict = {}
 
 
 def gn_kernel_of(matcher):
-    """The name of the GN rounds kernel a matcher's driver launches, or
-    None (NdtMatcher: run_gn_corr)."""
+    """The name of the GN rounds kernel a matcher's driver launches."""
     from funny_lidar_slam_torch.registration import matchers
 
     for cls, name in ((matchers.IcpMatcher, "icp_gn_rounds"),
                       (matchers.PointToPlaneMatcher, "plane_gn_rounds"),
-                      (matchers.LoamFullMatcher, "loam_gn_rounds")):
+                      (matchers.LoamFullMatcher, "loam_gn_rounds"),
+                      (matchers.NdtMatcher, "ndt_gn_rounds")):
         if isinstance(matcher, cls):
             return name
     return None
@@ -1071,18 +1118,27 @@ def gn_kernel_of(matcher):
 
 def gn_launches(tag, kernel) -> int:
     """The GN kernels' launches of the path just run, recorded and checked:
-    each kernel once a gather round of its driver (one host read each), > 0
-    for the path's own kernel (`kernel`, None on the NDT paths), none for
-    the others. Returns the path's launches."""
+    each kernel once a gather round of its driver (one host read each);
+    icp/plane/loam_gn_rounds > 0 for the path's own kernel (`kernel`) and
+    none for the others; ndt_gn_rounds exactly once an NDT match and once
+    an NDT stage of the loop closure's cascades (NDT_CALLERS), > 0 on the
+    NDT paths. Returns the path's launches."""
     from funny_lidar_slam_torch.ops import gn_loop
     from funny_lidar_slam_torch.registration import gn
 
     counts = {}
+    matches, stages = NDT_CALLERS["matches"], NDT_CALLERS["cascade_stages"]
+    assert (matches > 0) == (kernel == "ndt_gn_rounds"), f"[{tag}] {matches} NDT matches"
     for fn in gn_loop.KERNELS:
         n, rounds = fn.launches, gn.ROUND_DRIVERS[fn.__name__].rounds
         assert n == rounds, f"[{tag}] {fn.__name__} launched {n} times in {rounds} rounds"
-        assert (n > 0) == (fn.__name__ == kernel), \
-            f"[{tag}] {fn.__name__} launched {n} times (the path's GN kernel: {kernel})"
+        if fn is gn_loop.ndt_gn_rounds:
+            assert n == matches + stages, \
+                f"[{tag}] ndt_gn_rounds launched {n} times for {matches} matches and {stages} " \
+                f"cascade stages"
+        else:
+            assert (n > 0) == (fn.__name__ == kernel), \
+                f"[{tag}] {fn.__name__} launched {n} times (the path's GN kernel: {kernel})"
         counts[fn.__name__] = n
     GN_LAUNCHES_BY_KERNEL[tag] = counts
     GN_LAUNCHES[tag] = sum(counts.values())
@@ -1137,14 +1193,22 @@ GN_CAPTURE_LAUNCHES: dict = {}
 LOAM_CAPTURES: dict = {}
 LOAM_CAPTURE_LAUNCHES: dict = {}
 LOAM_GN_KERNELS = ("plane_gn_rounds", "loam_gn_rounds")
+# "ndt" (phase 10), "localization IncrementalNDT" (12d), "figure8-cascade"
+# (phase 13's first cascade, replayed) -> [args] of run_gn_ndt's
+# ndt_gn_rounds calls (carry before the call, source, mask, the map, inv,
+# outlier_thresh, radius, config, num_probes), and the launches meanwhile
+NDT_CAPTURES: dict = {}
+NDT_CAPTURE_LAUNCHES: dict = {}
 
 
 class LoopCapture:
     """While active, records the arguments (cloned) of every preintegrate,
     eskf.predict and tight fuse call of the frontend step under `key`
-    (with `loops`), of every icp_gn_rounds call of the ICP driver, and of
-    every plane_gn_rounds / loam_gn_rounds call of the LOAM drivers, and
-    the kernels' launches meanwhile. The clones cost time a step, so a
+    (with `loops`), of every icp_gn_rounds call of the ICP driver, of
+    every plane_gn_rounds / loam_gn_rounds call of the LOAM drivers and of
+    every ndt_gn_rounds call of run_gn_ndt (the map by reference: an
+    NdtMap's tensors are never written in place, insert makes new ones),
+    and the kernels' launches meanwhile. The clones cost time a step, so a
     capture runs outside every timed or counted run."""
 
     def __init__(self, key, loops=True):
@@ -1152,6 +1216,7 @@ class LoopCapture:
         self.calls = LOOP_CAPTURES.setdefault(key, []) if loops else None
         self.gn_calls = GN_CAPTURES.setdefault(key, [])
         self.loam_calls = LOAM_CAPTURES.setdefault(key, [])
+        self.ndt_calls = NDT_CAPTURES.setdefault(key, [])
 
     def __enter__(self):
         from funny_lidar_slam_torch.fusion import eskf
@@ -1162,6 +1227,7 @@ class LoopCapture:
         self.start = {fn.__name__: fn.launches for fn in recurrences.KERNELS}
         self.gn_start = gn_loop.icp_gn_rounds.launches
         self.loam_start = {k: getattr(gn_loop, k).launches for k in LOAM_GN_KERNELS}
+        self.ndt_start = gn_loop.ndt_gn_rounds.launches
 
         self.saved = [(fe, "preintegrate", "preintegrate"), (eskf, "predict", "eskf_predict"),
                       (fe, "tight_fuse", "tight_fuse")] if self.calls is not None else []
@@ -1188,6 +1254,14 @@ class LoopCapture:
 
             self.saved.append((gn, kind, kind, fn))
             setattr(gn, kind, loam_wrapper)
+        ndt_rounds = gn.ndt_gn_rounds
+
+        def ndt_wrapper(carry, src, mask, m, *rest):
+            self.ndt_calls.append((carry.clone(), src.clone(), mask.clone(), m, *rest))
+            return ndt_rounds(carry, src, mask, m, *rest)
+
+        self.saved.append((gn, "ndt_gn_rounds", "ndt_gn_rounds", ndt_rounds))
+        gn.ndt_gn_rounds = ndt_wrapper
         return self
 
     def __exit__(self, *exc):
@@ -1205,6 +1279,8 @@ class LoopCapture:
         counts = LOAM_CAPTURE_LAUNCHES.setdefault(self.key, {})
         for k in LOAM_GN_KERNELS:
             counts[k] = counts.get(k, 0) + getattr(gn_loop, k).launches - self.loam_start[k]
+        NDT_CAPTURE_LAUNCHES[self.key] = (NDT_CAPTURE_LAUNCHES.get(self.key, 0)
+                                          + gn_loop.ndt_gn_rounds.launches - self.ndt_start)
 
 
 def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=None,
@@ -1215,7 +1291,9 @@ def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=
     device-loop kernels launched once a step as the fusion method asks;
     with `capture`, the warm-up runs every scan and keeps its device-loop
     and GN inputs under that key (with `gn_capture`, its GN inputs only),
-    so the counted run stays the bare main path."""
+    so the counted run stays the bare main path. The GN host reads a scan:
+    one a gather round (ICP, LOAM) or one a match (NDT, whose kernel makes
+    every iteration's gather itself)."""
     from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
     from funny_lidar_slam_torch.ops import select
     from funny_lidar_slam_torch.registration import gn
@@ -1252,8 +1330,13 @@ def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=
            "fused_select_launches": launches, "launches_per_scan": launches / steps,
            "loop_launches": loop_counts, "keyframes": out["n_keyframes"],
            "gn_kernel_launches": GN_LAUNCHES[tag]}
-    if GN_LAUNCHES[tag]:  # a round driver: one host read a gather round
-        res["gn_host_reads_per_scan"] = reads / steps
+    res["gn_host_reads_per_scan"] = reads / steps
+    if gn_kernel_of(slam.frontend.matcher) == "ndt_gn_rounds":  # one launch a match
+        res["gn_iterations_per_scan"] = sum(gathers) / steps  # each one a gather
+        assert reads == GN_LAUNCHES[tag] == NDT_CALLERS["matches"] == len(gathers), \
+            f"[{tag}] {reads} GN host reads, {GN_LAUNCHES[tag]} launches for " \
+            f"{NDT_CALLERS['matches']} matches ({len(gathers)} scans matched)"
+    else:  # one host read a gather round
         assert reads == GN_LAUNCHES[tag] == sum(gathers), \
             f"[{tag}] {reads} GN host reads, {GN_LAUNCHES[tag]} launches for {sum(gathers)} gathers"
     return slam, res
@@ -1315,11 +1398,13 @@ def phase_e2e(torch, ds):
 
 def phase_ndt_mapping(torch, ds):
     """IncrementalNDT on the bench's config (phase 10): the mapping gates,
-    no fused_select launch, and the map's occupied and estimated voxels."""
+    no fused_select launch, one ndt_gn_rounds launch and one GN host read a
+    match, and the map's occupied and estimated voxels; an untimed run
+    first keeps phase 22's inputs."""
     from funny_lidar_slam_torch.maps import ndt_map
 
     slam, res = mapping_run(torch, ds, "ndt", lambda: bench_system("IncrementalNDT"),
-                            expect_select=False)
+                            expect_select=False, gn_capture="ndt")
     m = slam.mstate.m
     res.update(occupied_voxels=int(ndt_map.num_occupied(m)),
                estimated_voxels=int(ndt_map.num_estimated(m)), map_epoch=int(m.epoch))
@@ -1373,15 +1458,15 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
     from funny_lidar_slam_torch.io.trajectory import ate_rmse, rpe_rmse
     from funny_lidar_slam_torch.localization import Localizer
     from funny_lidar_slam_torch.ops import select
+    from funny_lidar_slam_torch.registration import gn
 
     tag = "localization" if mode == "IcpOptimized" else f"localization {mode}"
     world = make_world(seed=7)
-    if mode != "IncrementalNDT":  # an untimed run first: phase 20's / 21's GN inputs
-        with LoopCapture(tag, loops=False):
-            cap = Localizer(bench.localization_config(16384, mode))
-            cap.set_global_map(world)
-            cap.run_dataset(ds, ds.scans[0].gt_pose)
-        torch.cuda.synchronize()
+    with LoopCapture(tag, loops=False):  # an untimed run first: phase 20-22's GN inputs
+        cap = Localizer(bench.localization_config(16384, mode))
+        cap.set_global_map(world)
+        cap.run_dataset(ds, ds.scans[0].gt_pose)
+    torch.cuda.synchronize()
     loc = Localizer(bench.localization_config(16384, mode))
     loc.set_global_map(world)
     zero_counts()
@@ -1391,6 +1476,11 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
     wall = time.perf_counter() - t
     launches = select.fused_select.launches
     loop_counts = loop_launches(tag, loc.stats, loc.frontend)
+    reads = sum(d.rounds for d in gn.ROUND_DRIVERS.values())  # one host read a round
+    if mode == "IncrementalNDT":  # one launch and one read a match, the init's too
+        assert reads == GN_LAUNCHES[tag] == NDT_CALLERS["matches"] > 0, \
+            f"[{tag}] {reads} GN host reads, {GN_LAUNCHES[tag]} launches for " \
+            f"{NDT_CALLERS['matches']} matches"
 
     est, gt = gt_pairs(ds, out)
     assert loc.initialized, f"[{tag}] the init did not pass its fitness gate"
@@ -1417,7 +1507,8 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
            "gathers_per_scan": float(np.mean([s["iters"] for s in loc.stats])),
            "map_refreshes": loc.map_refreshes, "refresh_ms": float(np.median(refresh)),
            "local_map_points": int(crop.mask.sum()), "fused_select_launches": launches,
-           "launches_per_scan": launches / max(steps, 1), "loop_launches": loop_counts}
+           "launches_per_scan": launches / max(steps, 1), "loop_launches": loop_counts,
+           "gn_kernel_launches": GN_LAUNCHES[tag], "gn_host_reads_per_scan": reads / max(steps, 1)}
     log(f"[{tag}] " + json.dumps(res))
     return launches, res
 
@@ -1444,8 +1535,10 @@ def keyframe_ate(ds, slam):
 class LoopProbe:
     """Instruments one loop-closure run: a synchronized host clock and the
     fused_select launches (counted apart) around every verification and
-    every pose-graph optimize, and the GN iterations of each verification
-    (one host read each); each verification's time is split into the
+    every pose-graph optimize, and the GN iterations and host reads of each
+    verification (one read an NDT stage, whose whole loop is one
+    ndt_gn_rounds launch, and one an iteration of the point-to-plane
+    refine); each verification's time is split into the
     keyframe fetch, the host merge of the submaps and the device cascade.
     During the first verification it keeps the block map the cascade
     builds, the cascade's inputs, and the inputs of its first K=5 gather
@@ -1461,18 +1554,20 @@ class LoopProbe:
         self.lc, self.system = loop_closure, system
         self.verifications, self.optimize_ms, self.captured = [], [], {}
         self.map = self.cascade_args = None
-        self.gn_iters = []  # the iteration counts (tensors) of the current verification
+        # the current verification's GN loops: (iterations (a tensor), host reads)
+        self.gn_iters = []
         self.parts = {"fetch_ms": [], "merge_ms": [], "cascade_ms": []}
         self.saved = [(loop_closure, "verify_candidate", loop_closure.verify_candidate),
                       (system, "pg_optimize", system.pg_optimize),
                       (loop_closure, "run_gn", loop_closure.run_gn),
                       (loop_closure, "materialize_batch", loop_closure.materialize_batch),
                       (loop_closure, "_merge_submap", loop_closure._merge_submap),
-                      (loop_closure, "_verify_cascade", loop_closure._verify_cascade)]
+                      (loop_closure, "_verify_cascade", loop_closure._verify_cascade),
+                      (loop_closure, "run_gn_ndt", loop_closure.run_gn_ndt)]
 
     def __enter__(self):
         ((lc, _, verify), (system, _, optimize), (_, _, run_gn), (_, _, fetch), (_, _, merge),
-         (_, _, cascade)) = self.saved
+         (_, _, cascade), (_, _, run_gn_ndt)) = self.saved
         lc.verify_candidate = self._verify(verify)
         system.pg_optimize = self._timed(optimize, self.optimize_ms)
         lc.materialize_batch = self._timed(fetch, self.parts["fetch_ms"])
@@ -1485,11 +1580,17 @@ class LoopProbe:
             return timed_cascade(*a)
         lc._verify_cascade = kept_cascade
 
-        def counted_gn(*a, **kw):
+        def counted_gn(*a, **kw):  # the refine: a host read an iteration
             res = run_gn(*a, **kw)
-            self.gn_iters.append(res.iters)
+            self.gn_iters.append((res.iters, None))
+            return res
+
+        def counted_ndt(*a, **kw):  # an NDT stage: one read
+            res = run_gn_ndt(*a, **kw)
+            self.gn_iters.append((res.iters, 1))
             return res
         lc.run_gn = counted_gn
+        lc.run_gn_ndt = counted_ndt
         return self
 
     def __exit__(self, *exc):
@@ -1529,7 +1630,8 @@ class LoopProbe:
                 "current_id": current_id, "candidate_id": candidate_id, "ms": ms[0],
                 "accepted": res is not None, "fitness": None if res is None else res.fitness,
                 "fused_select_launches": inside,
-                "gn_iterations": [int(i) for i in self.gn_iters],
+                "gn_iterations": [int(i) for i, _ in self.gn_iters],
+                "gn_host_reads": sum(int(i) if r is None else r for i, r in self.gn_iters),
                 **{k: float(sum(v)) for k, v in self.parts.items()}})
             self.gn_iters.clear()
             for v in self.parts.values():
@@ -1600,6 +1702,7 @@ def phase_figure8(torch):
            "fused_select_launches_in_verifications": sum(
                v["fused_select_launches"] for v in probe.verifications),
            "verify_gn_iterations": sum(sum(v["gn_iterations"]) for v in probe.verifications),
+           "verify_gn_host_reads": sum(v["gn_host_reads"] for v in probe.verifications),
            "verification_log": probe.verifications}
     log("[figure8] " + json.dumps(res))
     assert np.isfinite(est).all(), "[figure8] non-finite poses"
@@ -1688,11 +1791,15 @@ def runtime_calls(torch, run) -> dict:
 
 def cascade_breakdown(torch, probe) -> dict:
     """The first verification's device cascade replayed on its captured
-    inputs: its synchronized ms, then one replay with a synchronized clock
-    around each stage kind (voxel filters, block map, NDT map create and
-    load, GN loops with their iterations, each one host read, fitness
-    calls), then one under torch.profiler for the device's busy share."""
+    inputs: once under LoopCapture (phase 22's NDT inputs), then its
+    synchronized ms, then one replay with a synchronized clock around each
+    stage kind (voxel filters, block map, NDT map create and load, the NDT
+    stages' GN loops, one ndt_gn_rounds launch and one host read each, the
+    refine's, one host read an iteration, fitness calls), then one under
+    torch.profiler for the device's busy share."""
     from funny_lidar_slam_torch.maps import block_map, ndt_map
+    from funny_lidar_slam_torch.ops import gn_loop
+    from funny_lidar_slam_torch.registration import gn
 
     lc = probe.lc
     cfg, args = probe.cascade_args
@@ -1700,7 +1807,8 @@ def cascade_breakdown(torch, probe) -> dict:
     def run():
         return lc._verify_cascade(cfg, *args)
 
-    run()
+    with LoopCapture("figure8-cascade", loops=False):
+        run()
     torch.cuda.synchronize()
     t = time.perf_counter()
     run()
@@ -1724,7 +1832,8 @@ def cascade_breakdown(torch, probe) -> dict:
 
     saved = [(m, a, getattr(m, a)) for m, a in (
         (lc, "voxel_downsample"), (block_map, "build"), (ndt_map, "create"),
-        (ndt_map, "insert"), (lc, "run_gn"), (lc, "fitness_score"))]
+        (ndt_map, "insert"), (lc, "run_gn_ndt"), (lc, "run_gn"), (lc, "fitness_score"))]
+    launched, read = gn_loop.ndt_gn_rounds.launches, gn.run_gn_ndt.rounds
     try:
         for m, a, fn in saved:
             setattr(m, a, timed(a, fn))
@@ -1732,20 +1841,30 @@ def cascade_breakdown(torch, probe) -> dict:
     finally:
         for m, a, fn in saved:
             setattr(m, a, fn)
+    launched = gn_loop.ndt_gn_rounds.launches - launched
+    read = gn.run_gn_ndt.rounds - read
     try:
         prof_wall, busy = device_busy_ms(torch, run)
     except RuntimeError as e:  # without CUPTI tracing the split is unmeasured, not a fault
         log(f"[figure8-cascade] torch.profiler failed ({e}): device busy time not measured")
         prof_wall, busy = None, None
+    ndt_n, ndt_ms = stages["run_gn_ndt"]
     gn_n, gn_ms = stages["run_gn"]
+    stages_n = len(cfg.ndt_resolutions)
     res = {"cascade_ms": wall_ms, "stages": {k: {"calls": n, "ms": ms}
                                              for k, (n, ms) in stages.items()},
-           "gn_iterations": iters, "host_reads": sum(iters),
-           "gn_ms_per_iteration": gn_ms / max(sum(iters), 1),
+           "gn_iterations": iters, "ndt_gn_launches": launched,
+           "host_reads": read + sum(iters[ndt_n:]), "ndt_host_reads": read,
+           "refine_host_reads": sum(iters[ndt_n:]),
+           "ndt_ms_per_iteration": ndt_ms / max(sum(iters[:ndt_n]), 1),
+           "refine_ms_per_iteration": gn_ms / max(sum(iters[ndt_n:]), 1),
            "profiled_ms": prof_wall, "device_busy_ms": busy,
            "device_idle_share": None if busy is None else 1.0 - busy / prof_wall}
     log("[figure8-cascade] " + json.dumps(res))
-    assert gn_n == len(cfg.ndt_resolutions) + 1, f"[figure8-cascade] {gn_n} GN loops"
+    # one launch and one host read an NDT stage; the refine on the host loop
+    assert ndt_n == launched == read == stages_n and gn_n == 1, \
+        f"[figure8-cascade] {ndt_n} NDT stages ({launched} launches, {read} reads) of " \
+        f"{stages_n}, {gn_n} refines"
     return res
 
 
@@ -2758,15 +2877,14 @@ def gn_compare(torch, args, kind="icp_gn_rounds") -> dict:
     version's; where the two part by more than GN_POSE_TOL, it is held to a
     float64 run of the plain version on the same call instead (`dp64`,
     `da64`): the float32 normal equations (condition ~1e3) leave the plain
-    version itself up to ~1e-4 m from the float64 pose. For the LOAM kernels
-    that run (float64 sums, `float64_sums`) also holds num_valid and the
-    residual sum, and its status, iterations and gathers count as the plain
-    version's (`same`) where the float32 run's differ."""
+    version itself up to ~1e-4 m from the float64 pose. For the LOAM and
+    NDT kernels that run (float64 sums, `float64_sums`) also holds
+    num_valid and the residual sum, and its status, iterations and gathers
+    count as the plain version's (`same`) where the float32 run's differ."""
     from funny_lidar_slam_torch.ops import gn_loop
 
     kernel, plain = getattr(gn_loop, kind), getattr(gn_loop, f"{kind}_plain")
-    k = GN_SETS[kind]
-    carry, sets, radius, rest = args[0], args[1:1 + k], args[1 + k], args[2 + k:]
+    carry = args[0]
     ck, cp = carry.clone(), carry.clone()
     kernel(ck, *args[1:])
     plain(cp, *args[1:])
@@ -2788,9 +2906,10 @@ def gn_compare(torch, args, kind="icp_gn_rounds") -> dict:
     if not pose_ok:  # the float64 reference of the same call
         c64 = carry.clone()
         if kind == "icp_gn_rounds":
-            sets64 = [c._replace(px=c.px.double(), py=c.py.double(), pz=c.pz.double(),
-                                 src=c.src.double()) for c in sets]
-            plain(c64, *sets64, radius.double(), *rest)
+            cand, radius = args[1], args[2]
+            plain(c64, cand._replace(px=cand.px.double(), py=cand.py.double(),
+                                     pz=cand.pz.double(), src=cand.src.double()),
+                  radius.double(), *args[3:])
         else:  # float32 fits, float64 sums: an all-float64 run decides other gates
             with float64_sums():
                 plain(c64, *args[1:])
@@ -2816,10 +2935,12 @@ def gn_compare(torch, args, kind="icp_gn_rounds") -> dict:
 class float64_sums:
     """While active, the plain versions' scalar-row reductions
     (`residuals._reduce_scalar`: the point-to-plane and point-to-line rows'
-    H, g and residual sum) sum float32 products in float64 and round the
-    sums to float32, as the LOAM kernel does; the rows stay float32. The
-    reference for a LOAM call where the two float32 runs part: its plane
-    fits decide their gates in float32 as the kernel's do."""
+    H, g and residual sum) and NDT's (`residuals._reduce_vec3`: each pair's
+    J^T lam J, J^T lam e and e^T lam e) sum float32 terms in float64 and
+    round the sums to float32, as the LOAM and NDT kernels do; the rows and
+    each pair's terms stay float32. The reference for a LOAM or NDT call
+    where the two float32 runs part: its plane fits and its NDT gates
+    decide in float32 as the kernels' do."""
 
     def __enter__(self):
         import torch
@@ -2827,6 +2948,18 @@ class float64_sums:
         from funny_lidar_slam_torch.registration import residuals
 
         self.saved = residuals._reduce_scalar
+        self.saved_vec3 = residuals._reduce_vec3
+
+        def reduce_vec3_64(j, r, lam, valid):  # float32 terms a pair, float64 sums
+            w = valid.to(j.dtype)
+            lj = torch.einsum("nab,nbk->nak", lam, j) * w[:, None, None]
+            h = (j[:, :, :, None] * lj[:, :, None, :]).sum(1)
+            g = (lj * r[:, :, None]).sum(1)
+            res = torch.einsum("na,nab,nb->n", r, lam, r) * w
+            return residuals.HG(h.double().sum(0).float(), (-g.double().sum(0)).float(),
+                                valid.sum(dtype=torch.int32), res.double().sum().float())
+
+        residuals._reduce_vec3 = reduce_vec3_64
 
         def reduce64(j, r, valid):  # float32 products, float64 sums
             jw = j * valid.to(j.dtype)[:, None]
@@ -2842,12 +2975,14 @@ class float64_sums:
         from funny_lidar_slam_torch.registration import residuals
 
         residuals._reduce_scalar = self.saved
+        residuals._reduce_vec3 = self.saved_vec3
 
 
-def gn_timing(torch, args, label, kind="icp_gn_rounds") -> dict:
+def gn_turns(torch, args, kind) -> tuple:
     """A GN kernel (`kind`) timed on one captured call beside its plain
-    version and one empty launch, in turns, each call from its own copy of
-    the carry, with the call's bound."""
+    version and one empty launch, in turns (kernel, plain, floor, floor,
+    plain, kernel), each call from its own copy of the carry: (the turns,
+    the median ms of each)."""
     from funny_lidar_slam_torch.ops import gn_loop
 
     pools = {k: args[0].repeat(512, 1) for k in ("kernel", "plain")}
@@ -2864,7 +2999,12 @@ def gn_timing(torch, args, label, kind="icp_gn_rounds") -> dict:
                       "floor": (lambda: torch.cuda._sleep(0), 50)},
                      ["kernel", "plain", "floor", "floor", "plain", "kernel"])
     assert max(used.values()) <= 512, used
-    ms = {c: float(np.median(v)) for c, v in turns.items()}
+    return turns, {c: float(np.median(v)) for c, v in turns.items()}
+
+
+def gn_timing(torch, args, label, kind="icp_gn_rounds") -> dict:
+    """`gn_turns` with the call's bound."""
+    turns, ms = gn_turns(torch, args, kind)
     n = [c.px.shape[0] for c in args[1:1 + GN_SETS[kind]]]
     n, m = (n[0] if len(n) == 1 else n), args[1].px.shape[1]
     its = gn_compare(torch, args, kind)["iterations"]
@@ -3354,6 +3494,248 @@ def phase_loam_gn(torch, report) -> list:
     return entries
 
 
+# -------------------------------------------- phase 22: the NDT GN loop kernel
+NDT_GN_PATHS = ("ndt", "localization IncrementalNDT", "figure8-cascade")
+# a row: the transform and its voxel (~20) and a = -R hat(s) (~27); each of
+# its 7 voxels: the hash, fingerprint and probe compares (~40); a valid pair,
+# counted by the structure of J = [a | I]: e and e^T lam e (~23), lam a (45),
+# the r-r block a^T (lam a) (30, symmetric), a^T (lam e) (15; the t half is
+# the lam e above, the r-t block (lam a)^T and the t-t block lam itself) and
+# the 29 accumulations
+NDT_ROW_OPS, NDT_VOXEL_OPS, NDT_PAIR_OPS = 47, 40, 23 + 45 + 30 + 15 + 29
+
+
+def ndt_cost(torch, args) -> tuple:
+    """(bytes, operations, iterations) of one ndt_gn_rounds call. The bytes:
+    each input read once, as far as this call's data needs it (the source
+    and its mask, the 8-byte fingerprints of the slots the lookups probe at
+    the start pose, up to each voxel's first match, a mean, an info and a
+    flag for each distinct slot found), the carry read and written; the
+    mask is read for every row, the 12-byte source row only where it is
+    unmasked. The
+    operations: each iteration's rows, voxels and valid pairs, counted by
+    the plain version at the pose of each iteration."""
+    from funny_lidar_slam_torch.maps import ndt_map
+    from funny_lidar_slam_torch.ops import gn_loop
+    from funny_lidar_slam_torch.ops.voxel import voxel_coords
+    from funny_lidar_slam_torch.registration import residuals
+
+    carry, src, mask, m, inv, thresh, radius, cfg, *rest = args
+    probes = rest[0] if rest else 8
+    t0 = gn_loop.result_views(carry).t_mat
+    p = residuals._transform_fixed(t0, src)[mask]
+    coords = voxel_coords(p, inv)[:, None, :] + ndt_map._stencil(p.device)
+    slots, match, _ = ndt_map._probe(m, coords.reshape(-1, 3), probes)
+    first = torch.where(match.any(-1), match.int().argmax(-1), probes - 1)
+    probed = slots[torch.arange(probes, device=p.device)[None, :] <= first[:, None]]
+    found = slots[match & (torch.cumsum(match.int(), -1) == 1)]
+    nbytes = (src.shape[0] + 12 * int(mask.sum()) + 8 * int(torch.unique(probed).numel())
+              + 49 * int(torch.unique(found).numel()) + 4 * (2 * gn_loop.CARRY_SIZE + 1))
+    pairs, hg = [], gn_loop.ndt_hg
+
+    def counted(*a, **kw):  # the plain version's linearization, once an iteration
+        out = hg(*a, **kw)
+        pairs.append(int(out.num_valid))
+        return out
+
+    gn_loop.ndt_hg = counted
+    try:
+        gn_loop.ndt_gn_rounds_plain(carry.clone(), *args[1:])
+    finally:
+        gn_loop.ndt_hg = hg
+    rows = int(mask.sum())
+    ops = sum(rows * (NDT_ROW_OPS + 7 * NDT_VOXEL_OPS) + n * NDT_PAIR_OPS for n in pairs)
+    return nbytes, ops, len(pairs)
+
+
+def ndt_timing(torch, args, label) -> dict:
+    """`gn_turns` of ndt_gn_rounds with the call's bound (`ndt_cost`)."""
+    turns, ms = gn_turns(torch, args, "ndt_gn_rounds")
+    nbytes, ops, its = ndt_cost(torch, args)
+    bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    out = {"ms": ms["kernel"], "plain_ms": ms["plain"], "floor_ms": ms["floor"],
+           "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "n": args[1].shape[0], "rows": int(args[2].sum()), "capacity": args[3].fp.shape[0],
+           "inv": float(args[4]), "iterations": its, "bytes": nbytes, "ops": ops,
+           "ms_per_iteration": ms["kernel"] / max(its, 1), "turns": turns,
+           "vs_plain": versus(turns["kernel"], turns["plain"])}
+    log(f"[ndt-gn] ndt_gn_rounds at the {label} shape (N {out['n']}, {out['rows']} rows, C "
+        f"{out['capacity']}, {its} iterations): kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.2f} ms, empty launch {out['floor_ms']:.5f} ms, bound "
+        f"{out['bound_ms']:.6f} ms ({out['bound_by']}); turns {turns}")
+    return out
+
+
+def one_call(r) -> bool:
+    """A `gn_compare` row of ndt_gn_rounds ran its whole loop in the call:
+    DONE, one gather an iteration."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    return r["status"][0] == gn_loop.DONE and r["it"][0] == r["gathers"][0]
+
+
+def ndt_edge_cases(torch, args, longest) -> list:
+    """[(name, args)] on the bench shape's call: N 100 and N 5,003 rows
+    spread over the source (below one 256-row tile, and no multiple of a
+    tile or of R), every row masked, the info of a sixth of the slots the
+    source's stencils find set to inf or NaN (an under-populated voxel's
+    inverted covariance), num_probes 8 and 16 on a crowded map (the source
+    at the start pose inserted with 16 probes into no more slots than it
+    has voxels, so that lookups find voxels in slots 9-16 of their window,
+    which 8 probes miss); and max_iters 2 on the call `longest` (one that
+    ran more iterations than that)."""
+    from funny_lidar_slam_torch.maps import ndt_map
+    from funny_lidar_slam_torch.ops import gn_loop
+    from funny_lidar_slam_torch.ops.voxel import voxel_coords
+    from funny_lidar_slam_torch.registration import residuals
+
+    carry, src, mask, m, inv, thresh, radius, cfg, *rest = args
+    tail = (inv, thresh, radius, cfg)
+
+    def rows(n):
+        pool = torch.nonzero(mask).flatten()
+        idx = pool[torch.linspace(0, len(pool) - 1, n, device=src.device).round().long()]
+        return src.index_select(0, idx).contiguous(), mask.index_select(0, idx).contiguous()
+
+    t0 = gn_loop.result_views(carry).t_mat
+    p = residuals._transform_fixed(t0, src)[mask]
+    coords = voxel_coords(p, inv)[:, None, :] + ndt_map._stencil(p.device)
+    slots, match, _ = ndt_map._probe(m, coords.reshape(-1, 3), 8)
+    hit = torch.unique(slots[match & (torch.cumsum(match.int(), -1) == 1)])
+    bad = hit[torch.randperm(len(hit), generator=torch.Generator().manual_seed(0))[:len(hit) // 6]
+              .to(hit.device)]
+    info = m.info.clone()
+    info[bad[0::2], 0, 0] = float("inf")
+    info[bad[1::2], 1, 2] = float("nan")
+    voxels = int(torch.unique(voxel_coords(p, inv), dim=0).shape[0])
+    crowded = ndt_map.insert(ndt_map.create(1 << (voxels.bit_length() - 1), device=p.device),
+                             p, torch.ones(len(p), dtype=torch.bool, device=p.device), inv,
+                             num_probes=16, estimate_all=True, claim_rounds=16)
+    _, match16, _ = ndt_map._probe(crowded, coords.reshape(-1, 3), 16)
+    deep = int((match16[:, 8:].any(-1) & ~match16[:, :8].any(-1)).sum())
+    log(f"[ndt-gn] crowded map: {voxels} voxels, {crowded.fp.shape[0]} slots; {deep} of "
+        f"{match16.shape[0]} stencil lookups match only in slots 9-16")
+    assert deep > 0, "[ndt-gn] the crowded map's lookups never reach slots 9-16"
+    return [("ndt_gn_rounds N 100", (carry, *rows(100), m, *tail, 8)),
+            ("ndt_gn_rounds N 5003", (carry, *rows(5003), m, *tail, 8)),
+            ("ndt_gn_rounds every row masked", (carry, src, torch.zeros_like(mask), m, *tail, 8)),
+            ("ndt_gn_rounds non-finite info", (carry, src, mask, m._replace(info=info), *tail, 8)),
+            ("ndt_gn_rounds num_probes 8", (carry, src, mask, crowded, *tail, 8)),
+            ("ndt_gn_rounds num_probes 16", (carry, src, mask, crowded, *tail, 16)),
+            ("ndt_gn_rounds max_iters 2",
+             (*longest[:7], longest[7]._replace(max_iters=2), *longest[8:]))]
+
+
+def phase_ndt_gn(torch, report) -> dict:
+    """Phase 22: ndt_gn_rounds (csrc/gn_loop.cu `ndt_gn_kernel`, one thread
+    block cluster of R blocks a call, the whole NDT loop with its stencil
+    lookup inside) against its plain version on every call captured in
+    untimed runs beside phases 10 (NDT mapping) and 12d (NDT localization)
+    and in a replay of phase 13's first cascade (its four NDT stages), with
+    phase 20's gates: the same status, iterations and gathers on >= 95 % of
+    a path's calls, and there the pose within 1e-4 m and 1e-5 rad (chord)
+    of the plain version's or, where the two float32 poses part by more, of
+    the plain version with float64 sums, num_valid within 1 %, total_res
+    within 1e-3 relative (`gn_compare`); every call's pose finite and
+    within 0.05 m, every call DONE with as many gathers as iterations; the
+    launches while capturing equal to the calls captured; every captured
+    call (each a first round) launched twice bit-equal; R >= 8 printed with
+    the rows a rank; no ptxas spills. Then, on the bench shape (phase 10's
+    last call): the edge cases of `ndt_edge_cases` with the same gates; the
+    launch under set_sync_debug_mode("error"); the kernel timed beside its
+    plain version and one empty launch, with its bound, there and at each
+    of the cascade's four stages. Returns the JSON entry."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    t_phase = time.perf_counter()
+    kind = "ndt_gn_rounds"
+    resources = {k: v for k, v in report.get("gn_loop", {}).items()
+                 if k.startswith("ndt_gn_kernel")}
+    assert list(resources) == ["ndt_gn_kernel"], f"[ndt-gn] ptxas report {sorted(resources)}"
+    for name, res in resources.items():
+        assert res["registers"] and res["spill_stores"] == 0 and res["spill_loads"] == 0, \
+            f"[ndt-gn] {name} spills: {res}"
+    blocks = gn_loop.cluster_blocks(kind)
+    assert blocks >= 8, blocks
+    log(f"[ndt-gn] ndt_gn_kernel launches one cluster of R = {blocks} blocks; ptxas {resources}")
+    saved = gn_loop.ndt_gn_rounds.launches  # comparisons do not count
+    by_key, rows_all, replayed = {}, [], []
+    for key in NDT_GN_PATHS:
+        calls = NDT_CAPTURES.get(key, [])
+        assert calls and NDT_CAPTURE_LAUNCHES[key] == len(calls), \
+            f"[ndt-gn] {key}: {len(calls)} calls captured, {NDT_CAPTURE_LAUNCHES.get(key)} launched"
+        rows = [gn_compare(torch, args, kind) for args in calls]
+        rows_all += rows
+        replayed += [(args, r["iterations"]) for args, r in zip(calls, rows)]
+        same = sum(r["same"] for r in rows) / len(rows)
+        bad = [i for i, r in enumerate(rows) if (r["same"] and not r["close"])
+               or not r["finite"] or r["dp"] > 0.05 or not one_call(r)]
+        summary = {"calls": len(rows), "same_share": same,
+                   "held_to_float64": [{k: r[k] for k in ("dp", "da", "dp64", "da64",
+                                                          "plain_dp64", "plain_da64")}
+                                       for r in rows if "dp64" in r],
+                   "iterations_per_match": sum(r["iterations"] for r in rows) / len(rows),
+                   **{f: [float(np.quantile([r[f] for r in rows], q)) for q in (0.5, 0.95, 1)]
+                      for f in ("dp", "da", "nv_rel", "res_rel")},
+                   "differing": [{k: r[k] for k in ("status", "it", "gathers", "dp", "da")}
+                                 for r in rows if not r["same"]][:5]}
+        summary["first_rounds_bit_equal"] = bit_equal_replays(torch, kind, calls)
+        by_key[key] = summary
+        log(f"[ndt-gn] {key}: " + json.dumps(summary))
+        assert not bad, f"[ndt-gn] {key}: calls {bad} out of tolerance: " \
+            f"{[rows[i] for i in bad[:3]]}"
+        assert same >= GN_SAME_SHARE, f"[ndt-gn] {key}: {same:.3f} of calls agree"
+    args = NDT_CAPTURES["ndt"][-1]  # the bench shape: phase 10's last match
+    longest = max(replayed, key=lambda r: r[1])[0]  # the captured call of the most iterations
+    edge = {}
+    for name, eargs in ndt_edge_cases(torch, args, longest):
+        r = gn_compare(torch, eargs, kind)
+        edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel",
+                                        "res_rel", "same", "close", "dp64", "da64") if k in r}
+        edge[name]["rows"] = int(eargs[2].sum())
+        assert r["same"] and r["close"] and r["finite"] and one_call(r), \
+            f"[ndt-gn] edge case {name}: {r}"
+    masked = edge["ndt_gn_rounds every row masked"]
+    assert masked["dp"] == 0.0 and masked["da"] == 0.0, f"[ndt-gn] every row masked: {masked}"
+    assert edge["ndt_gn_rounds max_iters 2"]["it"] == (2, 2), edge["ndt_gn_rounds max_iters 2"]
+    log(f"[ndt-gn] {len(edge)} edge cases within tolerance: {json.dumps(edge)}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gn_loop.ndt_gn_rounds(args[0].clone(), *args[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[ndt-gn] ndt_gn_rounds ran under set_sync_debug_mode('error')")
+    n_rows = args[1].shape[0]
+    split = gn_loop.rank_rows(n_rows, blocks)
+    assert sum(split) == n_rows, f"[ndt-gn] the ranks take {split} of {n_rows} rows"
+    log(f"[ndt-gn] {n_rows} rows over R = {blocks} ranks: {split}")
+    head = ndt_timing(torch, args, "bench (phase 10's last match)")
+    stages = {}
+    for k, sargs in enumerate(NDT_CAPTURES["figure8-cascade"]):
+        stages[f"cascade_stage_{k}_inv_{float(sargs[4]):g}"] = ndt_timing(
+            torch, sargs, f"cascade stage {k}")
+    gn_loop.ndt_gn_rounds.launches = saved
+    log(f"[ndt-gn] phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    close = [r for r in rows_all if r["same"]]
+    held64 = [r for r in rows_all if "dp64" in r]
+    by_path = {p: v[kind] for p, v in GN_LAUNCHES_BY_KERNEL.items() if v.get(kind)}
+    return {"name": kind, "route": "cuda", "source": GN_SOURCE[0], "replaces": GN_SOURCE[1],
+            "launches": sum(by_path.values()),
+            "max_abs_err": max(r["dp"] for r in close),
+            "max_rot_err_rad": max(r["da"] for r in close),
+            "held_to_float64": len(held64),
+            "max_abs_err_vs_float64_where_held": max((r["dp64"] for r in held64), default=None),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms")},
+            "library_ms": None, "shapes": {"bench": head, **stages},
+            "launches_by_path": by_path, "calls_compared": len(rows_all), "by_path": by_key,
+            "edge_cases": edge, "cluster_blocks": blocks,
+            "rows_per_rank": {"rows": n_rows, "max": max(split), "min": min(split)},
+            "resources": resources}
+
+
 def main() -> int:
     import torch
 
@@ -3362,6 +3744,7 @@ def main() -> int:
     from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
 
     report = phase_build()
+    count_ndt_callers()
     entry = phase_kernels(torch)
     from funny_lidar_slam_torch.ops import select
 
@@ -3402,11 +3785,13 @@ def main() -> int:
     loop_entries = phase_device_loops(torch, report)
     gn_entry = phase_gn_loop(torch, report)
     loam_gn_entries = phase_loam_gn(torch, report)
+    ndt_gn_entry = phase_ndt_gn(torch, report)
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
                "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
                "verify_ms_median", "verify_ms_max", "optimize_ms",
                "fused_select_launches_in_verifications", "resume_jump_m", "map_points",
                "save_map_ms", "frames", "bag_write_s", "bag_read_s", "preprocess_ms_per_scan",
+               "gn_host_reads_per_scan", "gn_iterations_per_scan", "verify_gn_host_reads",
                "1rank", "4rank", "pose_4rank_vs_1rank", "pose_4rank_vs_1rank_dryrun_map",
                "nccl_allreduce_ms", "gloo_allreduce_ms", "pose_max_diff_m",
                "rot_max_diff_rad", "packed_ms_per_scan", "unpacked_ms_per_scan",
@@ -3431,7 +3816,7 @@ def main() -> int:
                  paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
     print(json.dumps({"kernels": [entry] + probe_entries + loop_entries + [gn_entry]
-                      + loam_gn_entries}))
+                      + loam_gn_entries + [ndt_gn_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,9 @@ device (port of backend/loop_closure.py).
     `fitness_threshold`.
 
 Port notes: the JAX package runs the cascade as one cached executable
-(`aot_jit`); here it is a plain call, whose GN loops read their control
-flags back once per iteration. The keyframe clouds of both submaps are
+(`aot_jit`); here it is a plain call. Each NDT stage's GN loop runs in one
+kernel launch with one host read (`run_gn_ndt`); the point-to-plane
+refine's reads its control flags back once per iteration. The keyframe clouds of both submaps are
 fetched with one copy (`materialize_batch`), and an over-capacity submap is
 pre-filtered on the host by the C++ voxel filter (`native`), as in the JAX
 package.
@@ -33,8 +34,8 @@ from ..maps import block_map, ndt_map
 from ..native import voxel_downsample as host_voxel
 from ..ops.voxel import voxel_downsample
 from ..pipeline.keyframes import materialize_batch
-from ..registration.gn import UPDATE_LOAM, UPDATE_NDT, GNConfig, run_gn
-from ..registration.residuals import fitness_score, ndt_hg, point_to_plane_hg
+from ..registration.gn import UPDATE_LOAM, UPDATE_NDT, GNConfig, run_gn, run_gn_ndt
+from ..registration.residuals import fitness_score, point_to_plane_hg
 
 
 @dataclass
@@ -131,8 +132,7 @@ def _verify_cascade(cfg: LoopClosureConfig, src_pts, src_mask, tgt_pts, tgt_mask
                            estimate_all=True, claim_rounds=8)
         gn = GNConfig(max_iters=cfg.refine_iterations, rotation_eps=1e-3, position_eps=1e-3,
                       update=UPDATE_NDT, use_stall_check=False)
-        t_est = run_gn(lambda t: ndt_hg(t, src.points, src.mask, m, 1.0 / res, 30.0),
-                       t_est, gn).t_mat
+        t_est = run_gn_ndt(src.points, src.mask, m, 1.0 / res, 30.0, t_est, gn).t_mat
         f = fit_of(t_est)
         better = f < best_fit
         best_t = torch.where(better, t_est, best_t)

@@ -15,9 +15,16 @@
 //                    set, summed, the planar count as num_valid (<true>:
 //                    LoamFullMatcher, matchers.py:628-637; plain version
 //                    loam_gn_rounds_plain).
+//   ndt_gn_kernel    the same body with ndt_corr + ndt_hg_corr
+//                    (residuals.py:519-560) and the NDT update, the
+//                    stencil lookup in the NDT map's hash table inside
+//                    every iteration (NdtMatcher and the loop closure's
+//                    NDT stages; plain version ndt_gn_rounds_plain).
 //
 // Each runs from a carry held on the device until the loop ends or the
-// next iteration would need a fresh gather.
+// next iteration would need a fresh gather. NDT regathers every iteration
+// (corr_every 1, no trust-region skip), and its kernel makes each gather
+// itself, so one of its calls runs to the end.
 //
 // A call is handed the candidate set(s) gathered at the carry's pose. Each
 // iteration: test the loop bound (gathers < max_iters, it < max_total, not
@@ -55,6 +62,18 @@
 // rest of both fits (the adjugate, the eigenvalues, the power steps) stays
 // float32, each product and sum rounded in the plain version's order (no
 // fused multiply-add where PyTorch runs separate elementwise ops).
+// NDT (ndt_corr, residuals.py:386-398; the map's lookup, maps/ndt_map.py):
+// p = R s + t, its voxel floor(p inv) (the caller's float32 inv); for each
+// of the 7 stencil voxels (NDT_STENCIL, in its order) the slot hash and the
+// fingerprint (ops/voxel.py spatial_hash, maps/voxel_hash.py fingerprint,
+// uint32 arithmetic), the first of num_probes slots from the hash whose
+// fingerprint matches; the pair is valid where that slot is estimated, the
+// row is unmasked and res = e^T lam e <= outlier_thresh and finite (e = p -
+// mean, lam = info). A valid pair adds J^T lam J, J^T lam e, 1 and res,
+// J = [-R hat(s) | I]. p and res are taken in float64 from the exact
+// float32 products in a fixed order and rounded once, as residuals.py's
+// `_transform_fixed` / `_mahalanobis64` take them on the card: a point one
+// ulp across a voxel face changes its stencil, and res decides the gate.
 //
 // Bound: an iteration reads, for each set, px, py, pz [N, M] f32, valid
 // [N, M] u8 and src [N, 3] f32: N M 13 + N 12 bytes, 3.6 MB at N = 16,384,
@@ -69,8 +88,8 @@
 // system between barriers. Both keep the loop on the device (no launch and
 // no host read an iteration), which is what the step lacked.
 //
-// Design: both kernels are one loop skeleton (`cluster_loop`) over their
-// own rows. Every iteration's rows are spread over the R blocks of 256
+// Design: every kernel is one loop skeleton (`cluster_loop`) over its own
+// rows. Every iteration's rows are spread over the R blocks of 256
 // threads of one thread block cluster (R = 16, or 8 where no 16-block
 // cluster fits; `cluster_blocks`), so each thread walks ~4 rows an
 // iteration at N = 16,384. Each thread keeps its partial sums in registers
@@ -118,6 +137,14 @@
 // float64 run; each row's terms, the distances, the fits and the Cholesky
 // stay f32.
 //
+// The NDT kernel's bound: an iteration reads the mask [N] and src [N, 3] f32
+// of the unmasked rows, and for each row's 7 voxels up to num_probes 8-byte
+// fingerprints, a mean (12 B), an info (36 B) and the estimated flag; the
+// map (131,072 slots at the bench's size, ~7.5 MB) stays in L2 across
+// iterations. A valid pair needs ~140 operations counted by J's structure
+// (J = [a | I]: lam a, a^T lam a, a^T lam e, e^T lam e, the sums), though
+// ndt_add_pair forms the dense J^T lam J (~265).
+//
 // Carry (int32 words, float fields as their bits; ops/gn_loop.py CARRY):
 //   t_mat[16] t_gather[16] last_rot last_pos total_res (f32) | it gathers
 //   since_gather force_gather done converged num_valid status (int32)
@@ -141,16 +168,18 @@ enum {
 };
 enum { S_NEED_GATHER = 1, S_DONE = 2 };
 // the update conventions: ICP dx = [t, r], P += dt, R := R Exp(dr); LOAM
-// dx = [r, t], R := Exp(dr) R, P += dt
-enum { U_ICP = 0, U_LOAM = 1 };
+// dx = [r, t], R := Exp(dr) R, P += dt; NDT dx = [r, t], R := R Exp(dr),
+// P += dt
+enum { U_ICP = 0, U_LOAM = 1, U_NDT = 2 };
 // the wrappers whose cluster gn_cluster_blocks reports: icp_gn_launch,
-// plane_gn_launch, loam_gn_launch
-enum { G_ICP = 0, G_PLANE = 1, G_LOAM = 2 };
+// plane_gn_launch, loam_gn_launch, ndt_gn_launch
+enum { G_ICP = 0, G_PLANE = 1, G_LOAM = 2, G_NDT = 3 };
 // the ICP per-thread sums: -g's two halves before the sign, H's t-r block,
 // the upper triangle of its r-r block, the valid rows and sum |r|
 enum { A_GT = 0, A_GR = 3, A_HTR = 6, A_HRR = 15, A_COUNT = 21, A_RES = 22, A_SIZE = 23 };
 // the LOAM per-thread sums: the upper triangle of H = sum J J^T (row by
-// row), sum J r (-g), the planar rows and sum |r|
+// row), sum J r (-g), the planar rows and sum |r|; NDT's the same layout:
+// H = sum J^T lam J, sum J^T lam e (-g), the valid pairs and sum e^T lam e
 enum { L_H = 0, L_G = 21, L_COUNT = 27, L_RES = 28, L_SIZE = 29 };
 // the stage clocks of either kernel in a profiling build (stage_clock.cuh):
 // rank 0's SM cycles, summed over the call's iterations, written as floats
@@ -670,6 +699,154 @@ __device__ __forceinline__ void loam_system(const double* sums, float* h, float*
   *res = static_cast<float>(sums[L_RES]);
 }
 
+// ------------------------------------------------------------- NDT rows
+
+// the hash constants of ops/voxel.py (_P1-3 and fmix32's multipliers) and
+// maps/voxel_hash.py (_F1-3); uint32 arithmetic wraps as their int64 lanes
+// masked to 32 bits do
+constexpr uint32_t kP1 = 73856093u, kP2 = 471943u, kP3 = 83492791u;
+constexpr uint32_t kF1 = 2654435761u, kF2 = 805459861u, kF3 = 3674653429u;
+constexpr uint32_t kFmix1 = 0x85EBCA6Bu, kFmix2 = 0xC2B2AE35u;
+// maps/ndt_map.py NDT_STENCIL in its order: the voxel, then its 6 faces
+__constant__ int kStencil[7][3] = {{0, 0, 0}, {-1, 0, 0}, {1, 0, 0}, {0, 1, 0}, {0, -1, 0}, {0, 0, -1}, {0, 0, 1}};
+
+// the NDT map's tensors (maps/ndt_map.py NdtMap), read as stored
+struct NdtMapView {
+  const long long* fp;             // [C] fingerprints (uint32 bits), 0 = empty
+  const float* mean;               // [C, 3]
+  const float* info;               // [C, 3, 3]
+  const unsigned char* estimated;  // [C]
+  int capacity, num_probes;        // C a power of two (ops/gn_loop.py checks both)
+};
+
+struct NdtParams {
+  Loop loop;
+  float inv, outlier;  // the voxel's inverse size (float32), the gate on e^T lam e
+};
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= kFmix1;
+  h ^= h >> 13;
+  h *= kFmix2;
+  return h ^ (h >> 16);
+}
+
+// the slot of voxel (x, y, z) (int32 bits): the first of num_probes slots
+// from its hash whose fingerprint matches (ndt_map._probe, _first_true), or
+// -1 where none does
+__device__ __forceinline__ int ndt_slot(const NdtMapView& m, uint32_t x, uint32_t y, uint32_t z) {
+  const uint32_t mask = static_cast<uint32_t>(m.capacity) - 1u;
+  const uint32_t base = fmix32((x * kP1) ^ (y * kP2) ^ (z * kP3)) & mask;
+  const long long fp = static_cast<long long>(fmix32(x * kF1 + y * kF2 + z * kF3) | 1u);
+  for (int k = 0; k < m.num_probes; ++k) {
+    const uint32_t slot = (base + static_cast<uint32_t>(k)) & mask;
+    if (__ldg(m.fp + slot) == fp) return static_cast<int>(slot);
+  }
+  return -1;
+}
+
+// r s + t of one row r of R, in float64 from the exact float32 products,
+// ((r0 s0 + r1 s1) + r2 s2) + t, rounded once (residuals._transform_fixed)
+__device__ __forceinline__ float affine_row(const float* r, const float* s, float t) {
+  const double v = __dadd_rn(__dadd_rn(__dadd_rn(__dmul_rn(r[0], s[0]), __dmul_rn(r[1], s[1])),
+                                       __dmul_rn(r[2], s[2])),
+                             t);
+  return __double2float_rn(v);
+}
+
+// e^T lam e in float64 from the exact float32 products: q_a = (lam_a0 e0 +
+// lam_a1 e1) + lam_a2 e2, then (e0 q0 + e1 q1) + e2 q2, rounded once
+// (residuals._mahalanobis64); a non-finite lam gives a non-finite result
+__device__ __forceinline__ float mahalanobis(const float* e, const float* lam) {
+  double q[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    q[a] = __dadd_rn(__dadd_rn(__dmul_rn(lam[3 * a], e[0]), __dmul_rn(lam[3 * a + 1], e[1])),
+                     __dmul_rn(lam[3 * a + 2], e[2]));
+  return __double2float_rn(
+      __dadd_rn(__dadd_rn(__dmul_rn(e[0], q[0]), __dmul_rn(e[1], q[1])), __dmul_rn(e[2], q[2])));
+}
+
+// one valid (row, voxel) pair into the sums: J = [a | I] (a = -R hat(s)),
+// H += J^T lam J, J^T lam e (-g), the pair and res; each term float32, the
+// sums float64
+__device__ __forceinline__ void ndt_add_pair(double* acc, const float* a, const float* lam,
+                                             const float* e, float res) {
+  float jac[3][6], lj[3][6], le[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      jac[k][i] = a[3 * k + i];
+      jac[k][3 + i] = k == i ? 1.f : 0.f;
+    }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+      lj[k][j] = lam[3 * k] * jac[0][j] + lam[3 * k + 1] * jac[1][j] + lam[3 * k + 2] * jac[2][j];
+    le[k] = lam[3 * k] * e[0] + lam[3 * k + 1] * e[1] + lam[3 * k + 2] * e[2];
+  }
+  int u = L_H;
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = i; j < 6; ++j)
+      acc[u++] += jac[0][i] * lj[0][j] + jac[1][i] * lj[1][j] + jac[2][i] * lj[2][j];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) acc[L_G + i] += jac[0][i] * le[0] + jac[1][i] * le[1] + jac[2][i] * le[2];
+  acc[L_COUNT] += 1.0;
+  acc[L_RES] += res;
+}
+
+// the NDT rows' sums at pose (rot, t) into acc[L_SIZE]: the rows first,
+// first + stride, ... below end, each row's 7 stencil voxels looked up in
+// the map at this pose (every iteration a fresh gather)
+__device__ __forceinline__ void ndt_rows(const float* __restrict__ src,
+                                         const unsigned char* __restrict__ src_mask,
+                                         const NdtMapView& m, const NdtParams& p,
+                                         const float* rot, const float* t, int first, int end,
+                                         int stride, double* acc) {
+#pragma unroll
+  for (int k = 0; k < L_SIZE; ++k) acc[k] = 0.0;
+  for (int r = first; r < end; r += stride) {
+    if (!__ldg(src_mask + r)) continue;  // a masked row has no valid pair
+    const float s[3] = {__ldg(src + 3 * r), __ldg(src + 3 * r + 1), __ldg(src + 3 * r + 2)};
+    float q[3];
+    uint32_t c[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {  // ops/voxel.py voxel_coords: floor(p * inv) as int32
+      q[i] = affine_row(rot + 3 * i, s, t[i]);
+      c[i] = static_cast<uint32_t>(static_cast<int>(floorf(__fmul_rn(q[i], p.inv))));
+    }
+    // a = -R hat(s), row-major (residuals.ndt_hg_corr's J rotation block)
+    float a[9];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float r0 = rot[3 * i], r1 = rot[3 * i + 1], r2 = rot[3 * i + 2];
+      a[3 * i] = -(r1 * s[2] - r2 * s[1]);
+      a[3 * i + 1] = -(r2 * s[0] - r0 * s[2]);
+      a[3 * i + 2] = -(r0 * s[1] - r1 * s[0]);
+    }
+#pragma unroll 1
+    for (int v = 0; v < 7; ++v) {
+      const int slot = ndt_slot(m, c[0] + static_cast<uint32_t>(kStencil[v][0]),
+                                c[1] + static_cast<uint32_t>(kStencil[v][1]),
+                                c[2] + static_cast<uint32_t>(kStencil[v][2]));
+      if (slot < 0 || !__ldg(m.estimated + slot)) continue;
+      float e[3], lam[9];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) e[i] = __fsub_rn(q[i], __ldg(m.mean + 3 * slot + i));
+#pragma unroll
+      for (int k = 0; k < 9; ++k) lam[k] = __ldg(m.info + 9 * slot + k);
+      const float res = mahalanobis(e, lam);
+      if (!(res <= p.outlier && isfinite(res))) continue;  // NaN and inf never reach the sums
+      ndt_add_pair(acc, a, lam, e, res);
+    }
+  }
+}
+
 // ------------------------------------------------------- the loop skeleton
 
 // (H + damping scale I) x = g by Cholesky, as lin3.solve6_damped; false
@@ -727,6 +904,7 @@ struct Iter {
   bool fresh;    // the call's gather, not yet used
   bool refresh;  // this iteration takes it
   bool moved;    // the pose left the trust region
+  bool inside;   // each iteration makes its own gather (NDT): never spent
 };
 
 // thread 0, before an iteration: the loop bound, the trust region and the
@@ -748,7 +926,7 @@ __device__ __forceinline__ int begin_iteration(int* ci, const Loop& p, float rad
   }
   if (s.refresh) {
     for (int k = 0; k < 16; ++k) cf[C_T_GATHER + k] = cf[C_T_MAT + k];
-    s.fresh = false;
+    s.fresh = s.inside;
   }
   for (int i = 0; i < 3; ++i) {
     for (int j = 0; j < 3; ++j) pose[3 * i + j] = cf[C_T_MAT + 4 * i + j];
@@ -775,10 +953,10 @@ __device__ __forceinline__ void end_iteration(int* ci, const Loop& p, const floa
     t[i] = cf[C_T_MAT + 4 * i + 3];
   }
   so3::exp(dr, e);
-  if (kUpdate == U_ICP)
-    so3::mul(rot, e, rn);
-  else
+  if (kUpdate == U_LOAM)
     so3::mul(e, rot, rn);
+  else
+    so3::mul(rot, e, rn);
   for (int i = 0; i < 3; ++i) {
     for (int j = 0; j < 3; ++j) cf[C_T_MAT + 4 * i + j] = rn[3 * i + j];
     cf[C_T_MAT + 4 * i + 3] = t[i] + dt[i];
@@ -834,8 +1012,9 @@ struct GnShared {
 // stride, acc) sums a thread's rows at the pose into acc[kSums];
 // system(sums, h, g, &nv, &res) turns the cluster's sums into the 6x6
 // system, the valid count and the residual sum; kUpdate is the update
-// convention.
-template <int kSums, int kUpdate, class Rows, class System>
+// convention; kInside: linearize makes each iteration's gather itself, so
+// the call never stops for one (NDT).
+template <int kSums, int kUpdate, bool kInside = false, class Rows, class System>
 __device__ __forceinline__ void cluster_loop(GnShared<kSums>& sh, int* __restrict__ carry,
                                              const float* __restrict__ radius_ptr,
                                              const Loop& loop, int rows, Rows linearize,
@@ -845,7 +1024,7 @@ __device__ __forceinline__ void cluster_loop(GnShared<kSums>& sh, int* __restric
   const int rank = static_cast<int>(cluster.block_rank());
   const int ranks = static_cast<int>(cluster.num_blocks());
   const RankRows mine = rank_rows(ranks, rank, tid);
-  Iter s{true, false, true};
+  Iter s{true, false, true, kInside};
   StageClock clk;
   const float radius = loop.skip_dist > 0.f ? *radius_ptr : 0.f;
 
@@ -916,6 +1095,20 @@ loam_gn_kernel(Set corner, Set planar, int* __restrict__ carry,
       sh, carry, radius_ptr, p.loop, (kLines ? corner.n : 0) + planar.n,
       [&](const float* rot, const float* t, int first, int end, int stride, double* acc) {
         loam_rows<kLines, kM>(corner, planar, p, rot, t, first, end, stride, acc);
+      },
+      [](const double* sums, float* h, float* g, int* nv, float* res) {
+        loam_system(sums, h, g, nv, res);
+      });
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+ndt_gn_kernel(const float* __restrict__ src, const unsigned char* __restrict__ src_mask,
+              NdtMapView m, int n, int* __restrict__ carry, NdtParams p) {
+  __shared__ GnShared<L_SIZE> sh;
+  cluster_loop<L_SIZE, U_NDT, true>(  // no trust-region skip, so no radius
+      sh, carry, nullptr, p.loop, n,
+      [&](const float* rot, const float* t, int first, int end, int stride, double* acc) {
+        ndt_rows(src, src_mask, m, p, rot, t, first, end, stride, acc);
       },
       [](const double* sums, float* h, float* g, int* nv, float* res) {
         loam_system(sums, h, g, nv, res);
@@ -993,6 +1186,11 @@ template <bool kLines, int kM>
 int loam_blocks(cudaError_t* err) {
   static int chosen[kMaxDevices] = {};
   return cluster_blocks(loam_gn_kernel<kLines, kM>, chosen, err);
+}
+
+int ndt_blocks(cudaError_t* err) {
+  static int chosen[kMaxDevices] = {};
+  return cluster_blocks(ndt_gn_kernel, chosen, err);
 }
 
 // one cluster of `blocks` blocks of `kernel` on `args`, or `err` (the
@@ -1078,21 +1276,43 @@ extern "C" int loam_gn_launch(const float* cpx, const float* cpy, const float* c
                      true, carry, radius, p, static_cast<cudaStream_t>(stream));
 }
 
+// NDT's GN loop over the map's stencil Gaussians, the whole loop in one
+// launch: a gather every iteration (corr_every 1) and no trust-region skip,
+// the callers' only settings. The wrapper (ops/gn_loop.py ndt_gn_rounds)
+// checks the settings, num_probes and the capacity.
+extern "C" int ndt_gn_launch(const float* src, const unsigned char* src_mask, const long long* fp,
+                             const float* mean, const float* info,
+                             const unsigned char* estimated, int* carry, int n, int capacity,
+                             int num_probes, int max_iters, int max_total, int min_valid,
+                             int use_stall, float rot_eps, float pos_eps, float stall_eps,
+                             float inv, float outlier_thresh, void* stream) {
+  const NdtParams p{make_loop(max_iters, max_total, 1, min_valid, use_stall, rot_eps, pos_eps,
+                              stall_eps, 0.f),
+                    inv, outlier_thresh};
+  const NdtMapView m{fp, mean, info, estimated, capacity, num_probes};
+  cudaError_t err = cudaSuccess;
+  const int blocks = ndt_blocks(&err);
+  return launch_cluster(ndt_gn_kernel, blocks, err, static_cast<cudaStream_t>(stream), src,
+                        src_mask, m, n, carry, p);
+}
+
 // the blocks of the cluster that the launcher of `kind` (G_*) launches on
 // the current device for M = 16 with aligned planes (vec 1) or any M
-// (vec 0); minus the CUDA error where none fits or `kind` is unknown
+// (vec 0; NDT has one kernel, whatever vec); minus the CUDA error where
+// none fits or `kind` is unknown
 extern "C" int gn_cluster_blocks(int kind, int vec) {
   cudaError_t err = cudaErrorInvalidValue;
   int blocks = 0;
   if (kind == G_ICP) blocks = vec ? icp_blocks<16>(&err) : icp_blocks<0>(&err);
   if (kind == G_PLANE) blocks = vec ? loam_blocks<false, 16>(&err) : loam_blocks<false, 0>(&err);
   if (kind == G_LOAM) blocks = vec ? loam_blocks<true, 16>(&err) : loam_blocks<true, 0>(&err);
+  if (kind == G_NDT) blocks = ndt_blocks(&err);
   return blocks ? blocks : -static_cast<int>(err);
 }
 
 // the rows that rank `rank` of a cluster of `ranks` blocks linearizes an
 // iteration of a call with `rows` rows (ICP: the set's; LoamFull: corner +
-// planar), counted with the kernels' own split
+// planar; NDT: the source's), counted with the kernels' own split
 extern "C" int gn_rank_rows(int rows, int ranks, int rank) {
   int n = 0;
   for (int t = 0; t < kThreads; ++t) {

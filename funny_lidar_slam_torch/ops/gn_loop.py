@@ -10,6 +10,9 @@ iterates on its candidates:
   * `loam_gn_rounds`  (LoamFullMatcher: `point_to_line_hg_cand` on the
     corner set plus `point_to_plane_hg_cand` on the planar set, summed, with
     the planar count as `num_valid`; the LOAM update) -> `loam_gn_launch`;
+  * `ndt_gn_rounds`   (NdtMatcher and the loop closure's NDT stages:
+    `ndt_corr` + `ndt_hg_corr`, the stencil lookup in the NDT map inside
+    every iteration, the NDT update) -> `ndt_gn_launch`;
 
 each one launch a call for CUDA tensors (one thread block cluster,
 `cluster_blocks`), and its plain version (`*_plain`: the same iterations in plain PyTorch, reading its
@@ -20,11 +23,14 @@ caller has just gathered at the carry's pose, until the loop ends (`DONE`)
 or the next iteration would need a fresh gather (`NEED_GATHER`); it writes
 the carry back in place, the status word included. The caller
 (registration/gn.py's round drivers) gathers, calls, and reads the status
-word: one host read a gather round instead of one an iteration.
+word: one host read a gather round instead of one an iteration. NDT
+regathers every iteration and its call makes each gather itself, so one
+call runs the whole loop (status `DONE`): one host read a match.
 
 Update conventions (the kernel's U_* enum; `GNConfig.update`):
   UPDATE_ICP:  dx = [t, r]; P += dt; R := R Exp(dr)
   UPDATE_LOAM: dx = [r, t]; R := Exp(dr) R; P += dt
+  UPDATE_NDT:  dx = [r, t]; R := R Exp(dr); P += dt
 
 The carry is one int32 buffer; its float fields are read through a float32
 view of the same storage (`carry.view(torch.float32)`), and `result_views`
@@ -44,9 +50,11 @@ import numpy as np
 import torch
 
 from ..core.lie import so3_exp
+from ..maps.voxel_hash import PROBE_WINDOW
 from ..registration.residuals import (
     CandSet,
     merge_hg,
+    ndt_hg,
     point_to_line_hg_cand,
     point_to_plane_hg_cand,
     point_to_point_hg_cand,
@@ -66,9 +74,10 @@ CARRY_SIZE = int(sum(n for _, n, _ in CARRY))
 # status words (the kernel's S_* enum); 0 until a call has run
 NEED_GATHER, DONE = 1, 2
 # update conventions (the kernel's U_* enum), by GNConfig.update
-UPDATE_ICP, UPDATE_LOAM = 0, 1
+UPDATE_ICP, UPDATE_LOAM, UPDATE_NDT = 0, 1, 2
 # csrc/gn_loop.cu's G_* enum: the wrapper whose cluster `cluster_blocks` asks for
-CLUSTER_KIND = {"icp_gn_rounds": 0, "plane_gn_rounds": 1, "loam_gn_rounds": 2}
+CLUSTER_KIND = {"icp_gn_rounds": 0, "plane_gn_rounds": 1, "loam_gn_rounds": 2,
+                "ndt_gn_rounds": 3}
 BIG = 1e9  # last_rot / last_pos before the first exact iteration
 
 
@@ -126,6 +135,10 @@ def _step(t_mat, dx, update):
         t_new[:3, 3] += dx[:3]
         t_new[:3, :3] = t_mat[:3, :3] @ so3_exp(dx[3:])
         rot, pos = dx[3:], dx[:3]
+    elif update == UPDATE_NDT:
+        t_new[:3, :3] = t_mat[:3, :3] @ so3_exp(dx[:3])
+        t_new[:3, 3] += dx[3:]
+        rot, pos = dx[:3], dx[3:]
     else:
         t_new[:3, :3] = so3_exp(dx[:3]) @ t_mat[:3, :3]
         t_new[:3, 3] += dx[3:]
@@ -134,14 +147,16 @@ def _step(t_mat, dx, update):
 
 
 def _rounds_plain(carry: torch.Tensor, hg_fn, radius: torch.Tensor, cfg, update: int,
-                  dtype) -> torch.Tensor:
+                  dtype, inside: bool = False) -> torch.Tensor:
     """The JAX loop body (funny_lidar_slam_tpu/registration/gn.py:156-212)
     with `hg_fn(T) -> HG` on the candidates gathered at the carry's pose,
     from `carry` until the loop bound fails (DONE) or an iteration asks for a
     gather that has not been handed in (NEED_GATHER). Writes the carry in
     place and returns its status word (a view). Reads its flags on the
     host, one small copy an iteration. Computes in `dtype` (the
-    candidates'): float32 on every path, float64 for a reference run."""
+    candidates'): float32 on every path, float64 for a reference run. With
+    `inside`, `hg_fn` makes each gather itself (NDT's lookup), so no
+    iteration waits for one and the call runs to DONE."""
     f, o = carry.view(F32), OFFSET
     it, gathers, since, force, done, converged, num_valid = carry[o["it"]:o["status"]].tolist()
     t_mat = f[o["t_mat"]:o["t_mat"] + 16].view(4, 4).to(dtype, copy=True)
@@ -163,7 +178,7 @@ def _rounds_plain(carry: torch.Tensor, hg_fn, radius: torch.Tensor, cfg, update:
             status = NEED_GATHER
             break
         if refresh:
-            t_gather, fresh = t_mat, False
+            t_gather, fresh = t_mat, inside
         hg = hg_fn(t_mat)
         t_new, rn, pn = _step(t_mat, solve6_damped(hg.h, hg.g), update)
         enough = hg.num_valid >= cfg.min_valid
@@ -230,47 +245,89 @@ def loam_gn_rounds_plain(carry: torch.Tensor, cand_corner: CandSet, cand_planar:
         radius, cfg, UPDATE_LOAM, cand_planar.px.dtype)
 
 
-def _checked_inputs(carry, cand: CandSet, radius, *more: CandSet,
-                    name: str = "icp_gn_rounds") -> list:
-    """The kernel's tensor arguments, checked: float32 (bool for `valid`,
-    an int32 [CARRY_SIZE] carry), contiguous, matching shapes (one M for
-    every set), then all on one CUDA device. In order: each set's px, py,
-    pz, valid and src, then the carry and the radius."""
-    sets = (cand, *more)
-    tensors = {}
-    for k, c in enumerate(sets):
-        tag = f"set {k} " if more else ""
-        tensors.update({f"{tag}{f}": getattr(c, f) for f in ("px", "py", "pz", "valid", "src")})
-    tensors.update(carry=carry, radius=radius)
-    for key, t in tensors.items():
-        field = key.split()[-1]
-        want = {"valid": torch.bool, "carry": I32}.get(field, F32)
+def ndt_gn_rounds_plain(carry: torch.Tensor, src: torch.Tensor, src_mask: torch.Tensor, m,
+                        inv, outlier_thresh: float, radius, cfg,
+                        num_probes: int = 8) -> torch.Tensor:
+    """`_rounds_plain` with the NDT update and `ndt_hg` (the stencil lookup
+    and the Mahalanobis rows) at every iteration's pose: one call runs the
+    whole loop. `radius` is read only under a trust-region skip, which
+    `ndt_gn_rounds` refuses."""
+    return _rounds_plain(
+        carry, lambda t: ndt_hg(t, src, src_mask, m, inv, outlier_thresh, num_probes),
+        radius, cfg, UPDATE_NDT, src.dtype, inside=True)
+
+
+def _checked(name: str, table: dict, note: str = "") -> list:
+    """A kernel's tensor arguments, checked: `table` maps each, in the C
+    entry point's order, to (tensor, dtype, shape); each of its dtype,
+    contiguous and of its shape (`note` says what the shapes must share),
+    then all on one CUDA device. Returns the tensors in order."""
+    for key, (t, want, _) in table.items():
         if t.dtype != want:
             raise TypeError(f"{name}: the kernel takes {want} {key}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} is not contiguous")
-    m = cand.px.shape[1] if cand.px.dim() == 2 else -1
-    for c in sets:
-        n = c.px.shape[0]
-        if not (c.px.shape == c.py.shape == c.pz.shape == c.valid.shape == (n, m)
-                and tuple(c.src.shape) == (n, 3)):
-            raise ValueError(f"{name}: px, py, pz, valid [N, M] (one M for every set) and "
-                             "src [N, 3] expected")
-    if not (radius.numel() == 1 and carry.numel() == CARRY_SIZE):
-        raise ValueError(f"{name}: a radius [] and a [{CARRY_SIZE}] carry (init_carry) expected")
-    if carry.device.type != "cuda" or any(t.device != carry.device for t in tensors.values()):
+    for key, (t, _, shape) in table.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} of shape {tuple(t.shape)}, {shape} expected{note}")
+    tensors = [t for t, _, _ in table.values()]
+    if tensors[0].device.type != "cuda" or any(t.device != tensors[0].device for t in tensors):
         raise ValueError(f"{name}: the inputs must lie on one CUDA device")
-    return list(tensors.values())
+    return tensors
 
 
-def _loop_args(cfg) -> tuple:
+def _checked_inputs(carry, cand: CandSet, radius, *more: CandSet,
+                    name: str = "icp_gn_rounds") -> list:
+    """`_checked` for a candidate-set kernel: each set's px, py, pz float32
+    and valid bool [N, M] (one M for every set) and src float32 [N, 3], then
+    an int32 [CARRY_SIZE] carry and a float32 radius []."""
+    sets = (cand, *more)
+    m = cand.px.shape[1] if cand.px.dim() == 2 else -1
+    table = {}
+    for k, c in enumerate(sets):
+        tag, n = f"set {k} " if more else "", c.px.shape[0]
+        table.update({f"{tag}{f}": (getattr(c, f), torch.bool if f == "valid" else F32, (n, m))
+                      for f in ("px", "py", "pz", "valid")})
+        table[f"{tag}src"] = (c.src, F32, (n, 3))
+    table.update(carry=(carry, I32, (CARRY_SIZE,)), radius=(radius, F32, ()))
+    return _checked(name, table, " (one M for every set; init_carry's carry)")
+
+
+def _check_ndt_schedule(cfg, num_probes: int, capacity: int) -> None:
+    """ndt_gn_rounds serves the callers' only settings: a gather every
+    iteration, no trust-region skip; num_probes in [1, PROBE_WINDOW] and a
+    capacity that is a power of two. The kernel takes these as checked."""
+    if int(cfg.corr_every) != 1 or float(cfg.skip_regather_dist) > 0.0:
+        raise ValueError("ndt_gn_rounds: the kernel runs corr_every 1 with no trust-region skip, "
+                         f"not corr_every {cfg.corr_every}, skip {cfg.skip_regather_dist}")
+    if not 1 <= int(num_probes) <= PROBE_WINDOW:
+        raise ValueError(f"ndt_gn_rounds: num_probes {num_probes} outside [1, {PROBE_WINDOW}]")
+    if capacity < 1 or capacity & (capacity - 1):
+        raise ValueError(f"ndt_gn_rounds: a map capacity of {capacity}, no power of two")
+
+
+def _checked_ndt_inputs(carry, src, src_mask, m) -> list:
+    """`_checked` for ndt_gn_launch: src float32 [N, 3], src_mask bool [N],
+    the map's fp int64 [C], mean float32 [C, 3], info float32 [C, 3, 3] and
+    estimated bool [C], and an int32 [CARRY_SIZE] carry."""
+    n, c = src.shape[0], m.fp.shape[0]
+    return _checked("ndt_gn_rounds", {
+        "src": (src, F32, (n, 3)), "src_mask": (src_mask, torch.bool, (n,)),
+        "fp": (m.fp, torch.int64, (c,)), "mean": (m.mean, F32, (c, 3)),
+        "info": (m.info, F32, (c, 3, 3)), "estimated": (m.estimated, torch.bool, (c,)),
+        "carry": (carry, I32, (CARRY_SIZE,))})
+
+
+def _loop_args(cfg, schedule: bool = True) -> tuple:
     """The loop's scalars, in the C entry points' order: max_iters,
     max_total, corr_every, min_valid, use_stall (ints), then rot_eps,
-    pos_eps, stall_eps, skip_dist (floats)."""
-    return (int(cfg.max_iters), int(cfg.max_iters) * max(int(cfg.corr_every), 1),
-            int(cfg.corr_every), int(cfg.min_valid), int(bool(cfg.use_stall_check)),
-            float(cfg.rotation_eps), float(cfg.position_eps), float(cfg.stall_eps),
-            float(cfg.skip_regather_dist))
+    pos_eps, stall_eps, skip_dist (floats); without `schedule`, no
+    corr_every and no skip_dist (ndt_gn_launch's fixed schedule)."""
+    every = (int(cfg.corr_every),) if schedule else ()
+    skip = (float(cfg.skip_regather_dist),) if schedule else ()
+    return (int(cfg.max_iters), int(cfg.max_iters) * max(int(cfg.corr_every), 1), *every,
+            int(cfg.min_valid), int(bool(cfg.use_stall_check)), float(cfg.rotation_eps),
+            float(cfg.position_eps), float(cfg.stall_eps), *skip)
 
 
 def _launched(fn, err: int, carry: torch.Tensor) -> torch.Tensor:
@@ -336,12 +393,36 @@ def loam_gn_rounds(carry: torch.Tensor, cand_corner: CandSet, cand_planar: CandS
     return _launched(loam_gn_rounds, err, carry)
 
 
+def ndt_gn_rounds(carry: torch.Tensor, src: torch.Tensor, src_mask: torch.Tensor, m, inv,
+                  outlier_thresh: float, radius, cfg, num_probes: int = 8) -> torch.Tensor:
+    """NDT's whole GN loop (the stencil lookup in the map `m` and the
+    Mahalanobis rows inside every iteration) from the carry to DONE: on CPU
+    tensors the plain version; on CUDA tensors the kernel on the current
+    stream, which reads nothing back to the host, raising on an input of
+    another dtype (float32 points, a bool mask and flags, int64
+    fingerprints), shape or device, a non-contiguous input or a CUDA error.
+    Raises on every device for the settings the kernel does not serve
+    (`corr_every` other than 1, a trust-region skip), so `radius`, the
+    round kernels' trust-region radius, is never read (None will do).
+    Returns the carry's status word (a view)."""
+    _check_ndt_schedule(cfg, num_probes, m.fp.shape[0])
+    if carry.device.type == "cpu":
+        return ndt_gn_rounds_plain(carry, src, src_mask, m, inv, outlier_thresh, radius, cfg,
+                                   num_probes)
+    args = _checked_ndt_inputs(carry, src, src_mask, m)
+    err = cuda_build.library("gn_loop").ndt_gn_launch(
+        *(t.data_ptr() for t in args), src.shape[0], m.fp.shape[0], int(num_probes),
+        *_loop_args(cfg, schedule=False), float(inv), float(outlier_thresh), _stream(carry))
+    return _launched(ndt_gn_rounds, err, carry)
+
+
 def cluster_blocks(kernel: str, vec: bool = True) -> int:
     """The blocks of the thread block cluster that the wrapper named
     `kernel` (a key of `CLUSTER_KIND`) launches on the current CUDA device:
     16, or 8 where no 16-block cluster fits, chosen once a device by the
     launcher; `vec`: M = 16 with 16-byte aligned planes (every gather of
-    the port), else the any-M kernel. Raises where not even 8 blocks fit."""
+    the port), else the any-M kernel (NDT has one kernel). Raises where not
+    even 8 blocks fit."""
     blocks = cuda_build.library("gn_loop").gn_cluster_blocks(CLUSTER_KIND[kernel], int(vec))
     if blocks <= 0:
         raise RuntimeError(f"{kernel}: no cluster fits on the card: CUDA error {-blocks}")
@@ -351,7 +432,7 @@ def cluster_blocks(kernel: str, vec: bool = True) -> int:
 def rank_rows(rows: int, ranks: int) -> list[int]:
     """The rows each rank of a cluster of `ranks` blocks linearizes an
     iteration of a call with `rows` rows (ICP: the set's; LoamFull: corner
-    + planar), as the kernels' own split (csrc/gn_loop.cu `rank_rows`)
+    + planar; NDT: the source's), as the kernels' own split (csrc/gn_loop.cu `rank_rows`)
     deals them."""
     lib = cuda_build.library("gn_loop")
     return [lib.gn_rank_rows(rows, ranks, r) for r in range(ranks)]
@@ -360,4 +441,5 @@ def rank_rows(rows: int, ranks: int) -> list[int]:
 icp_gn_rounds.launches = 0
 plane_gn_rounds.launches = 0
 loam_gn_rounds.launches = 0
-KERNELS = (icp_gn_rounds, plane_gn_rounds, loam_gn_rounds)
+ndt_gn_rounds.launches = 0
+KERNELS = (icp_gn_rounds, plane_gn_rounds, loam_gn_rounds, ndt_gn_rounds)

@@ -9,9 +9,12 @@ The JAX package keeps the whole loop on the device in one
     `run_gn_icp_cand` serves IcpMatcher (point-to-point rows),
     `run_gn_plane_cand` PointToPlaneMatcher (point-to-plane rows) and
     `run_gn_loam_cand` LoamFullMatcher (point-to-line rows of the corner
-    set plus point-to-plane rows of the planar set);
-  * `run_gn_corr` serves NdtMatcher and, through `run_gn`, the loop
-    closure's verification (backend/loop_closure.py): its loop runs on the
+    set plus point-to-plane rows of the planar set). `run_gn_ndt` serves
+    NdtMatcher and the loop closure's NDT stages: its kernel makes the
+    stencil lookup of every iteration itself, so the whole loop is one
+    launch and one host read;
+  * `run_gn_corr` serves, through `run_gn`, the loop closure's
+    point-to-plane refine (backend/loop_closure.py): its loop runs on the
     host and reads its control flags (done, converged, the trust-region
     test) back from the device once per iteration, one small copy that
     waits for the iteration to finish.
@@ -36,6 +39,7 @@ from ..ops import gn_loop
 from ..ops.gn_loop import (
     icp_gn_rounds,
     loam_gn_rounds,
+    ndt_gn_rounds,
     plane_gn_rounds,
     trust_region_moved,
 )
@@ -281,9 +285,31 @@ def run_gn_loam_cand(
         corr_fn, t0, cfg, regather_radius, gate_fn)
 
 
-# gather rounds run by each driver, each one host read
+def run_gn_ndt(src: torch.Tensor, src_mask: torch.Tensor, m, inv_voxel_size,
+               outlier_thresh: float, t0: torch.Tensor, cfg: GNConfig) -> GNResult:
+    """`run_gn_corr(ndt_corr, ndt_hg_corr)` with the NDT update on the map
+    `m`: every iteration looks up the source's stencil voxels at its pose
+    and linearizes the Mahalanobis rows, all in one `ndt_gn_rounds` call
+    (the kernel on CUDA tensors, the plain version on CPU tensors) that
+    runs the loop to its end, then one host read of the status word. Every
+    iteration gathers (`corr_every` 1, no trust-region skip; the wrapper
+    refuses others), so `iters` counts the iterations. Returns the result,
+    views of the loop's carry."""
+    _check_update(run_gn_ndt, cfg, UPDATE_NDT)
+    carry = gn_loop.init_carry(t0)
+    ndt_gn_rounds(carry, src, src_mask, m, inv_voxel_size, outlier_thresh, None, cfg)
+    run_gn_ndt.rounds += 1
+    o = gn_loop.OFFSET["status"]
+    status = _host_read(carry[o:o + 1])[0]
+    if status != gn_loop.DONE:
+        raise RuntimeError(f"run_gn_ndt: status word {status}")
+    return GNResult(*gn_loop.result_views(carry))
+
+
+# gather rounds run by each driver, each one host read (NDT: one a match)
 run_gn_icp_cand.rounds = 0
 run_gn_plane_cand.rounds = 0
 run_gn_loam_cand.rounds = 0
+run_gn_ndt.rounds = 0
 ROUND_DRIVERS = {"icp_gn_rounds": run_gn_icp_cand, "plane_gn_rounds": run_gn_plane_cand,
-                 "loam_gn_rounds": run_gn_loam_cand}
+                 "loam_gn_rounds": run_gn_loam_cand, "ndt_gn_rounds": run_gn_ndt}

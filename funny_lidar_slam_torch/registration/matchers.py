@@ -39,12 +39,12 @@ from .gn import (
     UPDATE_NDT,
     GNConfig,
     GNResult,
-    run_gn_corr,
     run_gn_icp_cand,
     run_gn_loam_cand,
+    run_gn_ndt,
     run_gn_plane_cand,
 )
-from .residuals import fitness_score, gather_candidates, ndt_corr, ndt_hg_corr
+from .residuals import fitness_score, gather_candidates
 
 
 def _source_radius(points, mask):
@@ -609,14 +609,10 @@ class NdtMatcher(_Matcher):
         t_init = self._as_pose(t_init)
         c = self.cfg
         src = self._source(cloud)
-
-        def corr_fn(t_mat):
-            return ndt_corr(t_mat, src.points, src.mask, s.m, self.inv, c.res_outlier_thresh)
-
-        def hg_fn(t_mat, corr):
-            return ndt_hg_corr(t_mat, src.points, corr)
-
-        res = run_gn_corr(corr_fn, hg_fn, t_init, self.gn_cfg)
+        # the whole loop, the stencil lookup of every iteration inside it:
+        # one launch and one host read
+        res = run_gn_ndt(src.points, src.mask, s.m, self.inv, c.res_outlier_thresh, t_init,
+                         self.gn_cfg)
         # the reference forces convergence after the loop unless too few
         # effective points matched
         enough = res.num_valid >= c.min_effective_pts

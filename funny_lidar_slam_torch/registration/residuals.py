@@ -383,13 +383,44 @@ class NdtCorr(NamedTuple):
     valid: torch.Tensor  # [N, 7]
 
 
-def ndt_corr(t_mat, src, src_mask, m: ndt_map.NdtMap, inv_voxel_size, outlier_thresh) -> NdtCorr:
+def _transform_fixed(t_mat: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """`transform_points`. On a CUDA tensor each component in float64 from
+    the exact float32 products, ((R_i0 s_0 + R_i1 s_1) + R_i2 s_2) + t_i,
+    rounded once: the order csrc/gn_loop.cu's NDT rows repeat, so that both
+    put a point in the same voxel (floor is discontinuous at a voxel face,
+    and cuBLAS's order for `pts @ R.T` is none a kernel can repeat). On the
+    CPU the library's order, which the tests hold against the JAX package."""
+    if not pts.is_cuda:
+        return transform_points(t_mat, pts)
+    r, t, s = t_mat[:3, :3].double(), t_mat[:3, 3].double(), pts.double()
+    p = s[:, 0:1] * r[:, 0] + s[:, 1:2] * r[:, 1]
+    return ((p + s[:, 2:3] * r[:, 2]) + t).to(pts.dtype)
+
+
+def _mahalanobis64(err: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """e^T lam e over the last axes ([..., 3] and [..., 3, 3]) in float64
+    from the exact float32 products, q_a = (lam_a0 e_0 + lam_a1 e_1) +
+    lam_a2 e_2, then (e_0 q_0 + e_1 q_1) + e_2 q_2, rounded once: the order
+    csrc/gn_loop.cu's NDT rows repeat, as the outlier gate compares it with
+    a threshold (the CUDA route of `ndt_corr`)."""
+    e, lm = err.double(), lam.double()
+    q = lm[..., 0] * e[..., None, 0] + lm[..., 1] * e[..., None, 1]
+    q = q + lm[..., 2] * e[..., None, 2]
+    res = e[..., 0] * q[..., 0] + e[..., 1] * q[..., 1]
+    return (res + e[..., 2] * q[..., 2]).to(err.dtype)
+
+
+def ndt_corr(t_mat, src, src_mask, m: ndt_map.NdtMap, inv_voxel_size, outlier_thresh,
+             num_probes: int = 8) -> NdtCorr:
     """7-voxel stencil Gaussian lookup and the outlier gate on the
-    Mahalanobis residual, at the gather pose."""
-    p_t = transform_points(t_mat, src)
-    mu, lam, valid_v = ndt_map.query_stencil(m, p_t, inv_voxel_size)
+    Mahalanobis residual, at the gather pose. On CUDA tensors p_t and the
+    residual are taken in csrc/gn_loop.cu's fixed order (`_transform_fixed`,
+    `_mahalanobis64`)."""
+    p_t = _transform_fixed(t_mat, src)
+    mu, lam, valid_v = ndt_map.query_stencil(m, p_t, inv_voxel_size, num_probes)
     err = p_t[:, None, :] - mu
-    res = torch.einsum("nva,nvab,nvb->nv", err, lam, err)
+    res = (_mahalanobis64(err, lam) if err.is_cuda
+           else torch.einsum("nva,nvab,nvb->nv", err, lam, err))
     valid = valid_v & src_mask[:, None] & (res <= outlier_thresh) & torch.isfinite(res)
     # an under-populated slot's info can be inf/NaN; it is gated invalid
     # above, but NaN * 0 would still poison the masked reduction
@@ -402,7 +433,7 @@ def ndt_hg_corr(t_mat: torch.Tensor, src: torch.Tensor, corr: NdtCorr) -> HG:
     """NDT Mahalanobis linearization: e = p_t - mu per stencil voxel,
     J = [-R hat(p) | I] (dx = [r, t])."""
     n = src.shape[0]
-    err = transform_points(t_mat, src)[:, None, :] - corr.mu  # [N, 7, 3]
+    err = _transform_fixed(t_mat, src)[:, None, :] - corr.mu  # [N, 7, 3]
     eye = torch.eye(3, dtype=src.dtype, device=src.device)
     jac = torch.cat([-torch.einsum("ij,njk->nik", t_mat[:3, :3], so3_hat(src)),
                      eye.expand(n, 3, 3)], dim=-1)  # [N, 3, 6]
@@ -412,10 +443,11 @@ def ndt_hg_corr(t_mat: torch.Tensor, src: torch.Tensor, corr: NdtCorr) -> HG:
                         corr.valid.reshape(n * v))
 
 
-def ndt_hg(t_mat, src, src_mask, m: ndt_map.NdtMap, inv_voxel_size, outlier_thresh) -> HG:
+def ndt_hg(t_mat, src, src_mask, m: ndt_map.NdtMap, inv_voxel_size, outlier_thresh,
+           num_probes: int = 8) -> HG:
     """One-shot gather + linearize."""
     return ndt_hg_corr(t_mat, src, ndt_corr(t_mat, src, src_mask, m, inv_voxel_size,
-                                            outlier_thresh))
+                                            outlier_thresh, num_probes))
 
 
 def merge_hg(*hgs: HG) -> HG:

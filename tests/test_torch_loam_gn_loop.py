@@ -313,7 +313,8 @@ def states(s):
 def test_update_enum_and_signatures_match_the_kernel_source():
     text = (CSRC / "gn_loop.cu").read_text()
     enum = {m.group(1): int(m.group(2)) for m in re.finditer(r"\bU_([A-Z_]+) = (\d+)", text)}
-    assert enum == {"ICP": gn_loop.UPDATE_ICP, "LOAM": gn_loop.UPDATE_LOAM}
+    assert enum == {"ICP": gn_loop.UPDATE_ICP, "LOAM": gn_loop.UPDATE_LOAM,
+                    "NDT": gn_loop.UPDATE_NDT}
     carry = {m.group(1): int(m.group(2)) for m in re.finditer(r"\bC_([A-Z_]+) = (\d+)", text)}
     assert carry == {**{f.upper(): o for f, o in gn_loop.OFFSET.items()},
                      "SIZE": gn_loop.CARRY_SIZE}

@@ -2,30 +2,39 @@
 on one of the bench's mapping configs, for the port in a given checkout.
 
     python3 tools/profile_torch_gn.py [--root DIR]
-        [--mode IcpOptimized|PointToPlane_IVOX|PointToPlane_KdTree|LoamFull_KdTree]
+        [--mode IcpOptimized|PointToPlane_IVOX|PointToPlane_KdTree|LoamFull_KdTree|
+                IncrementalNDT]
 
 Runs funny_lidar_slam_torch from DIR (default: this checkout) over the 10 s
 simulator run (seed 7), 16,384 points a scan, on the config of `--mode`:
 IcpOptimized (the default) is chip_smoke.py's phase-4 headline (dense grid
-(96, 96, 16), TightCouplingOptimization); the LOAM modes are the bench's
-configs of phases 7-9 (`bench_torch.mode_config`). A warm-up run, a counted
-run, two timed runs, a traced run and a profiled run:
+(96, 96, 16), TightCouplingOptimization); the LOAM modes and IncrementalNDT
+are the bench's configs of phases 7-10 (`bench_torch.mode_config`). A
+warm-up run, a counted run, two timed runs, a traced run and a profiled
+run:
   * the counted run reads, per scan, the GN iterations (linearizations),
     the gathers and the GN's host reads. On a checkout whose matcher runs
     a round driver (`gn.run_gn_icp_cand` for ICP, `gn.run_gn_plane_cand` /
-    `gn.run_gn_loam_cand` for the LOAM modes): the kernel carry's iteration
-    count around each rounds call and the driver's `_host_read` calls (the
-    map-insertion gate is in them). On an earlier one, which runs the loop
-    on the host (`run_gn_corr`): the calls of the row linearization
-    (`point_to_point_hg_cand`, or `point_to_plane_hg_cand`, once an
-    iteration on every LOAM path), one host read each; its map-insertion
-    gate reads once more a mapping scan after the loop
-    (`post_loop_reads_per_scan`);
+    `gn.run_gn_loam_cand` for the LOAM modes, `gn.run_gn_ndt` for NDT, one
+    round a match): the kernel carry's iteration count around each rounds
+    call and the driver's `_host_read` calls (the map-insertion gate is in
+    them). On an earlier one, which runs the loop on the host
+    (`run_gn_corr`): the calls of the row linearization
+    (`point_to_point_hg_cand`, `point_to_plane_hg_cand`, once an iteration
+    on every LOAM path, or NDT's `ndt_hg_corr`), one host read each; its
+    map-insertion gate reads once more a mapping scan after the loop
+    (`post_loop_reads_per_scan`; NDT's insert reads nothing);
   * the traced run puts CUDA events around the GN driver (ms a scan);
   * the profiled run counts the CUDA kernel launches (the runtime's and
     the driver's launch calls) a scan under torch.profiler, in all and
     inside the GN driver (the host side of a `record_function` range
     around it).
+With `--verify` it runs the bench's Figure8_Loop config instead (the
+figure-8 simulator run, hashed ICP, loop closure; `bench_torch.
+figure8_config`) once and reports each loop verification's synchronized
+ms, and the GN iterations and host reads inside the verifications: an NDT
+stage through `run_gn_ndt` reads once, a loop through `run_gn` (the
+refine, and an earlier checkout's NDT stages) once an iteration.
 Prints one JSON line. Needs CUDA; imports nothing of JAX. To compare a
 change with its parent on one card: `git archive <parent> | tar -x -C
 _archive/parent`, then run parent, change, change, parent in one call.
@@ -41,7 +50,16 @@ import time
 
 import numpy as np
 
-MODES = ("IcpOptimized", "PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree")
+MODES = ("IcpOptimized", "PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree",
+         "IncrementalNDT")
+# the round driver of each mode, and its rounds wrapper
+DRIVERS = {"IcpOptimized": ("run_gn_icp_cand", "icp_gn_rounds"),
+           "PointToPlane_IVOX": ("run_gn_plane_cand", "plane_gn_rounds"),
+           "PointToPlane_KdTree": ("run_gn_plane_cand", "plane_gn_rounds"),
+           "LoamFull_KdTree": ("run_gn_loam_cand", "loam_gn_rounds"),
+           "IncrementalNDT": ("run_gn_ndt", "ndt_gn_rounds")}
+# the host loop's linearization on a checkout without the mode's driver
+HOST_ROWS = {"IcpOptimized": "point_to_point_hg_cand", "IncrementalNDT": "ndt_hg_corr"}
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
 
 
@@ -56,10 +74,67 @@ def _patch(saved):
         setattr(mod, attr, fn)
 
 
+def verify_profile(root, torch, bench) -> dict:
+    """The figure-8 with loop closure once: each verification's
+    synchronized ms, its GN loops' iterations and host reads."""
+    from funny_lidar_slam_torch.backend import loop_closure as lc
+    from funny_lidar_slam_torch.io.simulator import simulate
+    from funny_lidar_slam_torch.pipeline.system import SlamSystem
+
+    sim_cfg, traj = bench.figure8_sim(16384)
+    ds = simulate(sim_cfg, traj=traj)
+    loops, rows = [], []  # the current verification's (iterations, reads); one row each
+    saved = [(lc, k, getattr(lc, k)) for k in ("verify_candidate", "run_gn", "run_gn_ndt")
+             if hasattr(lc, k)]
+
+    def counted(fn, one_read):
+        def wrapper(*a, **kw):
+            res = fn(*a, **kw)
+            its = int(res.iters)
+            loops.append((its, 1 if one_read else its))
+            return res
+        return wrapper
+
+    def verify(*a, fn=lc.verify_candidate, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t) * 1e3, "accepted": res is not None,
+                     "gn_iterations": [i for i, _ in loops],
+                     "gn_host_reads": sum(r for _, r in loops)})
+        loops.clear()
+        return res
+
+    lc.verify_candidate = verify
+    lc.run_gn = counted(lc.run_gn, False)
+    if hasattr(lc, "run_gn_ndt"):
+        lc.run_gn_ndt = counted(lc.run_gn_ndt, True)
+    try:
+        slam = SlamSystem(bench.figure8_config(16384))
+        t = time.perf_counter()
+        slam.run_dataset(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        _patch(saved)
+    ms = [r["ms"] for r in rows]
+    return {"root": root, "verify": True, "ndt_on_device": hasattr(lc, "run_gn_ndt"),
+            "verifications": rows, "loops_accepted": len(slam.loop_results),
+            "verify_ms_median": float(np.median(ms)) if ms else None,
+            "verify_ms_max": float(np.max(ms)) if ms else None,
+            "gn_host_reads_per_verification": (float(np.mean([r["gn_host_reads"] for r in rows]))
+                                               if rows else None),
+            "steady_fps": _steady_fps(slam.stats), "wall_s": wall,
+            "device": torch.cuda.get_device_name(0), "card": bench.card_line()}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--mode", default="IcpOptimized", choices=MODES)
+    ap.add_argument("--verify", action="store_true",
+                    help="the figure-8 with loop closure: verification ms and GN reads")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -73,6 +148,10 @@ def main(argv=None) -> dict:
 
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_gn: CUDA is not available")
+    if args.verify:
+        out = verify_profile(args.root, torch, bench)
+        print(json.dumps(out))
+        return out
     ds = simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7))
     icp = args.mode == "IcpOptimized"
 
@@ -83,15 +162,12 @@ def main(argv=None) -> dict:
     make().run_dataset(ds)
     torch.cuda.synchronize()
 
-    driver_name = ("run_gn_icp_cand" if icp else "run_gn_loam_cand"
-                   if args.mode.startswith("LoamFull") else "run_gn_plane_cand")
+    driver_name, rounds_name = DRIVERS[args.mode]
     on_device = hasattr(gn, driver_name)
     its, reads = [0], [0]
     if on_device:
         from funny_lidar_slam_torch.ops import gn_loop
 
-        rounds_name = {"run_gn_icp_cand": "icp_gn_rounds", "run_gn_plane_cand": "plane_gn_rounds",
-                       "run_gn_loam_cand": "loam_gn_rounds"}[driver_name]
         o = gn_loop.OFFSET["it"]
         saved = [(gn, rounds_name, getattr(gn, rounds_name)), (gn, "_host_read", gn._host_read)]
 
@@ -109,7 +185,7 @@ def main(argv=None) -> dict:
         gn._host_read = read
     else:
         driver_name = "run_gn_corr"
-        row = "point_to_point_hg_cand" if icp else "point_to_plane_hg_cand"
+        row = HOST_ROWS.get(args.mode, "point_to_plane_hg_cand")
         saved = [(matchers, row, getattr(matchers, row))]
 
         def linearize(*a, fn=getattr(matchers, row)):
@@ -178,7 +254,7 @@ def main(argv=None) -> dict:
            "gn_iterations_per_scan": its[0] / len(steps),
            "gathers_per_scan": sum(s["iters"] for s in steps) / len(steps),
            "gn_host_reads_per_scan": reads[0] / len(steps),
-           "post_loop_reads_per_scan": 0 if on_device else 1,
+           "post_loop_reads_per_scan": 0 if on_device or args.mode == "IncrementalNDT" else 1,
            "cuda_launches_per_scan": len(starts) / n_p,
            "gn_cuda_launches_per_scan": inside / n_p,
            "wall_s": walls, "steady_fps": fps,

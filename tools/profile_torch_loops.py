@@ -41,10 +41,11 @@ line last (also written to FILE). Needs CUDA; imports nothing of JAX.
 
 `--gn` times the GN kernels of csrc/gn_loop.cu instead: `icp_gn_rounds`
 (`icp_gn_kernel`), `plane_gn_rounds` and `loam_gn_rounds`
-(`loam_gn_kernel`). It captures every call of the round drivers
-(chip_smoke.LoopCapture) in runs of the grid headline config and the
-bench's PointToPlane_IVOX, PointToPlane_KdTree and LoamFull_KdTree mapping
-configs over the 10 s simulator run (16,384 points a scan), of the Turing
+(`loam_gn_kernel`) and `ndt_gn_rounds` (`ndt_gn_kernel`). It captures
+every call of the round drivers (chip_smoke.LoopCapture) in runs of the
+grid headline config and the bench's PointToPlane_IVOX,
+PointToPlane_KdTree, LoamFull_KdTree and IncrementalNDT mapping configs
+over the 10 s simulator run (16,384 points a scan), of the Turing
 ICP preset (configs/mapping/config_turing_icp.yaml) over the same run at
 28,800 points and of the M2DGR preset over a 6 s run (57,600 points). On
 each path it replays every call on each build (the status, iterations and
@@ -55,9 +56,12 @@ behind a device sleep, each from its own copy of the carry, in turns
 (parent, change, change, parent), with ms per iteration. It also replays
 chip_smoke.py's phase-20 and phase-21 edge cases (`icp_edge_cases` on the
 grid's first round, `loam_edge_cases` on the captured IVOX and LoamFull
-first rounds) on each build: whether each gives the parent's carry bit for
-bit, and its pose difference from the parent's and from the plain
-version's. The parent's `gn_loop.cu` has the same C entry points. With
+first rounds) and phase 22's (`ndt_edge_cases` on the last NDT call) on
+each build: whether each gives the parent's carry bit for bit, and its
+pose difference from the parent's and from the plain version's. The
+parent's `gn_loop.cu` has the same C entry points, or lacks
+`ndt_gn_launch` (a parent from before the NDT kernel): its NDT rows then
+give the change alone. With
 `--stages`, this checkout's `gn_loop.cu` built with -DFLS_STAGE_CLOCKS runs
 each timed call once more and reports rank 0's SM cycles an iteration in
 each stage of the kernel (the K_* enum: set-up, thread 0's rows, its
@@ -208,8 +212,8 @@ def flat_output(torch, kind, args):
     return torch.cat([o.reshape(-1).float() for o in out])
 
 
-GN_PATHS = ("grid", "PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree", "turing",
-            "m2dgr")
+GN_PATHS = ("grid", "PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree",
+            "IncrementalNDT", "turing", "m2dgr")
 # the stage clocks of csrc/gn_loop.cu's K_* enum
 GN_STAGES = ("setup", "rows", "block_sum", "cluster_wait", "dsmem_sum", "serial", "exit")
 
@@ -223,12 +227,24 @@ def gn_stage_cycles(torch, lib, kind, call) -> dict:
     carry = call[0]
     big = torch.zeros(gn_loop.CARRY_SIZE + CLOCKS, dtype=torch.int32, device=carry.device)
     big[:gn_loop.CARRY_SIZE] = carry
+    stream = torch.cuda.current_stream(carry.device).cuda_stream
+    if kind == "ndt_gn_rounds":
+        _, src, mask, m, inv, thresh, _, cfg, *rest = call
+        ptrs = [t.data_ptr() for t in gn_loop._checked_ndt_inputs(carry, src, mask, m)]
+        ptrs[6] = big.data_ptr()  # the carry, after the source and the map
+        err = lib.ndt_gn_launch(*ptrs, src.shape[0], m.fp.shape[0], int(rest[0] if rest else 8),
+                                *gn_loop._loop_args(cfg, schedule=False), float(inv),
+                                float(thresh), stream)
+        assert err == 0, f"{kind}: CUDA error {err}"
+        torch.cuda.synchronize()
+        its = max(int(big[gn_loop.OFFSET["it"]]) - int(carry[gn_loop.OFFSET["it"]]), 1)
+        cycles = big[gn_loop.CARRY_SIZE:].view(torch.float32).tolist()
+        return {name: c / its for name, c in zip(GN_STAGES, cycles)}
     k = 2 if kind == "loam_gn_rounds" else 1
     sets, radius, cfg = call[1:1 + k], call[1 + k], call[2 + k]
     ptrs = [t.data_ptr() for t in gn_loop._checked_inputs(carry, sets[0], radius, *sets[1:],
                                                            name=kind)]
     ptrs[5 * k] = big.data_ptr()  # the carry, after each set's five tensors
-    stream = torch.cuda.current_stream(carry.device).cuda_stream
     m = sets[0].px.shape[1]
     if kind == "icp_gn_rounds":
         _, _, _, _, max_d2 = call
@@ -260,7 +276,7 @@ def capture_gn(torch, cs, bench) -> dict:
     ds = simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7))
     runs = {"grid": (cs.grid_system, ds)}
     runs.update({mode: (lambda mode=mode: SlamSystem(bench.mode_config(mode, 16384)), ds)
-                 for mode in GN_PATHS[1:4]})
+                 for mode in GN_PATHS[1:5]})
     runs["turing"] = (lambda: SlamSystem(load_config(os.path.join(ROOT, TURING)).system),
                       simulate(SimConfig(duration=10.0, points_per_scan=28800, seed=7)))
     runs["m2dgr"] = (lambda: SlamSystem(load_config(os.path.join(ROOT, M2DGR)).system),
@@ -270,7 +286,21 @@ def capture_gn(torch, cs, bench) -> dict:
             make().run_dataset(data)
         torch.cuda.synchronize()
     return {key: [("icp_gn_rounds", a) for a in cs.GN_CAPTURES[key]] + cs.LOAM_CAPTURES[key]
-            for key in runs}
+            + [("ndt_gn_rounds", a) for a in cs.NDT_CAPTURES[key]] for key in runs}
+
+
+def builds_of(versions: dict, kind: str) -> dict:
+    """The builds that have `kind`'s entry point (a parent from before the
+    NDT kernel lacks ndt_gn_launch)."""
+    return {v: lib for v, lib in versions.items()
+            if kind != "ndt_gn_rounds" or hasattr(lib, "ndt_gn_launch")}
+
+
+def rows_of(cs, kind, call) -> list:
+    """The rows of a captured call: each candidate set's, or NDT's source."""
+    if kind == "ndt_gn_rounds":
+        return [call[1].shape[0]]
+    return [c.px.shape[0] for c in call[1:1 + cs.GN_SETS[kind]]]
 
 
 def gn_edge_cases(torch, cs, captured, versions) -> dict:
@@ -285,12 +315,21 @@ def gn_edge_cases(torch, cs, captured, versions) -> dict:
     loam_args = cs.first_rounds(captured["LoamFull_KdTree"], "loam_gn_rounds")[-1]
     cases = [(name, "icp_gn_rounds", args) for name, args in cs.icp_edge_cases(torch, icp_args)]
     cases += cs.loam_edge_cases(torch, plane_args, loam_args)
+    ndt_calls = [a for k, a in captured["IncrementalNDT"] if k == "ndt_gn_rounds"]
+    its = []
+    for a in ndt_calls:  # the plain version's iterations of each call
+        c = a[0].clone()
+        gn_loop.ndt_gn_rounds_plain(c, *a[1:])
+        its.append(int(c[gn_loop.OFFSET["it"]]))
+    longest = ndt_calls[int(np.argmax(its))]
+    cases += [(name, "ndt_gn_rounds", args)
+              for name, args in cs.ndt_edge_cases(torch, ndt_calls[-1], longest)]
     out = {}
     for name, kind, args in cases:
         plain = args[0].clone()
         getattr(gn_loop, f"{kind}_plain")(plain, *args[1:])
         carries = {}
-        for v, lib in versions.items():
+        for v, lib in builds_of(versions, kind).items():
             cuda_build._loaded["gn_loop"] = lib
             carries[v] = args[0].clone()
             getattr(gn_loop, kind)(carries[v], *args[1:])
@@ -327,7 +366,7 @@ def gn_main(args, torch, cs, bench) -> dict:
         ptxas[tag] = cs.ptxas_report(text)
     staged = versions.pop("stages", None)
     log(f"[gn] built in {time.perf_counter() - t0:.1f} s; ptxas {json.dumps(ptxas)}")
-    blocks = {k: gn_loop.cluster_blocks(k) for k in ("icp_gn_rounds", *cs.LOAM_GN_KERNELS)}
+    blocks = {k: gn_loop.cluster_blocks(k) for k in gn_loop.CLUSTER_KIND}
     t0 = time.perf_counter()
     captured = capture_gn(torch, cs, bench)
     log(f"[gn] captured {({k: len(v) for k, v in captured.items()})} calls in "
@@ -346,8 +385,9 @@ def gn_main(args, torch, cs, bench) -> dict:
         kind = calls[0][0]
         assert all(k == kind for k, _ in calls), f"[gn] {key}: two kernels"
         calls = [a for _, a in calls]
+        builds = builds_of(versions, kind)
         outs = {}
-        for v, lib in versions.items():
+        for v, lib in builds.items():
             cuda_build._loaded["gn_loop"] = lib
             outs[v] = [replay(kind, a) for a in calls]
         its = [int(c[o["it"]]) - int(a[0][o["it"]]) for c, a in zip(outs["change"], calls)]
@@ -367,7 +407,7 @@ def gn_main(args, torch, cs, bench) -> dict:
         for label, i in (("first_round", first), ("most_iterations", most)):
             call = calls[i]
             ms = {}
-            for v in order:
+            for v in (v for v in order if v in builds):
                 cuda_build._loaded["gn_loop"] = versions[v]
                 pool, used = call[0].repeat(64, 1), [0]
 
@@ -377,7 +417,7 @@ def gn_main(args, torch, cs, bench) -> dict:
                     return getattr(gn_loop, kind)(carry, *call[1:])
 
                 ms.setdefault(v, []).append(cs.time_ms(torch, run, 50))
-            n = [c.px.shape[0] for c in call[1:1 + cs.GN_SETS[kind]]]
+            n = rows_of(cs, kind, call)
             med = {v: float(np.median(t)) for v, t in ms.items()}
             row["shapes"][label] = {
                 "rows": n, "iterations": its[i], "ms": ms, "ms_median": med,

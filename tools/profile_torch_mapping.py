@@ -43,7 +43,7 @@ PHASES = (
     ("pipeline.frontend", "predict"),
     ("pipeline.frontend", "tight_fuse"),
     ("registration.matchers", "voxel_downsample"),
-    ("registration.matchers", "run_gn_corr"),
+    ("registration.matchers", "run_gn_ndt"),
     ("registration.matchers", "run_gn_icp_cand"),
     ("registration.matchers", "window_add"),
     ("registration.residuals", "group_by_voxel"),
