@@ -141,7 +141,9 @@ Phases, each of which raises (non-zero exit) on failure:
      runs beside phases 4 (grid), 11 (KF), 6 (ICP localization) and 15b
      (Turing mapping): the same status, iterations and gathers on >= 95 %
      of a path's calls, and there the pose within 1e-4 m and 1e-5 rad,
-     num_valid within 1 %, total_res within 1e-3 relative; GN iterations a
+     num_valid within 1 %, total_res within 1e-3 relative (or, where a
+     gate flipped by one ulp of the pose parts the call's end from both
+     plain runs, each iteration so from the same pose); GN iterations a
      match; one thread block cluster of R >= 8 blocks (R and the rows per
      rank printed), two launches on every captured first round bit-equal,
      no ptxas spills; synthetic edge cases (a starved set, every lane
@@ -162,7 +164,8 @@ Phases, each of which raises (non-zero exit) on failure:
      captured first round bit-equal; synthetic edge cases (a starved set,
      every lane invalid, tied lanes, max_iters 2, M 12, N 100, N 5,003, 60
      corner + 40 planar rows, more corner than planar rows, no corner rows;
-     a rank-deficient N 100 held to status and counts); the any-M kernels
+     a rank-deficient N 100 held to its counters and each iteration from
+     the same pose); the any-M kernels
      bit-equal on misaligned planes; both under set_sync_debug_mode("error"); no ptxas
      spills in any GN kernel; each timed at IVOX's and LoamFull's first
      round beside its plain version and one empty launch, with its bound;
@@ -429,12 +432,18 @@ def ptxas_report(text: str) -> dict:
     return report
 
 
+# the GN kernels built with stage clocks (csrc/stage_clock.cuh), for phase 22
+STAGED_GN = ("gn_loop", ("-DFLS_STAGE_CLOCKS",))
+
+
 def phase_build() -> dict:
-    """Builds every kernel source; returns the ptxas report of each."""
+    """Builds every kernel source, and STAGED_GN beside; returns the ptxas
+    report of each (the staged build's under "gn_loop -DFLS_STAGE_CLOCKS")."""
     from funny_lidar_slam_torch.ops import cuda_build
 
     t = time.perf_counter()
-    logs = cuda_build.build_all()
+    logs = {" ".join((name, *defines)): out
+            for (name, defines), out in cuda_build.build_all(variants=[STAGED_GN]).items()}
     log(f"[build] {sorted(logs)} in {time.perf_counter() - t:.1f} s")
     for name, out in logs.items():  # ptxas: registers, shared memory, spills
         log(f"[build] {name}: {out.strip()}")
@@ -2880,7 +2889,10 @@ def gn_compare(torch, args, kind="icp_gn_rounds") -> dict:
     version itself up to ~1e-4 m from the float64 pose. For the LOAM and
     NDT kernels that run (float64 sums, `float64_sums`) also holds
     num_valid and the residual sum, and its status, iterations and gathers
-    count as the plain version's (`same`) where the float32 run's differ."""
+    count as the plain version's (`same`) where the float32 run's differ.
+    Where the kernel's counters are the plain version's but its end parts
+    from both runs, each of its iterations is held to one plain iteration
+    from the same pose instead (`stepwise_compare`, the same tolerances)."""
     from funny_lidar_slam_torch.ops import gn_loop
 
     kernel, plain = getattr(gn_loop, kind), getattr(gn_loop, f"{kind}_plain")
@@ -2929,6 +2941,14 @@ def gn_compare(torch, args, kind="icp_gn_rounds") -> dict:
             out["same"] = out["same"] or all(ck[o[f]].item() == c64[o[f]].item()
                                              for f in names)
     out["close"] = pose_ok and out["nv_rel"] <= 0.01 and out["res_rel"] < 1e-3
+    if out["same"] and not out["close"]:
+        # one ulp of the pose after an iteration can flip a gate (a plane
+        # fit, the near reject) at the next and move the call's end from
+        # both plain runs by more than GN_POSE_TOL: such a call is held
+        # iteration by iteration, each to one plain iteration from the pose
+        # the kernel reached
+        out["stepwise"] = stepwise_compare(torch, args, out, kind)
+        out["close"] = out["stepwise"]["held"]
     return out
 
 
@@ -3025,9 +3045,9 @@ def gn_timing(torch, args, label, kind="icp_gn_rounds") -> dict:
 
 
 # ------------------------------------------- the GN kernels' edge cases
-def gn_with_cfg(args, kind, **kw):
+def gn_with_cfg(args, **kw):
     """A GN call's arguments with its GNConfig's fields `kw` replaced."""
-    i = 1 + GN_SETS[kind] + 1
+    i = next(k for k, a in enumerate(args) if hasattr(a, "max_iters"))
     return (*args[:i], args[i]._replace(**kw), *args[i + 1:])
 
 
@@ -3093,12 +3113,12 @@ def icp_edge_cases(torch, args) -> list:
         src=src, valid=lane0,
         **{f: torch.where(lane0, world[:, k:k + 1], getattr(line, f)).contiguous()
            for k, f in enumerate(("px", "py", "pz"))})
-    return [(f"{kind} starved", gn_with_cfg(args, kind, min_valid=n + 1)),
+    return [(f"{kind} starved", gn_with_cfg(args, min_valid=n + 1)),
             (f"{kind} every lane invalid", gn_with_sets(args, kind, lambda c: gn_dead(torch, c))),
             (f"{kind} N 100", (args[0], gn_rows(torch, cand, 100), *args[2:])),
             (f"{kind} N 5003", (args[0], gn_rows(torch, cand, 5003), *args[2:])),
             (f"{kind} M 12", gn_with_sets(args, kind, gn_lanes12)),
-            (f"{kind} max_iters 2", gn_with_cfg(args, kind, max_iters=2)),
+            (f"{kind} max_iters 2", gn_with_cfg(args, max_iters=2)),
             (ICP_RANK_DEFICIENT, (args[0], collinear, *args[2:]))]
 
 
@@ -3111,7 +3131,9 @@ def phase_gn_loop(torch, report) -> dict:
     those the pose within 1e-4 m and 1e-5 rad (chord) of the plain version's
     or, where the two float32 poses part by more, of a float64 run of the
     plain version (`gn_compare`), num_valid within 1 %, total_res within
-    1e-3 relative; every call's pose finite and within 0.05 m; the launches
+    1e-3 relative, or, where the end parts from both, each iteration so
+    from the same pose (`stepwise_compare`); every call's pose finite and
+    within 0.05 m; the launches
     while capturing equal to the calls captured; every captured first round
     launched twice with the same carry bit for bit (`bit_equal_replays`).
     R is printed (>= 8 for both variants) with the rows a rank (the
@@ -3159,6 +3181,7 @@ def phase_gn_loop(torch, report) -> dict:
                    "held_to_float64": [{k: r[k] for k in ("dp", "da", "dp64", "da64",
                                                           "plain_dp64", "plain_da64")}
                                        for r in rows if "dp64" in r],
+                   "held_step_by_step": [r["stepwise"] for r in rows if "stepwise" in r],
                    "iterations_per_match": sum(r["iterations"] for r in rows) / max(matches, 1),
                    "rounds_per_match": len(rows) / max(matches, 1),
                    **{f: [float(np.quantile([r[f] for r in rows], q)) for q in (0.5, 0.95, 1)]
@@ -3197,8 +3220,8 @@ def phase_gn_loop(torch, report) -> dict:
     edge = {}
     for name, eargs in icp_edge_cases(torch, args):
         r = gn_compare(torch, eargs)
-        edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel",
-                                        "res_rel", "same", "close", "dp64", "da64") if k in r}
+        edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel", "res_rel",
+                                        "same", "close", "dp64", "da64", "stepwise") if k in r}
         edge[name]["rows"] = eargs[1].px.shape[0]
         held = r["close"]
         if name == ICP_RANK_DEFICIENT:  # the line's points stay put along H's null space
@@ -3254,11 +3277,51 @@ def first_rounds(calls, kind):
     return [a for k, a in calls if k == kind and int(a[0][gn_loop.OFFSET["it"]]) == 0]
 
 
-# an edge case whose H is rank-deficient: the damped float32 solve leaves
-# the pose along H's null space to rounding, where the kernel and the plain
-# version part (PERF.md, open questions), so only its status, iterations,
-# gathers and num_valid are held, with every call's finite pose within 0.05 m
+# an edge case whose H is rank-deficient (100 rows spread over IVOX's whole
+# set, of which 0-11 pass their plane fit): the damped float32 solve leaves
+# each step along H's near-null directions to rounding, the next
+# iteration's plane fits follow the pose, and over a call's 10 iterations
+# the kernel and the plain version, like the plain version and its
+# float64-sums run, can end 0.3 m and several rows apart (PERF.md, section 6).
+# So the whole call is held to its status, iterations and gathers and a
+# finite pose, and each of its iterations to one plain iteration from the
+# same pose (`stepwise_compare`), the pose within the whole call's former
+# 0.05 m: a step on such an H is itself decided to a few mm by rounding
 LOAM_RANK_DEFICIENT = "plane_gn_rounds N 100 over the set"
+RANK_DEFICIENT_STEP_TOL = (0.05, float("inf"))
+
+
+def stepwise_compare(torch, args, r, kind, tol=GN_POSE_TOL) -> dict:
+    """A GN kernel's call on `args` (`r`: its `gn_compare`) taken one
+    iteration at a time: from the carry's pose and then from the pose each
+    one-iteration kernel call (max_iters 1) leaves, one kernel iteration
+    beside one plain iteration. Returns the worst step's num_valid and
+    residual-sum differences (relative) and pose difference, whether the
+    chain of the call's iterations ends on its pose bit for bit (a step
+    depends on the pose alone), and whether the steps are held: within 1 %,
+    1e-3 and `tol` (m, rad), the chain bit-equal."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    kernel, plain = getattr(gn_loop, kind), getattr(gn_loop, f"{kind}_plain")
+    one = gn_with_cfg(args, max_iters=1)
+    at = slice(gn_loop.OFFSET["t_mat"], gn_loop.OFFSET["t_mat"] + 16)
+    carry = args[0].clone()
+    worst = {"nv_rel": 0.0, "res_rel": 0.0, "dp": 0.0, "da": 0.0}
+    for _ in range(r["iterations"]):
+        ck, cp = carry.clone(), carry.clone()
+        kernel(ck, *one[1:])
+        plain(cp, *one[1:])
+        vk, vp = gn_loop.result_views(ck), gn_loop.result_views(cp)
+        dp, da = pose_diff(vk.t_mat, vp.t_mat)
+        step = {"nv_rel": abs(int(vk.num_valid) - int(vp.num_valid)) / max(int(vp.num_valid), 1),
+                "res_rel": abs(float(vk.total_res) - float(vp.total_res))
+                / max(abs(float(vp.total_res)), 1e-30), "dp": dp, "da": da}
+        worst = {k: v if step[k] <= v else step[k] for k, v in worst.items()}  # NaN stays
+        carry[at] = ck[at]
+    chain = torch.equal(gn_loop.result_views(carry).t_mat, r["t_k"])
+    held = (chain and worst["nv_rel"] <= 0.01 and worst["res_rel"] < 1e-3
+            and worst["dp"] < tol[0] and worst["da"] < tol[1])
+    return {**worst, "steps": r["iterations"], "chain_bit_equal": chain, "held": held}
 
 
 def loam_edge_cases(torch, plane_args, loam_args) -> list:
@@ -3291,17 +3354,17 @@ def loam_edge_cases(torch, plane_args, loam_args) -> list:
     cases = []
     for kind, args in (("plane_gn_rounds", plane_args), ("loam_gn_rounds", loam_args)):
         n = sum(c.px.shape[0] for c in args[1:1 + GN_SETS[kind]])
-        cases += [(f"{kind} starved", kind, with_cfg(args, kind, min_valid=n + 1)),
+        cases += [(f"{kind} starved", kind, with_cfg(args, min_valid=n + 1)),
                   (f"{kind} every lane invalid", kind, with_sets(args, kind, dead)),
                   (f"{kind} tied lanes", kind, with_sets(args, kind, tied)),
-                  (f"{kind} max_iters 2", kind, with_cfg(args, kind, max_iters=2)),
+                  (f"{kind} max_iters 2", kind, with_cfg(args, max_iters=2)),
                   (f"{kind} M 12", kind, with_sets(args, kind, lanes12))]
     # the cluster's split: fewer rows than one block's threads, a row count
     # that is no multiple of a tile (256) or of R, more corner than planar
     # rows. The small planar subsets are drawn from the rows whose plane fit
     # passes at the carry's pose, so that the 6x6 system has full rank and
     # the pose gates apply; LOAM_RANK_DEFICIENT's case (100 rows spread over
-    # IVOX's whole set, of which few pass) is held to status and counts
+    # IVOX's whole set, of which few pass) is held step by step
     corner, planar = loam_args[1], loam_args[2]
     fit_p = fitted(plane_args, plane_args[1], plane_args[4], plane_args[5])
     fit_l = fitted(loam_args, planar, loam_args[6], loam_args[7])
@@ -3348,7 +3411,9 @@ def phase_loam_gn(torch, report) -> list:
     (`float64_sums`: the kernel's one deviation, its fits still float32),
     which then also decides num_valid (within 1 %), total_res (within 1e-3
     relative) and, where the float32 run's differ, the status, iterations
-    and gathers (`gn_compare`); every call's pose
+    and gathers (`gn_compare`), or, where the kernel's end parts from both
+    runs, each of its iterations so from the same pose
+    (`stepwise_compare`); every call's pose
     finite and within 0.05 m; the launches while capturing equal to the
     calls captured. Each kernel launches one thread block cluster of R
     blocks (printed; R >= 8 for every variant; the rows per rank from the
@@ -3357,7 +3422,11 @@ def phase_loam_gn(torch, report) -> list:
     synthetic edge cases (`loam_edge_cases`, the cluster's split among them:
     N 100, N 5,003, 60 corner + 40 planar rows, more corner than planar
     rows, the small planar subsets of rows whose fit passes; and
-    LOAM_RANK_DEFICIENT, held to status and counts only), the LoamFull
+    LOAM_RANK_DEFICIENT, held to status, iterations, gathers and a finite
+    pose, and each iteration, from the pose the kernel's previous one left,
+    to one plain iteration: num_valid within 1 %, total_res within 1e-3
+    relative, the pose within 0.05 m, and the chain of one-iteration calls
+    on the whole call's pose bit for bit), the LoamFull
     kernel with no corner rows bit-equal to the plane kernel, the
     any-M kernels bit-equal to the M = 16 ones on misaligned planes, each
     wrapper under set_sync_debug_mode("error"), no ptxas spills in any GN
@@ -3398,6 +3467,7 @@ def phase_loam_gn(torch, report) -> list:
         matches = sum(r["first"] for r in rows)
         summary = {"kernel": kernel, "calls": len(rows), "matches": matches, "same_share": same,
                    "held_to_float64": sum("dp64" in r for r in rows),
+                   "held_step_by_step": [r["stepwise"] for r in rows if "stepwise" in r],
                    "iterations_per_match": sum(r["iterations"] for r in rows) / max(matches, 1),
                    "rounds_per_match": len(rows) / max(matches, 1),
                    **{f: [float(np.quantile([r[f] for r in rows], q)) for q in (0.5, 0.95, 1)]
@@ -3420,11 +3490,14 @@ def phase_loam_gn(torch, report) -> list:
     edge = {}
     for name, kind, args in loam_edge_cases(torch, plane_args, loam_args):
         r = gn_compare(torch, args, kind)
-        edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel",
-                                        "res_rel", "same", "close", "dp64", "da64") if k in r}
-        held = (r["nv_rel"] <= 0.01 and r["dp"] <= 0.05 if name == LOAM_RANK_DEFICIENT
-                else r["close"])
-        assert r["same"] and held and r["finite"], f"[loam-gn] edge case {name}: {r}"
+        edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel", "res_rel",
+                                        "same", "close", "dp64", "da64", "stepwise") if k in r}
+        held = r["close"]
+        if name == LOAM_RANK_DEFICIENT:  # each step held, the whole call to its counters
+            edge[name]["stepwise"] = stepwise_compare(torch, args, r, kind,
+                                                      RANK_DEFICIENT_STEP_TOL)
+            held = edge[name]["stepwise"]["held"]
+        assert r["same"] and held and r["finite"], f"[loam-gn] edge case {name}: {edge[name]}"
     # no corner rows: the LoamFull kernel gives the plane kernel's carry bit for bit
     _, kind, args = loam_edge_cases(torch, plane_args, loam_args)[-1]
     ca, cb = args[0].clone(), args[0].clone()
@@ -3494,15 +3567,73 @@ def phase_loam_gn(torch, report) -> list:
     return entries
 
 
+# the stage clocks of csrc/gn_loop.cu's K_* enum, and kStageClocks of
+# csrc/stage_clock.cuh (the floats a profiling build writes after the carry)
+GN_STAGES = ("setup", "rows", "block_sum", "cluster_wait", "dsmem_sum", "serial", "exit")
+GN_CLOCKS = 16
+
+
+def gn_stage_cycles(torch, lib, kind, call, keep_slots: bool = True) -> dict:
+    """One launch of `kind` (a GN wrapper's name) from the C entry point of
+    `lib`, a -DFLS_STAGE_CLOCKS build of csrc/gn_loop.cu, on a copy of the
+    call's carry with room for the clocks after it: {stage: rank 0's SM
+    cycles an iteration}. NDT without `keep_slots` gets no slot cache, so
+    its rows look up afresh every iteration."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    carry = call[0]
+    big = torch.zeros(gn_loop.CARRY_SIZE + GN_CLOCKS, dtype=torch.int32, device=carry.device)
+    big[:gn_loop.CARRY_SIZE] = carry
+    stream = torch.cuda.current_stream(carry.device).cuda_stream
+    if kind == "ndt_gn_rounds":
+        _, src, mask, m, inv, thresh, _, cfg, *rest = call
+        args = gn_loop._ndt_launch_args(carry, src, mask, m)
+        ptrs = [t.data_ptr() for t in args]
+        ptrs[6] = big.data_ptr()  # the carry, after the source and the map
+        if not keep_slots:
+            ptrs[7] = None
+        err = lib.ndt_gn_launch(*ptrs, src.shape[0], m.fpwin.shape[0],
+                                int(rest[0] if rest else 8),
+                                *gn_loop._loop_args(cfg, schedule=False), float(inv),
+                                float(thresh), stream)
+    else:
+        k = 2 if kind == "loam_gn_rounds" else 1
+        sets, radius, cfg = call[1:1 + k], call[1 + k], call[2 + k]
+        ptrs = [t.data_ptr() for t in gn_loop._checked_inputs(carry, sets[0], radius, *sets[1:],
+                                                               name=kind)]
+        ptrs[5 * k] = big.data_ptr()  # the carry, after each set's five tensors
+        n, m = sets[0].px.shape
+        if kind == "icp_gn_rounds":
+            err = lib.icp_gn_launch(*ptrs, n, m, *gn_loop._loop_args(cfg), float(call[4]),
+                                    stream)
+        elif kind == "plane_gn_rounds":
+            _, _, _, _, plane_thresh, max_d2 = call
+            err = lib.plane_gn_launch(*ptrs, n, m, *gn_loop._loop_args(cfg), float(max_d2),
+                                      float(plane_thresh), stream)
+        else:
+            _, _, _, _, _, line_ratio, plane_thresh, max_d2 = call
+            err = lib.loam_gn_launch(*ptrs, n, sets[1].px.shape[0], m, *gn_loop._loop_args(cfg),
+                                     float(max_d2), float(plane_thresh), float(line_ratio),
+                                     stream)
+    assert err == 0, f"{kind}: CUDA error {err}"
+    torch.cuda.synchronize()
+    its = max(int(big[gn_loop.OFFSET["it"]]) - int(carry[gn_loop.OFFSET["it"]]), 1)
+    cycles = big[gn_loop.CARRY_SIZE:].view(torch.float32).tolist()
+    return {name: c / its for name, c in zip(GN_STAGES, cycles)}
+
+
 # -------------------------------------------- phase 22: the NDT GN loop kernel
 NDT_GN_PATHS = ("ndt", "localization IncrementalNDT", "figure8-cascade")
-# a row: the transform and its voxel (~20) and a = -R hat(s) (~27); each of
-# its 7 voxels: the hash, fingerprint and probe compares (~40); a valid pair,
-# counted by the structure of J = [a | I]: e and e^T lam e (~23), lam a (45),
-# the r-r block a^T (lam a) (30, symmetric), a^T (lam e) (15; the t half is
-# the lam e above, the r-t block (lam a)^T and the t-t block lam itself) and
-# the 29 accumulations
-NDT_ROW_OPS, NDT_VOXEL_OPS, NDT_PAIR_OPS = 47, 40, 23 + 45 + 30 + 15 + 29
+# the least work of the function, counted by the structure of J = [a | I]:
+# a row: the transform and its voxel (~20); each of its 7 voxels: the hash,
+# fingerprint and probe compares (~40); a valid pair: e (3), lam e and e^T
+# lam e (20), lsum += lam (9), esum += lam^T e (18), the count and the
+# residual (2); a row with one valid pair or more, J's structure applied
+# once to its sums: a = -R hat(s) (27), lam a (45), the r-r block a^T (lam
+# a) (36, symmetric), the r-t block a^T lsum (54), the t-t block lsum (6,
+# symmetric), g = [a^T esum; esum] (21), the count and the residual (2)
+NDT_ROW_OPS, NDT_VOXEL_OPS = 20, 40
+NDT_PAIR_OPS, NDT_FOLD_OPS = 3 + 20 + 9 + 18 + 2, 27 + 45 + 36 + 54 + 6 + 21 + 2
 
 
 def ndt_cost(torch, args) -> tuple:
@@ -3513,8 +3644,9 @@ def ndt_cost(torch, args) -> tuple:
     flag for each distinct slot found), the carry read and written; the
     mask is read for every row, the 12-byte source row only where it is
     unmasked. The
-    operations: each iteration's rows, voxels and valid pairs, counted by
-    the plain version at the pose of each iteration."""
+    operations: each iteration's rows, voxels, valid pairs and rows with a
+    valid pair, counted by the plain version at the pose of each
+    iteration."""
     from funny_lidar_slam_torch.maps import ndt_map
     from funny_lidar_slam_torch.ops import gn_loop
     from funny_lidar_slam_torch.ops.voxel import voxel_coords
@@ -3533,10 +3665,12 @@ def ndt_cost(torch, args) -> tuple:
               + 49 * int(torch.unique(found).numel()) + 4 * (2 * gn_loop.CARRY_SIZE + 1))
     pairs, hg = [], gn_loop.ndt_hg
 
-    def counted(*a, **kw):  # the plain version's linearization, once an iteration
-        out = hg(*a, **kw)
-        pairs.append(int(out.num_valid))
-        return out
+    def counted(t_mat, src, src_mask, m, inv, thresh, num_probes=8):
+        """The plain version's linearization (`ndt_hg`), once an iteration:
+        (its valid pairs, its rows with a valid pair)."""
+        corr = residuals.ndt_corr(t_mat, src, src_mask, m, inv, thresh, num_probes)
+        pairs.append((int(corr.valid.sum()), int(corr.valid.any(-1).sum())))
+        return residuals.ndt_hg_corr(t_mat, src, corr)
 
     gn_loop.ndt_hg = counted
     try:
@@ -3544,7 +3678,8 @@ def ndt_cost(torch, args) -> tuple:
     finally:
         gn_loop.ndt_hg = hg
     rows = int(mask.sum())
-    ops = sum(rows * (NDT_ROW_OPS + 7 * NDT_VOXEL_OPS) + n * NDT_PAIR_OPS for n in pairs)
+    ops = sum(rows * (NDT_ROW_OPS + 7 * NDT_VOXEL_OPS) + n * NDT_PAIR_OPS + k * NDT_FOLD_OPS
+              for n, k in pairs)
     return nbytes, ops, len(pairs)
 
 
@@ -3575,6 +3710,35 @@ def one_call(r) -> bool:
     return r["status"][0] == gn_loop.DONE and r["it"][0] == r["gathers"][0]
 
 
+def ndt_hand_map(torch, m, voxels, slots, cap: int, offsets):
+    """A map of capacity `cap` built by hand, fp and fpwin set directly (no
+    insert): voxel i of `voxels` [V, 3] with the Gaussian of m's slot
+    slots[i], at the first free slot (base_i + k) mod cap for k in
+    `offsets` (window offsets below 8, tried in that order; a voxel with
+    none free is left out)."""
+    from funny_lidar_slam_torch.maps import ndt_map
+    from funny_lidar_slam_torch.maps.voxel_hash import _window, fingerprint
+    from funny_lidar_slam_torch.ops.voxel import spatial_hash
+
+    taken, src, dst = set(), [], []
+    for i, b in enumerate(spatial_hash(voxels, cap).tolist()):
+        k = next((k for k in offsets if (b + k) % cap not in taken), None)
+        if k is not None:
+            taken.add((b + k) % cap)
+            src.append(i)
+            dst.append((b + k) % cap)
+    src_i = torch.tensor(src, device=m.fp.device)
+    at, at_m = torch.tensor(dst, device=m.fp.device), slots[src_i]
+    out = ndt_map.create(cap, device=m.fp.device)._replace(epoch=m.epoch.clone())
+    fp = out.fp.clone()
+    fp[at] = fingerprint(voxels[src_i])
+    fields = {f: getattr(out, f).clone() for f in ("count", "mean", "m2", "info", "estimated",
+                                                   "age")}
+    for f, t in fields.items():
+        t[at] = getattr(m, f)[at_m]
+    return out._replace(fp=fp, fpwin=_window(fp), **fields)
+
+
 def ndt_edge_cases(torch, args, longest) -> list:
     """[(name, args)] on the bench shape's call: N 100 and N 5,003 rows
     spread over the source (below one 256-row tile, and no multiple of a
@@ -3583,8 +3747,13 @@ def ndt_edge_cases(torch, args, longest) -> list:
     inverted covariance), num_probes 8 and 16 on a crowded map (the source
     at the start pose inserted with 16 probes into no more slots than it
     has voxels, so that lookups find voxels in slots 9-16 of their window,
-    which 8 probes miss); and max_iters 2 on the call `longest` (one that
-    ran more iterations than that)."""
+    which 8 probes miss); two maps built by hand (`ndt_hand_map`) from the
+    voxels the source's stencils find at the start pose: the 14 found most
+    often in 16 slots, each at the last free slot of its window, so that
+    windows wrap past slot 15; and every found voxel in as many slots as
+    the bench map, each at offset 2 of its window where that is free, so
+    that empty slots lie before the match; and max_iters 2 on the call
+    `longest` (one that ran more iterations than that)."""
     from funny_lidar_slam_torch.maps import ndt_map
     from funny_lidar_slam_torch.ops import gn_loop
     from funny_lidar_slam_torch.ops.voxel import voxel_coords
@@ -3617,12 +3786,41 @@ def ndt_edge_cases(torch, args, longest) -> list:
     log(f"[ndt-gn] crowded map: {voxels} voxels, {crowded.fp.shape[0]} slots; {deep} of "
         f"{match16.shape[0]} stencil lookups match only in slots 9-16")
     assert deep > 0, "[ndt-gn] the crowded map's lookups never reach slots 9-16"
+    found = match.any(-1)
+    first = slots.gather(-1, match.int().argmax(-1, keepdim=True))[:, 0]
+    seen, at, hits = torch.unique(coords.reshape(-1, 3)[found], dim=0, return_inverse=True,
+                                  return_counts=True)
+    slot_of = torch.zeros(len(seen), dtype=torch.int64, device=p.device)
+    slot_of[at] = first[found]
+    top = torch.argsort(hits, descending=True, stable=True)[:14]
+    wrapped = ndt_hand_map(torch, m, seen[top], slot_of[top], 16, range(7, -1, -1))
+    gapped = ndt_hand_map(torch, m, seen, slot_of, m.fp.shape[0], (2, 3, 4, 5, 6, 7))
+
+    def window_stats(hand, vox):
+        """The voxels `hand`'s lookups find, those whose window wraps
+        before the match, and those with an empty slot before it."""
+        sl, mt, em = ndt_map._probe(hand, vox, 8)
+        k = mt.int().argmax(-1, keepdim=True)
+        hit = mt.any(-1)
+        wrap = hit & (sl.gather(-1, k)[:, 0] < sl[:, 0])
+        gap = hit & (em & (torch.arange(8, device=em.device) < k)).any(-1)
+        return int(hit.sum()), int(wrap.sum()), int(gap.sum()), wrap
+
+    n_hit, n_wrap, _, wrap = window_stats(wrapped, seen[top])
+    log(f"[ndt-gn] wrapping map: {n_hit} voxels in 16 slots, {n_wrap} behind the wrap past "
+        f"slot 15, found {int(hits[top][wrap].sum())} times at the start pose")
+    assert n_wrap > 0, "[ndt-gn] no window of the hand-built map wraps"
+    n_hit, _, gap, _ = window_stats(gapped, seen)
+    log(f"[ndt-gn] gapped map: {n_hit} of {len(seen)} voxels, {gap} behind an empty slot")
+    assert gap > 0.9 * len(seen), "[ndt-gn] few of the gapped map's matches follow an empty slot"
     return [("ndt_gn_rounds N 100", (carry, *rows(100), m, *tail, 8)),
             ("ndt_gn_rounds N 5003", (carry, *rows(5003), m, *tail, 8)),
             ("ndt_gn_rounds every row masked", (carry, src, torch.zeros_like(mask), m, *tail, 8)),
             ("ndt_gn_rounds non-finite info", (carry, src, mask, m._replace(info=info), *tail, 8)),
             ("ndt_gn_rounds num_probes 8", (carry, src, mask, crowded, *tail, 8)),
             ("ndt_gn_rounds num_probes 16", (carry, src, mask, crowded, *tail, 16)),
+            ("ndt_gn_rounds probe windows wrap", (carry, src, mask, wrapped, *tail, 8)),
+            ("ndt_gn_rounds empty slot before the match", (carry, src, mask, gapped, *tail, 8)),
             ("ndt_gn_rounds max_iters 2",
              (*longest[:7], longest[7]._replace(max_iters=2), *longest[8:]))]
 
@@ -3637,7 +3835,8 @@ def phase_ndt_gn(torch, report) -> dict:
     a path's calls, and there the pose within 1e-4 m and 1e-5 rad (chord)
     of the plain version's or, where the two float32 poses part by more, of
     the plain version with float64 sums, num_valid within 1 %, total_res
-    within 1e-3 relative (`gn_compare`); every call's pose finite and
+    within 1e-3 relative (`gn_compare`; where the end parts from both, each
+    iteration so from the same pose); every call's pose finite and
     within 0.05 m, every call DONE with as many gathers as iterations; the
     launches while capturing equal to the calls captured; every captured
     call (each a first round) launched twice bit-equal; R >= 8 printed with
@@ -3645,8 +3844,10 @@ def phase_ndt_gn(torch, report) -> dict:
     last call): the edge cases of `ndt_edge_cases` with the same gates; the
     launch under set_sync_debug_mode("error"); the kernel timed beside its
     plain version and one empty launch, with its bound, there and at each
-    of the cascade's four stages. Returns the JSON entry."""
-    from funny_lidar_slam_torch.ops import gn_loop
+    of the cascade's four stages, and there the stage clocks (rank 0's SM
+    cycles an iteration in each stage, from STAGED_GN's build). Returns the
+    JSON entry."""
+    from funny_lidar_slam_torch.ops import cuda_build, gn_loop
 
     t_phase = time.perf_counter()
     kind = "ndt_gn_rounds"
@@ -3675,6 +3876,7 @@ def phase_ndt_gn(torch, report) -> dict:
                    "held_to_float64": [{k: r[k] for k in ("dp", "da", "dp64", "da64",
                                                           "plain_dp64", "plain_da64")}
                                        for r in rows if "dp64" in r],
+                   "held_step_by_step": [r["stepwise"] for r in rows if "stepwise" in r],
                    "iterations_per_match": sum(r["iterations"] for r in rows) / len(rows),
                    **{f: [float(np.quantile([r[f] for r in rows], q)) for q in (0.5, 0.95, 1)]
                       for f in ("dp", "da", "nv_rel", "res_rel")},
@@ -3691,8 +3893,8 @@ def phase_ndt_gn(torch, report) -> dict:
     edge = {}
     for name, eargs in ndt_edge_cases(torch, args, longest):
         r = gn_compare(torch, eargs, kind)
-        edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel",
-                                        "res_rel", "same", "close", "dp64", "da64") if k in r}
+        edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel", "res_rel",
+                                        "same", "close", "dp64", "da64", "stepwise") if k in r}
         edge[name]["rows"] = int(eargs[2].sum())
         assert r["same"] and r["close"] and r["finite"] and one_call(r), \
             f"[ndt-gn] edge case {name}: {r}"
@@ -3717,6 +3919,14 @@ def phase_ndt_gn(torch, report) -> dict:
     for k, sargs in enumerate(NDT_CAPTURES["figure8-cascade"]):
         stages[f"cascade_stage_{k}_inv_{float(sargs[4]):g}"] = ndt_timing(
             torch, sargs, f"cascade stage {k}")
+    staged = cuda_build.variant(*STAGED_GN)  # rank 0's SM cycles in each stage
+    for (label, shape), sargs in zip({"bench": head, **stages}.items(),
+                                     [args] + NDT_CAPTURES["figure8-cascade"]):
+        cycles = gn_stage_cycles(torch, staged, kind, sargs)
+        shape["stage_cycles_per_iteration"] = cycles
+        shape["rows_share"] = cycles["rows"] / max(sum(cycles.values()), 1.0)
+        log(f"[ndt-gn] {label}: SM cycles an iteration by stage {json.dumps(cycles)}; "
+            f"thread 0's rows {shape['rows_share']:.3f} of the iteration")
     gn_loop.ndt_gn_rounds.launches = saved
     log(f"[ndt-gn] phase 22 took {time.perf_counter() - t_phase:.1f} s")
     close = [r for r in rows_all if r["same"]]

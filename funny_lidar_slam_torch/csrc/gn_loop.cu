@@ -18,8 +18,10 @@
 //   ndt_gn_kernel    the same body with ndt_corr + ndt_hg_corr
 //                    (residuals.py:519-560) and the NDT update, the
 //                    stencil lookup in the NDT map's hash table inside
-//                    every iteration (NdtMatcher and the loop closure's
-//                    NDT stages; plain version ndt_gn_rounds_plain).
+//                    every iteration, a row's 7 probe windows loaded
+//                    together and its pairs folded through J's structure
+//                    (NdtMatcher and the loop closure's NDT stages; plain
+//                    version ndt_gn_rounds_plain).
 //
 // Each runs from a carry held on the device until the loop ends or the
 // next iteration would need a fresh gather. NDT regathers every iteration
@@ -67,10 +69,12 @@
 // of the 7 stencil voxels (NDT_STENCIL, in its order) the slot hash and the
 // fingerprint (ops/voxel.py spatial_hash, maps/voxel_hash.py fingerprint,
 // uint32 arithmetic), the first of num_probes slots from the hash whose
-// fingerprint matches; the pair is valid where that slot is estimated, the
-// row is unmasked and res = e^T lam e <= outlier_thresh and finite (e = p -
-// mean, lam = info). A valid pair adds J^T lam J, J^T lam e, 1 and res,
-// J = [-R hat(s) | I]. p and res are taken in float64 from the exact
+// fingerprint matches, read from the map's probe-window rows fpwin[hash]
+// as the plain version's `_probe` reads them; the pair is valid where that
+// slot is estimated, the row is unmasked and res = e^T lam e <=
+// outlier_thresh and finite (e = p - mean, lam = info). Valid pairs add
+// J^T lam J, J^T lam^T e (residuals._reduce_vec3's g), 1 and res, J = [a |
+// I], a = -R hat(s). p and res are taken in float64 from the exact
 // float32 products in a fixed order and rounded once, as residuals.py's
 // `_transform_fixed` / `_mahalanobis64` take them on the card: a point one
 // ulp across a voxel face changes its stencil, and res decides the gate.
@@ -140,10 +144,56 @@
 // The NDT kernel's bound: an iteration reads the mask [N] and src [N, 3] f32
 // of the unmasked rows, and for each row's 7 voxels up to num_probes 8-byte
 // fingerprints, a mean (12 B), an info (36 B) and the estimated flag; the
-// map (131,072 slots at the bench's size, ~7.5 MB) stays in L2 across
-// iterations. A valid pair needs ~140 operations counted by J's structure
-// (J = [a | I]: lam a, a^T lam a, a^T lam e, e^T lam e, the sums), though
-// ndt_add_pair forms the dense J^T lam J (~265).
+// map (131,072 slots at the bench's size, ~7.5 MB, 16 MB more for fpwin)
+// stays in L2 across iterations. Counted by J's structure, a valid pair
+// needs ~52 operations and a row with one or more ~190 (chip_smoke.py
+// `ndt_cost`). Neither bounds the kernel, whose rows run on
+// the 16 SMs of one cluster: a row's lookup is up to 7 x num_probes
+// fingerprint compares, and a probe chain that loads the next fingerprint
+// only after the last compare failed (the reference's loop read
+// literally) waits on L2 up to 7 x (8 + 1) times a row, since most of a
+// surface voxel's face neighbours are not in the map and walk every probe.
+//
+// NDT design: one thread a row, the rows dealt as the other kernels'
+// (`rank_rows`), and a row waits on memory twice. It computes its 7
+// voxels' hashes and fingerprints first, then loads the first 8 probes of
+// its windows, 4 16-byte loads of an fpwin row each (128-byte aligned, so
+// no wrap and 2 sectors a window), four windows at a time
+// (kLookupGroup), before their first compare; the first match of each
+// window is its slot (no stop at an empty slot: the reference takes the
+// first match over all num_probes, whatever lies before it). Only where
+// num_probes > 8 do the windows without a match in their first 8 probes
+// load probes 9-16, a third wait. Then the found slots' means, infos and
+// flags load together, four voxels at a time (kGaussGroup), and the next
+// row's mask and source were loaded with this row's. A group's pairs run
+// the same instructions whether valid or not (selects), so their chains
+// interleave. From a call's third iteration a row whose voxel is the one
+// it kept takes its 7 slots from the call's slot cache (written in the
+// second iteration, so a one-iteration call pays nothing for it) and
+// waits only on the Gaussians: the map is frozen within a call, so the
+// kept slots are the lookup's.
+// Why one thread a row: a cluster block is 256 threads, one block an SM,
+// so loads in flight come from a thread's independent loads; a row's 7
+// voxels over 8 lanes would give a warp 4 rows in flight instead of 32
+// and walk each lane group through 8 times the rows in turn. The stage
+// clocks put the rows first either way (thread 0's rows 61-72 % of an
+// iteration after the redesign, ~88 % before); what holds them is how
+// many scattered loads and instructions 16 SMs of 8 warps get through,
+// not a chain of waits: in trial builds, issuing 2, 3 or all 7 windows at
+// a time, prefetching the kept slots a row ahead, or the pair sums and
+// the fold in float32 left the time where it was, and the Gaussians as
+// 16-byte loads made it slower, while taking loads and instructions out
+// of a row (the kept slots, branch-free pairs) took time off. The groups
+// of four keep the kernel within 255 registers without a spill (the
+// ptxas report, chip_smoke.py phase 22).
+// A row's valid pairs are summed first (lsum = sum lam, esum = sum lam^T e,
+// in float64 from the exact float32 products, in stencil order), and J's
+// structure applied once a row (`ndt_fold_row`): H_rr = a^T lsum a, H_rt =
+// a^T lsum, H_tt = lsum, -g = [a^T esum; esum], about 160 float64
+// operations a row and ~30 a pair beside e^T lam e, instead of ~265 a
+// pair for the dense J^T lam J. The order is fixed and there are no atomics, so a second
+// launch gives the same bits; the sums differ from a pair-by-pair float32
+// fold in the last bits only.
 //
 // Carry (int32 words, float fields as their bits; ops/gn_loop.py CARRY):
 //   t_mat[16] t_gather[16] last_rot last_pos total_res (f32) | it gathers
@@ -710,13 +760,23 @@ constexpr uint32_t kFmix1 = 0x85EBCA6Bu, kFmix2 = 0xC2B2AE35u;
 // maps/ndt_map.py NDT_STENCIL in its order: the voxel, then its 6 faces
 __constant__ int kStencil[7][3] = {{0, 0, 0}, {-1, 0, 0}, {1, 0, 0}, {0, 1, 0}, {0, -1, 0}, {0, 0, -1}, {0, 0, 1}};
 
+constexpr int kNdtVoxels = 7;
+constexpr int kWindowPairs = 8;  // a row of fpwin: PROBE_WINDOW (16) int64 as 16-byte pairs
+// a lookup batch: 8 probes of a window, as 4 16-byte loads of its row
+constexpr int kBatchProbes = 8;
+constexpr int kBatchPairs = kBatchProbes / 2;
+// the voxels whose windows (and, after, whose Gaussians) load together:
+// four keep the kernel within 255 registers (seven spill)
+constexpr int kLookupGroup = 4, kGaussGroup = 4;
+
 // the NDT map's tensors (maps/ndt_map.py NdtMap), read as stored
 struct NdtMapView {
-  const long long* fp;             // [C] fingerprints (uint32 bits), 0 = empty
+  const longlong2* fpwin;          // [C, 16] int64 probe windows as 8 pairs a row:
+                                   // fpwin[i][k] = fp[(i + k) mod C] (uint32 bits, 0 = empty)
   const float* mean;               // [C, 3]
   const float* info;               // [C, 3, 3]
   const unsigned char* estimated;  // [C]
-  int capacity, num_probes;        // C a power of two (ops/gn_loop.py checks both)
+  int capacity, num_probes;        // C a power of two, num_probes <= 16 (ops/gn_loop.py checks)
 };
 
 struct NdtParams {
@@ -732,18 +792,39 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h ^ (h >> 16);
 }
 
-// the slot of voxel (x, y, z) (int32 bits): the first of num_probes slots
-// from its hash whose fingerprint matches (ndt_map._probe, _first_true), or
-// -1 where none does
-__device__ __forceinline__ int ndt_slot(const NdtMapView& m, uint32_t x, uint32_t y, uint32_t z) {
+// probes [kFrom, kFrom + 8) of the stencil voxels [kV0, 7) whose slot is
+// not known yet (slot[v] < 0), from the window at base[v], kLookupGroup
+// voxels at a time: each group's loads all issued before its first
+// compare, then the first probe below num_probes whose fingerprint is
+// key[v] (ndt_map._probe, _first_true), its slot, or -1 where none is. An
+// empty slot (0) ends nothing: the fingerprint has its low bit set, so it
+// never matches one, and the probes after it are read all the same.
+template <int kFrom, int kV0 = 0>
+__device__ __forceinline__ void ndt_probe(const NdtMapView& m, const uint32_t* base,
+                                          const uint32_t* key, int* slot) {
+  constexpr int kV1 = kV0 + kLookupGroup < kNdtVoxels ? kV0 + kLookupGroup : kNdtVoxels;
+  longlong2 w[kV1 - kV0][kBatchPairs];
+#pragma unroll
+  for (int v = kV0; v < kV1; ++v)
+#pragma unroll
+    for (int j = 0; j < kBatchPairs; ++j)
+      w[v - kV0][j] =
+          slot[v] < 0 && kFrom + 2 * j < m.num_probes
+              ? __ldg(m.fpwin + kWindowPairs * static_cast<size_t>(base[v]) + kFrom / 2 + j)
+              : make_longlong2(0, 0);
   const uint32_t mask = static_cast<uint32_t>(m.capacity) - 1u;
-  const uint32_t base = fmix32((x * kP1) ^ (y * kP2) ^ (z * kP3)) & mask;
-  const long long fp = static_cast<long long>(fmix32(x * kF1 + y * kF2 + z * kF3) | 1u);
-  for (int k = 0; k < m.num_probes; ++k) {
-    const uint32_t slot = (base + static_cast<uint32_t>(k)) & mask;
-    if (__ldg(m.fp + slot) == fp) return static_cast<int>(slot);
+#pragma unroll
+  for (int v = kV0; v < kV1; ++v) {
+    int first = -1;
+#pragma unroll
+    for (int k = kBatchProbes - 1; k >= 0; --k) {  // downwards: the first match stays
+      const longlong2& pair = w[v - kV0][k >> 1];
+      const long long stored = k & 1 ? pair.y : pair.x;
+      if (kFrom + k < m.num_probes && stored == static_cast<long long>(key[v])) first = k;
+    }
+    if (slot[v] < 0 && first >= 0) slot[v] = static_cast<int>((base[v] + kFrom + first) & mask);
   }
-  return -1;
+  if constexpr (kV1 < kNdtVoxels) ndt_probe<kFrom, kV1>(m, base, key, slot);
 }
 
 // r s + t of one row r of R, in float64 from the exact float32 products,
@@ -768,58 +849,169 @@ __device__ __forceinline__ float mahalanobis(const float* e, const float* lam) {
       __dadd_rn(__dadd_rn(__dmul_rn(e[0], q[0]), __dmul_rn(e[1], q[1])), __dmul_rn(e[2], q[2])));
 }
 
-// one valid (row, voxel) pair into the sums: J = [a | I] (a = -R hat(s)),
-// H += J^T lam J, J^T lam e (-g), the pair and res; each term float32, the
-// sums float64
-__device__ __forceinline__ void ndt_add_pair(double* acc, const float* a, const float* lam,
-                                             const float* e, float res) {
-  float jac[3][6], lj[3][6], le[3];
+// the stencil voxels [kV0, 7) of a row at q with slots slot[]: the
+// Gaussians and flags of kGaussGroup found slots at a time, all their
+// loads issued together, then each valid pair in stencil order into the
+// row's sums: lsum += lam, esum += lam^T e (float64 from the exact float32
+// products), count and res_sum (residuals.ndt_corr's gate). Every voxel of
+// a group runs the same instructions, an invalid pair adding zeros
+// (selects, not branches), so the compiler interleaves the group's
+// independent chains; x + 0 is x, so the sums are those of the valid
+// pairs alone
+template <int kV0 = 0>
+__device__ __forceinline__ void ndt_pairs(const NdtMapView& m, const NdtParams& p, const float* q,
+                                          const int* slot, double* lsum, double* esum,
+                                          double* count, double* res_sum) {
+  constexpr int kV1 = kV0 + kGaussGroup < kNdtVoxels ? kV0 + kGaussGroup : kNdtVoxels;
+  float mu[kV1 - kV0][3], lam[kV1 - kV0][9];
+  bool est[kV1 - kV0];
+#pragma unroll
+  for (int v = kV0; v < kV1; ++v) {
+    const bool hit = slot[v] >= 0;
+    const int sl = hit ? slot[v] : 0;
+    est[v - kV0] = hit && __ldg(m.estimated + sl);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mu[v - kV0][i] = hit ? __ldg(m.mean + 3 * sl + i) : 0.f;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) lam[v - kV0][k] = hit ? __ldg(m.info + 9 * sl + k) : 0.f;
+  }
+#pragma unroll
+  for (int v = 0; v < kV1 - kV0; ++v) {
+    float e[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) e[i] = __fsub_rn(q[i], mu[v][i]);
+    const float res = mahalanobis(e, lam[v]);
+    // NaN and inf never reach the sums: a select, not a product with 0
+    const bool ok = est[v] && res <= p.outlier && isfinite(res);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) lsum[k] += ok ? static_cast<double>(lam[v][k]) : 0.0;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)  // lam^T e, as residuals._reduce_vec3's g takes it
+      esum[i] += ok ? (static_cast<double>(lam[v][i]) * e[0]
+                       + static_cast<double>(lam[v][3 + i]) * e[1])
+                      + static_cast<double>(lam[v][6 + i]) * e[2]
+                    : 0.0;
+    *count += ok ? 1.0 : 0.0;
+    *res_sum += ok ? res : 0.f;
+  }
+  if constexpr (kV1 < kNdtVoxels) ndt_pairs<kV1>(m, p, q, slot, lsum, esum, count, res_sum);
+}
+
+// a row's valid pairs folded into the sums through J = [a | I] (a = -R
+// hat(s), row-major), from the row's sum of lam (lsum, row-major) and of
+// lam^T e (esum): H_rr += a^T lsum a, H_rt += a^T lsum, H_tt += lsum, -g_r
+// += a^T esum, -g_t += esum (the upper triangle of H, row by row). All in
+// float64, a rounded from its float32 terms
+__device__ __forceinline__ void ndt_fold_row(double* acc, const float* af, const double* lsum,
+                                             const double* esum) {
+  double a[9], la[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) a[k] = af[k];
 #pragma unroll
   for (int k = 0; k < 3; ++k)
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      jac[k][i] = a[3 * k + i];
-      jac[k][3 + i] = k == i ? 1.f : 0.f;
-    }
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-#pragma unroll
-    for (int j = 0; j < 6; ++j)
-      lj[k][j] = lam[3 * k] * jac[0][j] + lam[3 * k + 1] * jac[1][j] + lam[3 * k + 2] * jac[2][j];
-    le[k] = lam[3 * k] * e[0] + lam[3 * k + 1] * e[1] + lam[3 * k + 2] * e[2];
-  }
+    for (int j = 0; j < 3; ++j)  // (lsum a)_kj
+      la[3 * k + j] = lsum[3 * k] * a[j] + lsum[3 * k + 1] * a[3 + j] + lsum[3 * k + 2] * a[6 + j];
   int u = L_H;
 #pragma unroll
   for (int i = 0; i < 6; ++i)
 #pragma unroll
-    for (int j = i; j < 6; ++j)
-      acc[u++] += jac[0][i] * lj[0][j] + jac[1][i] * lj[1][j] + jac[2][i] * lj[2][j];
+    for (int j = i; j < 6; ++j) {
+      if (i < 3 && j < 3)
+        acc[u] += a[i] * la[j] + a[3 + i] * la[3 + j] + a[6 + i] * la[6 + j];
+      else if (i < 3)
+        acc[u] += a[i] * lsum[j - 3] + a[3 + i] * lsum[j] + a[6 + i] * lsum[j + 3];
+      else
+        acc[u] += lsum[3 * (i - 3) + j - 3];
+      ++u;
+    }
 #pragma unroll
-  for (int i = 0; i < 6; ++i) acc[L_G + i] += jac[0][i] * le[0] + jac[1][i] * le[1] + jac[2][i] * le[2];
-  acc[L_COUNT] += 1.0;
-  acc[L_RES] += res;
+  for (int i = 0; i < 3; ++i) {
+    acc[L_G + i] += a[i] * esum[0] + a[3 + i] * esum[1] + a[6 + i] * esum[2];
+    acc[L_G + 3 + i] += esum[i];
+  }
 }
 
 // the NDT rows' sums at pose (rot, t) into acc[L_SIZE]: the rows first,
 // first + stride, ... below end, each row's 7 stencil voxels looked up in
-// the map at this pose (every iteration a fresh gather)
+// the map at this pose (every iteration a fresh gather). A row waits on
+// memory twice: its 7 windows' fingerprints (a third time only where
+// num_probes > 8 and a voxel is not in the first 8), then the found
+// slots' means, infos and flags; its mask and source come with the
+// previous row's. `pass` counts the call's iterations: from the second
+// on, a row keeps its voxel and its 7 slots in cache[3 r .. 3 r + 2]
+// ({x, y, z, s0} {s1 .. s4} {s5, s6, -, -}), and from the third on a row
+// whose voxel is the one kept takes the kept slots and loads no
+// fingerprint (the map is frozen within a call, so the slots are the
+// lookup's); a call of one iteration writes nothing there
 __device__ __forceinline__ void ndt_rows(const float* __restrict__ src,
                                          const unsigned char* __restrict__ src_mask,
                                          const NdtMapView& m, const NdtParams& p,
-                                         const float* rot, const float* t, int first, int end,
-                                         int stride, double* acc) {
+                                         int4* __restrict__ cache, int pass, const float* rot,
+                                         const float* t, int first, int end, int stride,
+                                         double* acc) {
 #pragma unroll
   for (int k = 0; k < L_SIZE; ++k) acc[k] = 0.0;
+  const uint32_t mask = static_cast<uint32_t>(m.capacity) - 1u;
+  bool on_next = false;
+  float s_next[3] = {0.f, 0.f, 0.f};
+  if (first < end) {
+    on_next = __ldg(src_mask + first);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) s_next[i] = __ldg(src + 3 * first + i);
+  }
   for (int r = first; r < end; r += stride) {
-    if (!__ldg(src_mask + r)) continue;  // a masked row has no valid pair
-    const float s[3] = {__ldg(src + 3 * r), __ldg(src + 3 * r + 1), __ldg(src + 3 * r + 2)};
+    const bool on = on_next;  // a masked row has no valid pair
+    const float s[3] = {s_next[0], s_next[1], s_next[2]};
+    if (r + stride < end) {
+      on_next = __ldg(src_mask + r + stride);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) s_next[i] = __ldg(src + 3 * (r + stride) + i);
+    }
+    if (!on) continue;
     float q[3];
-    uint32_t c[3];
+    int c[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i) {  // ops/voxel.py voxel_coords: floor(p * inv) as int32
       q[i] = affine_row(rot + 3 * i, s, t[i]);
-      c[i] = static_cast<uint32_t>(static_cast<int>(floorf(__fmul_rn(q[i], p.inv))));
+      c[i] = static_cast<int>(floorf(__fmul_rn(q[i], p.inv)));
     }
+    int slot[kNdtVoxels];
+    bool kept = false;
+    if (pass >= 2) {
+      const int4 k0 = cache[3 * r], k1 = cache[3 * r + 1], k2 = cache[3 * r + 2];
+      kept = k0.x == c[0] && k0.y == c[1] && k0.z == c[2];
+      slot[0] = k0.w;
+      slot[1] = k1.x;
+      slot[2] = k1.y;
+      slot[3] = k1.z;
+      slot[4] = k1.w;
+      slot[5] = k2.x;
+      slot[6] = k2.y;
+    }
+    if (!kept) {
+      uint32_t base[kNdtVoxels], key[kNdtVoxels];
+#pragma unroll
+      for (int v = 0; v < kNdtVoxels; ++v) {  // ops/voxel.py spatial_hash, voxel_hash fingerprint
+        // in uint32, where a saturated coordinate wraps as the int32 tensor sum does
+        const uint32_t x = static_cast<uint32_t>(c[0]) + static_cast<uint32_t>(kStencil[v][0]),
+                       y = static_cast<uint32_t>(c[1]) + static_cast<uint32_t>(kStencil[v][1]),
+                       z = static_cast<uint32_t>(c[2]) + static_cast<uint32_t>(kStencil[v][2]);
+        base[v] = fmix32((x * kP1) ^ (y * kP2) ^ (z * kP3)) & mask;
+        key[v] = fmix32(x * kF1 + y * kF2 + z * kF3) | 1u;
+        slot[v] = -1;
+      }
+      ndt_probe<0>(m, base, key, slot);
+      if (m.num_probes > kBatchProbes) ndt_probe<kBatchProbes>(m, base, key, slot);
+      if (pass >= 1) {
+        cache[3 * r] = make_int4(c[0], c[1], c[2], slot[0]);
+        cache[3 * r + 1] = make_int4(slot[1], slot[2], slot[3], slot[4]);
+        cache[3 * r + 2] = make_int4(slot[5], slot[6], 0, 0);
+      }
+    }
+    double lsum[9] = {}, esum[3] = {}, count = 0.0, res_sum = 0.0;
+    ndt_pairs(m, p, q, slot, lsum, esum, &count, &res_sum);
+    if (count == 0.0) continue;
     // a = -R hat(s), row-major (residuals.ndt_hg_corr's J rotation block)
     float a[9];
 #pragma unroll
@@ -829,21 +1021,9 @@ __device__ __forceinline__ void ndt_rows(const float* __restrict__ src,
       a[3 * i + 1] = -(r2 * s[0] - r0 * s[2]);
       a[3 * i + 2] = -(r0 * s[1] - r1 * s[0]);
     }
-#pragma unroll 1
-    for (int v = 0; v < 7; ++v) {
-      const int slot = ndt_slot(m, c[0] + static_cast<uint32_t>(kStencil[v][0]),
-                                c[1] + static_cast<uint32_t>(kStencil[v][1]),
-                                c[2] + static_cast<uint32_t>(kStencil[v][2]));
-      if (slot < 0 || !__ldg(m.estimated + slot)) continue;
-      float e[3], lam[9];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) e[i] = __fsub_rn(q[i], __ldg(m.mean + 3 * slot + i));
-#pragma unroll
-      for (int k = 0; k < 9; ++k) lam[k] = __ldg(m.info + 9 * slot + k);
-      const float res = mahalanobis(e, lam);
-      if (!(res <= p.outlier && isfinite(res))) continue;  // NaN and inf never reach the sums
-      ndt_add_pair(acc, a, lam, e, res);
-    }
+    ndt_fold_row(acc, a, lsum, esum);
+    acc[L_COUNT] += count;
+    acc[L_RES] += res_sum;
   }
 }
 
@@ -1103,12 +1283,16 @@ loam_gn_kernel(Set corner, Set planar, int* __restrict__ carry,
 
 __global__ void __launch_bounds__(kThreads, 1)
 ndt_gn_kernel(const float* __restrict__ src, const unsigned char* __restrict__ src_mask,
-              NdtMapView m, int n, int* __restrict__ carry, NdtParams p) {
+              NdtMapView m, int n, int* __restrict__ carry, int4* __restrict__ cache,
+              NdtParams p) {
   __shared__ GnShared<L_SIZE> sh;
+  // the call's iterations so far (every thread counts its own); without a
+  // slot cache it stays 0, so every iteration looks up afresh
+  int pass = 0;
   cluster_loop<L_SIZE, U_NDT, true>(  // no trust-region skip, so no radius
       sh, carry, nullptr, p.loop, n,
       [&](const float* rot, const float* t, int first, int end, int stride, double* acc) {
-        ndt_rows(src, src_mask, m, p, rot, t, first, end, stride, acc);
+        ndt_rows(src, src_mask, m, p, cache, cache ? pass++ : 0, rot, t, first, end, stride, acc);
       },
       [](const double* sums, float* h, float* g, int* nv, float* res) {
         loam_system(sums, h, g, nv, res);
@@ -1278,22 +1462,29 @@ extern "C" int loam_gn_launch(const float* cpx, const float* cpy, const float* c
 
 // NDT's GN loop over the map's stencil Gaussians, the whole loop in one
 // launch: a gather every iteration (corr_every 1) and no trust-region skip,
-// the callers' only settings. The wrapper (ops/gn_loop.py ndt_gn_rounds)
-// checks the settings, num_probes and the capacity.
-extern "C" int ndt_gn_launch(const float* src, const unsigned char* src_mask, const long long* fp,
-                             const float* mean, const float* info,
-                             const unsigned char* estimated, int* carry, int n, int capacity,
+// the callers' only settings. fpwin is the map's [C, 16] probe-window view,
+// 16-byte aligned; slot_cache is [n, 12] int32 scratch, 16-byte aligned,
+// whose contents before the call do not matter, or null: then no row keeps
+// its slots and every iteration looks up afresh (the same result; what
+// tools/profile_torch_loops.py --gn times the kept slots against). The wrapper
+// (ops/gn_loop.py ndt_gn_rounds) checks the settings, num_probes, the
+// capacity and the alignment.
+extern "C" int ndt_gn_launch(const float* src, const unsigned char* src_mask,
+                             const long long* fpwin, const float* mean, const float* info,
+                             const unsigned char* estimated, int* carry, int* slot_cache, int n,
+                             int capacity,
                              int num_probes, int max_iters, int max_total, int min_valid,
                              int use_stall, float rot_eps, float pos_eps, float stall_eps,
                              float inv, float outlier_thresh, void* stream) {
   const NdtParams p{make_loop(max_iters, max_total, 1, min_valid, use_stall, rot_eps, pos_eps,
                               stall_eps, 0.f),
                     inv, outlier_thresh};
-  const NdtMapView m{fp, mean, info, estimated, capacity, num_probes};
+  const NdtMapView m{reinterpret_cast<const longlong2*>(fpwin), mean, info, estimated, capacity,
+                     num_probes};
   cudaError_t err = cudaSuccess;
   const int blocks = ndt_blocks(&err);
   return launch_cluster(ndt_gn_kernel, blocks, err, static_cast<cudaStream_t>(stream), src,
-                        src_mask, m, n, carry, p);
+                        src_mask, m, n, carry, reinterpret_cast<int4*>(slot_cache), p);
 }
 
 // the blocks of the cluster that the launcher of `kind` (G_*) launches on

@@ -48,13 +48,13 @@ SIGNATURES = {
         "icp_gn_launch": ([_P] * 7 + [_I] * 7 + [_F] * 5 + [_P], _I),
         "plane_gn_launch": ([_P] * 7 + [_I] * 7 + [_F] * 6 + [_P], _I),
         "loam_gn_launch": ([_P] * 12 + [_I] * 8 + [_F] * 7 + [_P], _I),
-        "ndt_gn_launch": ([_P] * 7 + [_I] * 7 + [_F] * 5 + [_P], _I),
+        "ndt_gn_launch": ([_P] * 8 + [_I] * 7 + [_F] * 5 + [_P], _I),
         "gn_cluster_blocks": ([_I, _I], _I),
         "gn_rank_rows": ([_I] * 3, _I),
     },
 }
 
-_loaded: dict = {}
+_loaded: dict = {}  # {(name, defines): the loaded library}
 
 
 def _nvcc() -> str:
@@ -65,60 +65,74 @@ def _nvcc() -> str:
     return found
 
 
-def lib_path(name: str) -> Path:
-    """The library's path, named by a hash of its source and of every
-    header in csrc/, so that an edit to either rebuilds it."""
+def lib_path(name: str, defines=()) -> Path:
+    """The library's path, named by a hash of its source, of every header
+    in csrc/ and of the `defines` (nvcc -D flags) it is built with, so that
+    an edit to either rebuilds it."""
     h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
     for header in sorted(_CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    for flag in defines:
+        h.update(flag.encode())
+    tag = "".join(f"-{flag[2:].lower()}" for flag in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str):
+def _start_build(name: str, defines=()):
     """Start nvcc for one source unless its library exists; returns
     (process or None, output path, temporary path)."""
-    out = lib_path(name)
+    out = lib_path(name, defines)
     if out.exists():
         return None, out, None
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+    cmd = [nvcc, *NVCC_FLAGS, *defines, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, out, tmp
 
 
-def build_all(names=None) -> dict:
-    """Compile the given kernel sources (default: all), one nvcc process
-    per source, all started together. Returns {name: nvcc output}; for a
-    library built earlier, the output kept beside it (`.log`)."""
-    names = list(SIGNATURES) if names is None else list(names)
-    started = {n: _start_build(n) for n in names}
+def build_all(names=None, variants=()) -> dict:
+    """Compile the given kernel sources (default: all) and the `variants`,
+    (name, defines) pairs built with nvcc -D flags beside, one nvcc process
+    each, all started together. Returns {(name, defines): nvcc output},
+    with defines () for a plain build; for a library built earlier, the
+    output kept beside it (`.log`)."""
+    builds = [(n, ()) for n in (SIGNATURES if names is None else names)]
+    builds += [(n, tuple(d)) for n, d in variants]
+    started = {b: _start_build(*b) for b in builds}
     logs = {}
-    for name, (proc, out, tmp) in started.items():
+    for key, (proc, out, tmp) in started.items():
         if proc is None:
             kept = out.with_suffix(".log")
-            logs[name] = kept.read_text() if kept.exists() else "cached"
+            logs[key] = kept.read_text() if kept.exists() else "cached"
             continue
         log, _ = proc.communicate()
-        logs[name] = log
+        logs[key] = log
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     return logs
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library `name`, built first if needed."""
-    lib = _loaded.get(name)
+def variant(name: str, defines) -> ctypes.CDLL:
+    """The loaded build of `name` with nvcc -D flags `defines` (a profiling
+    build: -DFLS_STAGE_CLOCKS), built first if needed; a build with other
+    defines, the plain one included, is another library."""
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(lib_path(name)))
+        build_all([], [key])
+        lib = _loaded[key] = ctypes.CDLL(str(lib_path(*key)))
         for fn, (argtypes, restype) in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = restype
-        _loaded[name] = lib
     return lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library `name`, built first if needed."""
+    return variant(name, ())

@@ -308,14 +308,26 @@ def _check_ndt_schedule(cfg, num_probes: int, capacity: int) -> None:
 
 def _checked_ndt_inputs(carry, src, src_mask, m) -> list:
     """`_checked` for ndt_gn_launch: src float32 [N, 3], src_mask bool [N],
-    the map's fp int64 [C], mean float32 [C, 3], info float32 [C, 3, 3] and
-    estimated bool [C], and an int32 [CARRY_SIZE] carry."""
-    n, c = src.shape[0], m.fp.shape[0]
-    return _checked("ndt_gn_rounds", {
+    the map's probe windows fpwin int64 [C, PROBE_WINDOW] (read as 16-byte
+    pairs, so 16-byte aligned), mean float32 [C, 3], info float32 [C, 3, 3]
+    and estimated bool [C], and an int32 [CARRY_SIZE] carry."""
+    n, c = src.shape[0], m.fpwin.shape[0]
+    tensors = _checked("ndt_gn_rounds", {
         "src": (src, F32, (n, 3)), "src_mask": (src_mask, torch.bool, (n,)),
-        "fp": (m.fp, torch.int64, (c,)), "mean": (m.mean, F32, (c, 3)),
+        "fpwin": (m.fpwin, torch.int64, (c, PROBE_WINDOW)), "mean": (m.mean, F32, (c, 3)),
         "info": (m.info, F32, (c, 3, 3)), "estimated": (m.estimated, torch.bool, (c,)),
         "carry": (carry, I32, (CARRY_SIZE,))})
+    if m.fpwin.data_ptr() % 16:
+        raise ValueError("ndt_gn_rounds: fpwin is not 16-byte aligned")
+    return tensors
+
+
+def _ndt_launch_args(carry, src, src_mask, m) -> list:
+    """ndt_gn_launch's tensors in its order: `_checked_ndt_inputs`, then
+    after the carry a new [N, 12] int32 slot cache, the kernel's scratch
+    (the kernel writes it before it reads it)."""
+    return [*_checked_ndt_inputs(carry, src, src_mask, m),
+            torch.empty((src.shape[0], 12), dtype=I32, device=carry.device)]
 
 
 def _loop_args(cfg, schedule: bool = True) -> tuple:
@@ -400,18 +412,30 @@ def ndt_gn_rounds(carry: torch.Tensor, src: torch.Tensor, src_mask: torch.Tensor
     tensors the plain version; on CUDA tensors the kernel on the current
     stream, which reads nothing back to the host, raising on an input of
     another dtype (float32 points, a bool mask and flags, int64
-    fingerprints), shape or device, a non-contiguous input or a CUDA error.
-    Raises on every device for the settings the kernel does not serve
-    (`corr_every` other than 1, a trust-region skip), so `radius`, the
-    round kernels' trust-region radius, is never read (None will do).
-    Returns the carry's status word (a view)."""
-    _check_ndt_schedule(cfg, num_probes, m.fp.shape[0])
+    fingerprints), shape or device, a non-contiguous input, a probe-window
+    view `fpwin` that is not 16-byte aligned, or a CUDA error. Raises on
+    every device for the settings the kernel does not serve (`corr_every`
+    other than 1, a trust-region skip), so `radius`, the round kernels'
+    trust-region radius, is never read (None will do). Returns the carry's
+    status word (a view).
+
+    The kernel (csrc/gn_loop.cu `ndt_gn_kernel`) runs a row on one thread:
+    it loads the first 8 probes of its 7 stencil voxels' windows (rows of
+    `m.fpwin`, as the plain version's `ndt_map._probe` reads them), four
+    windows at a time, before their first compare and takes each window's
+    first match, then loads the found slots' means, infos and flags
+    together; from a call's third iteration a row whose voxel has not
+    changed takes its slots from the call's slot cache instead (the map is
+    frozen within a call). It sums a row's lam and lam^T e over its valid
+    pairs and applies J = [a | I]'s structure once a row, in float64, in a
+    fixed order (a second launch gives the same bits)."""
+    _check_ndt_schedule(cfg, num_probes, m.fpwin.shape[0])
     if carry.device.type == "cpu":
         return ndt_gn_rounds_plain(carry, src, src_mask, m, inv, outlier_thresh, radius, cfg,
                                    num_probes)
-    args = _checked_ndt_inputs(carry, src, src_mask, m)
+    args = _ndt_launch_args(carry, src, src_mask, m)
     err = cuda_build.library("gn_loop").ndt_gn_launch(
-        *(t.data_ptr() for t in args), src.shape[0], m.fp.shape[0], int(num_probes),
+        *(t.data_ptr() for t in args), src.shape[0], m.fpwin.shape[0], int(num_probes),
         *_loop_args(cfg, schedule=False), float(inv), float(outlier_thresh), _stream(carry))
     return _launched(ndt_gn_rounds, err, carry)
 

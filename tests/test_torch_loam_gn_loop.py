@@ -243,6 +243,34 @@ def test_every_lane_invalid_ends_at_the_bound():
     assert torch.equal(rt.t_mat, torch.as_tensor(t0))
 
 
+@pytest.mark.parametrize("rows", [8, 400])
+def test_a_call_is_held_step_by_step(rows):
+    """chip_smoke.py's step-by-step gate (`stepwise_compare`: phases 20-22
+    where a call's end parts from both plain runs, and phase 21's
+    rank-deficient edge case), on the plain path, where the wrapper and its
+    plain version are one: on `rows` rows spread over scene()'s planar set
+    (8: fewer than 6 pass, so H is rank-deficient; 400: full rank), a
+    one-iteration call (max_iters 1) runs one iteration, the chain of them
+    from the carry ends on the whole call's pose bit for bit, and every step
+    agrees with itself."""
+    import chip_smoke
+
+    t0, planar, _, radius = scene()
+    few = chip_smoke.gn_rows(torch, planar, rows)
+    hg = gn_loop.point_to_plane_hg_cand(torch.as_tensor(t0), few, PLANE_THRESH, MAX_D2)
+    assert (0 < int(hg.num_valid) < 6) == (rows == 8)
+    args = (gn_loop.init_carry(torch.as_tensor(t0)), few, torch.tensor(radius),
+            gn_cfgs(10, 0.0, 2, False)[1], PLANE_THRESH, MAX_D2)
+    one = args[0].clone()
+    gn_loop.plane_gn_rounds(one, *chip_smoke.gn_with_cfg(args, max_iters=1)[1:])
+    assert int(one[gn_loop.OFFSET["it"]]) == 1
+    r = chip_smoke.gn_compare(torch, args, "plane_gn_rounds")
+    assert r["iterations"] > 1
+    assert chip_smoke.stepwise_compare(torch, args, r, "plane_gn_rounds") == {
+        "nv_rel": 0.0, "res_rel": 0.0, "dp": 0.0, "da": 0.0, "steps": r["iterations"],
+        "chain_bit_equal": True, "held": True}
+
+
 @pytest.mark.parametrize("kind", ["plane", "loam"])
 def test_driver_rejects_other_updates(kind):
     t0, planar, corner, radius = scene(n_planar=40, n_corner=20)

@@ -4,8 +4,10 @@ where the wrapper runs the plain version: the driver against the JAX
 `run_gn_corr(ndt_corr, ndt_hg_corr)` and `run_gn(ndt_hg)`, bit for bit
 against the port's host loop (`run_gn_corr`), NdtMatcher.match against the
 JAX matcher with one round and one host read a match, the kernel source's
-enums, signature, hash constants and stencil against the Python side, and
-the wrapper's refusals and dispatch.
+enums, signature, hash constants and stencil against the Python side,
+Python mirrors of the kernel's lookup order (`batched_lookup`) and of its
+fold through J's structure (`structured_fold`), the count of the kernel's
+bound (chip_smoke.py `ndt_cost`), and the wrapper's refusals and dispatch.
 
 Tolerances: (a) against JAX, the same iterations, gathers and `converged`
 (decisions of the same f32 arithmetic), the pose within 1e-4 m and 1e-4 rad
@@ -14,7 +16,9 @@ may land on either side where the two packages' f32 poses differ in the
 last bits); (b) against the port's host loop, every output bit for bit (the
 same arithmetic at the same poses); (c) NdtMatcher.match as
 tests/test_torch_ndt.py::test_ndt_match_matches_jax holds it (1e-3 m, 1e-3
-rad, the same `converged` and gathers). The source checks are exact."""
+rad, the same `converged` and gathers). The source checks and the lookup
+mirror are exact; the fold mirror agrees with the dense sums to 1e-12 of
+their largest entry (float64, another summation order)."""
 
 import re
 from pathlib import Path
@@ -36,6 +40,7 @@ from funny_lidar_slam_tpu.registration import residuals as jres
 from funny_lidar_slam_torch import convert
 from funny_lidar_slam_torch.core.lie import chord_angle
 from funny_lidar_slam_torch.maps import ndt_map as tndt
+from funny_lidar_slam_torch.maps.voxel_hash import _window
 from funny_lidar_slam_torch.ops import cuda_build, gn_loop
 from funny_lidar_slam_torch.ops import voxel as tvox
 from funny_lidar_slam_torch.registration import gn
@@ -272,13 +277,15 @@ def test_enums_and_signature_match_the_kernel_source():
     assert kinds["NDT"] == gn_loop.CLUSTER_KIND["ndt_gn_rounds"] == 3
     params = re.search(r'extern "C" int ndt_gn_launch\(([^)]*)\)', text).group(1)
     kinds = ["ptr" if "*" in q else q.split()[0] for q in params.split(",")]
-    # src, mask, fp, mean, info, estimated, carry, the stream; the schedule
-    # is fixed (corr_every 1, no trust-region skip), so no radius
-    assert kinds.count("ptr") == 8 and kinds.count("int") == 7 and kinds.count("float") == 5
-    assert "const long long* fp" in params  # int64 fingerprints, read as stored
+    # src, mask, fpwin, mean, info, estimated, carry, the slot cache, the
+    # stream; the schedule is fixed (corr_every 1, no trust-region skip),
+    # so no radius
+    assert kinds.count("ptr") == 9 and kinds.count("int") == 7 and kinds.count("float") == 5
+    # the int64 probe windows [C, 16], read as stored, and the int32 scratch
+    assert "const long long* fpwin" in params and "int* slot_cache" in params
     assert not re.search(r"corr_every|skip_dist|radius", params)
     sig = cuda_build.SIGNATURES["gn_loop"]["ndt_gn_launch"][0]
-    assert len(sig) == len(kinds) == 7 + 7 + 5 + 1
+    assert len(sig) == len(kinds) == 8 + 7 + 5 + 1
     assert tndt.PROBE_WINDOW == jvh.PROBE_WINDOW  # the wrapper's bound on num_probes
     assert gn_loop.ndt_gn_rounds in gn_loop.KERNELS
     assert gn.ROUND_DRIVERS["ndt_gn_rounds"] is gn.run_gn_ndt
@@ -336,6 +343,226 @@ def test_a_python_mirror_of_the_kernel_lookup_finds_the_map_slots(ndt_scene):  #
                 assert torch.equal(mt.mean[slot], mean_ref[n, v])
                 found += 1
     assert found > 300
+
+
+U32 = np.uint64(0xFFFFFFFF)
+
+
+def _fmix(h):
+    h ^= h >> np.uint64(16)
+    h = (h * np.uint64(0x85EBCA6B)) & U32
+    h ^= h >> np.uint64(13)
+    h = (h * np.uint64(0xC2B2AE35)) & U32
+    return h ^ (h >> np.uint64(16))
+
+
+def _base_and_key(voxel, capacity):
+    """The kernel's window base and fingerprint of one voxel, in uint32
+    arithmetic (ops/voxel.py spatial_hash, maps/voxel_hash.py fingerprint)."""
+    x, y, z = (np.uint64(np.uint32(np.int32(a))) for a in voxel)
+    base = _fmix(((x * np.uint64(tvox._P1)) & U32) ^ ((y * np.uint64(tvox._P2)) & U32)
+                 ^ ((z * np.uint64(tvox._P3)) & U32)) & np.uint64(capacity - 1)
+    key = _fmix((((x * np.uint64(jvh._F1)) & U32) + ((y * np.uint64(jvh._F2)) & U32)
+                 + ((z * np.uint64(jvh._F3)) & U32)) & U32) | np.uint64(1)
+    return int(base), int(key)
+
+
+def batched_lookup(fpwin: np.ndarray, voxels: np.ndarray, num_probes: int) -> np.ndarray:
+    """csrc/gn_loop.cu's lookup (`ndt_probe_batch`) in Python for the
+    stencil voxels of each row of int32 voxel coords [R, 3]: every window's
+    probes 0-7 read (the window row fpwin[base]) before any compare, the
+    first match below num_probes its slot; probes 8-15 read only for the
+    windows without one, where num_probes > 8; -1 where none matches.
+    [R, 7] slots."""
+    cap = fpwin.shape[0]
+    out = np.full((len(voxels), 7), -1, np.int64)
+    for n, c in enumerate(voxels):
+        keys = [_base_and_key(np.asarray(c) + off, cap) for off in tndt.NDT_STENCIL]
+        for start in (0, 8):
+            if start >= num_probes:
+                break
+            windows = [fpwin[b, start:start + 8].copy() for b, _ in keys]  # all loads first
+            for v, ((b, key), w) in enumerate(zip(keys, windows)):
+                if out[n, v] >= 0:
+                    continue
+                hits = [k for k in range(8) if start + k < num_probes and int(w[k]) == key]
+                if hits:
+                    out[n, v] = (b + start + hits[0]) & (cap - 1)
+    return out
+
+
+def hand_map(voxels, offsets, capacity):
+    """An NDT map built by hand, fp and fpwin set directly (no insert):
+    voxel i of `voxels` at window offset offsets[i] from its base, its mean
+    (slot, i, 0) so a lookup's mean names the slot, info I, estimated."""
+    fp = torch.zeros(capacity, dtype=torch.int64)
+    mean = torch.zeros(capacity, 3)
+    for i, (vox, off) in enumerate(zip(voxels, offsets)):
+        base, key = _base_and_key(vox, capacity)
+        slot = (base + off) % capacity
+        assert int(fp[slot]) == 0, "two voxels in one slot"
+        fp[slot] = key
+        mean[slot] = torch.tensor([slot, i, 0.0])
+    occupied = fp != 0
+    m = tndt.create(capacity)
+    return m._replace(fp=fp, fpwin=_window(fp), mean=mean,
+                      info=torch.eye(3).expand(capacity, 3, 3).clone(), estimated=occupied,
+                      count=occupied.float() * 10)
+
+
+def lookup_case(name, ndt_scene):
+    """(map, row voxel coords [R, 3], num_probes) of each lookup case."""
+    if name == "scene":
+        _, mt, src, mask, t0, inv = scan_case(*ndt_scene)
+        p = tres.transform_points(torch.as_tensor(t0), torch.from_numpy(src))
+        coords = tvox.voxel_coords(p[torch.from_numpy(mask)], inv)[:300].numpy()
+        return mt, coords, 8
+    rng = np.random.default_rng(11)
+    rows = rng.integers(-6, 6, (40, 3)).astype(np.int32)
+    sten = np.unique((rows[:, None, :] + np.asarray(tndt.NDT_STENCIL)).reshape(-1, 3), axis=0)
+    if name == "wrapping window":
+        # 16 slots: voxels whose base is 9-15 at offset 7 (past slot 15), the
+        # rest, where free, at offset 0
+        cap, placed, offs, used = 16, [], [], set()
+        for vox in sten[rng.permutation(len(sten))]:
+            base, _ = _base_and_key(vox, cap)
+            off = 7 if base >= 9 else 0
+            if (base + off) % cap not in used:
+                used.add((base + off) % cap)
+                placed.append(vox)
+                offs.append(off)
+        assert sum(_base_and_key(v, cap)[0] + o >= cap for v, o in zip(placed, offs)) >= 3
+        return hand_map(placed, offs, cap), rows, 8
+    # 256 slots: every third voxel at offset 3 (slots 0-2 of its window
+    # empty where no other voxel took them), one at offset 10 (found with
+    # 16 probes only)
+    cap, placed, offs, used = 256, [], [], set()
+    for i, vox in enumerate(sten[::3]):
+        base, _ = _base_and_key(vox, cap)
+        off = 10 if i == 0 else 3
+        if (base + off) % cap not in used:
+            used.add((base + off) % cap)
+            placed.append(vox)
+            offs.append(off)
+    return hand_map(placed, offs, cap), rows, 16 if name == "empty slot, 16 probes" else 8
+
+
+@pytest.mark.parametrize("name", ["scene", "wrapping window", "empty slot before the match",
+                                  "empty slot, 16 probes"])
+def test_the_batched_lookup_finds_the_map_slots(ndt_scene, name):  # noqa: F811
+    """The kernel's lookup order (`batched_lookup`: every probe of a window
+    read before the first compare, the first match a voxel) finds the
+    slots ndt_map's own lookup (`_stencil_lookup`) finds, on the NDT scene,
+    on a hand-built 16-slot map whose windows wrap past slot 15, and on a
+    hand-built map with empty slots before the matches (num_probes 8 and
+    16, one voxel at offset 10). Exact: the same slot, or none."""
+    m, coords, probes = lookup_case(name, ndt_scene)
+    slots = batched_lookup(m.fpwin.numpy(), coords, probes)
+    mean_ref, _, valid_ref = tndt._stencil_lookup(m, torch.from_numpy(coords), probes)
+    found = slots >= 0
+    valid = found & m.estimated.numpy()[np.maximum(slots, 0)]
+    assert np.array_equal(valid, valid_ref.numpy())
+    assert torch.equal(mean_ref[torch.from_numpy(valid)],
+                       m.mean[torch.from_numpy(slots[valid])])
+    cap = m.capacity
+    bases = np.array([[_base_and_key(c + np.asarray(o), cap)[0] for o in tndt.NDT_STENCIL]
+                      for c in coords])
+    offset = (slots - bases) % cap
+    empty_before = [bool((m.fpwin[b, :k] == 0).any()) for b, k in zip(bases[found],
+                                                                      offset[found])]
+    if name == "scene":
+        assert found.sum() > 300
+    elif name == "wrapping window":
+        assert (found & (slots < bases)).sum() >= 3  # matches past the wrap
+    else:
+        assert sum(empty_before) >= 10
+        deep = int((found & (offset >= 8)).sum())
+        assert deep > 0 if probes == 16 else deep == 0
+
+
+def structured_fold(t_mat, src, corr):
+    """csrc/gn_loop.cu's fold (`ndt_fold_row`) in float64: a row's valid
+    pairs summed first (lsum = sum lam, esum = sum lam^T e), then J = [a |
+    I]'s structure applied once a row: H_rr = a^T lsum a, H_rt = a^T lsum,
+    H_tt = lsum, g = -[a^T esum; esum]."""
+    r = t_mat[:3, :3]
+    err = tres.transform_points(t_mat, src)[:, None, :] - corr.mu
+    w = corr.valid.to(src.dtype)
+    lsum = torch.einsum("nv,nvab->nab", w, corr.lam)
+    esum = torch.einsum("nv,nvab,nva->nb", w, corr.lam, err)
+    a = -torch.einsum("ij,njk->nik", r, tres.so3_hat(src))
+    h = torch.zeros(6, 6, dtype=src.dtype)
+    h[:3, :3] = torch.einsum("nki,nkl,nlj->ij", a, lsum, a)
+    h[:3, 3:] = torch.einsum("nki,nkj->ij", a, lsum)
+    h[3:, :3] = torch.einsum("nik,nkj->ij", lsum, a)
+    h[3:, 3:] = lsum.sum(0)
+    g = -torch.cat([torch.einsum("nki,nk->i", a, esum), esum.sum(0)])
+    return h, g
+
+
+@pytest.mark.parametrize("seed,asymmetric", [(0, False), (1, False), (2, True)])
+def test_the_structured_fold_equals_the_dense_normal_equations(seed, asymmetric):
+    """The kernel's fold of a row's pairs through J's structure gives the
+    dense sum J^T lam J and -J^T lam^T e of residuals.ndt_hg_corr, in
+    float64, on a random map, pose and source (and, with `asymmetric`, an
+    info that is not symmetric, as sums in no fixed order can leave it):
+    within 1e-12 of the largest entry (the two differ in summation order
+    only)."""
+    rng = np.random.default_rng(seed)
+    pts = torch.from_numpy(rng.uniform(-6, 6, (3000, 3)))
+    m = tndt.insert(tndt.create(2048, dtype=torch.float64), pts, torch.ones(3000, dtype=torch.bool),
+                    0.5, min_points=3)
+    if asymmetric:
+        m = m._replace(info=m.info + torch.from_numpy(rng.normal(0, 0.05, m.info.shape)))
+    t_mat = torch.from_numpy(np.asarray(se3_exp(jnp.asarray(rng.normal(0, 0.1, 6), jnp.float32)),
+                                        np.float64))
+    src = torch.from_numpy(rng.uniform(-6, 6, (500, 3)))
+    mask = torch.from_numpy(rng.random(500) < 0.9)
+    corr = tres.ndt_corr(t_mat, src, mask, m, 0.5, 1e6)
+    assert int(corr.valid.sum()) > 500
+    dense = tres.ndt_hg_corr(t_mat, src, corr)
+    h, g = structured_fold(t_mat, src, corr)
+    assert dense.h.dtype == torch.float64
+    assert torch.allclose(h, dense.h, rtol=0, atol=1e-12 * float(dense.h.abs().max()))
+    assert torch.allclose(g, dense.g, rtol=0, atol=1e-12 * float(dense.g.abs().max()))
+    if asymmetric:  # lam^T e, not lam e: the fold follows the reference's g
+        assert not torch.allclose(m.info, m.info.transpose(-1, -2))
+
+
+def test_the_bound_counts_each_iterations_pairs_and_folded_rows(monkeypatch):
+    """chip_smoke.ndt_cost, the kernel's bound, counts the work by J's
+    structure at each of the plain version's iterations: every unmasked row
+    and its 7 voxels, every valid pair, and J applied once to the sums of
+    each row with a valid pair; here held against the poses the plain loop
+    visits, counted apart."""
+    import chip_smoke
+
+    pts = torch.from_numpy(np.random.default_rng(3).uniform(-5, 5, (2000, 3)).astype(np.float32))
+    m = tndt.insert(tndt.create(1024), pts, torch.ones(2000, dtype=torch.bool), 1.0,
+                    estimate_all=True)
+    src, mask = pts[:300] + 0.05, torch.ones(300, dtype=torch.bool)
+    mask[::5] = False
+    carry, radius, cfg = gn_loop.init_carry(torch.eye(4)), torch.tensor(20.0), gn_cfgs(30)[1]
+    poses, hg = [], gn_loop.ndt_hg
+
+    def seen(t_mat, *a):
+        poses.append(t_mat.clone())
+        return hg(t_mat, *a)
+
+    monkeypatch.setattr(gn_loop, "ndt_hg", seen)
+    gn_loop.ndt_gn_rounds_plain(carry.clone(), src, mask, m, 1.0, OUTLIER, radius, cfg)
+    monkeypatch.setattr(gn_loop, "ndt_hg", hg)
+    _, ops, its = chip_smoke.ndt_cost(torch, (carry, src, mask, m, 1.0, OUTLIER, radius, cfg))
+    assert its == len(poses) > 1
+    rows, want = int(mask.sum()), 0
+    for t_mat in poses:
+        valid = tres.ndt_corr(t_mat, src, mask, m, 1.0, OUTLIER).valid
+        pairs, folded = int(valid.sum()), int(valid.any(-1).sum())
+        assert 0 < folded < rows and pairs > folded
+        want += (rows * (chip_smoke.NDT_ROW_OPS + 7 * chip_smoke.NDT_VOXEL_OPS)
+                 + pairs * chip_smoke.NDT_PAIR_OPS + folded * chip_smoke.NDT_FOLD_OPS)
+    assert ops == want
+    assert (chip_smoke.NDT_PAIR_OPS, chip_smoke.NDT_FOLD_OPS) == (52, 191)
 
 
 # ------------------------------------------------ (e) refusals and dispatch
@@ -398,8 +625,10 @@ def test_wrapper_refuses_what_the_kernel_cannot_take():
         call(src=src.double())
     with pytest.raises(TypeError, match="bool src_mask"):
         call(mask=mask.to(torch.uint8))
-    with pytest.raises(TypeError, match="int64 fp"):
-        call(m=m._replace(fp=m.fp.to(torch.int32)))
+    with pytest.raises(TypeError, match="int64 fpwin"):
+        call(m=m._replace(fpwin=m.fpwin.to(torch.int32)))
+    with pytest.raises(ValueError, match="fpwin of shape"):
+        call(m=m._replace(fpwin=m.fpwin[:, :8].contiguous()))
     with pytest.raises(TypeError, match="bool estimated"):
         call(m=m._replace(estimated=m.estimated.float()))
     with pytest.raises(TypeError, match="int32 carry"):

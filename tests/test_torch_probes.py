@@ -7,6 +7,7 @@ use pltpu memory spaces and scalar prefetch, which do not run here; the
 kernels are held against the plain versions on the card by chip_smoke.py."""
 
 import shutil
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -127,6 +128,35 @@ def test_lib_path_hashes_source_and_headers(tmp_path, monkeypatch):
     (tmp_path / "other.cuh").unlink()
     (tmp_path / "probes.cu").write_text('#include "async_copy.cuh"\n// edited\n')
     assert cuda_build.lib_path("probes") not in (first, second)
+
+
+def test_a_variant_built_with_defines_has_its_own_library(tmp_path, monkeypatch):
+    """A build with nvcc -D flags (a profiling build: -DFLS_STAGE_CLOCKS)
+    is named by its flags too, beside the plain build, so neither replaces
+    the other; `build_all` starts it with the others and keys every output
+    by (name, flags), () for a plain build; `variant` loads each build
+    once."""
+    (tmp_path / "gn_loop.cu").write_text("// source\n")
+    monkeypatch.setattr(cuda_build, "_CSRC", tmp_path)
+    plain = cuda_build.lib_path("gn_loop")
+    staged = cuda_build.lib_path("gn_loop", ("-DFLS_STAGE_CLOCKS",))
+    assert staged != plain and staged.parent == plain.parent
+    assert staged.name.startswith("libgn_loop-fls_stage_clocks-")
+    assert cuda_build.lib_path("gn_loop", ("-DOTHER",)) not in (plain, staged)
+    started = []
+    monkeypatch.setattr(cuda_build, "_start_build",
+                        lambda name, defines=(): started.append((name, defines))
+                        or (None, tmp_path / f"{name}{len(started)}.so", None))
+    logs = cuda_build.build_all(["gn_loop"], [("gn_loop", ["-DFLS_STAGE_CLOCKS"])])
+    assert started == [("gn_loop", ()), ("gn_loop", ("-DFLS_STAGE_CLOCKS",))]
+    assert set(logs) == {("gn_loop", ()), ("gn_loop", ("-DFLS_STAGE_CLOCKS",))}
+    monkeypatch.setattr(cuda_build, "_loaded", {})
+    monkeypatch.setattr(cuda_build.ctypes, "CDLL", lambda path: mock.MagicMock(path=path))
+    lib = cuda_build.variant("gn_loop", ["-DFLS_STAGE_CLOCKS"])
+    assert lib.path == str(staged)
+    assert cuda_build.variant("gn_loop", ("-DFLS_STAGE_CLOCKS",)) is lib
+    assert cuda_build.library("gn_loop") is cuda_build.library("gn_loop") is not lib
+    assert cuda_build.library("gn_loop").path == str(plain)
 
 
 def test_no_fallback_without_a_toolkit():

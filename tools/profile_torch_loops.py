@@ -47,11 +47,14 @@ grid headline config and the bench's PointToPlane_IVOX,
 PointToPlane_KdTree, LoamFull_KdTree and IncrementalNDT mapping configs
 over the 10 s simulator run (16,384 points a scan), of the Turing
 ICP preset (configs/mapping/config_turing_icp.yaml) over the same run at
-28,800 points and of the M2DGR preset over a 6 s run (57,600 points). On
-each path it replays every call on each build (the status, iterations and
-gathers each gives, and the largest pose difference from the parent's)
-and times the path's last first round and its call with the most
-iterations: the median device ms of one wrapper call over 50, queued
+28,800 points and of the M2DGR preset over a 6 s run (57,600 points), and
+the NDT stages of the loop verifications of the bench's Figure8_Loop run
+(chip_smoke.figure8_system, 212 scans). On each path it replays every
+call on each build (the status, iterations and gathers each gives, and
+the largest pose difference from the parent's) and times the path's last
+first round and its call with the most iterations (on the figure-8, each
+of the first verification's four NDT stages): the median device ms of
+one wrapper call over 50, queued
 behind a device sleep, each from its own copy of the carry, in turns
 (parent, change, change, parent), with ms per iteration. It also replays
 chip_smoke.py's phase-20 and phase-21 edge cases (`icp_edge_cases` on the
@@ -61,12 +64,19 @@ each build: whether each gives the parent's carry bit for bit, and its
 pose difference from the parent's and from the plain version's. The
 parent's `gn_loop.cu` has the same C entry points, or lacks
 `ndt_gn_launch` (a parent from before the NDT kernel): its NDT rows then
-give the change alone. With
+give the change alone; a parent whose `ndt_gn_launch` takes the map's
+fingerprints `fp` [C] where this one takes its probe windows `fpwin` [C,
+16] and a slot cache (the kernel that walked each window slot by slot) is
+handed `fp` there and no cache (`ndt_launch`). NDT is also run and timed
+on this checkout's build given no slot cache (`change_no_kept_slots`:
+every iteration looks up afresh, the same result), so the turns are
+parent, change, no kept slots, no kept slots, change, parent. With
 `--stages`, this checkout's `gn_loop.cu` built with -DFLS_STAGE_CLOCKS runs
 each timed call once more and reports rank 0's SM cycles an iteration in
 each stage of the kernel (the K_* enum: set-up, thread 0's rows, its
 block's sum, the wait at the cluster barrier, the distributed shared memory
-sum, the serial end and begin of an iteration, the last barrier).
+sum, the serial end and begin of an iteration, the last barrier), NDT's
+with and without kept slots.
 """
 
 from __future__ import annotations
@@ -131,10 +141,10 @@ def capture_calls(torch, system_config, ds, device="cuda") -> dict:
     return calls
 
 
-def build_variant(root: str, tag: str, defines=(), names=LIBS) -> dict:
-    """nvcc of the sources `names` of the checkout at `root` with this
-    checkout's flags (and `defines`) into build/kernels/<tag>/, one process
-    each, all started together: {name: (library path, nvcc output)}."""
+def build_variant(root: str, tag: str, names=LIBS) -> dict:
+    """nvcc of the sources `names` of the checkout at `root` (a parent) with
+    this checkout's flags into build/kernels/<tag>/, one process each, all
+    started together: {name: (library path, nvcc output)}."""
     from funny_lidar_slam_torch.ops import cuda_build
 
     out_dir = cuda_build.BUILD_DIR / tag
@@ -143,7 +153,7 @@ def build_variant(root: str, tag: str, defines=(), names=LIBS) -> dict:
     for name in names:
         src = os.path.join(root, "funny_lidar_slam_torch", "csrc", f"{name}.cu")
         lib = out_dir / f"lib{name}.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *defines, "-o", str(lib), src]
+        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), src]
         procs[name] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT, text=True))
     built = {}
@@ -165,6 +175,13 @@ def load(name: str, path: str) -> ctypes.CDLL:
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
+
+
+def use_libs(libs: dict) -> None:
+    """Make `libs` ({name: library}) the libraries the wrappers call."""
+    from funny_lidar_slam_torch.ops import cuda_build
+
+    cuda_build._loaded.update({(name, ()): lib for name, lib in libs.items()})
 
 
 def bare_launch(torch, kind, args, extra_out=0):
@@ -213,59 +230,8 @@ def flat_output(torch, kind, args):
 
 
 GN_PATHS = ("grid", "PointToPlane_IVOX", "PointToPlane_KdTree", "LoamFull_KdTree",
-            "IncrementalNDT", "turing", "m2dgr")
-# the stage clocks of csrc/gn_loop.cu's K_* enum
-GN_STAGES = ("setup", "rows", "block_sum", "cluster_wait", "dsmem_sum", "serial", "exit")
-
-
-def gn_stage_cycles(torch, lib, kind, call) -> dict:
-    """One launch of `kind` from the C entry point of a -DFLS_STAGE_CLOCKS
-    build on a copy of the call's carry with room for the clocks after it:
-    {stage: rank 0's SM cycles an iteration}."""
-    from funny_lidar_slam_torch.ops import gn_loop
-
-    carry = call[0]
-    big = torch.zeros(gn_loop.CARRY_SIZE + CLOCKS, dtype=torch.int32, device=carry.device)
-    big[:gn_loop.CARRY_SIZE] = carry
-    stream = torch.cuda.current_stream(carry.device).cuda_stream
-    if kind == "ndt_gn_rounds":
-        _, src, mask, m, inv, thresh, _, cfg, *rest = call
-        ptrs = [t.data_ptr() for t in gn_loop._checked_ndt_inputs(carry, src, mask, m)]
-        ptrs[6] = big.data_ptr()  # the carry, after the source and the map
-        err = lib.ndt_gn_launch(*ptrs, src.shape[0], m.fp.shape[0], int(rest[0] if rest else 8),
-                                *gn_loop._loop_args(cfg, schedule=False), float(inv),
-                                float(thresh), stream)
-        assert err == 0, f"{kind}: CUDA error {err}"
-        torch.cuda.synchronize()
-        its = max(int(big[gn_loop.OFFSET["it"]]) - int(carry[gn_loop.OFFSET["it"]]), 1)
-        cycles = big[gn_loop.CARRY_SIZE:].view(torch.float32).tolist()
-        return {name: c / its for name, c in zip(GN_STAGES, cycles)}
-    k = 2 if kind == "loam_gn_rounds" else 1
-    sets, radius, cfg = call[1:1 + k], call[1 + k], call[2 + k]
-    ptrs = [t.data_ptr() for t in gn_loop._checked_inputs(carry, sets[0], radius, *sets[1:],
-                                                           name=kind)]
-    ptrs[5 * k] = big.data_ptr()  # the carry, after each set's five tensors
-    m = sets[0].px.shape[1]
-    if kind == "icp_gn_rounds":
-        _, _, _, _, max_d2 = call
-        err = lib.icp_gn_launch(*ptrs, sets[0].px.shape[0], m, *gn_loop._loop_args(cfg),
-                                float(max_d2), stream)
-    elif kind == "plane_gn_rounds":
-        _, _, _, _, plane_thresh, max_d2 = call
-        err = lib.plane_gn_launch(*ptrs, sets[0].px.shape[0], m, *gn_loop._loop_args(cfg),
-                                  float(max_d2), float(plane_thresh), stream)
-    else:
-        _, _, _, _, _, line_ratio, plane_thresh, max_d2 = call
-        err = lib.loam_gn_launch(*ptrs, sets[0].px.shape[0], sets[1].px.shape[0], m,
-                                 *gn_loop._loop_args(cfg), float(max_d2), float(plane_thresh),
-                                 float(line_ratio), stream)
-    assert err == 0, f"{kind}: CUDA error {err}"
-    torch.cuda.synchronize()
-    its = max(int(big[gn_loop.OFFSET["it"]]) - int(carry[gn_loop.OFFSET["it"]]), 1)
-    cycles = big[gn_loop.CARRY_SIZE:].view(torch.float32).tolist()
-    return {name: c / its for name, c in zip(GN_STAGES, cycles)}
-
-
+            "IncrementalNDT", "turing", "m2dgr", "figure8")
+NDT_STAGES = 4  # the NDT stages of a loop verification's cascade
 def capture_gn(torch, cs, bench) -> dict:
     """{path: [(kernel, args)]} of every GN round-driver call in one run of
     each of GN_PATHS (chip_smoke.LoopCapture), cloned on the card."""
@@ -281,19 +247,84 @@ def capture_gn(torch, cs, bench) -> dict:
                       simulate(SimConfig(duration=10.0, points_per_scan=28800, seed=7)))
     runs["m2dgr"] = (lambda: SlamSystem(load_config(os.path.join(ROOT, M2DGR)).system),
                      simulate(SimConfig(duration=6.0, points_per_scan=57600, seed=7)))
+    sim_cfg, traj = bench.figure8_sim(16384)
+    runs["figure8"] = (cs.figure8_system, simulate(sim_cfg, traj=traj))
     for key, (make, data) in runs.items():
         with cs.LoopCapture(key, loops=False):
             make().run_dataset(data)
         torch.cuda.synchronize()
-    return {key: [("icp_gn_rounds", a) for a in cs.GN_CAPTURES[key]] + cs.LOAM_CAPTURES[key]
-            + [("ndt_gn_rounds", a) for a in cs.NDT_CAPTURES[key]] for key in runs}
+    out = {key: [("icp_gn_rounds", a) for a in cs.GN_CAPTURES[key]] + cs.LOAM_CAPTURES[key]
+           + [("ndt_gn_rounds", a) for a in cs.NDT_CAPTURES[key]] for key in runs}
+    # the figure-8's loop verifications: their NDT cascade stages alone
+    out["figure8"] = [("ndt_gn_rounds", a) for a in cs.NDT_CAPTURES["figure8"]]
+    return out
+
+
+# the builds whose ndt_gn_launch takes fp [C] as its third pointer, and
+# that entry point's argument types there (no slot cache)
+FP_BUILDS: set = set()
+FP_NDT_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float] * 5 + [
+    ctypes.c_void_p]
+# this checkout's build with NDT given no slot cache: every iteration looks
+# up afresh, so its turns against "change" time the kept slots
+NO_KEPT_SLOTS = "change_no_kept_slots"
+
+
+def takes_fp(root: str) -> bool:
+    """Whether the checkout at `root` has an ndt_gn_launch whose map
+    argument is the fingerprints `fp` [C] rather than the windows `fpwin`."""
+    import re
+
+    text = open(os.path.join(root, "funny_lidar_slam_torch", "csrc", "gn_loop.cu")).read()
+    params = re.search(r'extern "C" int ndt_gn_launch\(([^)]*)\)', text)
+    return bool(params) and re.search(r"\bconst long long\* fp\b", params.group(1)) is not None
+
+
+def ndt_launch(torch, lib, carry, call, fp: bool = False, keep_slots: bool = True):
+    """ndt_gn_launch of the build `lib` on a captured ndt_gn_rounds call's
+    inputs with `carry`, its arguments built here as the wrapper builds
+    them: with `fp`, the map's fingerprints `fp` [C] where the windows
+    `fpwin` go and no slot cache (a build in FP_BUILDS); without
+    `keep_slots`, a null slot cache. Returns the carry."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    _, src, mask, m, inv, thresh, _, cfg, *rest = call
+    tensors = gn_loop._checked_ndt_inputs(carry, src, mask, m)
+    if fp:
+        tensors[2] = m.fp.contiguous()
+    elif keep_slots:
+        tensors.append(torch.empty((src.shape[0], 12), dtype=torch.int32, device=carry.device))
+    ptrs = [t.data_ptr() for t in tensors] + ([] if fp or keep_slots else [None])
+    err = lib.ndt_gn_launch(*ptrs, src.shape[0], m.fpwin.shape[0], int(rest[0] if rest else 8),
+                            *gn_loop._loop_args(cfg, schedule=False), float(inv), float(thresh),
+                            torch.cuda.current_stream(carry.device).cuda_stream)
+    assert err == 0, f"ndt_gn_launch: CUDA error {err}"
+    return carry
+
+
+def run_build(torch, v, lib, kind, carry, call):
+    """`kind` on `carry` with a captured call's other inputs on the build
+    `lib` (version `v`): NDT through `ndt_launch`, the others through their
+    wrapper with `lib` as the gn_loop library it calls. Returns the carry."""
+    from funny_lidar_slam_torch.ops import cuda_build, gn_loop
+
+    if kind == "ndt_gn_rounds":
+        return ndt_launch(torch, lib, carry, call, fp=v in FP_BUILDS,
+                          keep_slots=v != NO_KEPT_SLOTS)
+    cuda_build._loaded[("gn_loop", ())] = lib
+    getattr(gn_loop, kind)(carry, *call[1:])
+    return carry
 
 
 def builds_of(versions: dict, kind: str) -> dict:
     """The builds that have `kind`'s entry point (a parent from before the
-    NDT kernel lacks ndt_gn_launch)."""
-    return {v: lib for v, lib in versions.items()
-            if kind != "ndt_gn_rounds" or hasattr(lib, "ndt_gn_launch")}
+    NDT kernel lacks ndt_gn_launch); NDT's also this checkout's without
+    kept slots."""
+    if kind != "ndt_gn_rounds":
+        return dict(versions)
+    builds = {v: lib for v, lib in versions.items() if hasattr(lib, "ndt_gn_launch")}
+    builds[NO_KEPT_SLOTS] = versions["change"]
+    return builds
 
 
 def rows_of(cs, kind, call) -> list:
@@ -308,7 +339,7 @@ def gn_edge_cases(torch, cs, captured, versions) -> dict:
     grid, IVOX and LoamFull first rounds, replayed on each build: {case:
     {build: whether its carry is the parent's bit for bit, its pose
     difference from the parent's and from the plain version's}}."""
-    from funny_lidar_slam_torch.ops import cuda_build, gn_loop
+    from funny_lidar_slam_torch.ops import gn_loop
 
     icp_args = cs.first_rounds(captured["grid"], "icp_gn_rounds")[-1]
     plane_args = cs.first_rounds(captured["PointToPlane_IVOX"], "plane_gn_rounds")[-1]
@@ -328,11 +359,8 @@ def gn_edge_cases(torch, cs, captured, versions) -> dict:
     for name, kind, args in cases:
         plain = args[0].clone()
         getattr(gn_loop, f"{kind}_plain")(plain, *args[1:])
-        carries = {}
-        for v, lib in builds_of(versions, kind).items():
-            cuda_build._loaded["gn_loop"] = lib
-            carries[v] = args[0].clone()
-            getattr(gn_loop, kind)(carries[v], *args[1:])
+        carries = {v: run_build(torch, v, lib, kind, args[0].clone(), args)
+                   for v, lib in builds_of(versions, kind).items()}
         ref = carries.get("parent", carries["change"])
         row = {}
         for v, c in carries.items():
@@ -352,19 +380,21 @@ def gn_main(args, torch, cs, bench) -> dict:
     from funny_lidar_slam_torch.ops import cuda_build, gn_loop
 
     t0 = time.perf_counter()
-    logs = cuda_build.build_all(["gn_loop"])
+    logs = cuda_build.build_all(["gn_loop"], [cs.STAGED_GN] if args.stages else [])
     versions = {"change": cuda_build.library("gn_loop")}
-    ptxas = {"change": cs.ptxas_report(logs["gn_loop"])}
-    variants = []
-    if args.parent:
-        variants.append(("parent", os.path.abspath(args.parent), ()))
+    ptxas = {"change": cs.ptxas_report(logs[("gn_loop", ())])}
+    staged = None
     if args.stages:
-        variants.append(("stages", ROOT, ("-DFLS_STAGE_CLOCKS",)))
-    for tag, root, defines in variants:
-        (path, text), = build_variant(root, tag, defines, ("gn_loop",)).values()
-        versions[tag] = load("gn_loop", path)
-        ptxas[tag] = cs.ptxas_report(text)
-    staged = versions.pop("stages", None)
+        staged = cuda_build.variant(*cs.STAGED_GN)
+        ptxas["stages"] = cs.ptxas_report(logs[cs.STAGED_GN])
+    if args.parent:
+        root = os.path.abspath(args.parent)
+        (path, text), = build_variant(root, "parent", ("gn_loop",)).values()
+        versions["parent"] = load("gn_loop", path)
+        ptxas["parent"] = cs.ptxas_report(text)
+        if takes_fp(root):
+            FP_BUILDS.add("parent")
+            versions["parent"].ndt_gn_launch.argtypes = FP_NDT_ARGTYPES
     log(f"[gn] built in {time.perf_counter() - t0:.1f} s; ptxas {json.dumps(ptxas)}")
     blocks = {k: gn_loop.cluster_blocks(k) for k in gn_loop.CLUSTER_KIND}
     t0 = time.perf_counter()
@@ -372,24 +402,19 @@ def gn_main(args, torch, cs, bench) -> dict:
     log(f"[gn] captured {({k: len(v) for k, v in captured.items()})} calls in "
         f"{time.perf_counter() - t0:.1f} s")
     order = ["parent", "change", "change", "parent"] if args.parent else ["change", "change"]
+    ndt_order = ["parent", "change", NO_KEPT_SLOTS, NO_KEPT_SLOTS, "change", "parent"]
     o = gn_loop.OFFSET
     result = {"device": torch.cuda.get_device_name(0), "card": bench.card_line(),
-              "ptxas": ptxas, "cluster_blocks": blocks, "order": order, "paths": {}}
-
-    def replay(kind, call):
-        carry = call[0].clone()
-        getattr(gn_loop, kind)(carry, *call[1:])
-        return carry
+              "ptxas": ptxas, "cluster_blocks": blocks, "order": order, "ndt_order": ndt_order,
+              "paths": {}}
 
     for key, calls in captured.items():
         kind = calls[0][0]
         assert all(k == kind for k, _ in calls), f"[gn] {key}: two kernels"
         calls = [a for _, a in calls]
         builds = builds_of(versions, kind)
-        outs = {}
-        for v, lib in builds.items():
-            cuda_build._loaded["gn_loop"] = lib
-            outs[v] = [replay(kind, a) for a in calls]
+        outs = {v: [run_build(torch, v, lib, kind, a[0].clone(), a) for a in calls]
+                for v, lib in builds.items()}
         its = [int(c[o["it"]]) - int(a[0][o["it"]]) for c, a in zip(outs["change"], calls)]
         row = {"kernel": kind, "calls": len(calls), "iterations": int(sum(its)), "versions": {}}
         for v, carries in outs.items():
@@ -399,22 +424,28 @@ def gn_main(args, torch, cs, bench) -> dict:
                      for c, p in zip(carries, outs.get("parent", outs["change"]))]
             row["versions"][v] = {
                 "same_counters_as_parent": sum(same) / len(same),
+                "bit_equal_to_change": all(torch.equal(c, d)
+                                           for c, d in zip(carries, outs["change"])),
                 "max_dp_vs_parent_m": max(d[0] for d in diffs),
                 "max_da_vs_parent_rad": max(d[1] for d in diffs)}
         first = [i for i, a in enumerate(calls) if int(a[0][o["it"]]) == 0][-1]
         most = max(range(len(calls)), key=lambda i: its[i])
+        shapes = [("first_round", first), ("most_iterations", most)]
+        if key == "figure8":  # the first verification's cascade, stage by stage
+            shapes = [(f"cascade_stage_{k}_inv_{float(calls[k][4]):g}", k)
+                      for k in range(min(NDT_STAGES, len(calls)))]
         row["shapes"] = {}
-        for label, i in (("first_round", first), ("most_iterations", most)):
+        for label, i in shapes:
             call = calls[i]
             ms = {}
-            for v in (v for v in order if v in builds):
-                cuda_build._loaded["gn_loop"] = versions[v]
+            for v in (v for v in (ndt_order if kind == "ndt_gn_rounds" else order)
+                      if v in builds):
                 pool, used = call[0].repeat(64, 1), [0]
 
-                def run(call=call, pool=pool, used=used):
+                def run(call=call, pool=pool, used=used, v=v):
                     carry = pool[used[0]]
                     used[0] += 1
-                    return getattr(gn_loop, kind)(carry, *call[1:])
+                    return run_build(torch, v, builds[v], kind, carry, call)
 
                 ms.setdefault(v, []).append(cs.time_ms(torch, run, 50))
             n = rows_of(cs, kind, call)
@@ -423,12 +454,15 @@ def gn_main(args, torch, cs, bench) -> dict:
                 "rows": n, "iterations": its[i], "ms": ms, "ms_median": med,
                 "ms_per_iteration": {v: t / max(its[i], 1) for v, t in med.items()}}
             if staged:
-                row["shapes"][label]["stage_cycles_per_iteration"] = gn_stage_cycles(
+                row["shapes"][label]["stage_cycles_per_iteration"] = cs.gn_stage_cycles(
                     torch, staged, kind, call)
+                if kind == "ndt_gn_rounds":
+                    row["shapes"][label]["stage_cycles_per_iteration_no_kept_slots"] = \
+                        cs.gn_stage_cycles(torch, staged, kind, call, keep_slots=False)
         log(f"[gn] {key}: {json.dumps(row)}")
         result["paths"][key] = row
     result["edge_cases"] = gn_edge_cases(torch, cs, captured, versions)
-    cuda_build._loaded["gn_loop"] = versions["change"]
+    cuda_build._loaded[("gn_loop", ())] = versions["change"]
     result["empty_launch_ms"] = [cs.time_ms(torch, lambda: torch.cuda._sleep(0), 50)
                                  for _ in range(2)]
     result["sm_clocks_mhz"] = subprocess.run(
@@ -467,16 +501,17 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     logs = cuda_build.build_all(LIBS)
     versions = {"change": {name: cuda_build.library(name) for name in LIBS}}
-    ptxas = {"change": {name: cs.ptxas_report(text) for name, text in logs.items()}}
+    ptxas = {"change": {name: cs.ptxas_report(text) for (name, _), text in logs.items()}}
     if args.parent:
         built = build_variant(os.path.abspath(args.parent), "parent")
         versions["parent"] = {name: load(name, path) for name, (path, _) in built.items()}
         ptxas["parent"] = {name: cs.ptxas_report(text) for name, (_, text) in built.items()}
     staged = None
     if args.stages:
-        built = build_variant(ROOT, "stages", ["-DFLS_STAGE_CLOCKS"])
-        staged = {name: load(name, path) for name, (path, _) in built.items()}
-        ptxas["stages"] = {name: cs.ptxas_report(text) for name, (_, text) in built.items()}
+        flags = ("-DFLS_STAGE_CLOCKS",)
+        built = cuda_build.build_all([], [(name, flags) for name in LIBS])
+        staged = {name: cuda_build.variant(name, flags) for name in LIBS}
+        ptxas["stages"] = {name: cs.ptxas_report(built[(name, flags)]) for name in LIBS}
     log(f"[loops] built in {time.perf_counter() - t0:.1f} s; ptxas {json.dumps(ptxas)}")
 
     t0 = time.perf_counter()
@@ -510,7 +545,7 @@ def main(argv=None) -> dict:
         row = {"kind": kind}
         outs = {}
         for v, libs in versions.items():
-            cuda_build._loaded.update(libs)
+            use_libs(libs)
             outs[v] = flat_output(torch, kind, cargs)
             errs = cs.loop_compare(torch, kind, cargs)
             row[f"{v}_vs_plain"] = {k: errs[k] for k in errs if k not in ("ok", "close")}
@@ -530,14 +565,14 @@ def main(argv=None) -> dict:
             row["valid_slots"] = cs.valid_slots(seg)
         wrapper, bare = {}, {}
         for v in order:
-            cuda_build._loaded.update(versions[v])
+            use_libs(versions[v])
             fn = cs.loop_entry(kind)[0]
             wrapper.setdefault(v, []).append(cs.time_ms(torch, lambda: fn(*cargs), 50))
             bare.setdefault(v, []).append(cs.time_ms(torch, bare_launch(torch, kind, cargs)[0],
                                                      50))
         row["wrapper_ms"], row["bare_ms"] = wrapper, bare
         if staged:
-            cuda_build._loaded.update(staged)
+            use_libs(staged)
             run, out = bare_launch(torch, kind, cargs, CLOCKS)
             run()
             run()
@@ -548,7 +583,7 @@ def main(argv=None) -> dict:
         row["bare_ms_median"] = {v: float(np.median(t)) for v, t in bare.items()}
         log(f"[loops] {name}: {json.dumps(row)}")
         result["cases"][name] = row
-    cuda_build._loaded.update(versions["change"])
+    use_libs(versions["change"])
     floor = [cs.time_ms(torch, lambda: torch.cuda._sleep(0), 50) for _ in range(2)]
     result["empty_launch_ms"] = floor
     result["sm_clocks_mhz"] = subprocess.run(

@@ -81,7 +81,8 @@ def main() -> int:
 
     assert os.path.dirname(os.path.dirname(select.__file__)) == os.path.join(
         root, "funny_lidar_slam_torch"), select.__file__
-    smoke.log(f"[sweep] {root}: {cuda_build.build_all(['fused_select'])['fused_select'].strip()}")
+    built, = cuda_build.build_all(['fused_select']).values()  # keyed by name or (name, ())
+    smoke.log(f"[sweep] {root}: {built.strip()}")
     grid = smoke.grid_select_inputs(torch, np.random.default_rng(7))
     ds = simulate(SimConfig(duration=10.0, points_per_scan=16384, seed=7))
     _, hashed, fitness, counts = smoke.hashed_select_inputs(torch, ds)
