@@ -183,6 +183,19 @@ Phases, each of which raises (non-zero exit) on failure:
      launch under set_sync_debug_mode("error"); timed at the bench shape
      and at each of the cascade's four stages beside its plain version and
      one empty launch, with its bound from the bytes and the operations;
+  23. (run after phase 18, before 19) the LOAM corner selection:
+     corner_mask (csrc/loam_features.cu
+     loam_corners_kernel, the JAX feature extraction up to the corner mask
+     with its lax.scan of 20 masked argmax picks, one launch a scan)
+     against corner_mask_plain, bit for bit, on every call captured in the
+     untimed runs beside phases 7-9, 12a-c and 15a (where a call parts,
+     each parting point with its roughness and the gap to its row's
+     nearest) and on the CPU tests' edge cases (`feature_cases`: the bench,
+     32- and 64-row geometries, short and empty rows, every point masked,
+     tied roughness, wrap-around at 0 and N-1, threshold -2, 1 and 40
+     corners a block); no ptxas spills; the launch under
+     set_sync_debug_mode("error"); timed at the bench's and M2DGR's shapes
+     beside its plain version and one empty launch, with its bound;
 and prints the per-kernel JSON line, the card line and the result line.
 Every path (3b, 4-18) runs with the kernel launch counts zeroed just
 before it and read just after it (phase 18 inside the bench's process,
@@ -192,11 +205,12 @@ one tight_fuse a step under TightCouplingOptimization, one eskf_predict a
 step under TightCouplingKF, none under LooseCoupling (the Turing CLI
 preset); and each GN kernel once a gather round of its driver on the
 paths of its matcher (icp_gn_rounds: ICP; plane_gn_rounds: IVOX, KdTree;
-loam_gn_rounds: LoamFull), never on the others, and ndt_gn_rounds once an
+loam_gn_rounds: LoamFull), never on the others, ndt_gn_rounds once an
 NDT match and once an NDT stage of every loop-closure verification, on
 any path (the mapping phases gate the GN host reads a scan, one a round,
-equal to the gathers a scan, and on NDT to the matches). Imports nothing
-of JAX and nothing of the JAX package.
+equal to the gathers a scan, and on NDT to the matches), and corner_mask
+once a LOAM front-end call (Frontend._process), none on a path without a
+lidar geometry. Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -1065,17 +1079,18 @@ def check_launches(tag, launches, expect_select):
 
 def zero_counts():
     """Every kernel wrapper's launch count set to 0, just before a path,
-    and the GN driver's count of gather rounds."""
-    from funny_lidar_slam_torch.ops import gn_loop, recurrences, select
+    the GN driver's count of gather rounds and the callers' counts."""
+    from funny_lidar_slam_torch.ops import gn_loop, loam_features, recurrences, select
     from funny_lidar_slam_torch.registration import gn
 
     select.fused_select.launches = 0
-    for fn in recurrences.KERNELS + gn_loop.KERNELS:
+    for fn in recurrences.KERNELS + gn_loop.KERNELS + loam_features.KERNELS:
         fn.launches = 0
     for driver in gn.ROUND_DRIVERS.values():
         driver.rounds = 0
     for k in NDT_CALLERS:
         NDT_CALLERS[k] = 0
+    FEATURE_CALLS["process"] = 0
 
 
 # the NDT GN loop's callers since zero_counts: NdtMatcher.match calls and
@@ -1104,8 +1119,29 @@ def count_ndt_callers():
     loop_closure._verify_cascade = counted_cascade
 
 
+# the LOAM front end's calls since zero_counts (Frontend._process: the
+# projection, the feature extraction and the planar filter of one scan)
+FEATURE_CALLS = {"process": 0}
+
+
+def count_feature_calls():
+    """Wraps Frontend._process once for the run, each call counted in
+    FEATURE_CALLS: corner_mask must launch once a call (`feature_launches`)."""
+    from funny_lidar_slam_torch.pipeline.frontend import Frontend
+
+    process = Frontend._process
+
+    def counted(self, *a, **kw):
+        FEATURE_CALLS["process"] += 1
+        return process(self, *a, **kw)
+
+    Frontend._process = counted
+
+
 # path -> launches of the device-loop kernels in it (read just after it)
 LOOP_LAUNCHES: dict = {}
+# path -> corner_mask launches in it (read just after it)
+FEATURE_LAUNCHES: dict = {}
 # path -> GN kernel launches in it, all four kernels (read just after it)
 GN_LAUNCHES: dict = {}
 # path -> {GN kernel: launches}
@@ -1173,7 +1209,22 @@ def loop_launches(tag, stats, frontend) -> dict:
     assert steps > 0, f"[{tag}] no step"
     LOOP_LAUNCHES[tag] = counts
     gn_launches(tag, gn_kernel_of(frontend.matcher))
+    feature_launches(tag, frontend)
     return counts
+
+
+def feature_launches(tag, frontend) -> int:
+    """The LOAM corner kernel's launches of the path just run, recorded and
+    checked: exactly one a LOAM front-end call (FEATURE_CALLS), > 0 on a
+    path with a lidar geometry and none on the others."""
+    from funny_lidar_slam_torch.ops import loam_features
+
+    n, calls = loam_features.corner_mask.launches, FEATURE_CALLS["process"]
+    assert n == calls, f"[{tag}] corner_mask launched {n} times in {calls} LOAM front-end calls"
+    assert (n > 0) == (frontend.cfg.lidar_geometry is not None), \
+        f"[{tag}] corner_mask launched {n} times (lidar geometry: {frontend.cfg.lidar_geometry})"
+    FEATURE_LAUNCHES[tag] = n
+    return n
 
 
 def clone_tree(x):
@@ -1208,6 +1259,11 @@ LOAM_GN_KERNELS = ("plane_gn_rounds", "loam_gn_rounds")
 # outlier_thresh, radius, config, num_probes), and the launches meanwhile
 NDT_CAPTURES: dict = {}
 NDT_CAPTURE_LAUNCHES: dict = {}
+# every key -> [(OrderedScan, FeatureConfig)] of the corner_mask calls (the
+# scan's depth, col, row, mask and row bounds cloned; no points), and the
+# launches meanwhile: only the LOAM paths (FEATURE_PATHS) make any
+FEATURE_CAPTURES: dict = {}
+FEATURE_CAPTURE_LAUNCHES: dict = {}
 
 
 class LoopCapture:
@@ -1226,10 +1282,12 @@ class LoopCapture:
         self.gn_calls = GN_CAPTURES.setdefault(key, [])
         self.loam_calls = LOAM_CAPTURES.setdefault(key, [])
         self.ndt_calls = NDT_CAPTURES.setdefault(key, [])
+        self.feature_calls = FEATURE_CAPTURES.setdefault(key, [])
 
     def __enter__(self):
         from funny_lidar_slam_torch.fusion import eskf
-        from funny_lidar_slam_torch.ops import gn_loop, recurrences
+        from funny_lidar_slam_torch.loam import features
+        from funny_lidar_slam_torch.ops import gn_loop, loam_features, recurrences
         from funny_lidar_slam_torch.pipeline import frontend as fe
         from funny_lidar_slam_torch.registration import gn
 
@@ -1271,10 +1329,20 @@ class LoopCapture:
 
         self.saved.append((gn, "ndt_gn_rounds", "ndt_gn_rounds", ndt_rounds))
         gn.ndt_gn_rounds = ndt_wrapper
+        corners = features.corner_mask
+        self.feature_start = loam_features.corner_mask.launches
+
+        def feature_wrapper(scan, cfg):
+            kept = scan._replace(points=None, rel_time=None)
+            self.feature_calls.append((clone_tree(kept), cfg))
+            return corners(scan, cfg)
+
+        self.saved.append((features, "corner_mask", "corner_mask", corners))
+        features.corner_mask = feature_wrapper
         return self
 
     def __exit__(self, *exc):
-        from funny_lidar_slam_torch.ops import gn_loop, recurrences
+        from funny_lidar_slam_torch.ops import gn_loop, loam_features, recurrences
 
         for mod, attr, _, fn in self.saved:
             setattr(mod, attr, fn)
@@ -1290,6 +1358,9 @@ class LoopCapture:
             counts[k] = counts.get(k, 0) + getattr(gn_loop, k).launches - self.loam_start[k]
         NDT_CAPTURE_LAUNCHES[self.key] = (NDT_CAPTURE_LAUNCHES.get(self.key, 0)
                                           + gn_loop.ndt_gn_rounds.launches - self.ndt_start)
+        FEATURE_CAPTURE_LAUNCHES[self.key] = (FEATURE_CAPTURE_LAUNCHES.get(self.key, 0)
+                                              + loam_features.corner_mask.launches
+                                              - self.feature_start)
 
 
 def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=None,
@@ -3946,6 +4017,240 @@ def phase_ndt_gn(torch, report) -> dict:
             "resources": resources}
 
 
+# ------------------------------------------------ phase 23: LOAM features
+FEATURE_SOURCE = ("funny_lidar_slam_torch/csrc/loam_features.cu",
+                  "funny_lidar_slam_tpu/loam/features.py:133")
+# the capture keys of the paths with a lidar geometry: phases 7-9, 12a-c, 15a
+FEATURE_PATHS = bench.LOAM_MODES + tuple(f"localization {m}" for m in bench.LOAM_MODES) \
+    + ("m2dgr",)
+# the bench's lidar geometry (rows, columns, min and max distance)
+FEATURE_BENCH = (16, 900, 1.5, 50.0)
+# rows of the short-rows case: the points kept of each ring (0: an empty row;
+# fewer than 11: a row without a block; 11-16: blocks of no lane)
+SHORT_ROWS = (0, 1, 5, 10, 11, 12, 16, 17, 18, 23, 29, 30, 60, 200, 0, 400)
+
+
+def _sim_case(points, rel_times, rows, mask=None) -> dict:
+    """Projection inputs of a simulated scan: ring ids from the elevation
+    (the port's synth_rings on the CPU), every point masked in unless
+    `mask` says otherwise."""
+    import torch
+
+    from funny_lidar_slam_torch.loam.projection import synth_rings
+
+    ring = synth_rings(torch.as_tensor(points), rows).numpy()
+    return dict(points=points, ring=ring, rel_times=rel_times,
+                mask=np.ones(len(points), bool) if mask is None else mask)
+
+
+def _wrap_case() -> dict:
+    """A scan with no padding: 16 rows of 64 columns, rows 0-14 full and
+    row 15 at columns 0-8, so packed index N-1 is a real point next to
+    index 0 (columns 8 and 0); depth jumps at both: d[0] = 30 m, d[N-1] =
+    5 m. The wrap-around decides lane 5 of row 0: its roughness reads
+    d[0], and the occlusion seed at N-1 (d[0] - d[N-1] > 0.3) marks 0..5."""
+    rows, cols = 16, 64
+    rc = [(r, c) for r in range(rows) for c in range(cols if r < rows - 1 else 9)]
+    ring = np.array([r for r, _ in rc], np.int32)
+    col = np.array([c for _, c in rc], np.float64)
+    rng = np.random.default_rng(23)
+    d = 10.0 + np.sin(col / 10.0 + ring) + rng.normal(0.0, 0.01, len(rc))
+    d[rng.choice(np.arange(12, len(rc) - 12), 40, replace=False)] += 4.0  # occlusion marks
+    d[0], d[-1] = 30.0, 5.0
+    az = (col - cols // 2) * (2 * np.pi / cols)
+    points = np.stack([d * np.cos(az), d * np.sin(az), np.zeros_like(d)], 1).astype(np.float32)
+    return dict(points=points, ring=ring, rel_times=np.zeros(len(rc), np.float32),
+                mask=np.ones(len(rc), bool))
+
+
+def feature_cases() -> list:
+    """The corner selection's edge cases, the CPU tests' and phase 23's:
+    [(name, geometry (rows, columns, min, max distance), projection inputs
+    {points, ring, rel_times, mask} as numpy, a depth edit (depth, mask) ->
+    depth applied to the projected scan or None, FeatureConfig fields)].
+    Built from the port's simulator (numpy), seed 7."""
+    from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
+
+    ds = simulate(SimConfig(duration=1.0, static_warmup=0.2, points_per_scan=16384, seed=7))
+    scan = ds.scans[-1]
+    pts, rts = scan.points.astype(np.float32), scan.rel_times.astype(np.float32)
+    bench16 = _sim_case(pts, rts, 16)
+    ring = bench16["ring"]
+    keep = np.zeros(len(pts), bool)
+    for r, k in enumerate(SHORT_ROWS):
+        keep[np.flatnonzero(ring == r)[:k]] = True
+    short = _sim_case(pts, rts, 16, keep)
+    quantized = lambda d, m: np.where(m, np.round(d), 0.0).astype(np.float32)  # noqa: E731
+    flat = lambda d, m: np.where(m, 12.5, 0.0).astype(np.float32)  # noqa: E731
+    return [
+        ("bench", FEATURE_BENCH, bench16, None, {}),
+        ("bench max_corners 1", FEATURE_BENCH, bench16, None, {"max_corners_per_block": 1}),
+        ("bench max_corners 40", FEATURE_BENCH, bench16, None, {"max_corners_per_block": 40}),
+        ("bench threshold -2", FEATURE_BENCH, bench16, None, {"corner_threshold": -2.0}),
+        ("32x1800 at 8192 points", (32, 1800, 1.5, 50.0),
+         _sim_case(pts[::2].copy(), rts[::2].copy(), 32), None, {}),
+        ("64x1800", (64, 1800, 1.5, 50.0), _sim_case(pts, rts, 64), None, {}),
+        ("short and empty rows", FEATURE_BENCH, short, None, {}),
+        ("short and empty rows threshold -2", FEATURE_BENCH, short, None,
+         {"corner_threshold": -2.0}),
+        ("all masked", FEATURE_BENCH, dict(bench16, mask=np.zeros(len(pts), bool)), None, {}),
+        ("equal depths", FEATURE_BENCH, bench16, flat, {"corner_threshold": -0.5}),
+        ("quantized depths", FEATURE_BENCH, bench16, quantized, {}),
+        ("wrap-around at 0 and N-1", (16, 64, 1.5, 50.0), _wrap_case(), None, {}),
+    ]
+
+
+def feature_edge_cases(torch, device="cuda") -> list:
+    """`feature_cases` projected by the port on `device`: [(name, OrderedScan,
+    FeatureConfig)]."""
+    from funny_lidar_slam_torch.loam.features import FeatureConfig
+    from funny_lidar_slam_torch.loam.projection import LidarGeometry, project
+
+    out = []
+    for name, (rows, cols, lo, hi), inp, edit, cfg in feature_cases():
+        geom = LidarGeometry(rows, cols, 2 * np.pi / cols, lo, hi)
+        t = {k: torch.as_tensor(v, device=device) for k, v in inp.items()}
+        scan = project(t["points"], t["ring"], t["rel_times"], t["mask"], geom)
+        if edit is not None:
+            depth = edit(scan.depth.cpu().numpy(), scan.mask.cpu().numpy())
+            scan = scan._replace(depth=torch.as_tensor(depth, device=device))
+        out.append((name, scan, FeatureConfig(**cfg)))
+    return out
+
+
+def feature_parity(torch, scan, cfg, label) -> dict:
+    """The kernel's corner mask (`corner_mask`) against corner_mask_plain on
+    the same tensors, bit for bit. Where they part, logs each parting point
+    (which side picked it, its roughness and the gap to the nearest other
+    roughness of its row). Returns {equal, corners, parted}."""
+    from funny_lidar_slam_torch.loam import features
+    from funny_lidar_slam_torch.ops import loam_features
+
+    k = loam_features.corner_mask(scan, cfg)
+    p = features.corner_mask_plain(scan, cfg)
+    parted = torch.nonzero(k != p).flatten().tolist()
+    if parted:
+        rough = features.compute_roughness(scan).cpu().numpy()
+        rs, re_ = scan.row_start.cpu().numpy(), scan.row_end.cpu().numpy()
+        row, kk = scan.row.cpu().numpy(), k.cpu().numpy()
+        for i in parted[:20]:
+            others = np.delete(rough[rs[row[i]]:re_[row[i]]], i - rs[row[i]]) \
+                if rs[row[i]] <= i < re_[row[i]] else rough[[]]
+            gap = float(np.min(np.abs(others - rough[i]))) if len(others) else None
+            log(f"[loam-features] {label}: point {i} (row {row[i]}) picked by the "
+                f"{'kernel' if kk[i] else 'plain version'} only; roughness {float(rough[i])!r}, "
+                f"gap to its row's nearest {gap!r}")
+    return {"equal": not parted, "corners": int(p.sum()), "parted": len(parted),
+            "max_abs_err": float(bool(parted))}
+
+
+def feature_timing(torch, scan, cfg, label) -> dict:
+    """The wrapper (`corner_mask`: the output's fill and the launch), the
+    bare launch into a zeroed output, the plain version and one empty
+    launch (torch.cuda._sleep(0)), each the median device ms of one call
+    (`time_ms`), in turns; with the bound: depth, col, row (4 B a point)
+    and the mask (1 B) read once, the row bounds (8 B a row) and the corner
+    mask (1 B a point) written once, at 3.35 TB/s."""
+    from funny_lidar_slam_torch.loam import features
+    from funny_lidar_slam_torch.ops import cuda_build, loam_features
+
+    n, rows = scan.depth.shape[0], scan.row_start.shape[0]
+    tensors = loam_features._checked(scan, cfg)
+    out = torch.zeros(n, dtype=torch.bool, device=scan.depth.device)
+    launch = cuda_build.library("loam_features").loam_corners_launch
+    args = (*(t.data_ptr() for t in tensors), out.data_ptr(), n, rows, cfg.blocks_per_row,
+            loam_features.lanes(n, rows, cfg.blocks_per_row), cfg.max_corners_per_block,
+            cfg.occlusion_col_diff, cfg.occlusion_depth_jump, cfg.parallel_ratio,
+            cfg.corner_threshold, torch.cuda.current_stream().cuda_stream)
+    calls = {"kernel": lambda: loam_features.corner_mask(scan, cfg),
+             "launch": lambda: launch(*args),
+             "plain": lambda: features.corner_mask_plain(scan, cfg),
+             "floor": lambda: torch.cuda._sleep(0)}
+    turns = in_turns(lambda fn: time_ms(torch, fn, 20), calls,
+                     ["kernel", "launch", "plain", "floor", "floor", "plain", "launch", "kernel"])
+    nbytes = n * (4 + 4 + 4 + 1) + rows * 8 + n
+    res = {"points": n, "rows": rows, "lanes": loam_features.lanes(n, rows, cfg.blocks_per_row),
+           "ms": float(np.median(turns["kernel"])), "launch_ms": float(np.median(turns["launch"])),
+           "plain_ms": float(np.median(turns["plain"])),
+           "floor_ms": float(np.median(turns["floor"])), "turns": turns, "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "vs_plain": versus(turns["kernel"], turns["plain"])}
+    log(f"[loam-features] {label}: " + json.dumps(res))
+    return res
+
+
+def phase_loam_features(torch, report) -> dict:
+    """Phase 23: the LOAM corner selection (csrc/loam_features.cu
+    `loam_corners_kernel`, wrapper ops/loam_features.py::corner_mask) against
+    corner_mask_plain, bit for bit, on every call captured in the untimed
+    runs beside phases 7-9, 12a-c and 15a (FEATURE_PATHS; every other
+    capture holds none) and on `feature_edge_cases`; the launches while
+    capturing equal to the calls captured; the launches of every path (one
+    a LOAM front-end call, `feature_launches`); no ptxas spills; the launch
+    under set_sync_debug_mode("error"); timed at the bench shape (phase 7's
+    last call) and M2DGR's (15a's last) beside its plain version and one
+    empty launch, with its bound. Returns the JSON entry."""
+    from funny_lidar_slam_torch.ops import loam_features
+
+    t_phase = time.perf_counter()
+    resources = report.get("loam_features", {}).get("loam_corners_kernel")
+    assert resources and resources["registers"], f"[loam-features] ptxas report {resources}"
+    assert resources["spill_stores"] == 0 and resources["spill_loads"] == 0, \
+        f"[loam-features] loam_corners_kernel spills: {resources}"
+    kernel = loam_features.corner_mask
+    saved = kernel.launches  # comparisons do not count
+    by_key, rows_all = {}, []
+    for key, calls in FEATURE_CAPTURES.items():
+        launched = FEATURE_CAPTURE_LAUNCHES.get(key, 0)
+        assert launched == len(calls), f"[loam-features] {key}: {len(calls)} calls captured, " \
+            f"{launched} launched"
+        assert bool(calls) == (key in FEATURE_PATHS), \
+            f"[loam-features] {key}: {len(calls)} calls captured"
+        if not calls:
+            continue
+        rows = [feature_parity(torch, scan, cfg, f"{key} call {i}")
+                for i, (scan, cfg) in enumerate(calls)]
+        rows_all += rows
+        parted = [i for i, r in enumerate(rows) if not r["equal"]]
+        scan = calls[-1][0]
+        by_key[key] = {"calls": len(rows), "points": scan.depth.shape[0],
+                       "masked_in": int(scan.mask.sum()),
+                       "corners_per_call": float(np.mean([r["corners"] for r in rows]))}
+        log(f"[loam-features] {key}: " + json.dumps(by_key[key]))
+        assert not parted, f"[loam-features] {key}: calls {parted[:10]} part from the plain version"
+    assert set(by_key) == set(FEATURE_PATHS), f"[loam-features] captured {sorted(by_key)}"
+    edge = {}
+    for name, scan, cfg in feature_edge_cases(torch):
+        edge[name] = feature_parity(torch, scan, cfg, f"edge case {name}")
+        assert edge[name]["equal"], f"[loam-features] edge case {name}: {edge[name]}"
+    assert edge["all masked"]["corners"] == 0 and edge["bench"]["corners"] > 0, edge
+    log(f"[loam-features] {len(edge)} edge cases bit-equal: {json.dumps(edge)}")
+    scan, cfg = FEATURE_CAPTURES[bench.LOAM_MODES[0]][-1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernel(scan, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[loam-features] corner_mask ran under set_sync_debug_mode('error')")
+    shapes = {"bench": feature_timing(torch, scan, cfg, "bench (phase 7's last call)"),
+              "m2dgr": feature_timing(torch, *FEATURE_CAPTURES["m2dgr"][-1],
+                                      "M2DGR (15a's last call)")}
+    kernel.launches = saved
+    log(f"[loam-features] phase 23 took {time.perf_counter() - t_phase:.1f} s")
+    head = shapes["bench"]
+    by_path = {p: n for p, n in FEATURE_LAUNCHES.items() if n}
+    return {"name": "loam_corners", "route": "cuda", "source": FEATURE_SOURCE[0],
+            "replaces": FEATURE_SOURCE[1], "launches": sum(by_path.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows_all + list(edge.values())),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
+                                    "launch_ms")},
+            "library_ms": None, "shapes": shapes, "launches_by_path": by_path,
+            "calls_compared": len(rows_all), "by_path": by_key, "edge_cases": edge,
+            "resources": resources}
+
+
 def main() -> int:
     import torch
 
@@ -3955,6 +4260,7 @@ def main() -> int:
 
     report = phase_build()
     count_ndt_callers()
+    count_feature_calls()
     entry = phase_kernels(torch)
     from funny_lidar_slam_torch.ops import select
 
@@ -3992,6 +4298,7 @@ def main() -> int:
     by_path["profile_frontend"], paths["profile_frontend"] = phase_profile_frontend(torch)
     log(f"[phase17] took {time.perf_counter() - t:.1f} s")
     by_path["bench_headline"], paths["bench_headline"] = phase_bench(torch)
+    feature_entry = phase_loam_features(torch, report)  # phase 23: 7-9, 12a-c and 15a's captures
     loop_entries = phase_device_loops(torch, report)
     gn_entry = phase_gn_loop(torch, report)
     loam_gn_entries = phase_loam_gn(torch, report)
@@ -4026,7 +4333,7 @@ def main() -> int:
                  paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
     print(json.dumps({"kernels": [entry] + probe_entries + loop_entries + [gn_entry]
-                      + loam_gn_entries + [ndt_gn_entry]}))
+                      + loam_gn_entries + [ndt_gn_entry, feature_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

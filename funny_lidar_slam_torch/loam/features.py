@@ -12,7 +12,9 @@
     package does not use `planar_threshold`, and neither does the port.
 
 The corner suppression masks a flat +-5 window inside the block, as the
-JAX package does.
+JAX package does. Everything up to the corner mask is one kernel on CUDA
+tensors (`ops/loam_features.py::corner_mask`, csrc/loam_features.cu) and
+`corner_mask_plain` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.cloud import Cloud
+from ..ops.loam_features import corner_mask
 from .projection import OrderedScan
 
 
@@ -70,8 +73,12 @@ def mark_valid(scan: OrderedScan, cfg: FeatureConfig) -> torch.Tensor:
     return scan.mask & ~kill & ~parallel
 
 
-def extract_features(scan: OrderedScan, cfg: FeatureConfig):
-    """Returns (corner Cloud, planar Cloud)."""
+def corner_mask_plain(scan: OrderedScan, cfg: FeatureConfig) -> torch.Tensor:
+    """The corner mask bool [N] of the packed scan: roughness, the valid
+    marks, the row guard, the block lattice and the greedy picks, scattered
+    back to packed indices and ANDed with the scan's mask. The plain
+    version of csrc/loam_features.cu's kernel (`ops/loam_features.py::
+    corner_mask` takes it for CPU tensors)."""
     n = scan.depth.shape[0]
     r_rows = scan.row_start.shape[0]
     nb = cfg.blocks_per_row
@@ -118,10 +125,14 @@ def extract_features(scan: OrderedScan, cfg: FeatureConfig):
     # True, so repeated indices cannot race); the rest go to a spare slot
     corner_mask = torch.zeros(n + 1, dtype=torch.bool, device=dev)
     corner_mask[torch.where(corners, gidx_safe, n)] = True
-    corner_mask = corner_mask[:n] & scan.mask
+    return corner_mask[:n] & scan.mask
 
-    planar_mask = scan.mask & ~corner_mask
-    return (_compact(scan.points, corner_mask, cfg.corner_capacity),
+
+def extract_features(scan: OrderedScan, cfg: FeatureConfig):
+    """Returns (corner Cloud, planar Cloud)."""
+    corners = corner_mask(scan, cfg)
+    planar_mask = scan.mask & ~corners
+    return (_compact(scan.points, corners, cfg.corner_capacity),
             _compact(scan.points, planar_mask, cfg.planar_capacity))
 
 

@@ -52,6 +52,9 @@ SIGNATURES = {
         "gn_cluster_blocks": ([_I, _I], _I),
         "gn_rank_rows": ([_I] * 3, _I),
     },
+    "loam_features": {
+        "loam_corners_launch": ([_P] * 7 + [_I] * 6 + [_F] * 3 + [_P], _I),
+    },
 }
 
 _loaded: dict = {}  # {(name, defines): the loaded library}

@@ -20,7 +20,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 for tool in ("profile_torch_frontend", "profile_torch_mapping", "profile_torch_gn",
-             "profile_torch_loops", "profile_torch_gn_gates"):
+             "profile_torch_loops", "profile_torch_gn_gates", "profile_torch_loam_frontend"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
     names.append(tool)
