@@ -161,11 +161,13 @@ Phases, each of which raises (non-zero exit) on failure:
      to the plain version with float64 sums, the kernel's one deviation);
      each kernel one thread block cluster of R >= 8 blocks (R and the rows
      per rank, from the launcher's split, printed), two launches on every
-     captured first round bit-equal; synthetic edge cases (a starved set,
-     every lane invalid, tied lanes, max_iters 2, M 12, N 100, N 5,003, 60
-     corner + 40 planar rows, more corner than planar rows, no corner rows;
-     a rank-deficient N 100 held to its counters and each iteration from
-     the same pose); the any-M kernels
+     captured first round bit-equal; synthetic edge cases (every lane
+     invalid, tied lanes, max_iters 2, M 12, N 100, N 5,003, 60 corner + 40
+     planar rows, more corner than planar rows, no corner rows; a
+     rank-deficient N 100 held to its counters and each iteration from the
+     same pose; a starved set, which only the stall test ends, held to its
+     status and each iteration, its stall test included, from the same pose
+     and step norms); the any-M kernels
      bit-equal on misaligned planes; both under set_sync_debug_mode("error"); no ptxas
      spills in any GN kernel; each timed at IVOX's and LoamFull's first
      round beside its plain version and one empty launch, with its bound;
@@ -186,7 +188,9 @@ Phases, each of which raises (non-zero exit) on failure:
   23. (run after phase 18, before 19) the LOAM corner selection:
      corner_mask (csrc/loam_features.cu
      loam_corners_kernel, the JAX feature extraction up to the corner mask
-     with its lax.scan of 20 masked argmax picks, one launch a scan)
+     with its lax.scan of 20 masked argmax picks, one launch a scan: a
+     block an angular block, its window staged in shared memory, a thread
+     a lane, the picks as two warp reductions a pick)
      against corner_mask_plain, bit for bit, on every call captured in the
      untimed runs beside phases 7-9, 12a-c and 15a (where a call parts,
      each parting point with its roughness and the gap to its row's
@@ -3362,7 +3366,27 @@ LOAM_RANK_DEFICIENT = "plane_gn_rounds N 100 over the set"
 RANK_DEFICIENT_STEP_TOL = (0.05, float("inf"))
 
 
-def stepwise_compare(torch, args, r, kind, tol=GN_POSE_TOL) -> dict:
+# the starved edge cases (min_valid above the rows): only the stall test can
+# end such a call, and it compares successive step norms with stall_eps, so
+# the iteration it ends on, and with it the pose, is decided by rounding
+# once the norms drift within a few ulps of stall_eps: the kernel and both
+# plain runs (float32 and float64 sums) can end tens of iterations apart
+# (PERF.md, section 6). So the whole call is held to its status and a
+# finite pose, and each iteration, from the pose and step norms the
+# kernel's previous one left, to one plain iteration (`stepwise_compare`
+# with `stall`): pose, num_valid and total_res within phase 20's
+# tolerances, the step norms within STALL_NORM_TOL, every stall decision
+# the plain step's except where the plain step's |rn - last_rot| or |pn -
+# last_pos| lies within STALL_NORM_TOL of stall_eps, the chain bit-equal to
+# the whole call, and its first stall on the call's last iteration
+# (`starved_compare`)
+LOAM_STARVED = ("plane_gn_rounds starved", "loam_gn_rounds starved")
+# rad and m: ~30x the largest step-norm difference seen over 8,881 starved
+# steps (PERF.md, section 6), 1 % of stall_eps (1e-4)
+STALL_NORM_TOL = 1e-6
+
+
+def stepwise_compare(torch, args, r, kind, tol=GN_POSE_TOL, stall=False) -> dict:
     """A GN kernel's call on `args` (`r`: its `gn_compare`) taken one
     iteration at a time: from the carry's pose and then from the pose each
     one-iteration kernel call (max_iters 1) leaves, one kernel iteration
@@ -3370,15 +3394,37 @@ def stepwise_compare(torch, args, r, kind, tol=GN_POSE_TOL) -> dict:
     residual-sum differences (relative) and pose difference, whether the
     chain of the call's iterations ends on its pose bit for bit (a step
     depends on the pose alone), and whether the steps are held: within 1 %,
-    1e-3 and `tol` (m, rad), the chain bit-equal."""
+    1e-3 and `tol` (m, rad), the chain bit-equal.
+
+    With `stall`, each step also starts from the step norms (last_rot,
+    last_pos) that the kernel's last exact step left, so that its stall
+    test decides as the whole call's iteration did. A step is exact, as in
+    the loop, where it is the call's first (its gather) or the pose it
+    starts from lies inside the trust region of the call's first pose
+    (`trust_region_moved`); only exact steps test for a stall and leave
+    their norms. On exact steps the kernel's and the plain step's norms
+    (`norm_diff`, held to STALL_NORM_TOL) and stall decisions are compared:
+    a decision may part (`decisions_parted`) only where the plain step's
+    |rn - last_rot| or |pn - last_pos| lies within STALL_NORM_TOL of
+    stall_eps, where one rounding can flip it (`decisions_off_band` counts
+    the others, and must be 0). The chain's first stall (`first_stall`)
+    must fall on the call's last iteration where the call ended on the
+    stall test, and nowhere where it did not."""
     from funny_lidar_slam_torch.ops import gn_loop
 
     kernel, plain = getattr(gn_loop, kind), getattr(gn_loop, f"{kind}_plain")
     one = gn_with_cfg(args, max_iters=1)
-    at = slice(gn_loop.OFFSET["t_mat"], gn_loop.OFFSET["t_mat"] + 16)
+    o = gn_loop.OFFSET
+    at = slice(o["t_mat"], o["t_mat"] + 16)
+    norms = slice(o["last_rot"], o["last_pos"] + 1)
     carry = args[0].clone()
     worst = {"nv_rel": 0.0, "res_rel": 0.0, "dp": 0.0, "da": 0.0}
-    for _ in range(r["iterations"]):
+    norm_diff, parted, off_band, first_stall = [0.0, 0.0], 0, 0, None
+    radius, cfg = args[1 + GN_SETS[kind]], args[2 + GN_SETS[kind]]
+    t_gather = gn_loop.result_views(args[0]).t_mat.clone()
+    for k in range(r["iterations"]):
+        exact = k == 0 or cfg.skip_regather_dist <= 0.0 or not bool(gn_loop.trust_region_moved(
+            gn_loop.result_views(carry).t_mat, t_gather, radius, cfg.skip_regather_dist))
         ck, cp = carry.clone(), carry.clone()
         kernel(ck, *one[1:])
         plain(cp, *one[1:])
@@ -3388,11 +3434,42 @@ def stepwise_compare(torch, args, r, kind, tol=GN_POSE_TOL) -> dict:
                 "res_rel": abs(float(vk.total_res) - float(vp.total_res))
                 / max(abs(float(vp.total_res)), 1e-30), "dp": dp, "da": da}
         worst = {k: v if step[k] <= v else step[k] for k, v in worst.items()}  # NaN stays
+        if stall and exact:
+            last, pk, pp = (c.view(torch.float32)[norms].double() for c in (carry, ck, cp))
+            rot_pos = (pk - pp).abs().tolist()
+            norm_diff = [v if d <= v else d for v, d in zip(norm_diff, rot_pos)]  # NaN stays
+            stop_k, stop_p = bool(ck[o["done"]]), bool(cp[o["done"]])
+            if stop_k != stop_p:  # excused only where the plain step's test is on its edge
+                parted += 1
+                edge = ((pp - last).abs() - cfg.stall_eps).abs() <= STALL_NORM_TOL
+                off_band += not (cfg.use_stall_check and bool(edge.any()))
+            if stop_k and first_stall is None:
+                first_stall = k + 1
+            carry[norms] = ck[norms]
         carry[at] = ck[at]
     chain = torch.equal(gn_loop.result_views(carry).t_mat, r["t_k"])
     held = (chain and worst["nv_rel"] <= 0.01 and worst["res_rel"] < 1e-3
             and worst["dp"] < tol[0] and worst["da"] < tol[1])
-    return {**worst, "steps": r["iterations"], "chain_bit_equal": chain, "held": held}
+    out = {**worst, "steps": r["iterations"], "chain_bit_equal": chain, "held": held}
+    if stall:
+        # the call ended on its stall test: done and not converged
+        c = r["carry_k"]  # it, gathers, since, force, done, converged, ...
+        on_stall = bool(c[4]) and not c[5]
+        ends = first_stall == (r["iterations"] if on_stall else None)
+        out.update(norm_diff=norm_diff, decisions_parted=parted, decisions_off_band=off_band,
+                   first_stall=first_stall, ended_on_stall=on_stall, stall_end_held=ends)
+        out["held"] = (held and ends and off_band == 0
+                       and norm_diff[0] <= STALL_NORM_TOL and norm_diff[1] <= STALL_NORM_TOL)
+    return out
+
+
+def starved_compare(torch, args, r, kind) -> dict:
+    """LOAM_STARVED's gate on a call (`r`: its `gn_compare`): the kernel's
+    status the plain version's (or its float64-sums run's), a finite pose,
+    and `stepwise_compare` with `stall` held."""
+    step = stepwise_compare(torch, args, r, kind, stall=True)
+    status = r["status"][0] in (r["status"][1], r.get("counters64", [None])[0])
+    return {**step, "status_held": status, "held": step["held"] and status and r["finite"]}
 
 
 def loam_edge_cases(torch, plane_args, loam_args) -> list:
@@ -3497,7 +3574,12 @@ def phase_loam_gn(torch, report) -> list:
     pose, and each iteration, from the pose the kernel's previous one left,
     to one plain iteration: num_valid within 1 %, total_res within 1e-3
     relative, the pose within 0.05 m, and the chain of one-iteration calls
-    on the whole call's pose bit for bit), the LoamFull
+    on the whole call's pose bit for bit; LOAM_STARVED, held to its status
+    and a finite pose, and each iteration as LOAM_RANK_DEFICIENT's, with
+    phase 20's pose tolerance, from the step norms the kernel's previous one
+    left too, its stall test's norms within STALL_NORM_TOL, its stall
+    decisions the plain step's off the test's edge, and the chain's first
+    stall on the call's last iteration), the LoamFull
     kernel with no corner rows bit-equal to the plane kernel, the
     any-M kernels bit-equal to the M = 16 ones on misaligned planes, each
     wrapper under set_sync_debug_mode("error"), no ptxas spills in any GN
@@ -3563,12 +3645,15 @@ def phase_loam_gn(torch, report) -> list:
         r = gn_compare(torch, args, kind)
         edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel", "res_rel",
                                         "same", "close", "dp64", "da64", "stepwise") if k in r}
-        held = r["close"]
+        held, same = r["close"], r["same"]
         if name == LOAM_RANK_DEFICIENT:  # each step held, the whole call to its counters
             edge[name]["stepwise"] = stepwise_compare(torch, args, r, kind,
                                                       RANK_DEFICIENT_STEP_TOL)
             held = edge[name]["stepwise"]["held"]
-        assert r["same"] and held and r["finite"], f"[loam-gn] edge case {name}: {edge[name]}"
+        elif name in LOAM_STARVED:  # each step and its stall test held, the call to its status
+            edge[name]["stepwise"] = starved_compare(torch, args, r, kind)
+            held = same = edge[name]["stepwise"]["held"]
+        assert same and held and r["finite"], f"[loam-gn] edge case {name}: {edge[name]}"
     # no corner rows: the LoamFull kernel gives the plane kernel's carry bit for bit
     _, kind, args = loam_edge_cases(torch, plane_args, loam_args)[-1]
     ca, cb = args[0].clone(), args[0].clone()
@@ -4064,7 +4149,9 @@ def _wrap_case() -> dict:
 
 
 def feature_cases() -> list:
-    """The corner selection's edge cases, the CPU tests' and phase 23's:
+    """The corner selection's edge cases, the CPU tests' and phase 23's
+    (every variant of the kernel: 8 and 16 keys a lane in registers, keys
+    in shared memory above 512 lanes):
     [(name, geometry (rows, columns, min, max distance), projection inputs
     {points, ring, rel_times, mask} as numpy, a depth edit (depth, mask) ->
     depth applied to the projected scan or None, FeatureConfig fields)].
@@ -4074,6 +4161,8 @@ def feature_cases() -> list:
     ds = simulate(SimConfig(duration=1.0, static_warmup=0.2, points_per_scan=16384, seed=7))
     scan = ds.scans[-1]
     pts, rts = scan.points.astype(np.float32), scan.rel_times.astype(np.float32)
+    wide = simulate(SimConfig(duration=1.0, static_warmup=0.2, points_per_scan=57600,
+                              seed=7)).scans[-1]
     bench16 = _sim_case(pts, rts, 16)
     ring = bench16["ring"]
     keep = np.zeros(len(pts), bool)
@@ -4097,6 +4186,10 @@ def feature_cases() -> list:
         ("equal depths", FEATURE_BENCH, bench16, flat, {"corner_threshold": -0.5}),
         ("quantized depths", FEATURE_BENCH, bench16, quantized, {}),
         ("wrap-around at 0 and N-1", (16, 64, 1.5, 50.0), _wrap_case(), None, {}),
+        # 602 lanes a block: the kernel keeps the picks' keys in shared memory
+        ("16x900 at 57600 points", FEATURE_BENCH,
+         _sim_case(wide.points.astype(np.float32), wide.rel_times.astype(np.float32), 16),
+         None, {}),
     ]
 
 
@@ -4144,30 +4237,38 @@ def feature_parity(torch, scan, cfg, label) -> dict:
             "max_abs_err": float(bool(parted))}
 
 
-def feature_timing(torch, scan, cfg, label) -> dict:
+def feature_timing(torch, scan, cfg, label, builds=None) -> dict:
     """The wrapper (`corner_mask`: the output's fill and the launch), the
     bare launch into a zeroed output, the plain version and one empty
     launch (torch.cuda._sleep(0)), each the median device ms of one call
     (`time_ms`), in turns; with the bound: depth, col, row (4 B a point)
     and the mask (1 B) read once, the row bounds (8 B a row) and the corner
-    mask (1 B a point) written once, at 3.35 TB/s."""
+    mask (1 B a point) written once, at 3.35 TB/s. `builds` ({name: a
+    library with loam_corners_launch}: another build of the kernel) adds
+    each build's bare launch to the same turns (`{name}_ms`, and `vs_{name}`:
+    this build's launch against it)."""
     from funny_lidar_slam_torch.loam import features
     from funny_lidar_slam_torch.ops import cuda_build, loam_features
 
     n, rows = scan.depth.shape[0], scan.row_start.shape[0]
     tensors = loam_features._checked(scan, cfg)
     out = torch.zeros(n, dtype=torch.bool, device=scan.depth.device)
-    launch = cuda_build.library("loam_features").loam_corners_launch
     args = (*(t.data_ptr() for t in tensors), out.data_ptr(), n, rows, cfg.blocks_per_row,
             loam_features.lanes(n, rows, cfg.blocks_per_row), cfg.max_corners_per_block,
             cfg.occlusion_col_diff, cfg.occlusion_depth_jump, cfg.parallel_ratio,
             cfg.corner_threshold, torch.cuda.current_stream().cuda_stream)
+
+    def bare(lib):
+        return lambda: lib.loam_corners_launch(*args)
+
+    others = dict(builds or {})
     calls = {"kernel": lambda: loam_features.corner_mask(scan, cfg),
-             "launch": lambda: launch(*args),
+             "launch": bare(cuda_build.library("loam_features")),
+             **{name: bare(lib) for name, lib in others.items()},
              "plain": lambda: features.corner_mask_plain(scan, cfg),
              "floor": lambda: torch.cuda._sleep(0)}
-    turns = in_turns(lambda fn: time_ms(torch, fn, 20), calls,
-                     ["kernel", "launch", "plain", "floor", "floor", "plain", "launch", "kernel"])
+    order = ["kernel", "launch", *others, "plain", "floor"]
+    turns = in_turns(lambda fn: time_ms(torch, fn, 20), calls, order + order[::-1])
     nbytes = n * (4 + 4 + 4 + 1) + rows * 8 + n
     res = {"points": n, "rows": rows, "lanes": loam_features.lanes(n, rows, cfg.blocks_per_row),
            "ms": float(np.median(turns["kernel"])), "launch_ms": float(np.median(turns["launch"])),
@@ -4175,6 +4276,9 @@ def feature_timing(torch, scan, cfg, label) -> dict:
            "floor_ms": float(np.median(turns["floor"])), "turns": turns, "bytes": nbytes,
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
            "vs_plain": versus(turns["kernel"], turns["plain"])}
+    for name in others:
+        res[f"{name}_ms"] = float(np.median(turns[name]))
+        res[f"vs_{name}"] = versus(turns["launch"], turns[name])
     log(f"[loam-features] {label}: " + json.dumps(res))
     return res
 
@@ -4193,10 +4297,14 @@ def phase_loam_features(torch, report) -> dict:
     from funny_lidar_slam_torch.ops import loam_features
 
     t_phase = time.perf_counter()
-    resources = report.get("loam_features", {}).get("loam_corners_kernel")
-    assert resources and resources["registers"], f"[loam-features] ptxas report {resources}"
-    assert resources["spill_stores"] == 0 and resources["spill_loads"] == 0, \
-        f"[loam-features] loam_corners_kernel spills: {resources}"
+    resources = {k: v for k, v in report.get("loam_features", {}).items()
+                 if k.startswith("loam_corners_kernel")}
+    assert sorted(resources) == [f"loam_corners_kernel<{k}>" for k in (0, 16, 8)], \
+        f"[loam-features] ptxas report {resources}"
+    for name, res in resources.items():
+        assert res["registers"] and res["spill_stores"] == 0 and res["spill_loads"] == 0, \
+            f"[loam-features] {name} spills: {res}"
+    log(f"[loam-features] ptxas {json.dumps(resources)}")
     kernel = loam_features.corner_mask
     saved = kernel.launches  # comparisons do not count
     by_key, rows_all = {}, []

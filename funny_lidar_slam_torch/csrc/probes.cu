@@ -12,8 +12,11 @@
 //                     stores, so a warp pays one row round trip after the index
 //   row_gather_vector out[i,c] = tab[idx[i],c]          one thread per element
 //                     (the elementwise form of jnp.take)
-//   lane_gather       out[b,j] = x[b, idx[b,j]]         one block per row b
-//                     stages x[b,:] in shared memory with coalesced loads
+//   lane_gather       out[b,j] = x[b, idx[b,j]]         the B*J outputs taken
+//                     flat, four a thread: one 16-byte load of their indices,
+//                     four direct reads of x (__ldg, nothing staged: each read
+//                     is one of the values the output needs), one 16-byte
+//                     store; spread over at least as many blocks as SMs
 //   dma_rows          out[i] = tab[idx[i]]              a ring of up to 8 row
 //                     slots in shared memory per one-warp block, one mbarrier a
 //                     slot. Lane s owns slot s: it starts a 1-D bulk async copy
@@ -32,13 +35,16 @@
 // and do no arithmetic to speak of; at the probe shapes they are a few
 // microseconds of bytes, so launch latency dominates their times. That is
 // why the two row gathers spread their rows over at least as many warps as
-// the card has SMs and keep each warp's loads in flight together.
+// the card has SMs and keep each warp's loads in flight together, and the
+// lane gather its outputs over at least as many blocks as SMs, a thread's
+// four reads of x in flight together.
 //
 // Built by funny_lidar_slam_torch/ops/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
 #include <cuda_runtime.h>
 #include <algorithm>
+#include <climits>
 #include <cstdint>
 
 #include "async_copy.cuh"
@@ -111,17 +117,32 @@ row_gather_vector_kernel(const float* __restrict__ tab, const int* __restrict__ 
   out[e] = __ldg(tab + static_cast<size_t>(clamp_index(__ldg(idx + i), c)) * d + col);
 }
 
+// Thread t < n4 takes outputs 4t..4t+3 of the flat [B*J] output (idx and
+// out 16-byte aligned), thread n4 + u the single output 4 n4 + u; the row
+// of output e is e / J, so a ragged J needs no padding.
 __global__ void __launch_bounds__(kThreads)
 lane_gather_kernel(const float* __restrict__ x, const int* __restrict__ idx,
-                   float* __restrict__ out, int d, int j) {
-  extern __shared__ float s_x[];  // one row of x, d floats
-  const int b = blockIdx.x;
-  const float* xr = x + static_cast<size_t>(b) * d;
-  for (int k = threadIdx.x; k < d; k += blockDim.x) s_x[k] = xr[k];
-  __syncthreads();
-  const int* ir = idx + static_cast<size_t>(b) * j;
-  float* orow = out + static_cast<size_t>(b) * j;
-  for (int k = threadIdx.x; k < j; k += blockDim.x) orow[k] = s_x[clamp_index(ir[k], d)];
+                   float* __restrict__ out, int d, int j, int n4, int total) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n4) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(idx) + t);
+    int b = (4 * t) / j, c = 4 * t - b * j;  // the row and column of output 4t
+    const int k[4] = {q.x, q.y, q.z, q.w};
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      v[u] = __ldg(x + static_cast<size_t>(b) * d + clamp_index(k[u], d));
+      if (++c == j) {
+        c = 0;
+        ++b;
+      }
+    }
+    reinterpret_cast<float4*>(out)[t] = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    const int e = 4 * n4 + (t - n4);
+    if (e < total)
+      out[e] = __ldg(x + static_cast<size_t>(e / j) * d + clamp_index(__ldg(idx + e), d));
+  }
 }
 
 // One warp per block; block k gathers its even share [lo, hi) of the rows,
@@ -217,10 +238,23 @@ extern "C" int probe_row_gather_vector_launch(const void* tab, const void* idx, 
 extern "C" int probe_lane_gather_launch(const void* x, const void* idx, void* out, int b, int d,
                                         int j, void* stream) {
   if (b <= 0 || j <= 0) return 0;
-  if (d <= 0 || d > 12288) return static_cast<int>(cudaErrorInvalidValue);  // 48 KB of row
-  lane_gather_kernel<<<b, kThreads, static_cast<size_t>(d) * 4,
+  if (d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(b) * j;
+  if (total > INT_MAX / 2) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // four outputs a thread where idx and out allow 16-byte accesses
+  const int n4 = aligned16(idx) && aligned16(out) ? static_cast<int>(total / 4) : 0;
+  const int threads = n4 + static_cast<int>(total - 4LL * n4);
+  // the widest block (a multiple of a warp, at most kThreads) that still
+  // gives every SM a block
+  const int block = std::max(32, std::min(kThreads, threads / std::max(sms, 1) / 32 * 32));
+  lane_gather_kernel<<<(threads + block - 1) / block, block, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int*>(idx), static_cast<float*>(out), d, j);
+      static_cast<const float*>(x), static_cast<const int*>(idx), static_cast<float*>(out), d, j,
+      n4, static_cast<int>(total));
   return last_error();
 }
 

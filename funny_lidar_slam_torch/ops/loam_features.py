@@ -8,8 +8,10 @@ loam/features.py::extract_features):
 On CPU tensors `corner_mask` runs the plain version
 (`loam/features.py::corner_mask_plain`); on CUDA tensors it zeroes the
 output (one fill) and launches the kernel once on the current stream: one
-warp an angular block, the roughness, the valid marks and the row guard of
-the block's lanes, then the picks as warp argmaxes. It reads nothing back
+thread block an angular block, a thread a lane, the block's window staged
+in shared memory; the roughness, the valid marks and the row guard of
+every lane at once, then the picks in one warp, each two warp reductions
+over keys held in registers. It reads nothing back
 to the host and has no fallback between the two routes: a CUDA input the
 kernel does not take, or a failed build or launch, raises.
 """
@@ -22,8 +24,9 @@ from . import cuda_build
 from .gn_loop import _checked as checked_tensors
 
 F32, I32 = torch.float32, torch.int32
-# the kernel keeps a block's lanes' scores in one block's shared memory
-MAX_LANES = 232448 // 4
+# the kernel stages a block's window (9 B a point, its lanes and 6 either
+# side) and its lanes' keys (4 B a lane) in one block's shared memory
+MAX_LANES = (232448 - 12 * 9) // 13
 
 
 def lanes(n: int, rows: int, blocks_per_row: int) -> int:
@@ -32,22 +35,22 @@ def lanes(n: int, rows: int, blocks_per_row: int) -> int:
 
 
 def _checked(scan, cfg) -> list:
-    """The scan's tensors in loam_corners_launch's order (depth float32,
-    col, row int32 and mask bool [N], row_start and row_end int32 [R]),
-    each of its dtype, contiguous and of its shape, all on one CUDA device
-    (gn_loop's check); and a config the kernel takes."""
+    """A config the kernel takes (at most MAX_LANES lanes a block), then the
+    scan's tensors in loam_corners_launch's order (depth float32, col, row
+    int32 and mask bool [N], row_start and row_end int32 [R]), each of its
+    dtype, contiguous and of its shape, all on one CUDA device (gn_loop's
+    check)."""
     n, rows = scan.depth.shape[0], scan.row_start.shape[0]
-    tensors = checked_tensors("corner_mask", {
-        "depth": (scan.depth, F32, (n,)), "col": (scan.col, I32, (n,)),
-        "row": (scan.row, I32, (n,)), "mask": (scan.mask, torch.bool, (n,)),
-        "row_start": (scan.row_start, I32, (rows,)), "row_end": (scan.row_end, I32, (rows,))})
     if rows < 1 or cfg.blocks_per_row < 1 or cfg.max_corners_per_block < 0:
         raise ValueError(f"corner_mask: {rows} rows, {cfg.blocks_per_row} blocks a row and "
                          f"{cfg.max_corners_per_block} corners a block")
     if lanes(n, rows, cfg.blocks_per_row) > MAX_LANES:
         raise ValueError(f"corner_mask: {lanes(n, rows, cfg.blocks_per_row)} lanes a block, "
                          f"over the kernel's {MAX_LANES}")
-    return tensors
+    return checked_tensors("corner_mask", {
+        "depth": (scan.depth, F32, (n,)), "col": (scan.col, I32, (n,)),
+        "row": (scan.row, I32, (n,)), "mask": (scan.mask, torch.bool, (n,)),
+        "row_start": (scan.row_start, I32, (rows,)), "row_end": (scan.row_end, I32, (rows,))})
 
 
 def corner_mask(scan, cfg) -> torch.Tensor:

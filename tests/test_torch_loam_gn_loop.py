@@ -271,6 +271,64 @@ def test_a_call_is_held_step_by_step(rows):
         "chain_bit_equal": True, "held": True}
 
 
+@pytest.mark.parametrize("corr_every,skip", [(10, 0.1), (8, 0.2)])
+def test_a_starved_call_is_held_step_by_step_with_its_stall_test(corr_every, skip):
+    """chip_smoke.py's gate for phase 21's starved edge cases
+    (`LOAM_STARVED`, `starved_compare`: min_valid above the rows, so only
+    the stall test ends the call), on the plain path, where the wrapper and its plain version
+    are one, under the LOAM matchers' trust-region skips (a call's
+    iterations inside the region of its first pose are exact, and only
+    they test for a stall): the chain of one-iteration calls that carries
+    the step norms of its last exact step ends on the whole call's pose,
+    stalls first on the call's last iteration, and every step and stall
+    decision agrees with itself."""
+    import chip_smoke
+
+    t0, planar, _, radius = scene()
+    args = (gn_loop.init_carry(torch.as_tensor(t0)), planar, torch.tensor(radius),
+            gn_cfgs(corr_every, skip, 30, True)[1]._replace(min_valid=planar.px.shape[0] + 1),
+            PLANE_THRESH, MAX_D2)
+    r = chip_smoke.gn_compare(torch, args, "plane_gn_rounds")
+    assert r["iterations"] > 1 and r["carry_k"][4] == 1 and r["carry_k"][5] == 0  # a stall
+    assert chip_smoke.starved_compare(torch, args, r, "plane_gn_rounds") == {
+        "nv_rel": 0.0, "res_rel": 0.0, "dp": 0.0, "da": 0.0, "steps": r["iterations"],
+        "chain_bit_equal": True, "held": True, "norm_diff": [0.0, 0.0], "decisions_parted": 0,
+        "decisions_off_band": 0, "first_stall": r["iterations"], "ended_on_stall": True,
+        "stall_end_held": True, "status_held": True}
+    assert set(chip_smoke.LOAM_STARVED) == {"plane_gn_rounds starved", "loam_gn_rounds starved"}
+
+
+@pytest.mark.parametrize("factor", [10.0, 0.01])
+def test_the_starved_gate_sees_a_wrong_stall_test(factor, monkeypatch):
+    """`starved_compare` against a kernel whose stall test uses `factor`
+    times stall_eps (the plain version itself, so every step's pose and
+    norms still agree bit for bit): the call still ends on its own stall
+    test with the plain version's status, and its chain of one-iteration
+    calls still stalls first on its last iteration, but a stall decision
+    parts from the plain step's off the test's edge, so the gate fails.
+    On scene() the stall test's differences fall from ~3e-4 to ~2e-6 to
+    ~3e-8 on the last three steps, so 10x stalls one step early and 0.01x
+    one step late."""
+    import chip_smoke
+
+    plain = gn_loop.plane_gn_rounds_plain
+
+    def wrong(carry, cand, radius, cfg, *rest):
+        return plain(carry, cand, radius, cfg._replace(stall_eps=cfg.stall_eps * factor), *rest)
+
+    monkeypatch.setattr(gn_loop, "plane_gn_rounds", wrong)
+    t0, planar, _, radius = scene()
+    args = (gn_loop.init_carry(torch.as_tensor(t0)), planar, torch.tensor(radius),
+            gn_cfgs(10, 0.1, 30, True)[1]._replace(min_valid=planar.px.shape[0] + 1),
+            PLANE_THRESH, MAX_D2)
+    r = chip_smoke.gn_compare(torch, args, "plane_gn_rounds")
+    assert r["carry_k"][4] == 1 and r["carry_k"][5] == 0  # the wrong test ended the call
+    out = chip_smoke.starved_compare(torch, args, r, "plane_gn_rounds")
+    assert out["status_held"] and out["stall_end_held"] and out["chain_bit_equal"]
+    assert out["norm_diff"] == [0.0, 0.0] and out["decisions_off_band"] >= 1
+    assert not out["held"]
+
+
 @pytest.mark.parametrize("kind", ["plane", "loam"])
 def test_driver_rejects_other_updates(kind):
     t0, planar, corner, radius = scene(n_planar=40, n_corner=20)

@@ -4,11 +4,16 @@ wrappers take the plain versions; each must equal, exactly, the expression
 the TPU probe asserts its kernel with (`x * 2`, `np.asarray(tab)[idx]`,
 `np.take_along_axis`), at the TPU probe's shapes. The TPU probes themselves
 use pltpu memory spaces and scalar prefetch, which do not run here; the
-kernels are held against the plain versions on the card by chip_smoke.py."""
+kernels are held against the plain versions on the card by chip_smoke.py.
+lane_gather's plain version is also held to jnp.take_along_axis, and a
+NumPy mirror of its kernel's thread mapping to the plain version."""
 
+import re
 import shutil
+from pathlib import Path
 from unittest import mock
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -166,3 +171,94 @@ def test_no_fallback_without_a_toolkit():
         pytest.skip("a built kernel library or nvcc is present")
     with pytest.raises(RuntimeError, match="nvcc"):
         cuda_build.library("probes")
+
+
+CSRC = Path(probes.__file__).resolve().parents[1] / "csrc"
+
+
+def lane_gather_inputs(b, d, j, seed):
+    """x [B, D] float32 and idx [B, J] int32 with in-range indices and, in
+    about a third of the lanes, indices at or above D or below -D (the int32
+    extremes among them): out of range either way, so the clamped gather
+    takes lane D-1 or 0, as jnp.take_along_axis(mode="clip") does. (Between
+    -D and -1 the two differ: JAX counts such an index from the end, the
+    port's gathers clamp it to 0, as lax.gather does.)"""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, d)).astype(np.float32)
+    idx = rng.integers(0, d, (b, j))
+    out = rng.random((b, j)) < 1 / 3
+    idx[out] = np.where(rng.random(out.sum()) < 0.5, rng.integers(d, 3 * d, out.sum()),
+                        rng.integers(-3 * d, -d, out.sum()))
+    idx.flat[:2] = [-2 ** 31, 2 ** 31 - 1]
+    return x, idx.astype(np.int32)
+
+
+@pytest.mark.parametrize("shape", [(256, 512, 128), (37, 70, 13), (5, 9, 3)])
+def test_lane_gather_plain_matches_jax_take_along_axis(shape):
+    """lane_gather on CPU tensors (its plain version) equals
+    jnp.take_along_axis at the TPU probe's shape (B 256, D 512, J 128) and
+    at ragged ones (J not a multiple of 4, B*J neither), out-of-range
+    indices clamped."""
+    x, idx = lane_gather_inputs(*shape, seed=shape[0])
+    ref = np.asarray(jnp.take_along_axis(jnp.asarray(x), jnp.asarray(idx), axis=1, mode="clip"))
+    out = probes.lane_gather(torch.from_numpy(x), torch.from_numpy(idx))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert probes.lane_gather.launches == 0
+
+
+def lane_gather_mirror(x, idx, aligned=True):
+    """csrc/probes.cu's lane_gather_kernel in NumPy: the B*J outputs flat,
+    thread t < n4 takes outputs 4t..4t+3 (one 16-byte load of their
+    indices), its row b = 4t / J and column stepped one by one into the next
+    row; the rest (B*J mod 4, or all of them where idx or out is not
+    16-byte aligned) one a thread, row e / J."""
+    b_rows, d = x.shape
+    j = idx.shape[1]
+    flat, total = idx.reshape(-1), b_rows * j
+    n4 = total // 4 if aligned else 0
+    out = np.empty(total, np.float32)
+    for t in range(n4):
+        b, c = divmod(4 * t, j)
+        for u in range(4):
+            out[4 * t + u] = x[b, min(max(int(flat[4 * t + u]), 0), d - 1)]
+            c += 1
+            if c == j:
+                c, b = 0, b + 1
+    for e in range(4 * n4, total):
+        out[e] = x[e // j, min(max(int(flat[e]), 0), d - 1)]
+    return out.reshape(b_rows, j)
+
+
+@pytest.mark.parametrize("shape", [(256, 512, 128), (37, 70, 13), (5, 9, 3), (3, 4, 1)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_a_mirror_of_the_lane_gather_kernel_matches_the_plain_version(shape, aligned):
+    x, idx = lane_gather_inputs(*shape, seed=7)
+    ref = probes.lane_gather_plain(torch.from_numpy(x), torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(lane_gather_mirror(x, idx, aligned), ref)
+
+
+def test_probe_signatures_match_the_kernel_source():
+    """Every probe's C entry point against its ctypes signature in
+    ops/cuda_build.py; lane_gather_kernel stages nothing in shared memory,
+    loads its indices and stores its outputs as 16-byte vectors, and its
+    launcher spreads the outputs over at least as many blocks as SMs: at
+    the TPU probe's shape and 132 SMs, 256 blocks of a warp."""
+    text = (CSRC / "probes.cu").read_text()
+    ctypes_kinds = {cuda_build._P: "ptr", cuda_build._I: "int", cuda_build._F: "float"}
+    sigs = cuda_build.SIGNATURES["probes"]
+    found = dict(re.findall(r'extern "C" int (probe_\w+)\(([^)]*)\)', text))
+    assert set(found) == set(sigs)
+    for fn, params in found.items():
+        kinds = ["ptr" if "*" in q else q.split()[0] for q in params.split(",")]
+        argtypes, restype = sigs[fn]
+        assert [ctypes_kinds[a] for a in argtypes] == kinds and restype is cuda_build._I, fn
+    body = re.search(r"lane_gather_kernel\(.*?\n}\n", text, re.S).group(0)
+    assert "__shared__" not in body and "__syncthreads" not in body
+    assert "const int4*" in body and "float4*" in body and "__ldg(x" in body
+    launch = re.search(r'int probe_lane_gather_launch\(.*?\n}\n', text, re.S).group(0)
+    assert "cudaDevAttrMultiProcessorCount" in launch
+    assert re.search(r"std::max\(32, std::min\(kThreads, threads / std::max\(sms, 1\) / 32 \* 32\)\)",
+                     launch)
+    threads, sms = 256 * 128 // 4, 132
+    block = max(32, min(256, threads // sms // 32 * 32))
+    assert (block, -(-threads // block)) == (32, 256)

@@ -4,6 +4,7 @@ rank-deficient edge case of phase 21 on every IVOX first round, and the
 gate on every captured call over repeated LOAM mapping runs.
 
     python3 tools/profile_torch_gn_gates.py [--rows 100] [--captures 2] [--seconds 300]
+                                            [--starved-captures 6] [--starved-calls 4]
                                             [--out FILE]
 
 Each capture runs a bench mapping config over the 10 s simulator run (seed
@@ -26,6 +27,15 @@ from run to run.
      phase 21 takes it; the calls held by the whole call (to the plain
      version or its float64-sums run), those held step by step instead,
      and those neither holds.
+  3. `--starved-captures` runs each of PointToPlane_IVOX and LoamFull_KdTree:
+     on `--starved-calls` first rounds of each (the last, as phase 21
+     takes it, and others spread evenly), the starved edge case (min_valid
+     above the rows, so that only the stall test ends the call): the whole
+     call against the plain version and its float64-sums run (how often the
+     counters part from both: phase 21's former gate), and the gate now
+     (`chip_smoke.starved_compare`): the status and a finite pose, and
+     each iteration with its stall test from the kernel's own pose and
+     step norms (`stepwise_compare` with `stall`).
 
 Prints a line a capture of part 1 and a mode of part 2, and one JSON line
 last (also written to FILE). Needs CUDA; imports nothing of JAX.
@@ -75,6 +85,18 @@ def rank_deficient(torch, cs, args) -> dict:
             "stepwise": steps, "held": steps["held"] and r["same"] and r["finite"]}
 
 
+def starved(torch, cs, kind, args) -> dict:
+    """Part 3 on one first round's call."""
+    n = sum(c.px.shape[0] for c in args[1:1 + cs.GN_SETS[kind]])
+    call = cs.gn_with_cfg(args, min_valid=n + 1)
+    r = cs.gn_compare(torch, call, kind)
+    step = cs.starved_compare(torch, call, r, kind)
+    return {"counters": {f: r[f] for f in ("status", "it", "gathers")},
+            "counters64": r.get("counters64"), "dp": r["dp"], "finite": r["finite"],
+            "whole_call_gate": r["same"] and r["close"] and r["finite"],
+            "counters_part": not r["same"], "stepwise": step, "held": step["held"]}
+
+
 def quantiles(np, values) -> list:
     return [float(np.quantile(values, p)) for p in (0.5, 0.95, 1)] if values else []
 
@@ -84,6 +106,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--rows", type=int, default=100)
     ap.add_argument("--captures", type=int, default=2)
     ap.add_argument("--seconds", type=float, default=300.0)
+    ap.add_argument("--starved-captures", type=int, default=6)
+    ap.add_argument("--starved-calls", type=int, default=4)
     ap.add_argument("--out")
     a = ap.parse_args(argv)
     import numpy as np
@@ -148,6 +172,41 @@ def main(argv=None) -> dict:
     for mode, m in by_mode.items():
         print(f"captured calls, {mode}: " + json.dumps(m), flush=True)
     out["captured_calls"] = by_mode
+
+    kinds = {"plane_gn_rounds": LOAM_MAPPING[0], "loam_gn_rounds": LOAM_MAPPING[2]}
+    part3 = {kind: [] for kind in kinds}
+    for k in range(a.starved_captures):
+        for kind, mode in kinds.items():
+            rounds = cs.first_rounds(capture(torch, cs, ds, mode), kind)
+            pick = sorted({len(rounds) - 1, *np.linspace(0, len(rounds) - 1, a.starved_calls)
+                           .round().astype(int).tolist()})[-a.starved_calls:]
+            for i in pick:
+                res = starved(torch, cs, kind, rounds[i])
+                res.update(capture=k, first_round=i, last=i == len(rounds) - 1)
+                part3[kind].append(res)
+                print(f"starved {kind}, capture {k}, first round {i}: " + json.dumps(res),
+                      flush=True)
+    out["starved"] = {kind: {
+        "calls": len(rs), "last_first_rounds": sum(r["last"] for r in rs),
+        "counters_part": sum(r["counters_part"] for r in rs),
+        "whole_call_gate_failed": sum(not r["whole_call_gate"] for r in rs),
+        "held": sum(r["held"] for r in rs),
+        "chains_bit_equal": sum(r["stepwise"]["chain_bit_equal"] for r in rs),
+        "stall_end_held": sum(r["stepwise"]["stall_end_held"] for r in rs),
+        "ended_on_stall": sum(r["stepwise"]["ended_on_stall"] for r in rs),
+        "decisions_parted": sum(r["stepwise"]["decisions_parted"] for r in rs),
+        "decisions_off_band": sum(r["stepwise"]["decisions_off_band"] for r in rs),
+        "steps": sum(r["stepwise"]["steps"] for r in rs),
+        "iterations_kernel": quantiles(np, [r["counters"]["it"][0] for r in rs]),
+        "it_kernel_minus_plain": quantiles(np, [r["counters"]["it"][0] - r["counters"]["it"][1]
+                                                for r in rs]),
+        "whole_call_dp": quantiles(np, [r["dp"] for r in rs]),
+        **{f"step_{f}": quantiles(np, [r["stepwise"][f] for r in rs])
+           for f in ("nv_rel", "res_rel", "dp", "da")},
+        "step_norm_diff_rot": quantiles(np, [r["stepwise"]["norm_diff"][0] for r in rs]),
+        "step_norm_diff_pos": quantiles(np, [r["stepwise"]["norm_diff"][1] for r in rs]),
+        "not_held": [r for r in rs if not r["held"]][:5]} for kind, rs in part3.items()}
+    print("starved: " + json.dumps(out["starved"]), flush=True)
     out["seconds"] = time.perf_counter() - t0
     line = json.dumps(out)
     if a.out:

@@ -2,10 +2,11 @@
 `preintegrate` and `eskf_predict` (csrc/imu_scan.cu), on captured and
 synthetic inputs, for this checkout's kernels and, with `--parent DIR`, a
 parent checkout's kernels, in turns on one card; or, with `--gn`, the GN
-kernels.
+kernels; or, with `--corners`, the LOAM corner kernel.
 
     python3 tools/profile_torch_loops.py [--parent DIR] [--stages] [--out FILE]
     python3 tools/profile_torch_loops.py --gn [--parent DIR] [--stages] [--out FILE]
+    python3 tools/profile_torch_loops.py --corners [--parent DIR] [--repeats 3] [--out FILE]
 
 Captures the arguments of every `preintegrate`, `eskf.predict` and
 `tight.fuse` call of three runs of the port on the card: chip_smoke.py's
@@ -77,6 +78,22 @@ each stage of the kernel (the K_* enum: set-up, thread 0's rows, its
 block's sum, the wait at the cluster barrier, the distributed shared memory
 sum, the serial end and begin of an iteration, the last barrier), NDT's
 with and without kept slots.
+
+`--corners` times the LOAM corner kernel of csrc/loam_features.cu
+(`loam_corners_launch`) instead: this checkout's build, a build of the
+same source with -DFLS_CORNER_KEYS_IN_SMEM (`smem_keys`: warp 0's pick
+keys in shared memory at every l_max, where the launcher keeps them in
+registers up to 512 lanes) and, with `--parent`, the parent's. Every
+build's corner mask must equal corner_mask_plain's bit for bit on
+chip_smoke.feature_edge_cases and at the two timed shapes:
+  * bench: the "bench" edge case (16,384 slots, 16 rows of 900 columns,
+    172 lanes a block);
+  * m2dgr: the last scan of a 1 s simulator run at 57,600 points (seed 7),
+    padded to 65,536 slots as the M2DGR preset's capacity pads it, on 32
+    rows of 1,800 columns (343 lanes a block).
+At each shape it runs phase 23's timing (chip_smoke.feature_timing: the
+wrapper, the bare launch, each other build's bare launch, the plain
+version and one empty launch, in turns, with the bound) `--repeats` times.
 """
 
 from __future__ import annotations
@@ -479,6 +496,9 @@ def main(argv=None) -> dict:
                     help="also run a build with per-stage cycle counters (either mode)")
     ap.add_argument("--gn", action="store_true",
                     help="time the GN kernels (csrc/gn_loop.cu) instead")
+    ap.add_argument("--corners", action="store_true",
+                    help="time the LOAM corner kernel (csrc/loam_features.cu) instead")
+    ap.add_argument("--repeats", type=int, default=3, help="--corners: timing repeats a shape")
     ap.add_argument("--out", default=None, help="also write the JSON line here")
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
@@ -494,8 +514,9 @@ def main(argv=None) -> dict:
         raise SystemExit("profile_torch_loops: CUDA is not available")
     card = bench.card_line()
     log(f"[loops] {torch.cuda.get_device_name(0)} | {card}")
-    if args.gn:
-        result = gn_main(args, torch, cs, bench)
+    if args.gn or args.corners:
+        result = gn_main(args, torch, cs, bench) if args.gn else corners_main(args, torch, cs)
+        result["card"] = card
         write(result, args.out)
         return result
     t0 = time.perf_counter()
@@ -591,6 +612,67 @@ def main(argv=None) -> dict:
         capture_output=True, text=True).stdout.strip()
     write(result, args.out)
     return result
+
+
+M2DGR_SLOTS = 65536
+SMEM_KEYS = ("loam_features", ("-DFLS_CORNER_KEYS_IN_SMEM",))
+
+
+def m2dgr_scan(torch):
+    """The M2DGR shape: 57,600 simulated points padded to 65,536 slots,
+    projected on 32 rows of 1,800 columns."""
+    from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
+    from funny_lidar_slam_torch.loam.features import FeatureConfig
+    from funny_lidar_slam_torch.loam.projection import LidarGeometry, project, synth_rings
+
+    scan = simulate(SimConfig(duration=1.0, static_warmup=0.2, points_per_scan=57600,
+                              seed=7)).scans[-1]
+    n = len(scan.points)
+    pts = torch.zeros((M2DGR_SLOTS, 3), dtype=torch.float32, device="cuda")
+    pts[:n] = torch.as_tensor(scan.points.astype(np.float32), device="cuda")
+    rel = torch.zeros(M2DGR_SLOTS, dtype=torch.float32, device="cuda")
+    rel[:n] = torch.as_tensor(scan.rel_times.astype(np.float32), device="cuda")
+    mask = torch.arange(M2DGR_SLOTS, device="cuda") < n
+    geom = LidarGeometry(32, 1800, 2 * np.pi / 1800, 1.5, 50.0)
+    return project(pts, synth_rings(pts, 32), rel, mask, geom), FeatureConfig()
+
+
+def corners_main(args, torch, cs) -> dict:
+    """--corners: the LOAM corner kernel's builds, checked and timed."""
+    from funny_lidar_slam_torch.ops import cuda_build
+
+    logs = cuda_build.build_all(["loam_features"], [SMEM_KEYS])
+    builds = {"change": cuda_build.library("loam_features"),
+              "smem_keys": cuda_build.variant(*SMEM_KEYS)}
+    ptxas = {"change": cs.ptxas_report(logs[("loam_features", ())]),
+             "smem_keys": cs.ptxas_report(logs[SMEM_KEYS])}
+    if args.parent:
+        (path, text), = build_variant(os.path.abspath(args.parent), "parent",
+                                      ("loam_features",)).values()
+        builds["parent"] = load("loam_features", path)
+        ptxas["parent"] = cs.ptxas_report(text)
+    log(f"[corners] ptxas {json.dumps(ptxas)}")
+    cases = cs.feature_edge_cases(torch)
+    shapes = {"bench": next((scan, cfg) for name, scan, cfg in cases if name == "bench"),
+              "m2dgr": m2dgr_scan(torch)}
+    parity = {}
+    try:
+        for name, scan, cfg in cases + [(f"{k} shape", *v) for k, v in shapes.items()]:
+            parity[name] = {}
+            for b, lib in builds.items():
+                use_libs({"loam_features": lib})
+                parity[name][b] = cs.feature_parity(torch, scan, cfg, f"{name}, {b}")["equal"]
+            assert all(parity[name].values()), f"{name}: a build parts from the plain version"
+    finally:
+        use_libs({"loam_features": builds["change"]})
+    others = {b: lib for b, lib in builds.items() if b != "change"}
+    timed = {label: [cs.feature_timing(torch, scan, cfg, f"{label}, repeat {k}", others)
+                     for k in range(args.repeats)] for label, (scan, cfg) in shapes.items()}
+    summary = {label: {f: [r[f] for r in rs] for f in rs[0] if f != "turns"}
+               for label, rs in timed.items()}
+    return {"mode": "corners", "builds": sorted(builds), "ptxas": ptxas, "parity": parity,
+            "shapes": summary, "turns": {k: [r["turns"] for r in rs] for k, rs in timed.items()},
+            "device": torch.cuda.get_device_name(0)}
 
 
 def write(result: dict, out=None):
