@@ -23,8 +23,11 @@ Phases, each of which raises (non-zero exit) on failure:
      and read just after; row_gather_loop and dma_rows against their plain
      version (exact) at B = 1, 7, 513, 1025 and rows of 128-3072 floats,
      with clamped indices, at the cover-row shape and where every dma_rows
-     block reuses each ring slot; then each probe kernel against its plain
-     version (exact) at the TPU probes' shapes, timed in interleaved turns
+     block reuses each ring slot, row_gather_vector there too and at D =
+     130 and on a misaligned table (its element-wise route), scale2
+     against x * 2 at n = 1 to 16,386 (with and without a tail); then each
+     probe kernel against its plain version (exact) at the TPU probes'
+     shapes, timed in interleaved turns
      (kernel, library, plain, floor, floor, plain, library, kernel; twice)
      against the plain version, one PyTorch call and the launch floor (one
      empty launch, torch.cuda._sleep(0)), with bounds; and both row gathers
@@ -69,7 +72,8 @@ Phases, each of which raises (non-zero exit) on failure:
   13. mapping with loop closure on the bench's Figure8_Loop config (24 s,
      hashed ICP, the pose graph): loops, keyframe ATE, the synchronized
      time of every verification (split into keyframe fetch, host merge and
-     device cascade) and of every pose-graph optimize; then fused_select at
+     device cascade) and of every pose-graph optimize (each graph kept for
+     phase 24; pose_graph_gn launched once a loop); then fused_select at
      the first verification's refine (K=5) and fitness (K=1) inputs against
      its plain version and brute force, timed in turns, and that cascade
      replayed stage by stage (one ndt_gn_rounds launch and one host read
@@ -200,6 +204,19 @@ Phases, each of which raises (non-zero exit) on failure:
      corners a block); no ptxas spills; the launch under
      set_sync_debug_mode("error"); timed at the bench's and M2DGR's shapes
      beside its plain version and one empty launch, with its bound;
+  24. the pose graph's GN loop: pose_graph_gn (csrc/pose_graph.cu
+     pose_graph_gn_kernel, the JAX optimize's fori_loop of 15 GN steps in
+     one launch of one block, over the free vertices alone, factored by
+     6x6 vertex blocks with the unwritten ones skipped) against
+     optimize_plain and a float64 plain run on every graph phase 13
+     optimized, the CPU tests' graphs (pose_graph_builders: circles with 1
+     and 8 loops, 2 vertices, 1 vertex, a graph grown past its capacity, a
+     used vertex with no edge, a failing factorization) and the dry run's
+     1,000-keyframe graph: NaN at the same vertices, the fixed vertices bit
+     for bit, the poses within 2e-3 m / 1e-3 rad of the float64 run or no
+     farther than 1.5x the float32 plain run; timed against the plain
+     version in turns at the figure-8's graphs (device and synchronized
+     host ms), with its bound;
 and prints the per-kernel JSON line, the card line and the result line.
 Every path (3b, 4-18) runs with the kernel launch counts zeroed just
 before it and read just after it (phase 18 inside the bench's process,
@@ -214,7 +231,9 @@ NDT match and once an NDT stage of every loop-closure verification, on
 any path (the mapping phases gate the GN host reads a scan, one a round,
 equal to the gathers a scan, and on NDT to the matches), and corner_mask
 once a LOAM front-end call (Frontend._process), none on a path without a
-lidar geometry. Imports nothing of JAX and nothing of the JAX package.
+lidar geometry, and pose_graph_gn once an accepted loop (check_launches;
+phase 13's figure-8 and the CLI's loop-closing presets), none elsewhere.
+Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -432,14 +451,19 @@ def kernel_name(symbol: str) -> str:
 
 def ptxas_report(text: str) -> dict:
     """{kernel: {registers, spill_stores, spill_loads, stack_frame_bytes,
-    static_smem_bytes}} from nvcc's -Xptxas=-v output."""
-    report, name = {}, None
+    static_smem_bytes}} from nvcc's -Xptxas=-v output; the spill and stack
+    line counts only under the entry function's own "Function properties"
+    (not a device function's, such as a double sin's slow path)."""
+    report, name, entry, own = {}, None, None, False
     for line in text.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
-            name = kernel_name(m.group(1))
+            name, entry = kernel_name(m.group(1)), m.group(1)
             report[name] = {"registers": None, "spill_stores": 0, "spill_loads": 0,
                             "stack_frame_bytes": 0, "static_smem_bytes": 0}
-        elif name and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+        elif m := re.search(r"Function properties for (\S+)", line):
+            own = m.group(1) == entry
+        elif name and own and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                              line)):
             report[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
             if sf := re.search(r"(\d+) bytes stack frame", line):
                 report[name]["stack_frame_bytes"] = int(sf.group(1))
@@ -683,9 +707,12 @@ def gather_bytes(tab, idx) -> int:
 
 
 def probe_exactness(torch, probes) -> int:
-    """row_gather_loop and dma_rows against row_gather_plain, with
-    torch.equal, at ragged B, clamped indices, the cover-row shape and ring
-    reuse. Raises on the first difference; returns the number of checks."""
+    """row_gather_loop, row_gather_vector and dma_rows against
+    row_gather_plain, with torch.equal, at ragged B, clamped indices, the
+    cover-row shape and ring reuse (row_gather_vector also at D = 130 and
+    on a misaligned table, its element-wise route); scale2 against x * 2 at
+    sizes with and without a tail. Raises on the first difference; returns
+    the number of checks."""
     rng = np.random.default_rng(11)
     gen = torch.Generator(device="cuda").manual_seed(11)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -710,16 +737,30 @@ def probe_exactness(torch, probes) -> int:
     # rows, so at these B every block uses each of its 8 slots 3 times or more
     dma_reuse = [("reuse D=128", tables[128], ids(4096, 24 * 8 * sms + 7)),
                  ("reuse D=3072", tables[3072], ids(2048, 24 * 2 * sms + 5))]
-    for fn in (probes.row_gather_loop, probes.dma_rows):
-        for what, tab, idx in cases + (dma_reuse if fn is probes.dma_rows else []):
+    odd = torch.randn((4096, 130), generator=gen, device="cuda")
+    shifted = torch.randn(4096 * 128 + 1, generator=gen, device="cuda")[1:].view(4096, 128)
+    vector_only = [("D=130 B=1025", odd, ids(4096, 1025)),
+                   ("D=128 misaligned B=513", shifted, ids(4096, 513, -9, 5000))]
+    extra = {probes.dma_rows: dma_reuse, probes.row_gather_vector: vector_only}
+    n = 0
+    for fn in (probes.row_gather_loop, probes.row_gather_vector, probes.dma_rows):
+        for what, tab, idx in cases + extra.get(fn, []):
             out_k, out_p = fn(tab, idx), probes.row_gather_plain(tab, idx)
             torch.cuda.synchronize()
             if not torch.equal(out_k, out_p):
                 raise AssertionError(f"{fn.__name__} differs from row_gather_plain at {what}")
-    n = 2 * len(cases) + len(dma_reuse)
-    log(f"[probes] row_gather_loop and dma_rows equal row_gather_plain exactly in {n} "
-        f"checks (D 128/132/1536/3072, B 1/7/513/1025, clamped, cover rows, ring reuse "
-        f"at B {dma_reuse[0][2].numel()} and {dma_reuse[1][2].numel()} on {sms} SMs)")
+            n += 1
+    for size in (1, 3, 4, 5, 1023, 1029, 8 * 128, 4096 * 4 + 2):
+        x = torch.randn(size, generator=gen, device="cuda")
+        out_k = probes.scale2(x)
+        torch.cuda.synchronize()
+        if not torch.equal(out_k, x * 2):
+            raise AssertionError(f"scale2 differs from x * 2 at n = {size}")
+        n += 1
+    log(f"[probes] row_gather_loop, row_gather_vector and dma_rows equal row_gather_plain and "
+        f"scale2 equals x * 2 exactly in {n} checks (D 128/130/132/1536/3072, B 1/7/513/1025, "
+        f"clamped, cover rows, a misaligned table, ring reuse at B {dma_reuse[0][2].numel()} "
+        f"and {dma_reuse[1][2].numel()} on {sms} SMs; scale2 at n 1 to 16,386)")
     return n
 
 
@@ -825,6 +866,8 @@ def phase_probes(torch):
             f"{entries[-1]['vs_floor']} than the empty launch; turns {turns}")
     cover = cover_row_timing(torch, probes)
     for e in entries:
+        if e["name"] in ("scale2", "row_gather_vector"):
+            e.update(exact_checks=checks)
         if e["name"] in ("row_gather_loop", "dma_rows"):
             e.update(exact_checks=checks, cover_rows={
                 "ms": cover["cold_ms"][e["name"]], "library_ms": cover["cold_ms"]["index_select"],
@@ -1072,23 +1115,32 @@ def bench_system(mode, cap=16384):
     return SlamSystem(bench.mode_config(mode, cap))
 
 
-def check_launches(tag, launches, expect_select):
+def check_launches(tag, launches, expect_select, loops=0):
     """fused_select launched on a path that gathers through it, and never on
-    one that does not (NDT's stencil lookup runs inside ndt_gn_rounds)."""
+    one that does not (NDT's stencil lookup runs inside ndt_gn_rounds); and
+    pose_graph_gn once an accepted loop (`loops`; None where the path ran
+    in another process), its launches kept in POSE_GRAPH_LAUNCHES."""
+    from funny_lidar_slam_torch.ops import pose_graph
+
     if expect_select:
         assert launches > 0, f"[{tag}] the path did not launch fused_select"
     else:
         assert launches == 0, f"[{tag}] the path launched fused_select {launches} times"
+    if loops is not None:
+        n = pose_graph.pose_graph_gn.launches
+        assert n == loops, f"[{tag}] pose_graph_gn launched {n} times for {loops} loops"
+        POSE_GRAPH_LAUNCHES[tag] = n
 
 
 def zero_counts():
     """Every kernel wrapper's launch count set to 0, just before a path,
     the GN driver's count of gather rounds and the callers' counts."""
-    from funny_lidar_slam_torch.ops import gn_loop, loam_features, recurrences, select
+    from funny_lidar_slam_torch.ops import (gn_loop, loam_features, pose_graph, recurrences,
+                                            select)
     from funny_lidar_slam_torch.registration import gn
 
     select.fused_select.launches = 0
-    for fn in recurrences.KERNELS + gn_loop.KERNELS + loam_features.KERNELS:
+    for fn in recurrences.KERNELS + gn_loop.KERNELS + loam_features.KERNELS + pose_graph.KERNELS:
         fn.launches = 0
     for driver in gn.ROUND_DRIVERS.values():
         driver.rounds = 0
@@ -1405,7 +1457,7 @@ def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=
     assert np.isfinite(est).all(), f"[{tag}] non-finite poses"
     ate, rpe = ate_rmse(est, gt), rpe_rmse(est, gt)
     assert ate < 0.10, f"[{tag}] ATE {ate:.4f} m"
-    check_launches(tag, launches, expect_select)
+    check_launches(tag, launches, expect_select, len(getattr(slam, "loop_results", ())))
     steps = sum(1 for s in slam.stats if not s.get("init"))
     gathers = [s["iters"] for s in slam.stats if "iters" in s]
     res = {"tracked": n_tracked, "scans": len(ds.scans), "ate_m": ate, "rpe_m": rpe,
@@ -1637,6 +1689,7 @@ class LoopProbe:
         self.torch, self.select, self.block_map = torch, select, block_map
         self.lc, self.system = loop_closure, system
         self.verifications, self.optimize_ms, self.captured = [], [], {}
+        self.graphs = []  # every optimize's inputs (clones) and its other arguments
         self.map = self.cascade_args = None
         # the current verification's GN loops: (iterations (a tensor), host reads)
         self.gn_iters = []
@@ -1653,7 +1706,7 @@ class LoopProbe:
         ((lc, _, verify), (system, _, optimize), (_, _, run_gn), (_, _, fetch), (_, _, merge),
          (_, _, cascade), (_, _, run_gn_ndt)) = self.saved
         lc.verify_candidate = self._verify(verify)
-        system.pg_optimize = self._timed(optimize, self.optimize_ms)
+        system.pg_optimize = self._kept(self._timed(optimize, self.optimize_ms))
         lc.materialize_batch = self._timed(fetch, self.parts["fetch_ms"])
         lc._merge_submap = self._timed(merge, self.parts["merge_ms"])
         timed_cascade = self._timed(cascade, self.parts["cascade_ms"])
@@ -1690,6 +1743,12 @@ class LoopProbe:
             sink.append((time.perf_counter() - t) * 1e3)
             return out
         return wrapper
+
+    def _kept(self, fn):
+        def optimize(g, *a, **kw):
+            self.graphs.append((type(g)(*(t.clone() for t in g)), a, kw))
+            return fn(g, *a, **kw)
+        return optimize
 
     def _verify(self, verify):
         def wrapper(frames, poses, current_id, candidate_id, cfg, device=None):
@@ -1795,7 +1854,9 @@ def phase_figure8(torch):
     for r in loops:
         assert r.fitness < 1.5 and r.current_id - r.candidate_id > 40, f"[figure8] loop {r}"
     assert kf_ate < 0.5, f"[figure8] keyframe ATE {kf_ate:.4f} m"
-    check_launches("figure8", launches, True)
+    check_launches("figure8", launches, True, len(loops))
+    PG_GRAPHS[:] = probe.graphs
+    res["pose_graph_gn_launches"] = POSE_GRAPH_LAUNCHES["figure8"]
     res["select"] = loop_select(torch, probe)
     res["cascade"] = cascade_breakdown(torch, probe)
     return slam, launches, res
@@ -2097,7 +2158,7 @@ def cli_run(torch, tag, ds, out_dir, argv):
     assert np.isfinite(poses).all(), f"[{tag}] non-finite poses"
     assert stamp_err < 0.06, f"[{tag}] a TUM stamp is {stamp_err:.3f} s from the truth"
     assert res["ate_m"] < 0.3, f"[{tag}] ATE {res['ate_m']:.4f} m"
-    check_launches(tag, launches, True)
+    check_launches(tag, launches, True, len(getattr(runner, "loop_results", ())))
     return runner, res
 
 
@@ -2543,7 +2604,7 @@ def phase_bench(torch):
     assert head["frames"] >= 100, f"[bench] {head['frames']} frames"
     assert head["ate_m"] < 0.10, f"[bench] ATE {head['ate_m']} m"
     assert head["rpe_m"] >= 0 and head["fps"] > 0 and line["value"] == head["fps"], head
-    check_launches("bench", head["fused_select_launches"], True)
+    check_launches("bench", head["fused_select_launches"], True, None)
     assert line["device"] == torch.cuda.get_device_name(0), line["device"]
     log(f"[bench] phase 18 took {wall:.1f} s")
     return head["fused_select_launches"], {
@@ -4359,6 +4420,266 @@ def phase_loam_features(torch, report) -> dict:
             "resources": resources}
 
 
+# ------------------------------------------------- phase 24: the pose graph
+PG_SOURCE = ("funny_lidar_slam_torch/csrc/pose_graph.cu",
+             "funny_lidar_slam_tpu/backend/pose_graph.py:133")
+PG_TOL = (2e-3, 1e-3)  # m, rad (chord): tests/test_torch_backend.py's f32 tolerance
+PG_RATIO = 1.5  # or no farther from the float64 run than 1.5x the float32 plain run
+PG_GRAPHS: list = []  # phase 13's optimize inputs (LoopProbe.graphs), in call order
+POSE_GRAPH_LAUNCHES: dict = {}  # path -> pose_graph_gn launches (check_launches)
+
+
+def pose_graph_builders(dry_run: bool = False) -> dict:
+    """The CPU tests' graphs (tests/test_torch_pose_graph_gn.py), each the
+    port's PoseGraphBuilder, from numpy and a seed: the 60-pose noisy circle
+    in k_cap 64 with 1 and 8 extra loops (io/simulator.noisy_circle_graph);
+    2 vertices (one free, its odometry edge to vertex 0 disagreeing with its
+    pose); 1 vertex (none free); 70 vertices from k_cap 64 (the builder
+    grows it to 128) with two loop edges; a 40-pose circle with a used
+    vertex that no edge touches; a 60-pose circle whose last loop edge's
+    information is negated, so its factorization fails. With `dry_run`,
+    also the dry run's 1,000-keyframe graph (parallel/dryrun.py:
+    k_cap 1024, radius 150 m, 600 extra loops)."""
+    from funny_lidar_slam_torch.backend.pose_graph import PoseGraphBuilder
+    from funny_lidar_slam_torch.core.lie import se3_exp
+    from funny_lidar_slam_torch.io.simulator import noisy_circle_graph
+
+    import torch
+
+    rng = np.random.default_rng(24)
+
+    def noisy(pose, sigma=0.05):
+        v = torch.as_tensor(rng.normal(0, sigma, 6), dtype=torch.float64)
+        return pose @ se3_exp(v).numpy()
+
+    out = {f"circle 60, {x} loops": noisy_circle_graph(n=60, seed=0, k_cap=64, e_cap=128,
+                                                      extra_loops=x)[0] for x in (1, 8)}
+    b = PoseGraphBuilder(k_cap=4, e_cap=4)
+    b.add_vertex(np.eye(4))
+    b.add_vertex(noisy(np.eye(4), 0.5))
+    b.poses[1] = noisy(b.poses[1])
+    out["2 vertices"] = b
+    b = PoseGraphBuilder(k_cap=4, e_cap=4)
+    b.add_vertex(noisy(np.eye(4)))
+    out["1 vertex"] = b
+    b, gt, acc = PoseGraphBuilder(k_cap=64, e_cap=64), [], np.eye(4)
+    for k in range(70):
+        a = 2 * np.pi * k / 70
+        t = np.eye(4)
+        t[:2, :2] = [[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]]
+        t[:2, 3] = [12 * np.cos(a), 12 * np.sin(a)]
+        acc = t if k == 0 else noisy(acc @ np.linalg.inv(gt[-1]) @ t, 0.02)
+        gt.append(t)
+        b.add_vertex(acc)
+    for i, j in ((69, 0), (52, 17)):
+        b.add_edge(i, j, np.linalg.inv(gt[i]) @ gt[j], (1e2,) * 3 + (1e4,) * 3)  # the system's
+    out["70 vertices grown from k_cap 64"] = b
+    b, _ = noisy_circle_graph(n=40, seed=2, k_cap=64, e_cap=128, extra_loops=2)
+    b.pose_mask[45] = True
+    b.poses[45] = noisy(np.eye(4), 3.0)
+    b.n_vertices = 46
+    out["a used vertex with no edge"] = b
+    b, _ = noisy_circle_graph(n=60, seed=1, k_cap=64, e_cap=128, extra_loops=3)
+    b.edge_info[b.n_edges - 1] *= -1
+    out["failing factorization"] = b
+    if dry_run:
+        from funny_lidar_slam_torch.parallel.dryrun import NORTH_STAR_GRAPH
+
+        out["dry run, 1,000 keyframes"] = noisy_circle_graph(**NORTH_STAR_GRAPH)[0]
+    return out
+
+
+def pose_graph_structure(g) -> dict:
+    """What csrc/pose_graph.cu's factorization touches on graph `g` (any
+    device): the free vertices n_f, the edges it linearizes, and, over the
+    compact system with its fill, the blocks of L below the diagonal, the
+    panel blocks (one a column's written block) and the block updates
+    (L_ik L_jk^T, i >= j > k) of one iteration."""
+    mask = g.pose_mask.cpu().numpy().copy()
+    mask[0] = False
+    k = len(mask)
+    cidx = np.full(k, -1)
+    cidx[mask] = np.arange(mask.sum())
+    nf = int(mask.sum())
+    ei, ej = g.edge_i.cpu().numpy(), g.edge_j.cpu().numpy()
+    inside = (ei >= 0) & (ei < k) & (ej >= 0) & (ej < k) & g.edge_mask.cpu().numpy()
+    ci, cj = cidx[np.where(inside, ei, 0)], cidx[np.where(inside, ej, 0)]
+    used = inside & ((ci >= 0) | (cj >= 0))
+    both = used & (ci >= 0) & (cj >= 0) & (ci != cj)
+    s = np.zeros((nf, nf), bool)
+    s[np.maximum(ci[both], cj[both]), np.minimum(ci[both], cj[both])] = True
+    panel = pairs = 0
+    for c in range(nf):
+        rows = np.flatnonzero(s[c + 1:, c]) + c + 1
+        panel += len(rows)
+        pairs += len(rows) * (len(rows) + 1) // 2
+        if len(rows) > 1:
+            s[np.ix_(rows, rows)] |= np.tril(np.ones((len(rows),) * 2, bool), -1)
+    return {"free_vertices": nf, "edges": int(used.sum()), "blocks_below_diagonal": int(s.sum()),
+            "panel_blocks": panel, "block_updates": pairs,
+            "incident_entries": int((ci[used] >= 0).sum() + (cj[used] >= 0).sum())}
+
+
+# operations (an FMA 2) an iteration: an edge's residual, Jr^-1, J (the 3x3
+# products of the Q block and Adj) and h, g; a 6x6 Cholesky; a panel block
+# (6 rows of 15 FMA and 6 divisions); a block update (216 FMA); each written
+# block's equilibration (72) and its two substitution products (2 x 36 FMA);
+# an incident entry's sums (36 + 6, and 36 more below the diagonal); a free
+# vertex's update (se3_exp and a 4x4 product)
+PG_EDGE_OPS, PG_CHOL_OPS, PG_PANEL_OPS, PG_UPDATE_OPS = 1400, 182, 216, 432
+PG_BLOCK_OPS, PG_ENTRY_OPS, PG_VERTEX_OPS = 72 + 144, 78, 250
+
+
+def pose_graph_cost(g, iterations: int = 15) -> tuple:
+    """(bytes, operations) one optimize of `g` needs on the kernel's route:
+    the graph read once (poses 64 B, pose_mask 1 B; an edge's ends, measure,
+    information and mask 97 B) and the poses written once; the operations
+    of `iterations` iterations over pose_graph_structure's blocks."""
+    st = pose_graph_structure(g)
+    k, e = g.poses.shape[0], g.edge_i.shape[0]
+    nbytes = k * (64 + 1 + 64) + e * 97
+    per_it = (st["edges"] * PG_EDGE_OPS + st["free_vertices"] * (PG_CHOL_OPS + PG_VERTEX_OPS)
+              + st["panel_blocks"] * PG_PANEL_OPS + st["block_updates"] * PG_UPDATE_OPS
+              + (st["blocks_below_diagonal"] + st["free_vertices"]) * PG_BLOCK_OPS
+              + st["incident_entries"] * PG_ENTRY_OPS)
+    return nbytes, iterations * per_it, st
+
+
+def graph_pose_diff(a, b) -> tuple:
+    """(largest translation distance m, largest chord angle rad) between two
+    [K, 4, 4] pose sets, in float64."""
+    from funny_lidar_slam_torch.core.lie import chord_angle
+
+    a, b = a.double(), b.double()
+    if a.shape[0] == 0:
+        return 0.0, 0.0
+    return (float((a[:, :3, 3] - b[:, :3, 3]).norm(dim=1).max()),
+            float(chord_angle(a, b.to(a.device)).max()))
+
+
+def pose_graph_compare(torch, g, label, iterations: int = 15) -> dict:
+    """pose_graph_gn against optimize_plain on graph `g` (float32, on the
+    card), both against a float64 plain run: NaN at the same vertices in
+    all three; elsewhere the kernel within PG_TOL of the float64 poses, or
+    no farther from them than PG_RATIO x the float32 plain run; the fixed
+    vertices (0 and the unused) bit for bit the input. Also the
+    synchronized host ms of the kernel's call (`kernel_ms`)."""
+    from funny_lidar_slam_torch.backend import pose_graph
+    from funny_lidar_slam_torch.ops import pose_graph as ops
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    kernel = ops.pose_graph_gn(g, iterations).poses
+    torch.cuda.synchronize()
+    kernel_ms = (time.perf_counter() - t) * 1e3
+    plain = pose_graph.optimize_plain(g, iterations).poses
+    g64 = type(g)(*(t.double() if t.is_floating_point() else t for t in g))
+    ref = pose_graph.optimize_plain(g64, iterations).poses
+    torch.cuda.synchronize()
+    nan = [torch.isnan(p).flatten(1).any(1) for p in (kernel, plain, ref)]
+    assert torch.equal(nan[0], nan[1]) and torch.equal(nan[0], nan[2]), \
+        f"[pose-graph] {label}: NaN at {[int(n.sum()) for n in nan]} vertices"
+    ok = ~nan[0]
+    fixed = ~g.pose_mask.clone()
+    fixed[0] = True
+    assert torch.equal(kernel[fixed], g.poses[fixed]), f"[pose-graph] {label}: a fixed vertex moved"
+    dk, dp = graph_pose_diff(kernel[ok], ref[ok]), graph_pose_diff(plain[ok], ref[ok])
+    row = {"label": label, "vertices": int(g.pose_mask.sum()), "capacity": g.poses.shape[0],
+           "edges": int(g.edge_mask.sum()), "nan_vertices": int(nan[0].sum()),
+           "kernel_ms": kernel_ms, "kernel_vs_f64": dk, "plain_vs_f64": dp,
+           "kernel_vs_plain": graph_pose_diff(kernel[ok], plain[ok]),
+           "max_abs_err": float((kernel[ok] - plain[ok]).abs().max()) if ok.any() else 0.0}
+    within = dk[0] < PG_TOL[0] and dk[1] < PG_TOL[1]
+    near = dk[0] <= PG_RATIO * dp[0] and dk[1] <= PG_RATIO * dp[1]
+    assert within or near, f"[pose-graph] {label}: {row}"
+    log(f"[pose-graph] {label}: " + json.dumps(row))
+    return row
+
+
+def pose_graph_timing(torch, g, label, iterations: int = 15) -> dict:
+    """pose_graph_gn and optimize_plain at graph `g`: device ms (`time_ms`)
+    and synchronized host ms a call (the `optimize_ms` of phase 13), each
+    timed in turns (kernel, plain, floor, floor, plain, kernel; twice; the
+    floor one empty launch), with the bound."""
+    from funny_lidar_slam_torch.backend import pose_graph
+    from funny_lidar_slam_torch.ops import pose_graph as ops
+
+    def wall(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    calls = {"kernel": lambda: ops.pose_graph_gn(g, iterations),
+             "plain": lambda: pose_graph.optimize_plain(g, iterations),
+             "floor": lambda: torch.cuda._sleep(0)}
+    order = ["kernel", "plain", "floor", "floor", "plain", "kernel"] * 2
+    dev = in_turns(lambda fn: time_ms(torch, fn, 10), calls, order)
+    host = in_turns(wall, {k: calls[k] for k in ("kernel", "plain")},
+                    ["kernel", "plain", "plain", "kernel"] * 2)
+    nbytes, ops_n, st = pose_graph_cost(g, iterations)
+    bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_n / F32_OPS_PER_S * 1e3
+    res = {"label": label, **st, "ms": float(np.median(dev["kernel"])),
+           "plain_ms": float(np.median(dev["plain"])), "floor_ms": float(np.median(dev["floor"])),
+           "optimize_ms": float(np.median(host["kernel"])),
+           "plain_optimize_ms": float(np.median(host["plain"])),
+           "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "bytes": nbytes, "operations": ops_n, "device_turns": dev, "host_turns": host,
+           "vs_plain": versus(dev["kernel"], dev["plain"])}
+    log(f"[pose-graph] {label}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"empty launch {res['floor_ms']:.5f} ms (device); optimize {res['optimize_ms']:.3f} ms "
+        f"against the plain {res['plain_optimize_ms']:.3f} ms (host, synchronized); bound "
+        f"{res['bound_ms']:.6f} ms ({res['bound_by']}); turns {json.dumps(dev)} / "
+        f"{json.dumps(host)}")
+    return res
+
+
+def phase_pose_graph(torch, report) -> dict:
+    """Phase 24: the pose graph's GN loop (csrc/pose_graph.cu
+    `pose_graph_gn_kernel`, wrapper ops/pose_graph.py::pose_graph_gn, the
+    JAX `optimize`'s fori_loop in one launch over the free vertices) against
+    optimize_plain on the card, with a float64 plain run as the reference
+    (`pose_graph_compare`), on phase 13's graphs (every optimize of the
+    figure-8), the CPU tests' graphs and the dry run's 1,000-keyframe
+    graph; timed in turns at the figure-8's graphs; the launches of every
+    path (one an accepted loop, `check_launches`). Returns the JSON entry."""
+    from funny_lidar_slam_torch.ops import pose_graph as ops
+
+    t_phase = time.perf_counter()
+    resources = report.get("pose_graph", {}).get("pose_graph_gn_kernel")
+    assert resources and resources["registers"], f"[pose-graph] ptxas report {report.get('pose_graph')}"
+    log(f"[pose-graph] ptxas {json.dumps(resources)}")
+    kernel = ops.pose_graph_gn
+    saved = kernel.launches  # comparisons do not count
+    assert PG_GRAPHS, "[pose-graph] phase 13 captured no optimize"
+    rows = [pose_graph_compare(torch, g, f"figure-8 optimize {i}", *a, **kw)
+            for i, (g, a, kw) in enumerate(PG_GRAPHS)]
+    for name, b in pose_graph_builders(dry_run=True).items():
+        t = time.perf_counter()
+        rows.append(pose_graph_compare(torch, b.to_device(torch.float32, device="cuda"), name))
+        log(f"[pose-graph] {name} compared in {time.perf_counter() - t:.1f} s")
+    failing = [r for r in rows if r["label"] == "failing factorization"]
+    assert failing and failing[0]["nan_vertices"] == failing[0]["vertices"] - 1, failing
+    shapes = {f"figure-8 optimize {i}": pose_graph_timing(torch, g, f"figure-8 optimize {i}",
+                                                          *a, **kw)
+              for i, (g, a, kw) in enumerate(PG_GRAPHS)}
+    kernel.launches = saved
+    log(f"[pose-graph] phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    head = shapes[max(shapes, key=lambda k: shapes[k]["free_vertices"])]
+    return {"name": "pose_graph_gn", "route": "cuda", "source": PG_SOURCE[0],
+            "replaces": PG_SOURCE[1], "launches": sum(POSE_GRAPH_LAUNCHES.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
+                                    "optimize_ms", "plain_optimize_ms")},
+            "library_ms": None, "shapes": shapes, "launches_by_path": dict(POSE_GRAPH_LAUNCHES),
+            "compared": rows, "resources": resources}
+
+
 def main() -> int:
     import torch
 
@@ -4411,6 +4732,7 @@ def main() -> int:
     gn_entry = phase_gn_loop(torch, report)
     loam_gn_entries = phase_loam_gn(torch, report)
     ndt_gn_entry = phase_ndt_gn(torch, report)
+    pose_graph_entry = phase_pose_graph(torch, report)
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
                "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
                "verify_ms_median", "verify_ms_max", "optimize_ms",
@@ -4441,7 +4763,7 @@ def main() -> int:
                  paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
     print(json.dumps({"kernels": [entry] + probe_entries + loop_entries + [gn_entry]
-                      + loam_gn_entries + [ndt_gn_entry, feature_entry]}))
+                      + loam_gn_entries + [ndt_gn_entry, feature_entry, pose_graph_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

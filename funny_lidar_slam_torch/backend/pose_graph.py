@@ -12,12 +12,18 @@ Each GN iteration scatters the per-edge blocks into a dense [6K, 6K]
 system (K = the vertex capacity), Jacobi-equilibrates it and solves it by
 Cholesky on the device, then applies a left-multiplicative update.
 
-Port notes: the JAX `fori_loop` is a host loop that reads nothing back.
-The four `.at[i, j].add` are `index_put_(accumulate=True)`, whose repeated
-indices add in no fixed order on the card. The solve is `cholesky_ex` +
-`cholesky_solve` and the 6x6 inverses `inv_ex`, none of which checks its
-result on the host; a factorization that fails gives NaN poses, as the JAX
-Cholesky does. `PoseGraphBuilder` is the JAX package's NumPy bookkeeping.
+`optimize` dispatches: on CPU tensors the plain version `optimize_plain`,
+on CUDA tensors one launch of csrc/pose_graph.cu (ops/pose_graph.py::
+pose_graph_gn), which runs every iteration on the card over the free
+vertices alone, its H and b summed in a fixed order.
+
+Port notes on the plain version: the JAX `fori_loop` is a host loop that
+reads nothing back. The four `.at[i, j].add` are
+`index_put_(accumulate=True)`, whose repeated indices add in no fixed order
+on the card. The solve is `cholesky_ex` + `cholesky_solve` and the 6x6
+inverses `inv_ex`, none of which checks its result on the host; a
+factorization that fails gives NaN poses, as the JAX Cholesky does.
+`PoseGraphBuilder` is the JAX package's NumPy bookkeeping.
 """
 
 from __future__ import annotations
@@ -66,6 +72,17 @@ def _edge_residuals(g: PoseGraph):
 
 
 def optimize(g: PoseGraph, iterations: int = 15, damping: float = 1e-6) -> PoseGraph:
+    """Gauss-Newton over the graph, vertex 0 and the unused vertices fixed:
+    `optimize_plain` on CPU tensors, one `pose_graph_gn` launch on CUDA
+    tensors (which raises on what the kernel does not take)."""
+    if g.poses.device.type == "cpu":
+        return optimize_plain(g, iterations, damping)
+    from ..ops.pose_graph import pose_graph_gn
+
+    return pose_graph_gn(g, iterations, damping)
+
+
+def optimize_plain(g: PoseGraph, iterations: int = 15, damping: float = 1e-6) -> PoseGraph:
     """Gauss-Newton over the whole graph; vertex 0 gated (fixed), unused
     vertices pinned with identity blocks."""
     k = g.poses.shape[0]

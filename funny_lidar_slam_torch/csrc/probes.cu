@@ -3,15 +3,21 @@
 // test_vector_gather, test_take_along_axis_lanes, test_hbm_dma_rows). Each
 // computes what its TPU probe computes; none copies the TPU's block layout.
 //
-//   scale2            out = x * 2                       one thread per float4
+//   scale2            out = x * 2                       one launch for any n:
+//                     thread t < n4 takes the float4 t, thread n4 + u the
+//                     tail element 4 n4 + u (redesigned: the tail was a
+//                     second launch)
 //   row_gather_loop   out[i] = tab[idx[i]]              8 rows a block, one row
 //                     a warp: the block stages its 8 indices in shared memory
 //                     once (the counterpart of scalar prefetch); each lane then
 //                     issues all its float4 loads of the row (up to 12, a
 //                     1536-float row, unrolled into registers) before its
 //                     stores, so a warp pays one row round trip after the index
-//   row_gather_vector out[i,c] = tab[idx[i],c]          one thread per element
-//                     (the elementwise form of jnp.take)
+//   row_gather_vector out[i,c] = tab[idx[i],c]          the elementwise form of
+//                     jnp.take: where D % 4 == 0 and tab, out are 16-byte
+//                     aligned, one thread per float4 of the output (one
+//                     index load for four outputs, one 16-byte load and
+//                     store); else one thread per element
 //   lane_gather       out[b,j] = x[b, idx[b,j]]         the B*J outputs taken
 //                     flat, four a thread: one 16-byte load of their indices,
 //                     four direct reads of x (__ldg, nothing staged: each read
@@ -64,23 +70,21 @@ constexpr size_t kDmaSmemPerSm = 200 << 10;  // dma_rows: ring bytes per SM the 
 
 __device__ __forceinline__ int clamp_index(int i, int c) { return min(max(i, 0), c - 1); }
 
+// Thread t < n4 doubles the float4 t; thread n4 + u the element 4 n4 + u.
 __global__ void __launch_bounds__(kThreads)
-scale2_kernel(const float4* __restrict__ x, float4* __restrict__ out, int n4) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n4) {
-    float4 v = x[i];
+scale2_kernel(const float* __restrict__ x, float* __restrict__ out, int n4, int n) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < n4) {
+    float4 v = reinterpret_cast<const float4*>(x)[t];
     v.x *= 2.f;
     v.y *= 2.f;
     v.z *= 2.f;
     v.w *= 2.f;
-    out[i] = v;
+    reinterpret_cast<float4*>(out)[t] = v;
+  } else {
+    const int i = 4 * n4 + (t - n4);
+    if (i < n) out[i] = x[i] * 2.f;
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-scale2_tail_kernel(const float* __restrict__ x, float* __restrict__ out, int start, int n) {
-  const int i = start + threadIdx.x;
-  if (i < n) out[i] = x[i] * 2.f;
 }
 
 __global__ void __launch_bounds__(kLoopWarps * 32)
@@ -115,6 +119,17 @@ row_gather_vector_kernel(const float* __restrict__ tab, const int* __restrict__ 
   const int i = static_cast<int>(e / d);
   const int col = static_cast<int>(e - static_cast<size_t>(i) * d);
   out[e] = __ldg(tab + static_cast<size_t>(clamp_index(__ldg(idx + i), c)) * d + col);
+}
+
+// Thread e4 writes the float4 e4 of the [B, D] output, D = 4 d4: row e4 / d4.
+__global__ void __launch_bounds__(kThreads)
+row_gather_vector4_kernel(const float4* __restrict__ tab, const int* __restrict__ idx,
+                          float4* __restrict__ out, int c, int d4, int b) {
+  const size_t e4 = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e4 >= static_cast<size_t>(b) * d4) return;
+  const int i = static_cast<int>(e4 / d4);
+  const int col4 = static_cast<int>(e4 - static_cast<size_t>(i) * d4);
+  out[e4] = __ldg(tab + static_cast<size_t>(clamp_index(__ldg(idx + i), c)) * d4 + col4);
 }
 
 // Thread t < n4 takes outputs 4t..4t+3 of the flat [B*J] output (idx and
@@ -200,14 +215,11 @@ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 
 extern "C" int probe_scale2_launch(const void* x, void* out, int n, void* stream) {
   if (n <= 0) return 0;
   if (!aligned16(x) || !aligned16(out)) return static_cast<int>(cudaErrorMisalignedAddress);
-  auto s = static_cast<cudaStream_t>(stream);
   const int n4 = n / 4;
-  if (n4 > 0)
-    scale2_kernel<<<(n4 + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        static_cast<const float4*>(x), static_cast<float4*>(out), n4);
-  if (4 * n4 < n)
-    scale2_tail_kernel<<<1, kThreads, 0, s>>>(static_cast<const float*>(x),
-                                              static_cast<float*>(out), 4 * n4, n);
+  const int threads = n4 + (n - 4 * n4);
+  scale2_kernel<<<(threads + kThreads - 1) / kThreads, kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(static_cast<const float*>(x),
+                                                       static_cast<float*>(out), n4, n);
   return last_error();
 }
 
@@ -227,11 +239,19 @@ extern "C" int probe_row_gather_vector_launch(const void* tab, const void* idx, 
                                               int c, int d, int b, void* stream) {
   if (b <= 0 || d <= 0) return 0;
   if (c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (d % 4 == 0 && aligned16(tab) && aligned16(out)) {
+    const size_t total4 = static_cast<size_t>(b) * (d / 4);
+    row_gather_vector4_kernel<<<static_cast<unsigned>((total4 + kThreads - 1) / kThreads),
+                                kThreads, 0, s>>>(static_cast<const float4*>(tab),
+                                                  static_cast<const int*>(idx),
+                                                  static_cast<float4*>(out), c, d / 4, b);
+    return last_error();
+  }
   const size_t total = static_cast<size_t>(b) * d;
   row_gather_vector_kernel<<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(tab), static_cast<const int*>(idx), static_cast<float*>(out), c,
-      d, b);
+                             s>>>(static_cast<const float*>(tab), static_cast<const int*>(idx),
+                                  static_cast<float*>(out), c, d, b);
   return last_error();
 }
 

@@ -24,6 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # ctypes signatures of each library's C entry points: (argtypes, restype)
 SIGNATURES = {
     "fused_select": {
@@ -54,6 +55,9 @@ SIGNATURES = {
     },
     "loam_features": {
         "loam_corners_launch": ([_P] * 7 + [_I] * 6 + [_F] * 3 + [_P], _I),
+    },
+    "pose_graph": {
+        "pose_graph_gn_launch": ([_P] * 10 + [_L] * 2 + [_I] * 3 + [_F, _P], _I),
     },
 }
 

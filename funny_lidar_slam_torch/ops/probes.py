@@ -68,7 +68,8 @@ def _launch(name: str, fn, *args) -> None:
 
 
 def scale2(x: torch.Tensor) -> torch.Tensor:
-    """x * 2 (tools/pallas_smoke.py::test_basic)."""
+    """x * 2 (tools/pallas_smoke.py::test_basic): one launch, a thread a
+    float4 and a thread a tail element."""
     if not _on_cuda("scale2", x):
         return scale2_plain(x)
     _check("scale2", x)
@@ -103,8 +104,9 @@ def row_gather_loop(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def row_gather_vector(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows elementwise, a thread per element
-    (tools/pallas_smoke.py::test_vector_gather)."""
+    """Rows elementwise (tools/pallas_smoke.py::test_vector_gather): a
+    thread a float4 of the output where D % 4 == 0 and tab and out are
+    16-byte aligned, else a thread an element."""
     return _row_gather(row_gather_vector, "probe_row_gather_vector_launch", tab, idx, False)
 
 

@@ -262,3 +262,60 @@ def test_probe_signatures_match_the_kernel_source():
     threads, sms = 256 * 128 // 4, 132
     block = max(32, min(256, threads // sms // 32 * 32))
     assert (block, -(-threads // block)) == (32, 256)
+
+
+def scale2_mirror(x):
+    """csrc/probes.cu's scale2_kernel in NumPy: one launch of n4 + n % 4
+    threads (n4 = n // 4); thread t < n4 doubles the float4 t, thread n4 + u
+    the tail element 4 n4 + u."""
+    n = x.size
+    n4 = n // 4
+    out = np.full_like(x, np.nan)
+    for t in range(n4 + n - 4 * n4):
+        span = slice(4 * t, 4 * t + 4) if t < n4 else slice(3 * n4 + t, 3 * n4 + t + 1)
+        out[span] = x[span] * np.float32(2)
+    return out
+
+
+def row_gather_vector4_mirror(tab, idx):
+    """row_gather_vector4_kernel in NumPy: thread e4 of B * D/4 writes the
+    float4 e4 of the output, row e4 // (D/4), from one load of its index."""
+    c, d = tab.shape
+    d4, b = d // 4, idx.shape[0]
+    out = np.full((b, d), np.nan, np.float32)
+    for e4 in range(b * d4):
+        i, col4 = divmod(e4, d4)
+        row = min(max(int(idx[i]), 0), c - 1)
+        out[i, 4 * col4:4 * col4 + 4] = tab[row, 4 * col4:4 * col4 + 4]
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 1023, 1024, 1029])
+def test_a_mirror_of_the_one_launch_scale2_covers_every_element(n):
+    x = np.random.default_rng(n).normal(size=n).astype(np.float32)
+    np.testing.assert_array_equal(scale2_mirror(x), probes.scale2_plain(torch.from_numpy(x)))
+
+
+@pytest.mark.parametrize("d, b", [(128, 1024), (132, 7), (1536, 3), (4, 513)])
+def test_a_mirror_of_the_float4_row_gather_vector_matches_the_plain_version(d, b):
+    rng = np.random.default_rng(d + b)
+    tab = rng.normal(size=(97, d)).astype(np.float32)
+    idx = rng.integers(-50, 150, b).astype(np.int32)
+    ref = probes.row_gather_plain(torch.from_numpy(tab), torch.from_numpy(idx)).numpy()
+    np.testing.assert_array_equal(row_gather_vector4_mirror(tab, idx), ref)
+
+
+def test_scale2_is_one_launch_and_row_gather_vector_takes_float4_where_it_can():
+    """probe_scale2_launch launches once for any n (the tail inside the
+    kernel); probe_row_gather_vector_launch takes the float4 kernel where
+    D % 4 == 0 and tab and out are 16-byte aligned, else the element-wise
+    one."""
+    text = (CSRC / "probes.cu").read_text()
+    scale = re.search(r'int probe_scale2_launch\(.*?\n}\n', text, re.S).group(0)
+    assert scale.count("<<<") == 1 and "n4 + (n - 4 * n4)" in scale
+    assert "scale2_tail_kernel" not in text
+    vec = re.search(r'int probe_row_gather_vector_launch\(.*?\n}\n', text, re.S).group(0)
+    assert "if (d % 4 == 0 && aligned16(tab) && aligned16(out))" in vec
+    assert vec.index("row_gather_vector4_kernel<<<") < vec.index("row_gather_vector_kernel<<<")
+    body = re.search(r"row_gather_vector4_kernel\(.*?\n}\n", text, re.S).group(0)
+    assert body.count("__ldg(idx") == 1 and "float4*" in body
