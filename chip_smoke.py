@@ -73,12 +73,16 @@ Phases, each of which raises (non-zero exit) on failure:
      hashed ICP, the pose graph): loops, keyframe ATE, the synchronized
      time of every verification (split into keyframe fetch, host merge and
      device cascade) and of every pose-graph optimize (each graph kept for
-     phase 24; pose_graph_gn launched once a loop); then fused_select at
-     the first verification's refine (K=5) and fitness (K=1) inputs against
-     its plain version and brute force, timed in turns, and that cascade
-     replayed stage by stage (one ndt_gn_rounds launch and one host read
-     an NDT stage, one read an iteration of the refine) and under
-     torch.profiler;
+     phase 24; pose_graph_gn launched once a loop), the GN host reads of
+     every verification (one an NDT stage and one for the refine: 5) and
+     every refine call kept for phase 25 (one plane_map_gn_rounds launch a
+     verification, no K=5 fused_select inside one); then fused_select at
+     the first refine's start-pose gather (K=5, rebuilt from the kept call)
+     and the first verification's fitness (K=1) inputs against its plain
+     version and brute force, timed in turns, and that cascade replayed
+     stage by stage (one ndt_gn_rounds launch and one host read an NDT
+     stage, one plane_map_gn_rounds launch and one read for the refine)
+     and under torch.profiler;
   14. kill and resume: phase 4's grid config with a keyframe store, half
      the run scan by scan, SlamSystem.resume, the rest; then save_map of
      phase 13's system, read back with its tiles;
@@ -217,6 +221,23 @@ Phases, each of which raises (non-zero exit) on failure:
      farther than 1.5x the float32 plain run; timed against the plain
      version in turns at the figure-8's graphs (device and synchronized
      host ms), with its bound;
+  25. the loop closure's refine: plane_map_gn_rounds (csrc/gn_loop.cu
+     plane_map_gn_kernel, the JAX run_gn(point_to_plane_hg) while_loop with
+     the block map's 5-NN lookup inside every iteration, the whole loop one
+     launch of one thread block cluster) against its plain version on
+     every refine call of phase 13's figure-8 run and of its cascade
+     replay (its 5 nearest taken by a stable sort, the kernel's order:
+     `exact_select`), with phase 22's gates (where the counters still part
+     after the float64-sums run, each iteration from the kernel's pose, its
+     stall and convergence tests included: stepwise_compare(stall=True)),
+     every call
+     launched twice bit-equal; edge cases (the CPU tests' drifted room on
+     the card, the room on voxel faces, a starved call, every row masked,
+     every cover block missed, max_iters 1); no ptxas spills; the launch
+     under set_sync_debug_mode("error"); timed at the figure-8's first
+     refine beside its plain version, the host-loop route (run_gn over
+     point_to_plane_hg) and one empty launch, with its bound and rank 0's
+     stage clocks;
 and prints the per-kernel JSON line, the card line and the result line.
 Every path (3b, 4-18) runs with the kernel launch counts zeroed just
 before it and read just after it (phase 18 inside the bench's process,
@@ -227,9 +248,11 @@ step under TightCouplingKF, none under LooseCoupling (the Turing CLI
 preset); and each GN kernel once a gather round of its driver on the
 paths of its matcher (icp_gn_rounds: ICP; plane_gn_rounds: IVOX, KdTree;
 loam_gn_rounds: LoamFull), never on the others, ndt_gn_rounds once an
-NDT match and once an NDT stage of every loop-closure verification, on
-any path (the mapping phases gate the GN host reads a scan, one a round,
-equal to the gathers a scan, and on NDT to the matches), and corner_mask
+NDT match and once an NDT stage of every loop-closure verification and
+plane_map_gn_rounds once a verification, on any path (the mapping phases
+gate the GN host reads a scan, one a round, equal to the gathers a scan,
+and on NDT to the matches), the host-loop GN (run_gn_corr) on none but
+the profile tool's own stage of it, and corner_mask
 once a LOAM front-end call (Frontend._process), none on a path without a
 lidar geometry, and pose_graph_gn once an accepted loop (check_launches;
 phase 13's figure-8 and the CLI's loop-closing presets), none elsewhere.
@@ -1144,35 +1167,58 @@ def zero_counts():
         fn.launches = 0
     for driver in gn.ROUND_DRIVERS.values():
         driver.rounds = 0
-    for k in NDT_CALLERS:
-        NDT_CALLERS[k] = 0
+    for k in GN_CALLERS:
+        GN_CALLERS[k] = 0
+    HOST_LOOP_CALLS["run_gn_corr"] = 0
     FEATURE_CALLS["process"] = 0
 
 
-# the NDT GN loop's callers since zero_counts: NdtMatcher.match calls and
-# the NDT stages of the loop closure's cascades (each cascade's resolutions)
-NDT_CALLERS = {"matches": 0, "cascade_stages": 0}
+# the callers of the GN loops that gather inside since zero_counts:
+# NdtMatcher.match calls, the NDT stages of the loop closure's cascades
+# (each cascade's resolutions) and the cascades (one refine each)
+GN_CALLERS = {"matches": 0, "cascade_stages": 0, "cascades": 0}
 
 
-def count_ndt_callers():
+def count_gn_callers():
     """Wraps NdtMatcher.match and loop_closure._verify_cascade once for the
-    run, each call counted in NDT_CALLERS: ndt_gn_rounds must launch once a
-    match and once a cascade stage (`gn_launches`)."""
+    run, each call counted in GN_CALLERS: ndt_gn_rounds must launch once a
+    match and once a cascade stage, plane_map_gn_rounds once a cascade
+    (`gn_launches`)."""
     from funny_lidar_slam_torch.backend import loop_closure
     from funny_lidar_slam_torch.registration import matchers
 
     match, cascade = matchers.NdtMatcher.match, loop_closure._verify_cascade
 
     def counted_match(self, *a, **kw):
-        NDT_CALLERS["matches"] += 1
+        GN_CALLERS["matches"] += 1
         return match(self, *a, **kw)
 
     def counted_cascade(cfg, *a, **kw):
-        NDT_CALLERS["cascade_stages"] += len(cfg.ndt_resolutions)
+        GN_CALLERS["cascade_stages"] += len(cfg.ndt_resolutions)
+        GN_CALLERS["cascades"] += 1
         return cascade(cfg, *a, **kw)
 
     matchers.NdtMatcher.match = counted_match
     loop_closure._verify_cascade = counted_cascade
+
+
+# the host-loop GN's calls since zero_counts (`run_gn_corr`, and `run_gn`
+# over it): no path of the port runs it on the card
+HOST_LOOP_CALLS = {"run_gn_corr": 0}
+
+
+def count_host_loops():
+    """Wraps registration/gn.py's run_gn_corr once for the run, each call
+    counted in HOST_LOOP_CALLS (run_gn looks it up at call time)."""
+    from funny_lidar_slam_torch.registration import gn
+
+    host_loop = gn.run_gn_corr
+
+    def counted(*a, **kw):
+        HOST_LOOP_CALLS["run_gn_corr"] += 1
+        return host_loop(*a, **kw)
+
+    gn.run_gn_corr = counted
 
 
 # the LOAM front end's calls since zero_counts (Frontend._process: the
@@ -1217,18 +1263,25 @@ def gn_kernel_of(matcher):
     return None
 
 
-def gn_launches(tag, kernel) -> int:
+def gn_launches(tag, kernel, host_loops: bool = False) -> int:
     """The GN kernels' launches of the path just run, recorded and checked:
+    no call of the host-loop GN (`run_gn_corr`, `run_gn`) unless
+    `host_loops` (the profile tool's `gn_uncached_direct` stage, which
+    times that loop on purpose as the JAX tool's stage does);
     each kernel once a gather round of its driver (one host read each);
     icp/plane/loam_gn_rounds > 0 for the path's own kernel (`kernel`) and
     none for the others; ndt_gn_rounds exactly once an NDT match and once
-    an NDT stage of the loop closure's cascades (NDT_CALLERS), > 0 on the
-    NDT paths. Returns the path's launches."""
+    an NDT stage of the loop closure's cascades (GN_CALLERS), > 0 on the
+    NDT paths; plane_map_gn_rounds exactly once a cascade (the refine), so
+    none on a path that verified no loop. Returns the path's launches."""
     from funny_lidar_slam_torch.ops import gn_loop
     from funny_lidar_slam_torch.registration import gn
 
     counts = {}
-    matches, stages = NDT_CALLERS["matches"], NDT_CALLERS["cascade_stages"]
+    matches, stages = GN_CALLERS["matches"], GN_CALLERS["cascade_stages"]
+    cascades = GN_CALLERS["cascades"]
+    host = HOST_LOOP_CALLS["run_gn_corr"]
+    assert host_loops or host == 0, f"[{tag}] the host-loop GN ran {host} times"
     assert (matches > 0) == (kernel == "ndt_gn_rounds"), f"[{tag}] {matches} NDT matches"
     for fn in gn_loop.KERNELS:
         n, rounds = fn.launches, gn.ROUND_DRIVERS[fn.__name__].rounds
@@ -1237,6 +1290,9 @@ def gn_launches(tag, kernel) -> int:
             assert n == matches + stages, \
                 f"[{tag}] ndt_gn_rounds launched {n} times for {matches} matches and {stages} " \
                 f"cascade stages"
+        elif fn is gn_loop.plane_map_gn_rounds:
+            assert n == cascades, \
+                f"[{tag}] plane_map_gn_rounds launched {n} times for {cascades} cascades"
         else:
             assert (n > 0) == (fn.__name__ == kernel), \
                 f"[{tag}] {fn.__name__} launched {n} times (the path's GN kernel: {kernel})"
@@ -1315,6 +1371,14 @@ LOAM_GN_KERNELS = ("plane_gn_rounds", "loam_gn_rounds")
 # outlier_thresh, radius, config, num_probes), and the launches meanwhile
 NDT_CAPTURES: dict = {}
 NDT_CAPTURE_LAUNCHES: dict = {}
+# "figure8" (phase 13's run, each verification's refine, kept by LoopProbe)
+# and "figure8-cascade" (its first cascade, replayed) -> [args] of
+# run_gn_plane_map's plane_map_gn_rounds calls (carry before the call,
+# source, mask, the block map by reference, inv, plane_thresh,
+# max_search_dist_sq, radius, config, stencil, num_probes), and the launches
+# meanwhile
+REFINE_CAPTURES: dict = {}
+REFINE_CAPTURE_LAUNCHES: dict = {}
 # every key -> [(OrderedScan, FeatureConfig)] of the corner_mask calls (the
 # scan's depth, col, row, mask and row bounds cloned; no points), and the
 # launches meanwhile: only the LOAM paths (FEATURE_PATHS) make any
@@ -1322,13 +1386,25 @@ FEATURE_CAPTURES: dict = {}
 FEATURE_CAPTURE_LAUNCHES: dict = {}
 
 
+def refine_capture(sink: list, rounds):
+    """`rounds` (plane_map_gn_rounds) wrapped so that each call's arguments
+    go to `sink`: the carry, source and mask cloned, the block map by
+    reference (a BlockMap's tensors are never written in place, insert makes
+    new ones)."""
+    def wrapper(carry, src, mask, *rest):
+        sink.append((carry.clone(), src.clone(), mask.clone(), *rest))
+        return rounds(carry, src, mask, *rest)
+    return wrapper
+
+
 class LoopCapture:
     """While active, records the arguments (cloned) of every preintegrate,
     eskf.predict and tight fuse call of the frontend step under `key`
     (with `loops`), of every icp_gn_rounds call of the ICP driver, of
-    every plane_gn_rounds / loam_gn_rounds call of the LOAM drivers and of
+    every plane_gn_rounds / loam_gn_rounds call of the LOAM drivers, of
     every ndt_gn_rounds call of run_gn_ndt (the map by reference: an
-    NdtMap's tensors are never written in place, insert makes new ones),
+    NdtMap's tensors are never written in place, insert makes new ones) and
+    of every plane_map_gn_rounds call of run_gn_plane_map (`refine_capture`),
     and the kernels' launches meanwhile. The clones cost time a step, so a
     capture runs outside every timed or counted run."""
 
@@ -1338,6 +1414,7 @@ class LoopCapture:
         self.gn_calls = GN_CAPTURES.setdefault(key, [])
         self.loam_calls = LOAM_CAPTURES.setdefault(key, [])
         self.ndt_calls = NDT_CAPTURES.setdefault(key, [])
+        self.refine_calls = REFINE_CAPTURES.setdefault(key, [])
         self.feature_calls = FEATURE_CAPTURES.setdefault(key, [])
 
     def __enter__(self):
@@ -1385,6 +1462,10 @@ class LoopCapture:
 
         self.saved.append((gn, "ndt_gn_rounds", "ndt_gn_rounds", ndt_rounds))
         gn.ndt_gn_rounds = ndt_wrapper
+        self.refine_start = gn_loop.plane_map_gn_rounds.launches
+        self.saved.append((gn, "plane_map_gn_rounds", "plane_map_gn_rounds",
+                           gn.plane_map_gn_rounds))
+        gn.plane_map_gn_rounds = refine_capture(self.refine_calls, gn.plane_map_gn_rounds)
         corners = features.corner_mask
         self.feature_start = loam_features.corner_mask.launches
 
@@ -1414,6 +1495,9 @@ class LoopCapture:
             counts[k] = counts.get(k, 0) + getattr(gn_loop, k).launches - self.loam_start[k]
         NDT_CAPTURE_LAUNCHES[self.key] = (NDT_CAPTURE_LAUNCHES.get(self.key, 0)
                                           + gn_loop.ndt_gn_rounds.launches - self.ndt_start)
+        REFINE_CAPTURE_LAUNCHES[self.key] = (REFINE_CAPTURE_LAUNCHES.get(self.key, 0)
+                                             + gn_loop.plane_map_gn_rounds.launches
+                                             - self.refine_start)
         FEATURE_CAPTURE_LAUNCHES[self.key] = (FEATURE_CAPTURE_LAUNCHES.get(self.key, 0)
                                               + loam_features.corner_mask.launches
                                               - self.feature_start)
@@ -1469,9 +1553,9 @@ def mapping_run(torch, ds, tag, make, warm_scans=8, expect_select=True, capture=
     res["gn_host_reads_per_scan"] = reads / steps
     if gn_kernel_of(slam.frontend.matcher) == "ndt_gn_rounds":  # one launch a match
         res["gn_iterations_per_scan"] = sum(gathers) / steps  # each one a gather
-        assert reads == GN_LAUNCHES[tag] == NDT_CALLERS["matches"] == len(gathers), \
+        assert reads == GN_LAUNCHES[tag] == GN_CALLERS["matches"] == len(gathers), \
             f"[{tag}] {reads} GN host reads, {GN_LAUNCHES[tag]} launches for " \
-            f"{NDT_CALLERS['matches']} matches ({len(gathers)} scans matched)"
+            f"{GN_CALLERS['matches']} matches ({len(gathers)} scans matched)"
     else:  # one host read a gather round
         assert reads == GN_LAUNCHES[tag] == sum(gathers), \
             f"[{tag}] {reads} GN host reads, {GN_LAUNCHES[tag]} launches for {sum(gathers)} gathers"
@@ -1614,9 +1698,9 @@ def phase_localization(torch, ds, mode="IcpOptimized"):
     loop_counts = loop_launches(tag, loc.stats, loc.frontend)
     reads = sum(d.rounds for d in gn.ROUND_DRIVERS.values())  # one host read a round
     if mode == "IncrementalNDT":  # one launch and one read a match, the init's too
-        assert reads == GN_LAUNCHES[tag] == NDT_CALLERS["matches"] > 0, \
+        assert reads == GN_LAUNCHES[tag] == GN_CALLERS["matches"] > 0, \
             f"[{tag}] {reads} GN host reads, {GN_LAUNCHES[tag]} launches for " \
-            f"{NDT_CALLERS['matches']} matches"
+            f"{GN_CALLERS['matches']} matches"
 
     est, gt = gt_pairs(ds, out)
     assert loc.initialized, f"[{tag}] the init did not pass its fitness gate"
@@ -1673,21 +1757,25 @@ class LoopProbe:
     fused_select launches (counted apart) around every verification and
     every pose-graph optimize, and the GN iterations and host reads of each
     verification (one read an NDT stage, whose whole loop is one
-    ndt_gn_rounds launch, and one an iteration of the point-to-plane
-    refine); each verification's time is split into the
+    ndt_gn_rounds launch, and one for the point-to-plane refine, one
+    plane_map_gn_rounds launch); each verification's time is split into the
     keyframe fetch, the host merge of the submaps and the device cascade.
+    Every refine call's arguments go to REFINE_CAPTURES[`key`]
+    (`refine_capture`: a clone of the source and mask a verification).
     During the first verification it keeps the block map the cascade
-    builds, the cascade's inputs, and the inputs of its first K=5 gather
-    (the point-to-plane refine) and first K=1 call (the fitness)."""
+    builds, the cascade's inputs, and the inputs of its first K=1
+    fused_select call (the fitness); a K=5 call there (the refine's gather
+    before the kernel took it) is kept too, and phase 13 requires none."""
 
-    def __init__(self, torch):
+    def __init__(self, torch, key="figure8"):
         from funny_lidar_slam_torch.backend import loop_closure
         from funny_lidar_slam_torch.maps import block_map
-        from funny_lidar_slam_torch.ops import select
+        from funny_lidar_slam_torch.ops import gn_loop, select
         from funny_lidar_slam_torch.pipeline import system
+        from funny_lidar_slam_torch.registration import gn
 
         self.torch, self.select, self.block_map = torch, select, block_map
-        self.lc, self.system = loop_closure, system
+        self.lc, self.system, self.gn_loop, self.key = loop_closure, system, gn_loop, key
         self.verifications, self.optimize_ms, self.captured = [], [], {}
         self.graphs = []  # every optimize's inputs (clones) and its other arguments
         self.map = self.cascade_args = None
@@ -1696,15 +1784,18 @@ class LoopProbe:
         self.parts = {"fetch_ms": [], "merge_ms": [], "cascade_ms": []}
         self.saved = [(loop_closure, "verify_candidate", loop_closure.verify_candidate),
                       (system, "pg_optimize", system.pg_optimize),
-                      (loop_closure, "run_gn", loop_closure.run_gn),
+                      (loop_closure, "run_gn_plane_map", loop_closure.run_gn_plane_map),
                       (loop_closure, "materialize_batch", loop_closure.materialize_batch),
                       (loop_closure, "_merge_submap", loop_closure._merge_submap),
                       (loop_closure, "_verify_cascade", loop_closure._verify_cascade),
-                      (loop_closure, "run_gn_ndt", loop_closure.run_gn_ndt)]
+                      (loop_closure, "run_gn_ndt", loop_closure.run_gn_ndt),
+                      (gn, "plane_map_gn_rounds", gn.plane_map_gn_rounds)]
 
     def __enter__(self):
-        ((lc, _, verify), (system, _, optimize), (_, _, run_gn), (_, _, fetch), (_, _, merge),
-         (_, _, cascade), (_, _, run_gn_ndt)) = self.saved
+        ((lc, _, verify), (system, _, optimize), (_, _, run_refine), (_, _, fetch),
+         (_, _, merge), (_, _, cascade), (_, _, run_gn_ndt), (gn, _, rounds)) = self.saved
+        self.refine_start = self.gn_loop.plane_map_gn_rounds.launches
+        gn.plane_map_gn_rounds = refine_capture(REFINE_CAPTURES.setdefault(self.key, []), rounds)
         lc.verify_candidate = self._verify(verify)
         system.pg_optimize = self._kept(self._timed(optimize, self.optimize_ms))
         lc.materialize_batch = self._timed(fetch, self.parts["fetch_ms"])
@@ -1717,22 +1808,21 @@ class LoopProbe:
             return timed_cascade(*a)
         lc._verify_cascade = kept_cascade
 
-        def counted_gn(*a, **kw):  # the refine: a host read an iteration
-            res = run_gn(*a, **kw)
-            self.gn_iters.append((res.iters, None))
-            return res
-
-        def counted_ndt(*a, **kw):  # an NDT stage: one read
-            res = run_gn_ndt(*a, **kw)
-            self.gn_iters.append((res.iters, 1))
-            return res
-        lc.run_gn = counted_gn
-        lc.run_gn_ndt = counted_ndt
+        def counted(run):  # an NDT stage or the refine: one launch, one read
+            def wrapper(*a, **kw):
+                res = run(*a, **kw)
+                self.gn_iters.append((res.iters, 1))
+                return res
+            return wrapper
+        lc.run_gn_plane_map = counted(run_refine)
+        lc.run_gn_ndt = counted(run_gn_ndt)
         return self
 
     def __exit__(self, *exc):
         for mod, attr, fn in self.saved:
             setattr(mod, attr, fn)
+        REFINE_CAPTURE_LAUNCHES[self.key] = (self.gn_loop.plane_map_gn_rounds.launches
+                                             - self.refine_start)
 
     def _timed(self, fn, sink):
         def wrapper(*a, **kw):
@@ -1774,7 +1864,7 @@ class LoopProbe:
                 "accepted": res is not None, "fitness": None if res is None else res.fitness,
                 "fused_select_launches": inside,
                 "gn_iterations": [int(i) for i, _ in self.gn_iters],
-                "gn_host_reads": sum(int(i) if r is None else r for i, r in self.gn_iters),
+                "gn_host_reads": sum(r for _, r in self.gn_iters),
                 **{k: float(sum(v)) for k, v in self.parts.items()}})
             self.gn_iters.clear()
             for v in self.parts.values():
@@ -1855,6 +1945,18 @@ def phase_figure8(torch):
         assert r.fitness < 1.5 and r.current_id - r.candidate_id > 40, f"[figure8] loop {r}"
     assert kf_ate < 0.5, f"[figure8] keyframe ATE {kf_ate:.4f} m"
     check_launches("figure8", launches, True, len(loops))
+    # the refine: one plane_map_gn_rounds launch and one host read a
+    # verification, beside one each NDT stage, and no K=5 fused_select
+    stages = len(probe.cascade_args[0].ndt_resolutions)
+    reads = [v["gn_host_reads"] for v in probe.verifications]
+    refines = REFINE_CAPTURES["figure8"]
+    assert reads == [stages + 1] * len(reads), f"[figure8] GN host reads a verification {reads}"
+    assert REFINE_CAPTURE_LAUNCHES["figure8"] == len(refines) == len(reads) \
+        == GN_LAUNCHES_BY_KERNEL["figure8"]["plane_map_gn_rounds"] > 0, \
+        f"[figure8] {REFINE_CAPTURE_LAUNCHES['figure8']} refine launches, {len(refines)} " \
+        f"refine calls, {len(reads)} verifications"
+    assert "loop_refine_k5" not in probe.captured, "[figure8] a verification ran a K=5 gather"
+    res["refine_launches"] = len(refines)
     PG_GRAPHS[:] = probe.graphs
     res["pose_graph_gn_launches"] = POSE_GRAPH_LAUNCHES["figure8"]
     res["select"] = loop_select(torch, probe)
@@ -1862,15 +1964,46 @@ def phase_figure8(torch):
     return slam, launches, res
 
 
+def refine_gather_inputs(torch, args) -> tuple:
+    """The fused_select call (positional arguments, keywords) of the K=5
+    gather that a refine call (`args`, plane_map_gn_rounds' arguments) makes
+    at its start pose when it runs the plain version: point_to_plane_corr
+    at that pose on the call's source and block map, its fused_select call
+    recorded (and launched)."""
+    from funny_lidar_slam_torch.ops import gn_loop, select
+    from funny_lidar_slam_torch.registration import residuals
+
+    carry, src, mask, m, inv, thresh, max_d2, _, _, stencil, probes = args
+    kept, fn = [], select.fused_select
+
+    def record(*a, **kw):
+        kept.append((tuple(x.clone() if torch.is_tensor(x) else x for x in a),
+                     {"stencil": kw["stencil"], "qvox": kw["qvox"].clone()}))
+        return fn(*a, **kw)
+
+    record.launches = 0  # the wrapper counts into select.fused_select: not a path's launch
+    select.fused_select = record
+    try:
+        residuals.point_to_plane_corr(gn_loop.result_views(carry).t_mat, src, mask, m, inv,
+                                      thresh, max_d2, stencil, probes)
+    finally:
+        select.fused_select = fn
+    assert len(kept) == 1 and kept[0][0][3] == 5, [k[0][3] for k in kept]
+    return kept[0]
+
+
 def loop_select(torch, probe) -> dict:
     """fused_select at the first verification's inputs (N = Gp = 16384 over
-    the cascade's 131,072-capacity block map, nearby26): the refine gather
-    at K=5 and K=1, the fitness call at K=1, each against the plain version,
+    the cascade's 131,072-capacity block map, nearby26): the refine's gather
+    at its start pose (built from the captured refine call,
+    `refine_gather_inputs`: the refine itself gathers inside its kernel) at
+    K=5 and K=1, the fitness call at K=1, each against the plain version,
     K=1 against brute force over the map's stored points; both shapes timed
     in turns with the bound and torch.topk."""
     from funny_lidar_slam_torch.ops import select
 
-    assert set(probe.captured) == {"loop_refine_k5", "loop_fitness_k1"}, sorted(probe.captured)
+    assert set(probe.captured) == {"loop_fitness_k1"}, sorted(probe.captured)
+    probe.captured["loop_refine_k5"] = refine_gather_inputs(torch, REFINE_CAPTURES["figure8"][0])
     stored = stored_points(probe.map)
     shapes, max_err, checked = {}, 0.0, {}
     for name, ((wnd, gid, qs, k, plane), kw) in sorted(probe.captured.items()):
@@ -1936,12 +2069,13 @@ def runtime_calls(torch, run) -> dict:
 
 def cascade_breakdown(torch, probe) -> dict:
     """The first verification's device cascade replayed on its captured
-    inputs: once under LoopCapture (phase 22's NDT inputs), then its
-    synchronized ms, then one replay with a synchronized clock around each
-    stage kind (voxel filters, block map, NDT map create and load, the NDT
-    stages' GN loops, one ndt_gn_rounds launch and one host read each, the
-    refine's, one host read an iteration, fitness calls), then one under
-    torch.profiler for the device's busy share."""
+    inputs: once under LoopCapture (phase 22's NDT inputs and phase 25's
+    refine input), then its synchronized ms, then one replay with a
+    synchronized clock around each stage kind (voxel filters, block map,
+    NDT map create and load, the NDT stages' GN loops, one ndt_gn_rounds
+    launch and one host read each, the refine's, one plane_map_gn_rounds
+    launch and one host read, fitness calls), then one under torch.profiler
+    for the device's busy share."""
     from funny_lidar_slam_torch.maps import block_map, ndt_map
     from funny_lidar_slam_torch.ops import gn_loop
     from funny_lidar_slam_torch.registration import gn
@@ -1977,8 +2111,11 @@ def cascade_breakdown(torch, probe) -> dict:
 
     saved = [(m, a, getattr(m, a)) for m, a in (
         (lc, "voxel_downsample"), (block_map, "build"), (ndt_map, "create"),
-        (ndt_map, "insert"), (lc, "run_gn_ndt"), (lc, "run_gn"), (lc, "fitness_score"))]
-    launched, read = gn_loop.ndt_gn_rounds.launches, gn.run_gn_ndt.rounds
+        (ndt_map, "insert"), (lc, "run_gn_ndt"), (lc, "run_gn_plane_map"),
+        (lc, "fitness_score"))]
+    kernels, drivers = (gn_loop.ndt_gn_rounds, gn_loop.plane_map_gn_rounds), \
+        (gn.run_gn_ndt, gn.run_gn_plane_map)
+    before = [f.launches for f in kernels] + [d.rounds for d in drivers]
     try:
         for m, a, fn in saved:
             setattr(m, a, timed(a, fn))
@@ -1986,30 +2123,33 @@ def cascade_breakdown(torch, probe) -> dict:
     finally:
         for m, a, fn in saved:
             setattr(m, a, fn)
-    launched = gn_loop.ndt_gn_rounds.launches - launched
-    read = gn.run_gn_ndt.rounds - read
+    launched, refine_launched, read, refine_read = (
+        now - was for now, was in zip([f.launches for f in kernels] + [d.rounds for d in drivers],
+                                      before))
     try:
         prof_wall, busy = device_busy_ms(torch, run)
     except RuntimeError as e:  # without CUPTI tracing the split is unmeasured, not a fault
         log(f"[figure8-cascade] torch.profiler failed ({e}): device busy time not measured")
         prof_wall, busy = None, None
     ndt_n, ndt_ms = stages["run_gn_ndt"]
-    gn_n, gn_ms = stages["run_gn"]
+    gn_n, gn_ms = stages["run_gn_plane_map"]
     stages_n = len(cfg.ndt_resolutions)
     res = {"cascade_ms": wall_ms, "stages": {k: {"calls": n, "ms": ms}
                                              for k, (n, ms) in stages.items()},
            "gn_iterations": iters, "ndt_gn_launches": launched,
-           "host_reads": read + sum(iters[ndt_n:]), "ndt_host_reads": read,
-           "refine_host_reads": sum(iters[ndt_n:]),
+           "refine_launches": refine_launched, "host_reads": read + refine_read,
+           "ndt_host_reads": read, "refine_host_reads": refine_read,
+           "refine_iterations": sum(iters[ndt_n:]), "refine_ms": gn_ms,
            "ndt_ms_per_iteration": ndt_ms / max(sum(iters[:ndt_n]), 1),
            "refine_ms_per_iteration": gn_ms / max(sum(iters[ndt_n:]), 1),
            "profiled_ms": prof_wall, "device_busy_ms": busy,
            "device_idle_share": None if busy is None else 1.0 - busy / prof_wall}
     log("[figure8-cascade] " + json.dumps(res))
-    # one launch and one host read an NDT stage; the refine on the host loop
-    assert ndt_n == launched == read == stages_n and gn_n == 1, \
-        f"[figure8-cascade] {ndt_n} NDT stages ({launched} launches, {read} reads) of " \
-        f"{stages_n}, {gn_n} refines"
+    # one launch and one host read an NDT stage, and one of each for the refine
+    assert ndt_n == launched == read == stages_n, \
+        f"[figure8-cascade] {ndt_n} NDT stages ({launched} launches, {read} reads) of {stages_n}"
+    assert gn_n == refine_launched == refine_read == 1 and res["host_reads"] == stages_n + 1, \
+        f"[figure8-cascade] {gn_n} refines, {refine_launched} launches, {refine_read} reads"
     return res
 
 
@@ -2566,7 +2706,9 @@ def phase_profile_frontend(torch):
     assert loop_counts["preintegrate"] > 0 and loop_counts["tight_fuse"] > 0, \
         f"[profile-frontend] {loop_counts}"
     LOOP_LAUNCHES["profile_frontend"] = loop_counts
-    gn_launches("profile-frontend", "icp_gn_rounds")
+    gn_launches("profile-frontend", "icp_gn_rounds", host_loops=True)
+    log(f"[profile-frontend] the host-loop GN ran {HOST_LOOP_CALLS['run_gn_corr']} times "
+        f"(the tool's gn_uncached_direct stage)")
     ms = report["ms"]
     assert set(tool.CALLS) | {"full_step", "live_frame_wall"} <= set(ms), sorted(ms)
     assert all(np.isfinite(v) and v > 0 for v in ms.values()), ms
@@ -3134,16 +3276,18 @@ class float64_sums:
         residuals._reduce_vec3 = self.saved_vec3
 
 
-def gn_turns(torch, args, kind) -> tuple:
+def gn_turns(torch, args, kind, extra=None) -> tuple:
     """A GN kernel (`kind`) timed on one captured call beside its plain
-    version and one empty launch, in turns (kernel, plain, floor, floor,
-    plain, kernel), each call from its own copy of the carry: (the turns,
-    the median ms of each)."""
+    version, the calls of `extra` ({name: (fn, reps)}) and one empty
+    launch, in turns (kernel, plain, extra, floor, floor, extra reversed,
+    plain, kernel), each kernel or plain call from its own copy of the
+    carry: (the turns, the median ms of each)."""
     from funny_lidar_slam_torch.ops import gn_loop
 
     pools = {k: args[0].repeat(512, 1) for k in ("kernel", "plain")}
     used = {"kernel": 0, "plain": 0}
     fns = {"kernel": getattr(gn_loop, kind), "plain": getattr(gn_loop, f"{kind}_plain")}
+    extra = extra or {}
 
     def call(which):
         carry = pools[which][used[which]]
@@ -3152,8 +3296,9 @@ def gn_turns(torch, args, kind) -> tuple:
 
     turns = in_turns(lambda f: time_ms(torch, f[0], f[1]),
                      {"kernel": (lambda: call("kernel"), 50), "plain": (lambda: call("plain"), 3),
-                      "floor": (lambda: torch.cuda._sleep(0), 50)},
-                     ["kernel", "plain", "floor", "floor", "plain", "kernel"])
+                      "floor": (lambda: torch.cuda._sleep(0), 50), **extra},
+                     ["kernel", "plain", *extra, "floor", "floor", *reversed(extra), "plain",
+                      "kernel"])
     assert max(used.values()) <= 512, used
     return turns, {c: float(np.median(v)) for c, v in turns.items()}
 
@@ -3467,10 +3612,12 @@ def stepwise_compare(torch, args, r, kind, tol=GN_POSE_TOL, stall=False) -> dict
     (`norm_diff`, held to STALL_NORM_TOL) and stall decisions are compared:
     a decision may part (`decisions_parted`) only where the plain step's
     |rn - last_rot| or |pn - last_pos| lies within STALL_NORM_TOL of
-    stall_eps, where one rounding can flip it (`decisions_off_band` counts
-    the others, and must be 0). The chain's first stall (`first_stall`)
-    must fall on the call's last iteration where the call ended on the
-    stall test, and nowhere where it did not."""
+    stall_eps, or, on a step with min_valid rows, its rn or pn within
+    STALL_NORM_TOL of rotation_eps or position_eps, where one rounding can
+    flip it (`decisions_off_band` counts the others, and must be 0). The
+    chain's first stop (`first_stall`: done, by the stall test or, with
+    enough rows, by convergence) must fall on the call's last iteration
+    where the call ended done, and nowhere where it did not."""
     from funny_lidar_slam_torch.ops import gn_loop
 
     kernel, plain = getattr(gn_loop, kind), getattr(gn_loop, f"{kind}_plain")
@@ -3481,7 +3628,8 @@ def stepwise_compare(torch, args, r, kind, tol=GN_POSE_TOL, stall=False) -> dict
     carry = args[0].clone()
     worst = {"nv_rel": 0.0, "res_rel": 0.0, "dp": 0.0, "da": 0.0}
     norm_diff, parted, off_band, first_stall = [0.0, 0.0], 0, 0, None
-    radius, cfg = args[1 + GN_SETS[kind]], args[2 + GN_SETS[kind]]
+    i_cfg = next(k for k, a in enumerate(args) if hasattr(a, "max_iters"))
+    radius, cfg = args[i_cfg - 1], args[i_cfg]  # the radius comes just before the config
     t_gather = gn_loop.result_views(args[0]).t_mat.clone()
     for k in range(r["iterations"]):
         exact = k == 0 or cfg.skip_regather_dist <= 0.0 or not bool(gn_loop.trust_region_moved(
@@ -3503,7 +3651,12 @@ def stepwise_compare(torch, args, r, kind, tol=GN_POSE_TOL, stall=False) -> dict
             if stop_k != stop_p:  # excused only where the plain step's test is on its edge
                 parted += 1
                 edge = ((pp - last).abs() - cfg.stall_eps).abs() <= STALL_NORM_TOL
-                off_band += not (cfg.use_stall_check and bool(edge.any()))
+                # or, with enough valid rows, where its convergence test is
+                eps = torch.tensor([cfg.rotation_eps, cfg.position_eps], dtype=pp.dtype,
+                                   device=pp.device)
+                conv_edge = (int(vp.num_valid) >= cfg.min_valid
+                             and bool(((pp - eps).abs() <= STALL_NORM_TOL).any()))
+                off_band += not ((cfg.use_stall_check and bool(edge.any())) or conv_edge)
             if stop_k and first_stall is None:
                 first_stall = k + 1
             carry[norms] = ck[norms]
@@ -3513,10 +3666,12 @@ def stepwise_compare(torch, args, r, kind, tol=GN_POSE_TOL, stall=False) -> dict
             and worst["dp"] < tol[0] and worst["da"] < tol[1])
     out = {**worst, "steps": r["iterations"], "chain_bit_equal": chain, "held": held}
     if stall:
-        # the call ended on its stall test: done and not converged
+        # the call ended on its stall test: done and not converged; the chain
+        # stops first (done, by the stall or the convergence test) on the
+        # call's last iteration where the call ended done, nowhere else
         c = r["carry_k"]  # it, gathers, since, force, done, converged, ...
         on_stall = bool(c[4]) and not c[5]
-        ends = first_stall == (r["iterations"] if on_stall else None)
+        ends = first_stall == (r["iterations"] if c[4] else None)
         out.update(norm_diff=norm_diff, decisions_parted=parted, decisions_off_band=off_band,
                    first_stall=first_stall, ended_on_stall=on_stall, stall_end_held=ends)
         out["held"] = (held and ends and off_band == 0
@@ -3802,7 +3957,14 @@ def gn_stage_cycles(torch, lib, kind, call, keep_slots: bool = True) -> dict:
     big = torch.zeros(gn_loop.CARRY_SIZE + GN_CLOCKS, dtype=torch.int32, device=carry.device)
     big[:gn_loop.CARRY_SIZE] = carry
     stream = torch.cuda.current_stream(carry.device).cuda_stream
-    if kind == "ndt_gn_rounds":
+    if kind == "plane_map_gn_rounds":
+        _, src, mask, m, inv, thresh, max_d2, _, cfg, _, probes = call
+        ptrs = [t.data_ptr() for t in gn_loop._checked_refine_inputs(carry, src, mask, m)]
+        ptrs[4] = big.data_ptr()  # the carry, after the source and the map
+        err = lib.plane_map_gn_launch(*ptrs, src.shape[0], m.fpwin.shape[0], int(probes),
+                                      m.bucket_size, *gn_loop._loop_args(cfg, schedule=False),
+                                      float(inv), float(max_d2), float(thresh), stream)
+    elif kind == "ndt_gn_rounds":
         _, src, mask, m, inv, thresh, _, cfg, *rest = call
         args = gn_loop._ndt_launch_args(carry, src, mask, m)
         ptrs = [t.data_ptr() for t in args]
@@ -4680,6 +4842,386 @@ def phase_pose_graph(torch, report) -> dict:
             "compared": rows, "resources": resources}
 
 
+# ------------------------------------- phase 25: the loop closure's refine
+REFINE_SOURCE = ("funny_lidar_slam_torch/csrc/gn_loop.cu",
+                 "funny_lidar_slam_tpu/backend/loop_closure.py:159-169")
+REFINE_PATHS = ("figure8", "figure8-cascade")
+# the least work of an iteration, counted as the kernel takes it: a row's
+# transform and voxel (~20) and each of its 8 cover blocks' hash,
+# fingerprint and probe compares (~40); a stencil lane of a found block, its
+# d2 and the compare with the fifth (~10); a row with five points within
+# the gate, its plane fit, gates and J J^T (~250, as gn_cost's plane row)
+REFINE_ROW_OPS, REFINE_BLOCK_OPS, REFINE_LANE_OPS, REFINE_PLANE_OPS = 20, 40, 10, 250
+
+
+def refine_lookup(torch, m, p, inv, probes) -> tuple:
+    """The kernel's lookup for rows at world points p [R, 3] (the cover of
+    each row's voxel, block_map.gather_cover): the cover's slots [R, 8] (-1
+    where a block is missed), the nearby26 stencil over the cover's local
+    voxels [R, 8, 8], and the slots the windows probe up to each first
+    match (flat)."""
+    from funny_lidar_slam_torch.maps import block_map
+    from funny_lidar_slam_torch.ops.voxel import voxel_coords
+
+    v = voxel_coords(p, inv)
+    cover = torch.tensor(block_map._COVER, dtype=v.dtype, device=v.device)
+    bc = ((v - 1) >> 1)[:, None, :] + cover[None]
+    slots, match, _ = block_map._probe_blocks(m, bc.reshape(-1, 3), probes)
+    first = torch.where(match.any(-1), match.int().argmax(-1), probes - 1)
+    probed = slots[torch.arange(probes, device=p.device)[None, :] <= first[:, None]]
+    loc = torch.arange(8, device=v.device, dtype=v.dtype)
+    w = 2 * cover[:, None, :] + torch.stack([loc >> 2, (loc >> 1) & 1, loc & 1], -1)[None]
+    sten = ((w[None] - (2 - (v & 1))[:, None, None, :]).abs() <= 1).all(-1)
+    return block_map.find_block_slots(m, bc, probes), sten, probed
+
+
+def refine_cost(torch, args) -> tuple:
+    """(bytes, operations, iterations) of one plane_map_gn_rounds call. The
+    bytes: each input read once, as far as this call's data needs it at its
+    start pose (the mask, the 12-byte source rows that are unmasked, the
+    8-byte fingerprints the windows probe, the x, y and z of each stencil
+    voxel of a found block, 12 S bytes), the carry read and written. The
+    operations: each iteration's rows, cover blocks, stencil lanes of found
+    blocks and rows with five points within the gate, counted at the pose of
+    each iteration of the plain version with the kernel's select
+    (`exact_select`), so over the kernel's iterations."""
+    from funny_lidar_slam_torch.maps import block_map
+    from funny_lidar_slam_torch.ops import gn_loop
+    from funny_lidar_slam_torch.registration import residuals
+
+    carry, src, mask, m, inv, thresh, max_d2, _, _, stencil, probes = args
+    s = m.bucket_size
+    p = residuals._transform_fixed(gn_loop.result_views(carry).t_mat, src)[mask]
+    found, sten, probed = refine_lookup(torch, m, p, inv, probes)
+    hit = sten & (found >= 0)[:, :, None]
+    pairs = torch.unique((found[:, :, None] * 8 + torch.arange(8, device=p.device))[hit])
+    rows = int(mask.sum())
+    nbytes = (src.shape[0] + 12 * rows + 8 * int(torch.unique(probed).numel())
+              + 12 * s * int(pairs.numel()) + 4 * (2 * gn_loop.CARRY_SIZE + 1))
+    counts, hg = [], gn_loop.point_to_plane_hg
+
+    def counted(t_mat, src, src_mask, m, inv, thresh, max_d2, stencil="nearby26",
+                num_probes=8):
+        """The plain version's linearization, once an iteration: (its
+        stencil lanes of found blocks, its rows with five points)."""
+        q = residuals._transform_fixed(t_mat, src)[src_mask]
+        f, st, _ = refine_lookup(torch, m, q, inv, num_probes)
+        _, d2, _ = block_map.query_knn(m, q, inv, k=5, num_probes=num_probes)
+        counts.append((int((st & (f >= 0)[:, :, None]).sum()) * s,
+                       int((d2[:, 4] <= max_d2).sum())))
+        return hg(t_mat, src, src_mask, m, inv, thresh, max_d2, stencil, num_probes)
+
+    gn_loop.point_to_plane_hg = counted
+    try:
+        with exact_select():
+            gn_loop.plane_map_gn_rounds_plain(carry.clone(), *args[1:])
+    finally:
+        gn_loop.point_to_plane_hg = hg
+    ops = sum(rows * (REFINE_ROW_OPS + 8 * REFINE_BLOCK_OPS) + lanes * REFINE_LANE_OPS
+              + planes * REFINE_PLANE_OPS for lanes, planes in counts)
+    return nbytes, ops, len(counts)
+
+
+class exact_select:
+    """While active, `select.fused_select` is a plain k-nearest select: the
+    cover row's lanes' d2 as fused_select_plain takes them, the stencil,
+    then the k nearest by a stable sort, ties to the lower lane (lax.top_k's
+    order, the JAX package's on the CPU, which plane_map_gn_kernel
+    repeats). The fused_select kernel orders lanes by d2 (1 + 2e-7 j) +
+    1e-30 j (the TPU kernel's key), so where two d2 lie within ~1e-4
+    relative it may take another k-th: on the figure-8's first refine one
+    row of 3,715 parted so (chip call 2). Phase 25 holds the refine kernel
+    to its plain version with this select."""
+
+    def __enter__(self):
+        import torch
+
+        from funny_lidar_slam_torch.ops import select
+
+        self.saved = select.fused_select
+
+        def exact(cand_tab, gid, qpts, k, plane, stencil="nearby26", qvox=None):
+            wnd = cand_tab[gid.to(torch.int64).clamp(0, cand_tab.shape[0] - 1)]
+            x, y, z = select._planes(wnd, plane)
+            d2 = ((x - qpts[:, 0:1]) ** 2 + (y - qpts[:, 1:2]) ** 2
+                  + (z - qpts[:, 2:3]) ** 2)
+            d2 = torch.where(select._stencil_mask(d2.shape[1], qvox, plane, stencil), d2,
+                             torch.full_like(d2, float("inf")))
+            kd2, idx = torch.sort(d2, dim=1, stable=True)
+            idx = idx[:, :k]
+            return (kd2[:, :k], *(torch.gather(v, 1, idx) for v in (x, y, z)))
+
+        exact.launches = 0
+        select.fused_select = exact
+        return self
+
+    def __exit__(self, *exc):
+        from funny_lidar_slam_torch.ops import select
+
+        select.fused_select = self.saved
+
+
+def refine_compare(torch, args) -> dict:
+    """plane_map_gn_rounds against its plain version on one call, the plain
+    version's 5 nearest taken in the kernel's order (`exact_select`):
+    `gn_compare` (the float64-sums run first where the float32 runs part);
+    where the counters still part, each iteration from the kernel's pose,
+    its stall and convergence tests included
+    (`stepwise_compare(stall=True)`). `held` says whether the call passed."""
+    kind = "plane_map_gn_rounds"
+    with exact_select():
+        r = gn_compare(torch, args, kind)
+        if not r["same"]:
+            r["stepwise"] = stepwise_compare(torch, args, r, kind, stall=True)
+    r["held"] = r["close"] if r["same"] else r["stepwise"]["held"]
+    return r
+
+
+def room_points() -> np.ndarray:
+    """tests/test_backend.py's room: three orthogonal 12 m planes of 0.2 m
+    spacing, offset by (2, 3, 4)."""
+    g = np.arange(0.1, 12.0, 0.2, dtype=np.float32)
+    xx, yy = np.meshgrid(g, g)
+    pts = np.concatenate([
+        np.stack([xx.ravel(), yy.ravel(), np.zeros(xx.size)], 1),
+        np.stack([xx.ravel(), np.zeros(xx.size), yy.ravel()], 1),
+        np.stack([np.zeros(xx.size), xx.ravel(), yy.ravel()], 1),
+    ]).astype(np.float32) + np.float32([2, 3, 4])
+    return pts
+
+
+def refine_room(torch, shift, device="cuda") -> tuple:
+    """The CPU tests' drifted room on the card (tests/test_torch_refine_gn_loop.py,
+    tests/test_torch_backend.py::drifted_room): the room in the world frame
+    as the target of a block map (8,192 voxels, buckets of 8), the same room
+    in the frame of the true pose (0.05 rad about z, (1, 0.5, 0.2) m) as the
+    source, both padded to 10,880 rows; the refine's arguments from the true
+    pose moved by `shift` m."""
+    from funny_lidar_slam_torch.maps import block_map
+    from funny_lidar_slam_torch.ops import gn_loop
+    from funny_lidar_slam_torch.registration import gn
+
+    world = room_points()
+    c, s_ = np.cos(0.05), np.sin(0.05)
+    true = np.eye(4)
+    true[:3, :3] = [[c, -s_, 0.0], [s_, c, 0.0], [0.0, 0.0, 1.0]]
+    true[:3, 3] = [1.0, 0.5, 0.2]
+    inv_t = np.linalg.inv(true)
+    local = (world @ inv_t[:3, :3].T + inv_t[:3, 3]).astype(np.float32)
+    start = true.copy()
+    start[:3, 3] += shift
+
+    def padded(pts):
+        out = torch.zeros((10880, 3), dtype=torch.float32, device=device)
+        out[:len(pts)] = torch.from_numpy(pts).to(device)
+        return out, torch.arange(10880, device=device) < len(pts)
+
+    tgt, tmask = padded(world)
+    src, mask = padded(local)
+    m = block_map.build(8192, 8, tgt, tmask, 1.0)
+    cfg = gn.GNConfig(max_iters=20, rotation_eps=1e-4, position_eps=1e-4, update=gn.UPDATE_LOAM,
+                      use_stall_check=True)
+    carry = gn_loop.init_carry(torch.tensor(start, dtype=torch.float32, device=device))
+    return carry, src, mask, m, 1.0, 0.3, 4.0, None, cfg, "nearby26", 8
+
+
+def refine_edge_cases(torch, args, device="cuda") -> list:
+    """[(name, args)]: the CPU tests' drifted room (its start pose puts
+    every point at z = 5.0, a voxel face, in exact arithmetic) and the room
+    moved (0.9, 0.9, 0.9) m from the true pose instead (x, y and z on faces);
+    then on the figure-8's first refine call: a starved call (min_valid
+    above its rows), every row masked, a start pose 1 km away (every cover
+    block missed) and max_iters 1."""
+    from funny_lidar_slam_torch.ops import gn_loop
+
+    carry, src, mask, m, *tail = args
+    cfg = tail[4]
+    far = gn_loop.result_views(carry).t_mat.clone()
+    far[:3, 3] += 1000.0
+    return [("plane_map_gn_rounds drifted room", refine_room(torch, (0.6, -0.4, 0.1), device)),
+            ("plane_map_gn_rounds room on voxel faces",
+             refine_room(torch, (0.9, 0.9, 0.9), device)),
+            ("plane_map_gn_rounds starved",
+             (carry, src, mask, m, *tail[:4], cfg._replace(min_valid=int(mask.sum()) + 1),
+              *tail[5:])),
+            ("plane_map_gn_rounds every row masked",
+             (carry, src, torch.zeros_like(mask), m, *tail)),
+            ("plane_map_gn_rounds every block missed",
+             (gn_loop.init_carry(far), src, mask, m, *tail)),
+            ("plane_map_gn_rounds max_iters 1",
+             (carry, src, mask, m, *tail[:4], cfg._replace(max_iters=1), *tail[5:]))]
+
+
+def on_faces(torch, args) -> int:
+    """The unmasked rows of a refine call whose point at the start pose
+    (taken as the kernel takes it) lies on a voxel face on some axis."""
+    from funny_lidar_slam_torch.ops import gn_loop
+    from funny_lidar_slam_torch.registration import residuals
+
+    carry, src, mask, m, inv = args[:5]
+    p = residuals._transform_fixed(gn_loop.result_views(carry).t_mat, src)[mask] * inv
+    return int((p == torch.floor(p)).any(-1).sum())
+
+
+def refine_timing(torch, args, label) -> dict:
+    """plane_map_gn_rounds on one call timed in turns (`gn_turns`: kernel,
+    plain, host loop, floor, floor, host loop, plain, kernel) beside its
+    plain version, the host-loop route the port took before (`run_gn` over
+    point_to_plane_hg, one read an iteration) and one empty launch; with
+    the call's bound (`refine_cost`)."""
+    from funny_lidar_slam_torch.ops import gn_loop
+    from funny_lidar_slam_torch.registration import gn, residuals
+
+    carry, src, mask, m, inv, thresh, max_d2, _, cfg, stencil, probes = args
+    t0 = gn_loop.result_views(carry).t_mat.clone()
+
+    def host_loop():
+        return gn.run_gn(lambda t: residuals.point_to_plane_hg(t, src, mask, m, inv, thresh,
+                                                               max_d2, stencil, probes),
+                         t0, cfg)
+
+    turns, ms = gn_turns(torch, args, "plane_map_gn_rounds", {"host_loop": (host_loop, 3)})
+    nbytes, ops, its = refine_cost(torch, args)
+    # each route's own iterations: the plain version and the host loop select
+    # through the fused_select kernel, whose key can end the loop elsewhere
+    routes = {"kernel": gn_loop.plane_map_gn_rounds, "plain": gn_loop.plane_map_gn_rounds_plain}
+    its_of = {}
+    for name, fn in routes.items():
+        c = carry.clone()
+        fn(c, *args[1:])
+        its_of[name] = int(c[gn_loop.OFFSET["it"]])
+    its_of["host_loop"] = int(host_loop().iters)
+    assert its_of["kernel"] == its, f"[refine-gn] the bound counted {its} iterations: {its_of}"
+    bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    out = {"ms": ms["kernel"], "plain_ms": ms["plain"], "host_loop_ms": ms["host_loop"],
+           "floor_ms": ms["floor"], "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "n": src.shape[0], "rows": int(mask.sum()), "capacity": m.fp.shape[0],
+           "iterations": its_of, "bytes": nbytes, "ops": ops,
+           **{f"{k}_ms_per_iteration": ms[k] / max(n, 1) for k, n in its_of.items()},
+           "turns": turns, "vs_host_loop": versus(turns["kernel"], turns["host_loop"])}
+    log(f"[refine-gn] plane_map_gn_rounds at the {label} shape (N {out['n']}, {out['rows']} "
+        f"rows, Cb {out['capacity']}, iterations {its_of}): kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.2f} ms, host loop {out['host_loop_ms']:.2f} ms, empty launch "
+        f"{out['floor_ms']:.5f} ms, bound {out['bound_ms']:.6f} ms ({out['bound_by']}); "
+        f"turns {turns}")
+    return out
+
+
+def phase_refine_gn(torch, report) -> dict:
+    """Phase 25: plane_map_gn_rounds (csrc/gn_loop.cu `plane_map_gn_kernel`,
+    one thread block cluster of R blocks a call, the loop closure's whole
+    point-to-plane refine with the block map's 5-NN lookup inside every
+    iteration) against its plain version (its 5 nearest in the kernel's
+    order, `exact_select`) on every refine call of phase 13's figure-8 run
+    and of its cascade replay (`refine_compare`: the
+    pose within 1e-4 m and 1e-5 rad of the plain version's or of its
+    float64-sums run, num_valid within 1 %, total_res within 1e-3; where
+    the counters part, each iteration from the kernel's pose with its stall
+    and convergence tests), every call DONE with as many gathers as
+    iterations, its pose finite and within 0.05 m, and launched twice
+    bit-equal; the launches while capturing equal to the calls captured;
+    R >= 8 with the rows a rank; no ptxas spills. Then the edge cases of
+    `refine_edge_cases` with the same gates (every row masked and every
+    block missed: num_valid 0 and the pose unchanged); the launch under
+    set_sync_debug_mode("error"); the kernel timed at the figure-8 shape (its
+    first refine call) beside its plain version, the host-loop route and
+    one empty launch, with its bound, and rank 0's stage clocks there.
+    Returns the JSON entry."""
+    from funny_lidar_slam_torch.ops import cuda_build, gn_loop
+
+    t_phase = time.perf_counter()
+    kind = "plane_map_gn_rounds"
+    resources = {k: v for k, v in report.get("gn_loop", {}).items()
+                 if k.startswith("plane_map_gn_kernel")}
+    assert list(resources) == ["plane_map_gn_kernel"], f"[refine-gn] ptxas {sorted(resources)}"
+    res = resources["plane_map_gn_kernel"]
+    assert res["registers"] and res["spill_stores"] == 0 and res["spill_loads"] == 0, \
+        f"[refine-gn] plane_map_gn_kernel spills: {res}"
+    blocks = gn_loop.cluster_blocks(kind)
+    assert blocks >= 8, blocks
+    log(f"[refine-gn] plane_map_gn_kernel launches one cluster of R = {blocks} blocks; ptxas "
+        f"{resources}")
+    saved = gn_loop.plane_map_gn_rounds.launches  # comparisons do not count
+    by_key, rows_all = {}, []
+    for key in REFINE_PATHS:
+        calls = REFINE_CAPTURES.get(key, [])
+        assert calls and REFINE_CAPTURE_LAUNCHES[key] == len(calls), \
+            f"[refine-gn] {key}: {len(calls)} calls captured, " \
+            f"{REFINE_CAPTURE_LAUNCHES.get(key)} launched"
+        rows = [refine_compare(torch, args) for args in calls]
+        rows_all += rows
+        bad = [i for i, r in enumerate(rows) if not r["held"] or not r["finite"]
+               or r["dp"] > 0.05 or not one_call(r)]
+        summary = {"calls": len(rows), "same_share": sum(r["same"] for r in rows) / len(rows),
+                   "iterations": [r["iterations"] for r in rows],
+                   "held_to_float64": [{k: r[k] for k in ("dp", "da", "dp64", "da64",
+                                                          "plain_dp64", "plain_da64")}
+                                       for r in rows if "dp64" in r],
+                   "held_step_by_step": [r["stepwise"] for r in rows if "stepwise" in r],
+                   **{f: [float(np.quantile([r[f] for r in rows], q)) for q in (0.5, 1)]
+                      for f in ("dp", "da", "nv_rel", "res_rel")},
+                   "differing": [{k: r[k] for k in ("status", "it", "gathers", "dp", "da")}
+                                 for r in rows if not r["same"]]}
+        summary["bit_equal"] = bit_equal_replays(torch, kind, calls)
+        by_key[key] = summary
+        log(f"[refine-gn] {key}: " + json.dumps(summary))
+        assert not bad, f"[refine-gn] {key}: calls {bad} out of tolerance: " \
+            f"{[{k: v for k, v in rows[i].items() if k not in ('t_k', 't_p')} for i in bad[:3]]}"
+    args = REFINE_CAPTURES["figure8"][0]  # the figure-8 shape: its first refine
+    edge = {}
+    for name, eargs in refine_edge_cases(torch, args):
+        r = refine_compare(torch, eargs)
+        edge[name] = {k: r[k] for k in ("status", "it", "gathers", "dp", "da", "nv_rel",
+                                        "res_rel", "same", "held", "dp64", "da64", "stepwise")
+                      if k in r}
+        edge[name].update(rows=int(eargs[2].sum()), on_faces=on_faces(torch, eargs),
+                          num_valid=r["carry_k"][6],  # it, gathers, ..., num_valid, status
+                          bit_equal=bit_equal_replays(torch, kind, [eargs]))
+        assert r["held"] and r["finite"] and one_call(r), f"[refine-gn] edge case {name}: " \
+            f"{ {k: v for k, v in r.items() if k not in ('t_k', 't_p')} }"
+    for name in ("plane_map_gn_rounds every row masked", "plane_map_gn_rounds every block missed"):
+        e = edge[name]
+        assert e["dp"] == 0.0 and e["da"] == 0.0 and e["num_valid"] == 0, f"[refine-gn] {name}: {e}"
+    assert edge["plane_map_gn_rounds max_iters 1"]["it"] == (1, 1)
+    assert edge["plane_map_gn_rounds room on voxel faces"]["on_faces"] > 100, edge
+    log(f"[refine-gn] {len(edge)} edge cases held: {json.dumps(edge)}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gn_loop.plane_map_gn_rounds(args[0].clone(), *args[1:])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[refine-gn] plane_map_gn_rounds ran under set_sync_debug_mode('error')")
+    n_rows = args[1].shape[0]
+    split = gn_loop.rank_rows(n_rows, blocks)
+    assert sum(split) == n_rows, f"[refine-gn] the ranks take {split} of {n_rows} rows"
+    head = refine_timing(torch, args, "figure-8 (its first refine)")
+    cycles = gn_stage_cycles(torch, cuda_build.variant(*STAGED_GN), kind, args)
+    head["stage_cycles_per_iteration"] = cycles
+    head["rows_share"] = cycles["rows"] / max(sum(cycles.values()), 1.0)
+    log(f"[refine-gn] SM cycles an iteration by stage {json.dumps(cycles)}; thread 0's rows "
+        f"{head['rows_share']:.3f} of the iteration")
+    gn_loop.plane_map_gn_rounds.launches = saved
+    log(f"[refine-gn] phase 25 took {time.perf_counter() - t_phase:.1f} s")
+    held64 = [r for r in rows_all if "dp64" in r]
+    by_path = {p: v[kind] for p, v in GN_LAUNCHES_BY_KERNEL.items() if v.get(kind)}
+    return {"name": kind, "route": "cuda", "source": REFINE_SOURCE[0],
+            "replaces": REFINE_SOURCE[1], "launches": sum(by_path.values()),
+            "max_abs_err": max(r["dp"] for r in rows_all),
+            "max_rot_err_rad": max(r["da"] for r in rows_all),
+            "held_to_float64": len(held64),
+            "held_step_by_step": sum("stepwise" in r for r in rows_all),
+            **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
+                                    "host_loop_ms")},
+            "library_ms": None, "shapes": {"figure8": head}, "launches_by_path": by_path,
+            "calls_compared": len(rows_all), "by_path": by_key, "edge_cases": edge,
+            "cluster_blocks": blocks,
+            "rows_per_rank": {"rows": n_rows, "max": max(split), "min": min(split)},
+            "resources": resources}
+
+
 def main() -> int:
     import torch
 
@@ -4688,8 +5230,9 @@ def main() -> int:
     from funny_lidar_slam_torch.io.simulator import SimConfig, simulate
 
     report = phase_build()
-    count_ndt_callers()
+    count_gn_callers()
     count_feature_calls()
+    count_host_loops()
     entry = phase_kernels(torch)
     from funny_lidar_slam_torch.ops import select
 
@@ -4733,6 +5276,7 @@ def main() -> int:
     loam_gn_entries = phase_loam_gn(torch, report)
     ndt_gn_entry = phase_ndt_gn(torch, report)
     pose_graph_entry = phase_pose_graph(torch, report)
+    refine_entry = phase_refine_gn(torch, report)
     summary = ("ate_m", "rpe_m", "steady_fps", "wall_s", "tracked", "gathers_per_scan",
                "keyframes_with_features", "kf_ate_m", "loops_accepted", "verifications",
                "verify_ms_median", "verify_ms_max", "optimize_ms",
@@ -4763,7 +5307,8 @@ def main() -> int:
                  paths={p: {k: r[k] for k in summary if k in r} for p, r in paths.items()})
     entry["k_sweep"]["hashed"] = hashed["k_sweep"]
     print(json.dumps({"kernels": [entry] + probe_entries + loop_entries + [gn_entry]
-                      + loam_gn_entries + [ndt_gn_entry, feature_entry, pose_graph_entry]}))
+                      + loam_gn_entries + [ndt_gn_entry, feature_entry, pose_graph_entry,
+                                           refine_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

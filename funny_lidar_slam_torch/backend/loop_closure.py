@@ -15,8 +15,9 @@ device (port of backend/loop_closure.py).
 
 Port notes: the JAX package runs the cascade as one cached executable
 (`aot_jit`); here it is a plain call. Each NDT stage's GN loop runs in one
-kernel launch with one host read (`run_gn_ndt`); the point-to-plane
-refine's reads its control flags back once per iteration. The keyframe clouds of both submaps are
+kernel launch with one host read (`run_gn_ndt`), and so does the
+point-to-plane refine, its block-map 5-NN lookup inside every iteration
+(`run_gn_plane_map`). The keyframe clouds of both submaps are
 fetched with one copy (`materialize_batch`), and an over-capacity submap is
 pre-filtered on the host by the C++ voxel filter (`native`), as in the JAX
 package.
@@ -34,8 +35,8 @@ from ..maps import block_map, ndt_map
 from ..native import voxel_downsample as host_voxel
 from ..ops.voxel import voxel_downsample
 from ..pipeline.keyframes import materialize_batch
-from ..registration.gn import UPDATE_LOAM, UPDATE_NDT, GNConfig, run_gn, run_gn_ndt
-from ..registration.residuals import fitness_score, point_to_plane_hg
+from ..registration.gn import UPDATE_LOAM, UPDATE_NDT, GNConfig, run_gn_ndt, run_gn_plane_map
+from ..registration.residuals import fitness_score
 
 
 @dataclass
@@ -141,9 +142,8 @@ def _verify_cascade(cfg: LoopClosureConfig, src_pts, src_mask, tgt_pts, tgt_mask
     # fine refine: point-to-plane (the GICP stand-in), from the best pose
     gn = GNConfig(max_iters=cfg.refine_iterations, rotation_eps=1e-4, position_eps=1e-4,
                   update=UPDATE_LOAM, use_stall_check=True)
-    t_ref = run_gn(lambda t: point_to_plane_hg(t, src.points, src.mask, mp, nn_inv, 0.3,
-                                               cfg.fitness_max_range ** 2),
-                   best_t, gn).t_mat
+    t_ref = run_gn_plane_map(src.points, src.mask, mp, nn_inv, 0.3, cfg.fitness_max_range ** 2,
+                             best_t, gn).t_mat
     f = fit_of(t_ref)
     better = f < best_fit
     return torch.where(better, t_ref, best_t), torch.where(better, f, best_fit)

@@ -22,11 +22,19 @@
 //                    together and its pairs folded through J's structure
 //                    (NdtMatcher and the loop closure's NDT stages; plain
 //                    version ndt_gn_rounds_plain).
+//   plane_map_gn_kernel  the same body with point_to_plane_hg
+//                    (residuals.py:366-420: a fresh 5-NN gather over the
+//                    hashed block map, the plane fit and its gates) and the
+//                    LOAM update: the block map's cover lookup and the 5
+//                    nearest in the nearby26 stencil inside every iteration
+//                    (the loop closure's point-to-plane refine,
+//                    funny_lidar_slam_tpu/backend/loop_closure.py:159-169;
+//                    plain version plane_map_gn_rounds_plain).
 //
 // Each runs from a carry held on the device until the loop ends or the
-// next iteration would need a fresh gather. NDT regathers every iteration
-// (corr_every 1, no trust-region skip), and its kernel makes each gather
-// itself, so one of its calls runs to the end.
+// next iteration would need a fresh gather. NDT and the refine regather
+// every iteration (corr_every 1, no trust-region skip), and their kernels
+// make each gather themselves, so one of their calls runs to the end.
 //
 // A call is handed the candidate set(s) gathered at the carry's pose. Each
 // iteration: test the loop bound (gathers < max_iters, it < max_total, not
@@ -195,6 +203,36 @@
 // launch gives the same bits; the sums differ from a pair-by-pair float32
 // fold in the last bits only.
 //
+// The refine (plane_map_gn_kernel; block_map.py's cover lookup, select.py's
+// stencil, residuals.py's plane rows): a row's p = R s + t is taken as the
+// NDT rows take it (affine_row, residuals._transform_fixed on the card) and
+// its voxel floor(p inv), so both sides put a point one ulp from a voxel
+// face on the same side and gather the same stencil. The 8 cover blocks
+// ((v - 1) >> 1) + {0, 1}^3 are hashed and probed as NDT's voxels
+// (probe_windows, 8 probes of 4 windows loaded together); a missed block
+// is the _MISS row, every lane +inf, and is skipped. The 5 nearest come
+// from the 27 stencil voxels of the cover's 64 in the cover row's lane
+// order (block, local voxel, bucket slot), each voxel's S slots as float4
+// loads of the x, y and z planes, d2 as fused_select's dist2, insert5's
+// strict < keeping ties on the lower lane (the plain version's exact top-k
+// on the CPU and lax.top_k; fused_select's kernel orders lanes by d2 (1 +
+// 2e-7 j), so on the card the plain route through it may take another
+// fifth where two d2 lie within 1e-4 relative; chip_smoke.py phase 25 holds
+// the kernel to a plain select in its own order, `exact_select`). The block
+// loop stays rolled: unrolled, the 8 blocks' lane loops spilled (254
+// registers; rolled 232 and a 64-byte stack frame for the slots, ptxas on
+// sm_90a). Then loam_rows' plane row at p with its
+// once-rounded small sums, and the rows' float64 sums, loam_system, solve6
+// and end_iteration<U_LOAM> as for the other kernels.
+// Its bound: an iteration reads the mask [N] and src [N, 3] of the
+// unmasked rows, 8 probe windows a row and the stencil's 27 x S lanes of
+// x, y, z of each found block (3 x 27 x 8 x 4 = 2.6 kB a row at S = 8, up
+// to ~40 MB an iteration, mostly from L2 since the rows of one voxel read
+// the same cover); a lane costs ~10 operations (d2, the compare) and a row
+// with five points ~250 (chip_smoke.py `refine_cost`). One thread a row
+// walks its 216 lanes in a chain of dependent compares, so the rows are
+// the iteration's time, as in NDT; a first design, one cluster of 16 SMs.
+//
 // Carry (int32 words, float fields as their bits; ops/gn_loop.py CARRY):
 //   t_mat[16] t_gather[16] last_rot last_pos total_res (f32) | it gathers
 //   since_gather force_gather done converged num_valid status (int32)
@@ -222,8 +260,8 @@ enum { S_NEED_GATHER = 1, S_DONE = 2 };
 // P += dt
 enum { U_ICP = 0, U_LOAM = 1, U_NDT = 2 };
 // the wrappers whose cluster gn_cluster_blocks reports: icp_gn_launch,
-// plane_gn_launch, loam_gn_launch, ndt_gn_launch
-enum { G_ICP = 0, G_PLANE = 1, G_LOAM = 2, G_NDT = 3 };
+// plane_gn_launch, loam_gn_launch, ndt_gn_launch, plane_map_gn_launch
+enum { G_ICP = 0, G_PLANE = 1, G_LOAM = 2, G_NDT = 3, G_PLANE_MAP = 4 };
 // the ICP per-thread sums: -g's two halves before the sign, H's t-r block,
 // the upper triangle of its r-r block, the valid rows and sum |r|
 enum { A_GT = 0, A_GR = 3, A_HTR = 6, A_HRR = 15, A_COUNT = 21, A_RES = 22, A_SIZE = 23 };
@@ -792,27 +830,40 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h ^ (h >> 16);
 }
 
-// probes [kFrom, kFrom + 8) of the stencil voxels [kV0, 7) whose slot is
-// not known yet (slot[v] < 0), from the window at base[v], kLookupGroup
-// voxels at a time: each group's loads all issued before its first
-// compare, then the first probe below num_probes whose fingerprint is
-// key[v] (ndt_map._probe, _first_true), its slot, or -1 where none is. An
-// empty slot (0) ends nothing: the fingerprint has its low bit set, so it
-// never matches one, and the probes after it are read all the same.
-template <int kFrom, int kV0 = 0>
-__device__ __forceinline__ void ndt_probe(const NdtMapView& m, const uint32_t* base,
-                                          const uint32_t* key, int* slot) {
-  constexpr int kV1 = kV0 + kLookupGroup < kNdtVoxels ? kV0 + kLookupGroup : kNdtVoxels;
+// the slot hash (ops/voxel.py spatial_hash) and the fingerprint
+// (maps/voxel_hash.py fingerprint) of the voxel or block (x, y, z) of a
+// table of mask + 1 slots, in uint32, where a saturated coordinate wraps as
+// the int32 tensor sum does
+__device__ __forceinline__ void hash_key(uint32_t x, uint32_t y, uint32_t z, uint32_t mask,
+                                         uint32_t* base, uint32_t* key) {
+  *base = fmix32((x * kP1) ^ (y * kP2) ^ (z * kP3)) & mask;
+  *key = fmix32(x * kF1 + y * kF2 + z * kF3) | 1u;
+}
+
+// probes [kFrom, kFrom + 8) of the voxels (NDT's stencil voxels, or a
+// cover's blocks) [kV0, kN) whose slot is not known yet (slot[v] < 0), from
+// the window at base[v] of the table's probe-window rows fpwin ([capacity,
+// 16] int64 as 8 pairs a row), kLookupGroup voxels at a time: each group's
+// loads all issued before its first compare, then the first probe below
+// num_probes whose fingerprint is key[v] (ndt_map._probe,
+// block_map.find_block_slots, _first_true), its slot, or -1 where none is.
+// An empty slot (0) ends nothing: the fingerprint has its low bit set, so
+// it never matches one, and the probes after it are read all the same.
+template <int kN, int kFrom, int kV0 = 0>
+__device__ __forceinline__ void probe_windows(const longlong2* __restrict__ fpwin, int capacity,
+                                              int num_probes, const uint32_t* base,
+                                              const uint32_t* key, int* slot) {
+  constexpr int kV1 = kV0 + kLookupGroup < kN ? kV0 + kLookupGroup : kN;
   longlong2 w[kV1 - kV0][kBatchPairs];
 #pragma unroll
   for (int v = kV0; v < kV1; ++v)
 #pragma unroll
     for (int j = 0; j < kBatchPairs; ++j)
       w[v - kV0][j] =
-          slot[v] < 0 && kFrom + 2 * j < m.num_probes
-              ? __ldg(m.fpwin + kWindowPairs * static_cast<size_t>(base[v]) + kFrom / 2 + j)
+          slot[v] < 0 && kFrom + 2 * j < num_probes
+              ? __ldg(fpwin + kWindowPairs * static_cast<size_t>(base[v]) + kFrom / 2 + j)
               : make_longlong2(0, 0);
-  const uint32_t mask = static_cast<uint32_t>(m.capacity) - 1u;
+  const uint32_t mask = static_cast<uint32_t>(capacity) - 1u;
 #pragma unroll
   for (int v = kV0; v < kV1; ++v) {
     int first = -1;
@@ -820,11 +871,12 @@ __device__ __forceinline__ void ndt_probe(const NdtMapView& m, const uint32_t* b
     for (int k = kBatchProbes - 1; k >= 0; --k) {  // downwards: the first match stays
       const longlong2& pair = w[v - kV0][k >> 1];
       const long long stored = k & 1 ? pair.y : pair.x;
-      if (kFrom + k < m.num_probes && stored == static_cast<long long>(key[v])) first = k;
+      if (kFrom + k < num_probes && stored == static_cast<long long>(key[v])) first = k;
     }
     if (slot[v] < 0 && first >= 0) slot[v] = static_cast<int>((base[v] + kFrom + first) & mask);
   }
-  if constexpr (kV1 < kNdtVoxels) ndt_probe<kFrom, kV1>(m, base, key, slot);
+  if constexpr (kV1 < kN)
+    probe_windows<kN, kFrom, kV1>(fpwin, capacity, num_probes, base, key, slot);
 }
 
 // r s + t of one row r of R, in float64 from the exact float32 products,
@@ -992,17 +1044,16 @@ __device__ __forceinline__ void ndt_rows(const float* __restrict__ src,
     if (!kept) {
       uint32_t base[kNdtVoxels], key[kNdtVoxels];
 #pragma unroll
-      for (int v = 0; v < kNdtVoxels; ++v) {  // ops/voxel.py spatial_hash, voxel_hash fingerprint
-        // in uint32, where a saturated coordinate wraps as the int32 tensor sum does
-        const uint32_t x = static_cast<uint32_t>(c[0]) + static_cast<uint32_t>(kStencil[v][0]),
-                       y = static_cast<uint32_t>(c[1]) + static_cast<uint32_t>(kStencil[v][1]),
-                       z = static_cast<uint32_t>(c[2]) + static_cast<uint32_t>(kStencil[v][2]);
-        base[v] = fmix32((x * kP1) ^ (y * kP2) ^ (z * kP3)) & mask;
-        key[v] = fmix32(x * kF1 + y * kF2 + z * kF3) | 1u;
+      for (int v = 0; v < kNdtVoxels; ++v) {
+        hash_key(static_cast<uint32_t>(c[0]) + static_cast<uint32_t>(kStencil[v][0]),
+                 static_cast<uint32_t>(c[1]) + static_cast<uint32_t>(kStencil[v][1]),
+                 static_cast<uint32_t>(c[2]) + static_cast<uint32_t>(kStencil[v][2]), mask,
+                 &base[v], &key[v]);
         slot[v] = -1;
       }
-      ndt_probe<0>(m, base, key, slot);
-      if (m.num_probes > kBatchProbes) ndt_probe<kBatchProbes>(m, base, key, slot);
+      probe_windows<kNdtVoxels, 0>(m.fpwin, m.capacity, m.num_probes, base, key, slot);
+      if (m.num_probes > kBatchProbes)
+        probe_windows<kNdtVoxels, kBatchProbes>(m.fpwin, m.capacity, m.num_probes, base, key, slot);
       if (pass >= 1) {
         cache[3 * r] = make_int4(c[0], c[1], c[2], slot[0]);
         cache[3 * r + 1] = make_int4(slot[1], slot[2], slot[3], slot[4]);
@@ -1024,6 +1075,138 @@ __device__ __forceinline__ void ndt_rows(const float* __restrict__ src,
     ndt_fold_row(acc, a, lsum, esum);
     acc[L_COUNT] += count;
     acc[L_RES] += res_sum;
+  }
+}
+
+// ------------------------------------------------------ block-map rows
+
+constexpr int kCoverBlocks = 8;  // maps/block_map.py _COVER
+
+// the loop closure's hashed block map (maps/block_map.py BlockMap), read as
+// stored: probe windows as fused_select's cover gather probes them, and the
+// plane rows of the blocks found
+struct BlockMapView {
+  const longlong2* fpwin;  // [Cb, 16] int64 probe windows as 8 pairs a row
+  const float* tab;        // [Cb + 1, 24 S]: a block's x(8 S) | y(8 S) | z(8 S), a local
+                           // voxel's S bucket slots together, _MISS (1e30) where empty
+  int capacity, num_probes, bucket;  // Cb a power of two, num_probes <= 16, S
+  bool vec4;                         // S % 4 == 0 and tab 16-byte aligned: float4 loads
+};
+
+struct PlaneMapParams {
+  Loop loop;
+  float inv, max_d2, plane_thresh;  // the voxel's inverse size (float32), the gates
+};
+
+// the slots of the 8 blocks that cover the 3x3x3 voxels around voxel v
+// (block_map.gather_cover): ((v - 1) >> 1) + {0, 1}^3 in _COVER order (x
+// outermost), each the first fingerprint match of its probe window, or -1
+// where the block is not in the map (the cover gathers the _MISS row there)
+__device__ __forceinline__ void cover_slots(const BlockMapView& m, const int* v, int* slot) {
+  const uint32_t mask = static_cast<uint32_t>(m.capacity) - 1u;
+  uint32_t b0[3], base[kCoverBlocks], key[kCoverBlocks];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) b0[i] = static_cast<uint32_t>((v[i] - 1) >> 1);  // floors negatives
+#pragma unroll
+  for (int b = 0; b < kCoverBlocks; ++b) {
+    hash_key(b0[0] + (b >> 2), b0[1] + ((b >> 1) & 1), b0[2] + (b & 1), mask, &base[b], &key[b]);
+    slot[b] = -1;
+  }
+  probe_windows<kCoverBlocks, 0>(m.fpwin, m.capacity, m.num_probes, base, key, slot);
+  if (m.num_probes > kBatchProbes)
+    probe_windows<kCoverBlocks, kBatchProbes>(m.fpwin, m.capacity, m.num_probes, base, key, slot);
+}
+
+// one candidate lane at (cx, cy, cz) into the five nearest to q: its d2 as
+// fused_select takes it, inserted only below the fifth (insert5 leaves the
+// five as they are for any d2 >= d[4], so the test only skips its work)
+__device__ __forceinline__ void offer5(float cx, float cy, float cz, const float* q, float* d,
+                                       float (*c)[3]) {
+  const float cd = dist2(__fsub_rn(cx, q[0]), __fsub_rn(cy, q[1]), __fsub_rn(cz, q[2]));
+  if (cd < d[4]) insert5(cd, cx, cy, cz, d, c);
+}
+
+// the 5 nearest map points to q among the cover's lanes inside the nearby26
+// stencil of q's voxel v (fused_select over gather_cover's row, K = 5):
+// ascending, ties to the lower lane, +inf and 0 past the points found. The
+// lanes come in the cover row's order (block, local voxel, bucket slot),
+// so the stencil's 27 voxels of the cover's 64 keep their order; a voxel is
+// in the stencil where its window coordinate 2 b_a + l_a lies within 1 of
+// the query's, 2 - (v_a & 1), on every axis (ops/select.py _stencil_mask).
+// A missed block's lanes (the _MISS row, d2 +inf) are never read
+__device__ __forceinline__ void cover_nearest5(const BlockMapView& m, const int* slot,
+                                               const int* v, const float* q, float* d,
+                                               float (*c)[3]) {
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    d[k] = INFINITY;
+    c[k][0] = c[k][1] = c[k][2] = 0.f;
+  }
+  const int qw[3] = {2 - (v[0] & 1), 2 - (v[1] & 1), 2 - (v[2] & 1)};
+  const int s = m.bucket, plane = 8 * s;
+#pragma unroll 1  // unrolled it spills (the header)
+  for (int b = 0; b < kCoverBlocks; ++b) {
+    if (slot[b] < 0) continue;
+    const float* row = m.tab + static_cast<size_t>(slot[b]) * 3 * plane;
+#pragma unroll 1
+    for (int l = 0; l < 8; ++l) {
+      if (abs(2 * (b >> 2) + (l >> 2) - qw[0]) > 1
+          || abs(2 * ((b >> 1) & 1) + ((l >> 1) & 1) - qw[1]) > 1
+          || abs(2 * (b & 1) + (l & 1) - qw[2]) > 1)
+        continue;
+      const float* px = row + l * s;
+      if (m.vec4) {
+        for (int k = 0; k < s; k += 4) {
+          const float4 x = __ldg(reinterpret_cast<const float4*>(px + k));
+          const float4 y = __ldg(reinterpret_cast<const float4*>(px + plane + k));
+          const float4 z = __ldg(reinterpret_cast<const float4*>(px + 2 * plane + k));
+          offer5(x.x, y.x, z.x, q, d, c);
+          offer5(x.y, y.y, z.y, q, d, c);
+          offer5(x.z, y.z, z.z, q, d, c);
+          offer5(x.w, y.w, z.w, q, d, c);
+        }
+      } else {
+        for (int k = 0; k < s; ++k)
+          offer5(__ldg(px + k), __ldg(px + plane + k), __ldg(px + 2 * plane + k), q, d, c);
+      }
+    }
+  }
+}
+
+// the loop closure's point-to-plane rows (point_to_plane_corr +
+// point_to_plane_hg_corr) at pose (rot, t) into acc[L_SIZE], the rows
+// first, first + stride, ... below end, each row's 5 nearest looked up in
+// the block map at this pose (every iteration a fresh gather): p = R s + t
+// taken as the NDT rows take it (affine_row, residuals._transform_fixed),
+// its voxel floor(p inv), the cover's slots, the 5 nearest in the stencil,
+// the gate on the fifth's d2, then loam_rows' plane row at p (the plane
+// fit, its gates and the near reject) with J = [R s x v | v]
+__device__ __forceinline__ void plane_map_rows(const float* __restrict__ src,
+                                               const unsigned char* __restrict__ src_mask,
+                                               const BlockMapView& m, const PlaneMapParams& p,
+                                               const float* rot, const float* t, int first,
+                                               int end, int stride, double* acc) {
+#pragma unroll
+  for (int k = 0; k < L_SIZE; ++k) acc[k] = 0.0;
+  for (int r = first; r < end; r += stride) {
+    if (!__ldg(src_mask + r)) continue;
+    const float s[3] = {__ldg(src + 3 * r), __ldg(src + 3 * r + 1), __ldg(src + 3 * r + 2)};
+    float q[3], rp[3];
+    int v[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      q[i] = affine_row(rot + 3 * i, s, t[i]);
+      v[i] = static_cast<int>(floorf(__fmul_rn(q[i], p.inv)));  // ops/voxel.py voxel_coords
+      // R s: a multiply-add chain over k, as loam_rows takes it
+      rp[i] = fmaf(rot[3 * i + 2], s[2], fmaf(rot[3 * i + 1], s[1], __fmul_rn(rot[3 * i], s[0])));
+    }
+    int slot[kCoverBlocks];
+    cover_slots(m, v, slot);
+    float d[5], c[5][3];
+    cover_nearest5(m, slot, v, q, d, c);
+    if (!(d[4] <= p.max_d2)) continue;  // fewer than five points in the stencil, or gated
+    float n[3], res;
+    if (plane_row(c, q, s, p.plane_thresh, n, &res)) add_row(acc, rp, n, res, true);
   }
 }
 
@@ -1299,6 +1482,20 @@ ndt_gn_kernel(const float* __restrict__ src, const unsigned char* __restrict__ s
       });
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+plane_map_gn_kernel(const float* __restrict__ src, const unsigned char* __restrict__ src_mask,
+                    BlockMapView m, int n, int* __restrict__ carry, PlaneMapParams p) {
+  __shared__ GnShared<L_SIZE> sh;
+  cluster_loop<L_SIZE, U_LOAM, true>(  // no trust-region skip, so no radius
+      sh, carry, nullptr, p.loop, n,
+      [&](const float* rot, const float* t, int first, int end, int stride, double* acc) {
+        plane_map_rows(src, src_mask, m, p, rot, t, first, end, stride, acc);
+      },
+      [](const double* sums, float* h, float* g, int* nv, float* res) {
+        loam_system(sums, h, g, nv, res);
+      });
+}
+
 Loop make_loop(int max_iters, int max_total, int corr_every, int min_valid, int use_stall,
                float rot_eps, float pos_eps, float stall_eps, float skip_dist) {
   return Loop{max_iters, max_total, corr_every, min_valid, use_stall,
@@ -1375,6 +1572,11 @@ int loam_blocks(cudaError_t* err) {
 int ndt_blocks(cudaError_t* err) {
   static int chosen[kMaxDevices] = {};
   return cluster_blocks(ndt_gn_kernel, chosen, err);
+}
+
+int plane_map_blocks(cudaError_t* err) {
+  static int chosen[kMaxDevices] = {};
+  return cluster_blocks(plane_map_gn_kernel, chosen, err);
 }
 
 // one cluster of `blocks` blocks of `kernel` on `args`, or `err` (the
@@ -1487,9 +1689,34 @@ extern "C" int ndt_gn_launch(const float* src, const unsigned char* src_mask,
                         src_mask, m, n, carry, reinterpret_cast<int4*>(slot_cache), p);
 }
 
+// The loop closure's point-to-plane refine over its hashed block map, the
+// whole loop in one launch: a gather every iteration (corr_every 1), no
+// trust-region skip and the nearby26 stencil, the callers' only settings.
+// fpwin is the map's [C, 16] probe-window view, 16-byte aligned; tab its
+// [C + 1, 24 bucket] plane rows. The wrapper (ops/gn_loop.py
+// plane_map_gn_rounds) checks the settings, num_probes, the capacity and
+// the alignment of fpwin.
+extern "C" int plane_map_gn_launch(const float* src, const unsigned char* src_mask,
+                                   const long long* fpwin, const float* tab, int* carry, int n,
+                                   int capacity, int num_probes, int bucket, int max_iters,
+                                   int max_total, int min_valid, int use_stall, float rot_eps,
+                                   float pos_eps, float stall_eps, float inv, float max_d2,
+                                   float plane_thresh, void* stream) {
+  const PlaneMapParams p{make_loop(max_iters, max_total, 1, min_valid, use_stall, rot_eps,
+                                   pos_eps, stall_eps, 0.f),
+                         inv, max_d2, plane_thresh};
+  const bool vec4 = bucket % 4 == 0 && (reinterpret_cast<uintptr_t>(tab) & 15) == 0;
+  const BlockMapView m{reinterpret_cast<const longlong2*>(fpwin), tab, capacity, num_probes,
+                       bucket, vec4};
+  cudaError_t err = cudaSuccess;
+  const int blocks = plane_map_blocks(&err);
+  return launch_cluster(plane_map_gn_kernel, blocks, err, static_cast<cudaStream_t>(stream), src,
+                        src_mask, m, n, carry, p);
+}
+
 // the blocks of the cluster that the launcher of `kind` (G_*) launches on
 // the current device for M = 16 with aligned planes (vec 1) or any M
-// (vec 0; NDT has one kernel, whatever vec); minus the CUDA error where
+// (vec 0; NDT and the refine have one kernel each, whatever vec); minus the CUDA error where
 // none fits or `kind` is unknown
 extern "C" int gn_cluster_blocks(int kind, int vec) {
   cudaError_t err = cudaErrorInvalidValue;
@@ -1498,12 +1725,13 @@ extern "C" int gn_cluster_blocks(int kind, int vec) {
   if (kind == G_PLANE) blocks = vec ? loam_blocks<false, 16>(&err) : loam_blocks<false, 0>(&err);
   if (kind == G_LOAM) blocks = vec ? loam_blocks<true, 16>(&err) : loam_blocks<true, 0>(&err);
   if (kind == G_NDT) blocks = ndt_blocks(&err);
+  if (kind == G_PLANE_MAP) blocks = plane_map_blocks(&err);
   return blocks ? blocks : -static_cast<int>(err);
 }
 
 // the rows that rank `rank` of a cluster of `ranks` blocks linearizes an
 // iteration of a call with `rows` rows (ICP: the set's; LoamFull: corner +
-// planar; NDT: the source's), counted with the kernels' own split
+// planar; NDT and the refine: the source's), counted with the kernels' own split
 extern "C" int gn_rank_rows(int rows, int ranks, int rank) {
   int n = 0;
   for (int t = 0; t < kThreads; ++t) {

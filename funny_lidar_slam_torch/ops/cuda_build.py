@@ -50,6 +50,7 @@ SIGNATURES = {
         "plane_gn_launch": ([_P] * 7 + [_I] * 7 + [_F] * 6 + [_P], _I),
         "loam_gn_launch": ([_P] * 12 + [_I] * 8 + [_F] * 7 + [_P], _I),
         "ndt_gn_launch": ([_P] * 8 + [_I] * 7 + [_F] * 5 + [_P], _I),
+        "plane_map_gn_launch": ([_P] * 5 + [_I] * 8 + [_F] * 6 + [_P], _I),
         "gn_cluster_blocks": ([_I, _I], _I),
         "gn_rank_rows": ([_I] * 3, _I),
     },

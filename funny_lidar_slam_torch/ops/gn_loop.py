@@ -13,6 +13,9 @@ iterates on its candidates:
   * `ndt_gn_rounds`   (NdtMatcher and the loop closure's NDT stages:
     `ndt_corr` + `ndt_hg_corr`, the stencil lookup in the NDT map inside
     every iteration, the NDT update) -> `ndt_gn_launch`;
+  * `plane_map_gn_rounds` (the loop closure's point-to-plane refine:
+    `point_to_plane_hg`, the block map's 5-NN lookup inside every
+    iteration, the LOAM update) -> `plane_map_gn_launch`;
 
 each one launch a call for CUDA tensors (one thread block cluster,
 `cluster_blocks`), and its plain version (`*_plain`: the same iterations in plain PyTorch, reading its
@@ -23,9 +26,10 @@ caller has just gathered at the carry's pose, until the loop ends (`DONE`)
 or the next iteration would need a fresh gather (`NEED_GATHER`); it writes
 the carry back in place, the status word included. The caller
 (registration/gn.py's round drivers) gathers, calls, and reads the status
-word: one host read a gather round instead of one an iteration. NDT
-regathers every iteration and its call makes each gather itself, so one
-call runs the whole loop (status `DONE`): one host read a match.
+word: one host read a gather round instead of one an iteration. NDT and
+the refine regather every iteration and their calls make each gather
+themselves, so one call runs the whole loop (status `DONE`): one host read
+a match or a refine.
 
 Update conventions (the kernel's U_* enum; `GNConfig.update`):
   UPDATE_ICP:  dx = [t, r]; P += dt; R := R Exp(dr)
@@ -56,6 +60,7 @@ from ..registration.residuals import (
     merge_hg,
     ndt_hg,
     point_to_line_hg_cand,
+    point_to_plane_hg,
     point_to_plane_hg_cand,
     point_to_point_hg_cand,
 )
@@ -77,7 +82,7 @@ NEED_GATHER, DONE = 1, 2
 UPDATE_ICP, UPDATE_LOAM, UPDATE_NDT = 0, 1, 2
 # csrc/gn_loop.cu's G_* enum: the wrapper whose cluster `cluster_blocks` asks for
 CLUSTER_KIND = {"icp_gn_rounds": 0, "plane_gn_rounds": 1, "loam_gn_rounds": 2,
-                "ndt_gn_rounds": 3}
+                "ndt_gn_rounds": 3, "plane_map_gn_rounds": 4}
 BIG = 1e9  # last_rot / last_pos before the first exact iteration
 
 
@@ -257,6 +262,19 @@ def ndt_gn_rounds_plain(carry: torch.Tensor, src: torch.Tensor, src_mask: torch.
         radius, cfg, UPDATE_NDT, src.dtype, inside=True)
 
 
+def plane_map_gn_rounds_plain(carry: torch.Tensor, src: torch.Tensor, src_mask: torch.Tensor,
+                              m, inv, plane_thresh: float, max_search_dist_sq: float, radius,
+                              cfg, stencil: str = "nearby26", num_probes: int = 8) -> torch.Tensor:
+    """`_rounds_plain` with the LOAM update and `point_to_plane_hg` (the
+    block map's 5-NN gather, the plane fit and its gates) at every
+    iteration's pose: one call runs the whole loop. `radius` is read only
+    under a trust-region skip, which `plane_map_gn_rounds` refuses."""
+    return _rounds_plain(
+        carry, lambda t: point_to_plane_hg(t, src, src_mask, m, inv, plane_thresh,
+                                           max_search_dist_sq, stencil, num_probes),
+        radius, cfg, UPDATE_LOAM, src.dtype, inside=True)
+
+
 def _checked(name: str, table: dict, note: str = "") -> list:
     """A kernel's tensor arguments, checked: `table` maps each, in the C
     entry point's order, to (tensor, dtype, shape); each of its dtype,
@@ -293,17 +311,29 @@ def _checked_inputs(carry, cand: CandSet, radius, *more: CandSet,
     return _checked(name, table, " (one M for every set; init_carry's carry)")
 
 
-def _check_ndt_schedule(cfg, num_probes: int, capacity: int) -> None:
-    """ndt_gn_rounds serves the callers' only settings: a gather every
+def _check_inside_schedule(cfg, num_probes: int, capacity: int,
+                           name: str = "ndt_gn_rounds") -> None:
+    """The kernels that gather inside the loop (`name`: ndt_gn_rounds,
+    plane_map_gn_rounds) serve their callers' only settings: a gather every
     iteration, no trust-region skip; num_probes in [1, PROBE_WINDOW] and a
-    capacity that is a power of two. The kernel takes these as checked."""
+    table capacity that is a power of two. The kernels take these as
+    checked."""
     if int(cfg.corr_every) != 1 or float(cfg.skip_regather_dist) > 0.0:
-        raise ValueError("ndt_gn_rounds: the kernel runs corr_every 1 with no trust-region skip, "
+        raise ValueError(f"{name}: the kernel runs corr_every 1 with no trust-region skip, "
                          f"not corr_every {cfg.corr_every}, skip {cfg.skip_regather_dist}")
     if not 1 <= int(num_probes) <= PROBE_WINDOW:
-        raise ValueError(f"ndt_gn_rounds: num_probes {num_probes} outside [1, {PROBE_WINDOW}]")
+        raise ValueError(f"{name}: num_probes {num_probes} outside [1, {PROBE_WINDOW}]")
     if capacity < 1 or capacity & (capacity - 1):
-        raise ValueError(f"ndt_gn_rounds: a map capacity of {capacity}, no power of two")
+        raise ValueError(f"{name}: a map capacity of {capacity}, no power of two")
+
+
+def _check_refine_schedule(cfg, stencil: str, num_probes: int, capacity: int) -> None:
+    """plane_map_gn_rounds serves the loop closure's only settings:
+    `_check_inside_schedule`'s and the nearby26 stencil."""
+    _check_inside_schedule(cfg, num_probes, capacity, "plane_map_gn_rounds")
+    if stencil != "nearby26":
+        raise ValueError(f"plane_map_gn_rounds: the kernel takes the nearby26 stencil, not "
+                         f"{stencil!r}")
 
 
 def _checked_ndt_inputs(carry, src, src_mask, m) -> list:
@@ -319,6 +349,22 @@ def _checked_ndt_inputs(carry, src, src_mask, m) -> list:
         "carry": (carry, I32, (CARRY_SIZE,))})
     if m.fpwin.data_ptr() % 16:
         raise ValueError("ndt_gn_rounds: fpwin is not 16-byte aligned")
+    return tensors
+
+
+def _checked_refine_inputs(carry, src, src_mask, m) -> list:
+    """`_checked` for plane_map_gn_launch: src float32 [N, 3], src_mask
+    bool [N], the block map's probe windows fpwin int64 [Cb, PROBE_WINDOW]
+    (read as 16-byte pairs, so 16-byte aligned) and its plane rows tab
+    float32 [Cb + 1, 24 S], and an int32 [CARRY_SIZE] carry."""
+    n, c = src.shape[0], m.fpwin.shape[0]
+    tensors = _checked("plane_map_gn_rounds", {
+        "src": (src, F32, (n, 3)), "src_mask": (src_mask, torch.bool, (n,)),
+        "fpwin": (m.fpwin, torch.int64, (c, PROBE_WINDOW)),
+        "tab": (m.tab, F32, (c + 1, 24 * m.bucket_size)),
+        "carry": (carry, I32, (CARRY_SIZE,))})
+    if m.fpwin.data_ptr() % 16:
+        raise ValueError("plane_map_gn_rounds: fpwin is not 16-byte aligned")
     return tensors
 
 
@@ -429,7 +475,7 @@ def ndt_gn_rounds(carry: torch.Tensor, src: torch.Tensor, src_mask: torch.Tensor
     frozen within a call). It sums a row's lam and lam^T e over its valid
     pairs and applies J = [a | I]'s structure once a row, in float64, in a
     fixed order (a second launch gives the same bits)."""
-    _check_ndt_schedule(cfg, num_probes, m.fpwin.shape[0])
+    _check_inside_schedule(cfg, num_probes, m.fpwin.shape[0])
     if carry.device.type == "cpu":
         return ndt_gn_rounds_plain(carry, src, src_mask, m, inv, outlier_thresh, radius, cfg,
                                    num_probes)
@@ -440,13 +486,48 @@ def ndt_gn_rounds(carry: torch.Tensor, src: torch.Tensor, src_mask: torch.Tensor
     return _launched(ndt_gn_rounds, err, carry)
 
 
+def plane_map_gn_rounds(carry: torch.Tensor, src: torch.Tensor, src_mask: torch.Tensor, m, inv,
+                        plane_thresh: float, max_search_dist_sq: float, radius, cfg,
+                        stencil: str = "nearby26", num_probes: int = 8) -> torch.Tensor:
+    """The loop closure's whole point-to-plane GN loop over the hashed block
+    map `m` (the 5-NN lookup, the plane fit and its gates inside every
+    iteration) from the carry to DONE: on CPU tensors the plain version; on
+    CUDA tensors the kernel on the current stream, which reads nothing back
+    to the host, raising on an input of another dtype (float32 points and
+    rows, a bool mask, int64 fingerprints), shape or device, a
+    non-contiguous input, a probe-window view `fpwin` that is not 16-byte
+    aligned, or a CUDA error. Raises on every device for the settings the
+    kernel does not serve (`corr_every` other than 1, a trust-region skip,
+    a stencil other than nearby26, num_probes outside [1, PROBE_WINDOW], a
+    capacity that is no power of two), so `radius` is never read (None will
+    do). Returns the carry's status word (a view).
+
+    The kernel (csrc/gn_loop.cu `plane_map_gn_kernel`) runs a row on one
+    thread: p = R s + t in the order `residuals._transform_fixed` takes it
+    on the card, its voxel, the 8 cover blocks' slots from `m.fpwin` (four
+    windows' probes loaded together), the 5 nearest among the stencil's 27
+    voxels in the cover row's lane order (ties to the lower lane), then the
+    plane row; the rows' sums in float64 in a fixed order (a second launch
+    gives the same bits)."""
+    _check_refine_schedule(cfg, stencil, num_probes, m.fpwin.shape[0])
+    if carry.device.type == "cpu":
+        return plane_map_gn_rounds_plain(carry, src, src_mask, m, inv, plane_thresh,
+                                         max_search_dist_sq, radius, cfg, stencil, num_probes)
+    args = _checked_refine_inputs(carry, src, src_mask, m)
+    err = cuda_build.library("gn_loop").plane_map_gn_launch(
+        *(t.data_ptr() for t in args), src.shape[0], m.fpwin.shape[0], int(num_probes),
+        m.bucket_size, *_loop_args(cfg, schedule=False), float(inv), float(max_search_dist_sq),
+        float(plane_thresh), _stream(carry))
+    return _launched(plane_map_gn_rounds, err, carry)
+
+
 def cluster_blocks(kernel: str, vec: bool = True) -> int:
     """The blocks of the thread block cluster that the wrapper named
     `kernel` (a key of `CLUSTER_KIND`) launches on the current CUDA device:
     16, or 8 where no 16-block cluster fits, chosen once a device by the
     launcher; `vec`: M = 16 with 16-byte aligned planes (every gather of
-    the port), else the any-M kernel (NDT has one kernel). Raises where not
-    even 8 blocks fit."""
+    the port), else the any-M kernel (NDT and the refine have one kernel
+    each). Raises where not even 8 blocks fit."""
     blocks = cuda_build.library("gn_loop").gn_cluster_blocks(CLUSTER_KIND[kernel], int(vec))
     if blocks <= 0:
         raise RuntimeError(f"{kernel}: no cluster fits on the card: CUDA error {-blocks}")
@@ -456,8 +537,8 @@ def cluster_blocks(kernel: str, vec: bool = True) -> int:
 def rank_rows(rows: int, ranks: int) -> list[int]:
     """The rows each rank of a cluster of `ranks` blocks linearizes an
     iteration of a call with `rows` rows (ICP: the set's; LoamFull: corner
-    + planar; NDT: the source's), as the kernels' own split (csrc/gn_loop.cu `rank_rows`)
-    deals them."""
+    + planar; NDT and the refine: the source's), as the kernels' own split
+    (csrc/gn_loop.cu `rank_rows`) deals them."""
     lib = cuda_build.library("gn_loop")
     return [lib.gn_rank_rows(rows, ranks, r) for r in range(ranks)]
 
@@ -466,4 +547,5 @@ icp_gn_rounds.launches = 0
 plane_gn_rounds.launches = 0
 loam_gn_rounds.launches = 0
 ndt_gn_rounds.launches = 0
-KERNELS = (icp_gn_rounds, plane_gn_rounds, loam_gn_rounds, ndt_gn_rounds)
+plane_map_gn_rounds.launches = 0
+KERNELS = (icp_gn_rounds, plane_gn_rounds, loam_gn_rounds, ndt_gn_rounds, plane_map_gn_rounds)

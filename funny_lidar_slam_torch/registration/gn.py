@@ -10,14 +10,16 @@ The JAX package keeps the whole loop on the device in one
     `run_gn_plane_cand` PointToPlaneMatcher (point-to-plane rows) and
     `run_gn_loam_cand` LoamFullMatcher (point-to-line rows of the corner
     set plus point-to-plane rows of the planar set). `run_gn_ndt` serves
-    NdtMatcher and the loop closure's NDT stages: its kernel makes the
-    stencil lookup of every iteration itself, so the whole loop is one
-    launch and one host read;
-  * `run_gn_corr` serves, through `run_gn`, the loop closure's
-    point-to-plane refine (backend/loop_closure.py): its loop runs on the
-    host and reads its control flags (done, converged, the trust-region
-    test) back from the device once per iteration, one small copy that
-    waits for the iteration to finish.
+    NdtMatcher and the loop closure's NDT stages, `run_gn_plane_map` the
+    loop closure's point-to-plane refine (backend/loop_closure.py): each
+    kernel makes the lookup of every iteration itself (NDT's stencil, the
+    block map's 5 nearest), so the whole loop is one launch and one host
+    read;
+  * `run_gn_corr` (and `run_gn` over it) runs the loop on the host and
+    reads its control flags (done, converged, the trust-region test) back
+    once per iteration, one small copy that waits for the iteration to
+    finish. No path on the card calls it: it serves the CPU, the tests and
+    the tools, as the route the round drivers are held against.
 The semantics of both are those of the JAX loop: the trust-region re-gather
 skip, `force_gather`, the exact/stall rules, and `iters` counting gathers.
 
@@ -41,6 +43,7 @@ from ..ops.gn_loop import (
     loam_gn_rounds,
     ndt_gn_rounds,
     plane_gn_rounds,
+    plane_map_gn_rounds,
     trust_region_moved,
 )
 from ..ops.lin3 import solve6_damped
@@ -285,6 +288,20 @@ def run_gn_loam_cand(
         corr_fn, t0, cfg, regather_radius, gate_fn)
 
 
+def _run_inside(driver, rounds, t0: torch.Tensor) -> GNResult:
+    """The one call of a driver whose kernel gathers inside the loop:
+    `rounds(carry)` runs the loop from t0 to its end, then one host read of
+    the status word. Returns the result, views of the loop's carry."""
+    carry = gn_loop.init_carry(t0)
+    rounds(carry)
+    driver.rounds += 1
+    o = gn_loop.OFFSET["status"]
+    status = _host_read(carry[o:o + 1])[0]
+    if status != gn_loop.DONE:
+        raise RuntimeError(f"{driver.__name__}: status word {status}")
+    return GNResult(*gn_loop.result_views(carry))
+
+
 def run_gn_ndt(src: torch.Tensor, src_mask: torch.Tensor, m, inv_voxel_size,
                outlier_thresh: float, t0: torch.Tensor, cfg: GNConfig) -> GNResult:
     """`run_gn_corr(ndt_corr, ndt_hg_corr)` with the NDT update on the map
@@ -296,20 +313,36 @@ def run_gn_ndt(src: torch.Tensor, src_mask: torch.Tensor, m, inv_voxel_size,
     refuses others), so `iters` counts the iterations. Returns the result,
     views of the loop's carry."""
     _check_update(run_gn_ndt, cfg, UPDATE_NDT)
-    carry = gn_loop.init_carry(t0)
-    ndt_gn_rounds(carry, src, src_mask, m, inv_voxel_size, outlier_thresh, None, cfg)
-    run_gn_ndt.rounds += 1
-    o = gn_loop.OFFSET["status"]
-    status = _host_read(carry[o:o + 1])[0]
-    if status != gn_loop.DONE:
-        raise RuntimeError(f"run_gn_ndt: status word {status}")
-    return GNResult(*gn_loop.result_views(carry))
+    return _run_inside(run_gn_ndt, lambda carry: ndt_gn_rounds(
+        carry, src, src_mask, m, inv_voxel_size, outlier_thresh, None, cfg), t0)
 
 
-# gather rounds run by each driver, each one host read (NDT: one a match)
+def run_gn_plane_map(src: torch.Tensor, src_mask: torch.Tensor, m, inv_voxel_size,
+                     plane_thresh: float, max_search_dist_sq: float, t0: torch.Tensor,
+                     cfg: GNConfig, stencil: str = "nearby26",
+                     num_probes: int = 8) -> GNResult:
+    """`run_gn(point_to_plane_hg)` with the LOAM update on the hashed block
+    map `m` (the loop closure's refine): every iteration gathers the
+    source's 5 nearest map points at its pose, fits their planes and
+    linearizes, all in one `plane_map_gn_rounds` call (the kernel on CUDA
+    tensors, the plain version on CPU tensors) that runs the loop to its
+    end, then one host read of the status word. Every iteration gathers
+    (`corr_every` 1, no trust-region skip, the nearby26 stencil; the
+    wrapper refuses others), so `iters` counts the iterations. Returns the
+    result, views of the loop's carry."""
+    _check_update(run_gn_plane_map, cfg, UPDATE_LOAM)
+    return _run_inside(run_gn_plane_map, lambda carry: plane_map_gn_rounds(
+        carry, src, src_mask, m, inv_voxel_size, plane_thresh, max_search_dist_sq, None, cfg,
+        stencil, num_probes), t0)
+
+
+# gather rounds run by each driver, each one host read (NDT: one a match;
+# the refine: one a call)
 run_gn_icp_cand.rounds = 0
 run_gn_plane_cand.rounds = 0
 run_gn_loam_cand.rounds = 0
 run_gn_ndt.rounds = 0
+run_gn_plane_map.rounds = 0
 ROUND_DRIVERS = {"icp_gn_rounds": run_gn_icp_cand, "plane_gn_rounds": run_gn_plane_cand,
-                 "loam_gn_rounds": run_gn_loam_cand, "ndt_gn_rounds": run_gn_ndt}
+                 "loam_gn_rounds": run_gn_loam_cand, "ndt_gn_rounds": run_gn_ndt,
+                 "plane_map_gn_rounds": run_gn_plane_map}

@@ -280,8 +280,12 @@ def point_to_plane_corr(t_mat, src, src_mask, m, inv_voxel_size, plane_thresh,
                         max_search_dist_sq, stencil: str = "nearby26", num_probes: int = 8,
                         group_capacity: int | None = None) -> PlaneCorr:
     """5-NN plane fit + gates at the gather pose: the 5th-NN distance gate,
-    the plane-fit residual gate and the near-point rejection."""
-    p_t = transform_points(t_mat, src)
+    the plane-fit residual gate and the near-point rejection. On CUDA
+    tensors p_t is taken in csrc/gn_loop.cu's fixed order
+    (`_transform_fixed`), which the loop closure's refine kernel repeats, so
+    that both gather the same stencil for a point one ulp from a voxel
+    face."""
+    p_t = _transform_fixed(t_mat, src)
     nbrs, d2, ok = query_knn_any(m, p_t, inv_voxel_size, 5, stencil, num_probes,
                                  group_capacity)
     corr = _plane_gates(p_t, src, nbrs, ok & (d2 <= max_search_dist_sq), plane_thresh)
@@ -386,8 +390,8 @@ class NdtCorr(NamedTuple):
 def _transform_fixed(t_mat: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """`transform_points`. On a CUDA tensor each component in float64 from
     the exact float32 products, ((R_i0 s_0 + R_i1 s_1) + R_i2 s_2) + t_i,
-    rounded once: the order csrc/gn_loop.cu's NDT rows repeat, so that both
-    put a point in the same voxel (floor is discontinuous at a voxel face,
+    rounded once: the order csrc/gn_loop.cu's NDT and refine rows repeat,
+    so that both put a point in the same voxel (floor is discontinuous at a voxel face,
     and cuBLAS's order for `pts @ R.T` is none a kernel can repeat). On the
     CPU the library's order, which the tests hold against the JAX package."""
     if not pts.is_cuda:

@@ -32,9 +32,11 @@ run:
 With `--verify` it runs the bench's Figure8_Loop config instead (the
 figure-8 simulator run, hashed ICP, loop closure; `bench_torch.
 figure8_config`) once and reports each loop verification's synchronized
-ms, and the GN iterations and host reads inside the verifications: an NDT
-stage through `run_gn_ndt` reads once, a loop through `run_gn` (the
-refine, and an earlier checkout's NDT stages) once an iteration.
+ms, the refine's synchronized ms, and the GN iterations and host reads
+inside the verifications: an NDT stage through `run_gn_ndt` and the
+refine through `run_gn_plane_map` read once, a loop through `run_gn` (an
+earlier checkout's refine, and an even earlier one's NDT stages) once an
+iteration.
 Prints one JSON line. Needs CUDA; imports nothing of JAX. To compare a
 change with its parent on one card: `git archive <parent> | tar -x -C
 _archive/parent`, then run parent, change, change, parent in one call.
@@ -83,14 +85,20 @@ def verify_profile(root, torch, bench) -> dict:
 
     sim_cfg, traj = bench.figure8_sim(16384)
     ds = simulate(sim_cfg, traj=traj)
-    loops, rows = [], []  # the current verification's (iterations, reads); one row each
-    saved = [(lc, k, getattr(lc, k)) for k in ("verify_candidate", "run_gn", "run_gn_ndt")
-             if hasattr(lc, k)]
+    loops, rows, refine_ms = [], [], []  # the current verification's; one row each
+    saved = [(lc, k, getattr(lc, k)) for k in ("verify_candidate", "run_gn", "run_gn_ndt",
+                                               "run_gn_plane_map") if hasattr(lc, k)]
+    refine = "run_gn_plane_map" if hasattr(lc, "run_gn_plane_map") else "run_gn"
 
-    def counted(fn, one_read):
+    def counted(fn, one_read, timed=False):
         def wrapper(*a, **kw):
+            if timed:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
             res = fn(*a, **kw)
             its = int(res.iters)
+            if timed:
+                refine_ms.append((time.perf_counter() - t) * 1e3)
             loops.append((its, 1 if one_read else its))
             return res
         return wrapper
@@ -101,15 +109,19 @@ def verify_profile(root, torch, bench) -> dict:
         res = fn(*a, **kw)
         torch.cuda.synchronize()
         rows.append({"ms": (time.perf_counter() - t) * 1e3, "accepted": res is not None,
-                     "gn_iterations": [i for i, _ in loops],
+                     "refine_ms": sum(refine_ms), "gn_iterations": [i for i, _ in loops],
                      "gn_host_reads": sum(r for _, r in loops)})
         loops.clear()
+        refine_ms.clear()
         return res
 
     lc.verify_candidate = verify
-    lc.run_gn = counted(lc.run_gn, False)
+    if hasattr(lc, "run_gn"):  # an earlier checkout's refine: a read an iteration
+        lc.run_gn = counted(lc.run_gn, False, refine == "run_gn")
     if hasattr(lc, "run_gn_ndt"):
         lc.run_gn_ndt = counted(lc.run_gn_ndt, True)
+    if hasattr(lc, "run_gn_plane_map"):
+        lc.run_gn_plane_map = counted(lc.run_gn_plane_map, True, True)
     try:
         slam = SlamSystem(bench.figure8_config(16384))
         t = time.perf_counter()
@@ -119,9 +131,12 @@ def verify_profile(root, torch, bench) -> dict:
     finally:
         _patch(saved)
     ms = [r["ms"] for r in rows]
+    refine = [r["refine_ms"] for r in rows]
     return {"root": root, "verify": True, "ndt_on_device": hasattr(lc, "run_gn_ndt"),
+            "refine_on_device": hasattr(lc, "run_gn_plane_map"),
             "verifications": rows, "loops_accepted": len(slam.loop_results),
             "verify_ms_median": float(np.median(ms)) if ms else None,
+            "refine_ms_median": float(np.median(refine)) if refine else None,
             "verify_ms_max": float(np.max(ms)) if ms else None,
             "gn_host_reads_per_verification": (float(np.mean([r["gn_host_reads"] for r in rows]))
                                                if rows else None),
