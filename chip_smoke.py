@@ -210,17 +210,26 @@ Phases, each of which raises (non-zero exit) on failure:
      beside its plain version and one empty launch, with its bound;
   24. the pose graph's GN loop: pose_graph_gn (csrc/pose_graph.cu
      pose_graph_gn_kernel, the JAX optimize's fori_loop of 15 GN steps in
-     one launch of one block, over the free vertices alone, factored by
-     6x6 vertex blocks with the unwritten ones skipped) against
+     one launch of one block, over the free vertices alone in a
+     nested-dissection order it computes once a call, the block Cholesky
+     and both substitutions a tree level at a time) against
      optimize_plain and a float64 plain run on every graph phase 13
      optimized, the CPU tests' graphs (pose_graph_builders: circles with 1
      and 8 loops, 2 vertices, 1 vertex, a graph grown past its capacity, a
-     used vertex with no edge, a failing factorization) and the dry run's
-     1,000-keyframe graph: NaN at the same vertices, the fixed vertices bit
-     for bit, the poses within 2e-3 m / 1e-3 rad of the float64 run or no
-     farther than 1.5x the float32 plain run; timed against the plain
-     version in turns at the figure-8's graphs (device and synchronized
-     host ms), with its bound;
+     used vertex with no edge, a failing factorization), the dry run's
+     1,000-keyframe graph and a 4,000-keyframe session too large for the
+     kernel's shared-memory copies (each of its three placements, shared
+     or global, runs both ways): NaN at the same vertices, the fixed
+     vertices bit for bit, the poses within 2e-3 m / 1e-3 rad of the
+     float64 run or no farther than 1.5x the float32 plain run; on every
+     graph the order read back from the kernel's int scratch equal to
+     ops/pose_graph.py::symbolic_plain's, the wrapper's launch bit-equal to it and under
+     set_sync_debug_mode("error"), and, where there is a second card, a
+     launch there bit-equal too; timed in turns at the figure-8's graphs
+     and the dry run's (device and synchronized host ms) beside the plain
+     version and the solve alone (cholesky_ex + cholesky_solve of the
+     compact system, x 15), with its bound counted in the cheaper of the
+     kernel's order and the natural order;
   25. the loop closure's refine: plane_map_gn_rounds (csrc/gn_loop.cu
      plane_map_gn_kernel, the JAX run_gn(point_to_plane_hg) while_loop with
      the block map's 5-NN lookup inside every iteration, the whole loop one
@@ -4589,6 +4598,11 @@ PG_TOL = (2e-3, 1e-3)  # m, rad (chord): tests/test_torch_backend.py's f32 toler
 PG_RATIO = 1.5  # or no farther from the float64 run than 1.5x the float32 plain run
 PG_GRAPHS: list = []  # phase 13's optimize inputs (LoopProbe.graphs), in call order
 POSE_GRAPH_LAUNCHES: dict = {}  # path -> pose_graph_gn launches (check_launches)
+# the dry run's graph four times over (its spacing, its share of loops) in a
+# capacity the builder reaches by doubling
+LONG_SESSION_GRAPH = dict(n=4000, k_cap=4096, e_cap=8192, radius=600.0, extra_loops=2400)
+# csrc/pose_graph.cu's kDynBytes and kHotArrays (pose_graph_placement)
+PG_DYN_BYTES, PG_HOT_ARRAYS = 128 * 1024, 7
 
 
 def pose_graph_builders(dry_run: bool = False) -> dict:
@@ -4601,7 +4615,9 @@ def pose_graph_builders(dry_run: bool = False) -> dict:
     vertex that no edge touches; a 60-pose circle whose last loop edge's
     information is negated, so its factorization fails. With `dry_run`,
     also the dry run's 1,000-keyframe graph (parallel/dryrun.py:
-    k_cap 1024, radius 150 m, 600 extra loops)."""
+    k_cap 1024, radius 150 m, 600 extra loops) and a long session four
+    times its size (LONG_SESSION_GRAPH), whose symbolic arrays and block
+    pattern overflow the kernel's shared memory."""
     from funny_lidar_slam_torch.backend.pose_graph import PoseGraphBuilder
     from funny_lidar_slam_torch.core.lie import se3_exp
     from funny_lidar_slam_torch.io.simulator import noisy_circle_graph
@@ -4648,38 +4664,73 @@ def pose_graph_builders(dry_run: bool = False) -> dict:
         from funny_lidar_slam_torch.parallel.dryrun import NORTH_STAR_GRAPH
 
         out["dry run, 1,000 keyframes"] = noisy_circle_graph(**NORTH_STAR_GRAPH)[0]
+        out["long session, 4,000 keyframes"] = noisy_circle_graph(**LONG_SESSION_GRAPH)[0]
     return out
 
 
-def pose_graph_structure(g) -> dict:
-    """What csrc/pose_graph.cu's factorization touches on graph `g` (any
-    device): the free vertices n_f, the edges it linearizes, and, over the
-    compact system with its fill, the blocks of L below the diagonal, the
-    panel blocks (one a column's written block) and the block updates
-    (L_ik L_jk^T, i >= j > k) of one iteration."""
+def pose_graph_edges(g) -> tuple:
+    """(the edges the kernel linearizes, their incident entries: the ends
+    at a free vertex) of graph `g` (any device)."""
     mask = g.pose_mask.cpu().numpy().copy()
     mask[0] = False
     k = len(mask)
     cidx = np.full(k, -1)
     cidx[mask] = np.arange(mask.sum())
-    nf = int(mask.sum())
     ei, ej = g.edge_i.cpu().numpy(), g.edge_j.cpu().numpy()
     inside = (ei >= 0) & (ei < k) & (ej >= 0) & (ej < k) & g.edge_mask.cpu().numpy()
     ci, cj = cidx[np.where(inside, ei, 0)], cidx[np.where(inside, ej, 0)]
     used = inside & ((ci >= 0) | (cj >= 0))
-    both = used & (ci >= 0) & (cj >= 0) & (ci != cj)
-    s = np.zeros((nf, nf), bool)
-    s[np.maximum(ci[both], cj[both]), np.minimum(ci[both], cj[both])] = True
-    panel = pairs = 0
-    for c in range(nf):
-        rows = np.flatnonzero(s[c + 1:, c]) + c + 1
-        panel += len(rows)
-        pairs += len(rows) * (len(rows) + 1) // 2
-        if len(rows) > 1:
-            s[np.ix_(rows, rows)] |= np.tril(np.ones((len(rows),) * 2, bool), -1)
-    return {"free_vertices": nf, "edges": int(used.sum()), "blocks_below_diagonal": int(s.sum()),
-            "panel_blocks": panel, "block_updates": pairs,
-            "incident_entries": int((ci[used] >= 0).sum() + (cj[used] >= 0).sum())}
+    return int(used.sum()), int((ci[used] >= 0).sum() + (cj[used] >= 0).sum())
+
+
+def block_counts(st) -> dict:
+    """The blocks of L below the diagonal, the panel blocks (one a block
+    below the diagonal) and the block updates (L_ik L_jk^T, i >= j > k) of
+    one iteration under symbolic_plain's pattern `st`, each once."""
+    below = sum(len(c) for c in st["cols"])
+    return {"blocks_below_diagonal": below, "panel_blocks": below,
+            "block_updates": sum(len(c) * (len(c) + 1) // 2 for c in st["cols"])}
+
+
+def pose_graph_structure(g) -> dict:
+    """What csrc/pose_graph.cu's factorization touches on graph `g` (any
+    device): the free vertices n_f, the edges it linearizes, the
+    elimination tree's height in the kernel's nested-dissection order
+    (ops/pose_graph.py::symbolic_plain), the incident entries, and
+    `block_counts` over the compact system with its fill in that order
+    (`nested_dissection`) and in the natural order (`natural`). The bound's
+    counts, at the top level, are the smaller of the two for each: any order
+    factors the system, so the least work is the cheaper order's (the
+    natural order at a chain, whose tree is one path), not the diagonal
+    factor each team of a column repeats."""
+    from funny_lidar_slam_torch.ops.pose_graph import symbolic_plain
+
+    args = (g.pose_mask, g.edge_i, g.edge_j, g.edge_mask)
+    nd = symbolic_plain(*args)
+    orders = {"nested_dissection": block_counts(nd),
+              "natural": block_counts(symbolic_plain(*args, order=lambda n: range(len(n))))}
+    edges, entries = pose_graph_edges(g)
+    return {"free_vertices": len(nd["perm"]), "edges": edges, "height": nd["height"],
+            **{k: min(c[k] for c in orders.values()) for k in orders["natural"]},
+            **orders, "incident_entries": entries}
+
+
+def pose_graph_placement(sym, entries: int) -> dict:
+    """Where csrc/pose_graph.cu keeps its arrays on a graph of
+    symbolic_plain's `sym` with `entries` incident entries, by the kernel's
+    own tests against PG_DYN_BYTES of dynamic shared memory: `hot` the
+    symbolic phase's per-vertex arrays and the adjacency, `pattern` the
+    block pattern the numeric stages walk, `L` L's blocks, b, dj, A's
+    diagonal and the inverse pivots (True: in shared memory, else in the
+    scratch)."""
+    nf = len(sym["perm"])
+    nrow = sum(len(c) for c in sym["cols"])
+    hot = ((PG_HOT_ARRAYS + 1) * (nf + 1) + entries) * 4 <= PG_DYN_BYTES
+    words = 4 * nf + 3 + 2 * nrow + (nrow + nf)
+    pattern = words * 4 <= PG_DYN_BYTES
+    skip = (words + 3) // 4 * 4 if pattern else 0
+    return {"hot": hot, "pattern": pattern,
+            "L": (skip + 36 * (nrow + nf) + 54 * nf) * 4 <= PG_DYN_BYTES}
 
 
 # operations (an FMA 2) an iteration: an edge's residual, Jr^-1, J (the 3x3
@@ -4719,21 +4770,65 @@ def graph_pose_diff(a, b) -> tuple:
             float(chord_angle(a, b.to(a.device)).max()))
 
 
+def pose_graph_launch(torch, g, iterations: int = 15, damping: float = 1e-6) -> tuple:
+    """One launch of csrc/pose_graph.cu's C entry point on graph `g` (on
+    the card) with a scratch allocated here, as ops/pose_graph.py::
+    pose_graph_gn launches it but without its count: (the poses, the
+    kernel's order, the first n_f entries of its int scratch)."""
+    from funny_lidar_slam_torch.ops import cuda_build
+    from funny_lidar_slam_torch.ops import pose_graph as ops
+
+    tensors = ops._checked_graph(g)
+    k, e = g.poses.shape[0], g.edge_i.shape[0]
+    n_float, n_int = ops.scratch_sizes(k, e)
+    dev = g.poses.device
+    fs = torch.empty(n_float, dtype=torch.float32, device=dev)
+    ints = torch.full((n_int,), -1, dtype=torch.int32, device=dev)
+    out = torch.empty_like(g.poses)
+    err = cuda_build.library("pose_graph").pose_graph_gn_launch(
+        *(t.data_ptr() for t in tensors), out.data_ptr(), fs.data_ptr(), ints.data_ptr(),
+        n_float, n_int, k, e, int(iterations), float(damping),
+        torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0, f"[pose-graph] pose_graph_gn_launch: CUDA error {err}"
+    free = g.pose_mask.clone()
+    free[0] = False
+    return out, ints[:int(free.sum())].cpu().numpy()
+
+
+def same_poses(torch, a, b) -> bool:
+    """NaN at the same places and the rest bit for bit."""
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
 def pose_graph_compare(torch, g, label, iterations: int = 15) -> dict:
     """pose_graph_gn against optimize_plain on graph `g` (float32, on the
     card), both against a float64 plain run: NaN at the same vertices in
     all three; elsewhere the kernel within PG_TOL of the float64 poses, or
     no farther from them than PG_RATIO x the float32 plain run; the fixed
-    vertices (0 and the unused) bit for bit the input. Also the
-    synchronized host ms of the kernel's call (`kernel_ms`)."""
+    vertices (0 and the unused) bit for bit the input. Also: the kernel's
+    permutation (read back from a launch of its C entry point,
+    `pose_graph_launch`) equal to ops/pose_graph.py::symbolic_plain's, the
+    wrapper's launch under set_sync_debug_mode("error") bit for bit the
+    first, the synchronized host ms of the wrapper's (`kernel_ms`), and
+    where the kernel keeps its arrays (`pose_graph_placement`)."""
     from funny_lidar_slam_torch.backend import pose_graph
     from funny_lidar_slam_torch.ops import pose_graph as ops
 
+    first, perm = pose_graph_launch(torch, g, iterations)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    kernel = ops.pose_graph_gn(g, iterations).poses
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernel = ops.pose_graph_gn(g, iterations).poses
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     kernel_ms = (time.perf_counter() - t) * 1e3
+    sym = ops.symbolic_plain(g.pose_mask, g.edge_i, g.edge_j, g.edge_mask)
+    assert np.array_equal(perm, sym["perm"]), \
+        f"[pose-graph] {label}: the kernel's order {perm.tolist()} is not the mirror's"
+    assert same_poses(torch, kernel, first), f"[pose-graph] {label}: two launches differ"
     plain = pose_graph.optimize_plain(g, iterations).poses
     g64 = type(g)(*(t.double() if t.is_floating_point() else t for t in g))
     ref = pose_graph.optimize_plain(g64, iterations).poses
@@ -4747,7 +4842,9 @@ def pose_graph_compare(torch, g, label, iterations: int = 15) -> dict:
     assert torch.equal(kernel[fixed], g.poses[fixed]), f"[pose-graph] {label}: a fixed vertex moved"
     dk, dp = graph_pose_diff(kernel[ok], ref[ok]), graph_pose_diff(plain[ok], ref[ok])
     row = {"label": label, "vertices": int(g.pose_mask.sum()), "capacity": g.poses.shape[0],
-           "edges": int(g.edge_mask.sum()), "nan_vertices": int(nan[0].sum()),
+           "edges": int(g.edge_mask.sum()), "height": sym["height"],
+           "nan_vertices": int(nan[0].sum()), "order_equal": True, "bit_equal": True,
+           "sync_free": True, "placement": pose_graph_placement(sym, pose_graph_edges(g)[1]),
            "kernel_ms": kernel_ms, "kernel_vs_f64": dk, "plain_vs_f64": dp,
            "kernel_vs_plain": graph_pose_diff(kernel[ok], plain[ok]),
            "max_abs_err": float((kernel[ok] - plain[ok]).abs().max()) if ok.any() else 0.0}
@@ -4758,17 +4855,51 @@ def pose_graph_compare(torch, g, label, iterations: int = 15) -> dict:
     return row
 
 
-def pose_graph_timing(torch, g, label, iterations: int = 15) -> dict:
-    """pose_graph_gn and optimize_plain at graph `g`: device ms (`time_ms`)
-    and synchronized host ms a call (the `optimize_ms` of phase 13), each
-    timed in turns (kernel, plain, floor, floor, plain, kernel; twice; the
-    floor one empty launch), with the bound."""
+def pose_graph_system(torch, g, damping: float = 1e-6) -> tuple:
+    """optimize_plain's first equilibrated, damped system at `g`'s poses,
+    restricted to the free vertices in their natural order: (H [6 n_f,
+    6 n_f], -(dj b) [6 n_f, 1]), the input of `the solve alone`."""
+    from funny_lidar_slam_torch.backend.pose_graph import _edge_residuals
+
+    k, dtype = g.poses.shape[0], g.poses.dtype
+    ei, ej = g.edge_i.long(), g.edge_j.long()
+    lam = g.edge_info * g.edge_mask.to(dtype)[:, None]
+    free = g.pose_mask.clone()
+    free[0] = False
+    e, j_i, j_j = _edge_residuals(g)
+    jtl_i, jtl_j = (j.transpose(-1, -2) * lam[:, None, :] for j in (j_i, j_j))
+    h = torch.zeros((k, k, 6, 6), dtype=dtype, device=g.poses.device)
+    for (a, b), m in (((ei, ei), jtl_i @ j_i), ((ei, ej), jtl_i @ j_j), ((ej, ei), jtl_j @ j_i),
+                      ((ej, ej), jtl_j @ j_j)):
+        h.index_put_((a, b), m, accumulate=True)
+    rhs = torch.zeros((k, 6), dtype=dtype, device=g.poses.device)
+    rhs.index_add_(0, ei, torch.einsum("eab,eb->ea", jtl_i, e))
+    rhs.index_add_(0, ej, torch.einsum("eab,eb->ea", jtl_j, e))
+    idx = free.repeat_interleave(6).nonzero()[:, 0]
+    h = h.permute(0, 2, 1, 3).reshape(k * 6, k * 6)[idx][:, idx]
+    dj = torch.rsqrt(torch.clamp(torch.diagonal(h), min=1e-12))
+    hs = h * dj[:, None] * dj[None, :]
+    hs.diagonal().add_(damping)
+    return hs.contiguous(), (-(rhs.reshape(k * 6)[idx] * dj))[:, None].contiguous()
+
+
+def pose_graph_timing(torch, g, label, iterations: int = 15, reps: int = 10,
+                      host_reps: int = 3) -> dict:
+    """pose_graph_gn and optimize_plain at graph `g`: device ms (`time_ms`,
+    `reps` calls a turn) and synchronized host ms a call (the `optimize_ms`
+    of phase 13, the median of `host_reps`), each timed in turns (kernel,
+    plain, solve, floor, floor, solve, plain, kernel; twice; the floor one
+    empty launch), with the bound. "solve" is the library's rival of the
+    kernel's factorization, not the same function: torch.linalg.cholesky_ex
+    and torch.cholesky_solve of the compact equilibrated system
+    (`pose_graph_system`); `library_ms` is `iterations` times its ms, the
+    solve alone."""
     from funny_lidar_slam_torch.backend import pose_graph
     from funny_lidar_slam_torch.ops import pose_graph as ops
 
     def wall(fn):
         times = []
-        for _ in range(3):
+        for _ in range(host_reps):
             torch.cuda.synchronize()
             t = time.perf_counter()
             fn()
@@ -4776,24 +4907,32 @@ def pose_graph_timing(torch, g, label, iterations: int = 15) -> dict:
             times.append((time.perf_counter() - t) * 1e3)
         return float(np.median(times))
 
+    hs, rhs = pose_graph_system(torch, g)
     calls = {"kernel": lambda: ops.pose_graph_gn(g, iterations),
              "plain": lambda: pose_graph.optimize_plain(g, iterations),
+             "solve": lambda: torch.cholesky_solve(rhs, torch.linalg.cholesky_ex(hs)[0]),
              "floor": lambda: torch.cuda._sleep(0)}
-    order = ["kernel", "plain", "floor", "floor", "plain", "kernel"] * 2
-    dev = in_turns(lambda fn: time_ms(torch, fn, 10), calls, order)
+    order = ["kernel", "plain", "solve", "floor", "floor", "solve", "plain", "kernel"] * 2
+    dev = in_turns(lambda fn: time_ms(torch, fn, reps), calls, order)
     host = in_turns(wall, {k: calls[k] for k in ("kernel", "plain")},
                     ["kernel", "plain", "plain", "kernel"] * 2)
     nbytes, ops_n, st = pose_graph_cost(g, iterations)
     bound_bytes, bound_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops_n / F32_OPS_PER_S * 1e3
     res = {"label": label, **st, "ms": float(np.median(dev["kernel"])),
            "plain_ms": float(np.median(dev["plain"])), "floor_ms": float(np.median(dev["floor"])),
+           "solve_ms": float(np.median(dev["solve"])),
+           "library_ms": iterations * float(np.median(dev["solve"])),
+           "library": f"the solve alone: cholesky_ex + cholesky_solve of the compact "
+                      f"equilibrated system ({hs.shape[0]} unknowns) x {iterations}",
            "optimize_ms": float(np.median(host["kernel"])),
            "plain_optimize_ms": float(np.median(host["plain"])),
            "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "bytes": nbytes, "operations": ops_n, "device_turns": dev, "host_turns": host,
-           "vs_plain": versus(dev["kernel"], dev["plain"])}
+           "vs_plain": versus(dev["kernel"], dev["plain"]),
+           "vs_library": versus(dev["kernel"], [iterations * x for x in dev["solve"]])}
     log(f"[pose-graph] {label}: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        f"the solve alone {res['library_ms']:.4f} ms ({iterations} x {res['solve_ms']:.5f}), "
         f"empty launch {res['floor_ms']:.5f} ms (device); optimize {res['optimize_ms']:.3f} ms "
         f"against the plain {res['plain_optimize_ms']:.3f} ms (host, synchronized); bound "
         f"{res['bound_ms']:.6f} ms ({res['bound_by']}); turns {json.dumps(dev)} / "
@@ -4801,15 +4940,36 @@ def pose_graph_timing(torch, g, label, iterations: int = 15) -> dict:
     return res
 
 
+def pose_graph_second_card(torch, g, iterations: int = 15) -> dict:
+    """pose_graph_gn on graph `g` launched on cuda:1 after cuda:0 (the
+    kernel's shared-memory opt-in belongs to each device's context), both
+    launches bit for bit one another."""
+    from funny_lidar_slam_torch.ops import pose_graph as ops
+
+    here = ops.pose_graph_gn(g, iterations).poses
+    with torch.cuda.device(1):
+        g1 = type(g)(*(t.to("cuda:1") for t in g))
+        there = ops.pose_graph_gn(g1, iterations).poses
+        torch.cuda.synchronize()
+    assert same_poses(torch, here, there.to(here.device)), \
+        "[pose-graph] a launch on cuda:1 differs from cuda:0's"
+    return {"cards": torch.cuda.device_count(), "bit_equal": True}
+
+
 def phase_pose_graph(torch, report) -> dict:
     """Phase 24: the pose graph's GN loop (csrc/pose_graph.cu
     `pose_graph_gn_kernel`, wrapper ops/pose_graph.py::pose_graph_gn, the
-    JAX `optimize`'s fori_loop in one launch over the free vertices) against
-    optimize_plain on the card, with a float64 plain run as the reference
-    (`pose_graph_compare`), on phase 13's graphs (every optimize of the
-    figure-8), the CPU tests' graphs and the dry run's 1,000-keyframe
-    graph; timed in turns at the figure-8's graphs; the launches of every
-    path (one an accepted loop, `check_launches`). Returns the JSON entry."""
+    JAX `optimize`'s fori_loop in one launch over the free vertices in a
+    nested-dissection order) against optimize_plain on the card, with a
+    float64 plain run as the reference, its order against the mirror's,
+    relaunched bit-equal and free of host syncs (`pose_graph_compare`), on
+    phase 13's graphs (every optimize of the figure-8), the CPU tests'
+    graphs, the dry run's 1,000-keyframe graph and a 4,000-keyframe
+    session (each of the kernel's three placements, shared or global, taken
+    both ways over these graphs); once on a second card where there is one;
+    timed in turns at the figure-8's graphs and the dry run's, beside the
+    plain version and the solve alone; the launches of every path (one an
+    accepted loop, `check_launches`). Returns the JSON entry."""
     from funny_lidar_slam_torch.ops import pose_graph as ops
 
     t_phase = time.perf_counter()
@@ -4821,25 +4981,37 @@ def phase_pose_graph(torch, report) -> dict:
     assert PG_GRAPHS, "[pose-graph] phase 13 captured no optimize"
     rows = [pose_graph_compare(torch, g, f"figure-8 optimize {i}", *a, **kw)
             for i, (g, a, kw) in enumerate(PG_GRAPHS)]
+    dry = None
     for name, b in pose_graph_builders(dry_run=True).items():
         t = time.perf_counter()
-        rows.append(pose_graph_compare(torch, b.to_device(torch.float32, device="cuda"), name))
+        g = b.to_device(torch.float32, device="cuda")
+        rows.append(pose_graph_compare(torch, g, name))
+        dry = g if name.startswith("dry run") else dry
         log(f"[pose-graph] {name} compared in {time.perf_counter() - t:.1f} s")
     failing = [r for r in rows if r["label"] == "failing factorization"]
     assert failing and failing[0]["nan_vertices"] == failing[0]["vertices"] - 1, failing
+    taken = {p: {r["placement"][p] for r in rows} for p in rows[0]["placement"]}
+    assert all(v == {True, False} for v in taken.values()), f"[pose-graph] placements {taken}"
+    g, a, kw = PG_GRAPHS[0]
+    second = pose_graph_second_card(torch, g, *a, **kw) if torch.cuda.device_count() > 1 else None
     shapes = {f"figure-8 optimize {i}": pose_graph_timing(torch, g, f"figure-8 optimize {i}",
                                                           *a, **kw)
               for i, (g, a, kw) in enumerate(PG_GRAPHS)}
+    # the dense plain version takes most of a second a call at K = 1024
+    shapes["dry run, 1,000 keyframes"] = pose_graph_timing(torch, dry, "dry run, 1,000 keyframes",
+                                                           reps=2, host_reps=1)
     kernel.launches = saved
     log(f"[pose-graph] phase 24 took {time.perf_counter() - t_phase:.1f} s")
-    head = shapes[max(shapes, key=lambda k: shapes[k]["free_vertices"])]
+    figure8 = [k for k in shapes if k.startswith("figure-8")]
+    head = shapes[max(figure8, key=lambda k: shapes[k]["free_vertices"])]
     return {"name": "pose_graph_gn", "route": "cuda", "source": PG_SOURCE[0],
             "replaces": PG_SOURCE[1], "launches": sum(POSE_GRAPH_LAUNCHES.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms",
-                                    "optimize_ms", "plain_optimize_ms")},
-            "library_ms": None, "shapes": shapes, "launches_by_path": dict(POSE_GRAPH_LAUNCHES),
-            "compared": rows, "resources": resources}
+                                    "library_ms", "library", "optimize_ms",
+                                    "plain_optimize_ms")},
+            "shapes": shapes, "launches_by_path": dict(POSE_GRAPH_LAUNCHES),
+            "compared": rows, "second_card": second, "resources": resources}
 
 
 # ------------------------------------- phase 25: the loop closure's refine

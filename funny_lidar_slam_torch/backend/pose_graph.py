@@ -15,7 +15,8 @@ Cholesky on the device, then applies a left-multiplicative update.
 `optimize` dispatches: on CPU tensors the plain version `optimize_plain`,
 on CUDA tensors one launch of csrc/pose_graph.cu (ops/pose_graph.py::
 pose_graph_gn), which runs every iteration on the card over the free
-vertices alone, its H and b summed in a fixed order.
+vertices alone, its H and b summed in a fixed order and eliminated in a
+nested-dissection order, a tree level at a time.
 
 Port notes on the plain version: the JAX `fori_loop` is a host loop that
 reads nothing back. The four `.at[i, j].add` are
